@@ -1,0 +1,13 @@
+"""Command-line entry points of the PyTorch port.
+
+    python -m dcr_tpu_torch.cli.sample --model_path=... --num_batches=...
+
+They run on CUDA. ``DCR_TPU_PLATFORM=cpu`` (the JAX CLIs' own switch) selects
+the CPU; nothing else does, and without a GPU the commands fail.
+"""
+
+import os
+
+
+def device_from_env() -> str:
+    return "cpu" if os.environ.get("DCR_TPU_PLATFORM", "").lower() == "cpu" else "cuda"

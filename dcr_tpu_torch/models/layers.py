@@ -1,0 +1,235 @@
+"""Shared building blocks of the diffusion models (PyTorch, NCHW).
+
+Counterpart of ``dcr_tpu/models/layers.py``. Module and parameter names follow
+the diffusers state-dict layout, so the name maps of ``models/export.py``
+carry the JAX package's weights straight in with ``strict=True``. Numerics
+follow the Flax blocks: GroupNorm statistics in f32, GEGLU with flax's
+default (tanh) GELU, nearest-neighbour upsampling, symmetric padding in the
+UNet downsampler and the (0,1,0,1) pre-pad in the VAE encoder's.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from dcr_tpu_torch.ops.attention import dot_product_attention
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
+                       flip_sin_to_cos: bool = True,
+                       downscale_freq_shift: float = 0.0) -> torch.Tensor:
+    """Sinusoidal timestep embedding [B] -> [B, dim] f32."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device)
+        / (half - downscale_freq_shift))
+    args = t.float()[:, None] * freqs[None, :]
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedding(nn.Module):
+    """2-layer MLP lifting the sinusoidal embedding to the UNet's time channels."""
+
+    def __init__(self, in_dim: int, dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, dim)
+        self.linear_2 = nn.Linear(dim, dim)
+
+    def forward(self, emb: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(emb)))
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm whose statistics are always f32; output in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+class ResnetBlock2D(nn.Module):
+    """norm -> silu -> conv -> (+time) -> norm -> silu -> conv, 1x1 skip when
+    the width changes."""
+
+    def __init__(self, in_ch: int, out_ch: int, temb_ch: int = 0,
+                 groups: int = 32, eps: float = 1e-5):
+        super().__init__()
+        self.norm1 = GroupNorm(groups, in_ch, eps=eps)
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.time_emb_proj = nn.Linear(temb_ch, out_ch) if temb_ch else None
+        self.norm2 = GroupNorm(groups, out_ch, eps=eps)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
+
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x)))
+        if temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(F.silu(self.norm2(h)))
+        skip = x if self.conv_shortcut is None else self.conv_shortcut(x)
+        return h + skip
+
+
+class CrossAttention(nn.Module):
+    """Multi-head attention over [B, S, C] tokens; self-attention when
+    context is None. q/k/v projections carry no bias, the output one does."""
+
+    def __init__(self, query_dim: int, context_dim: int, heads: int, head_dim: int,
+                 use_flash: bool = True):
+        super().__init__()
+        inner = heads * head_dim
+        self.heads, self.head_dim, self.use_flash = heads, head_dim, use_flash
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        context = x if context is None else context
+        b, sq, _ = x.shape
+        sk = context.shape[1]
+        q = self.to_q(x).reshape(b, sq, self.heads, self.head_dim)
+        k = self.to_k(context).reshape(b, sk, self.heads, self.head_dim)
+        v = self.to_v(context).reshape(b, sk, self.heads, self.head_dim)
+        out = dot_product_attention(q, k, v, use_flash=self.use_flash)
+        return self.to_out[0](out.reshape(b, sq, self.heads * self.head_dim))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        # flax nn.gelu defaults to the tanh approximation
+        return h * F.gelu(gate, approximate="tanh")
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward; diffusers names ``net.0`` (GEGLU) and ``net.2``."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
+                                  nn.Linear(dim * mult, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net[2](self.net[0](x))
+
+
+class BasicTransformerBlock(nn.Module):
+    """self-attn -> cross-attn -> ff, each pre-LayerNormed with residuals."""
+
+    def __init__(self, dim: int, context_dim: int, heads: int, head_dim: int,
+                 use_flash: bool = True):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = CrossAttention(dim, dim, heads, head_dim, use_flash)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn2 = CrossAttention(dim, context_dim, heads, head_dim, use_flash)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer2D(nn.Module):
+    """Spatial transformer: GN -> proj in -> N blocks -> proj out + residual.
+    ``use_linear_projection`` selects SD-2.x linears (after the reshape to
+    tokens) or SD-1.x 1x1 convs (before it)."""
+
+    def __init__(self, ch: int, context_dim: int, heads: int, head_dim: int,
+                 num_layers: int = 1, groups: int = 32, use_flash: bool = True,
+                 use_linear_projection: bool = True):
+        super().__init__()
+        inner = heads * head_dim
+        self.use_linear_projection = use_linear_projection
+        # diffusers Transformer2DModel norms with eps=1e-6 (not the resnets' 1e-5)
+        self.norm = GroupNorm(groups, ch, eps=1e-6)
+        if use_linear_projection:
+            self.proj_in = nn.Linear(ch, inner)
+            self.proj_out = nn.Linear(inner, ch)
+        else:
+            self.proj_in = nn.Conv2d(ch, inner, 1)
+            self.proj_out = nn.Conv2d(inner, ch, 1)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(inner, context_dim, heads, head_dim, use_flash)
+             for _ in range(num_layers)])
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        out = self.norm(x)
+        if self.use_linear_projection:
+            out = self.proj_in(out.permute(0, 2, 3, 1).reshape(b, h * w, c))
+        else:
+            out = self.proj_in(out)
+            out = out.permute(0, 2, 3, 1).reshape(b, h * w, out.shape[1])
+        for blk in self.transformer_blocks:
+            out = blk(out, context)
+        if self.use_linear_projection:
+            out = self.proj_out(out).reshape(b, h, w, c).permute(0, 3, 1, 2)
+        else:
+            out = self.proj_out(out.reshape(b, h, w, -1).permute(0, 3, 1, 2))
+        return out + x
+
+
+class Downsample2D(nn.Module):
+    """Stride-2 3x3 conv. The UNet pads symmetrically; the VAE encoder pads
+    (0,1,0,1) and convolves VALID, as diffusers' AutoencoderKL does."""
+
+    def __init__(self, ch: int, asymmetric_pad: bool = False):
+        super().__init__()
+        self.asymmetric_pad = asymmetric_pad
+        self.conv = nn.Conv2d(ch, ch, 3, stride=2, padding=0 if asymmetric_pad else 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.asymmetric_pad:
+            x = F.pad(x, (0, 1, 0, 1))
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = nn.Conv2d(ch, ch, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class AttentionBlock2D(nn.Module):
+    """Spatial self-attention of the VAE mid blocks (biased q/k/v/out, always
+    the library attention). diffusers 0.14 names: query/key/value/proj_attn."""
+
+    def __init__(self, ch: int, groups: int = 32, eps: float = 1e-6, heads: int = 1):
+        super().__init__()
+        self.heads = heads
+        self.group_norm = GroupNorm(groups, ch, eps=eps)
+        self.query = nn.Linear(ch, ch)
+        self.key = nn.Linear(ch, ch)
+        self.value = nn.Linear(ch, ch)
+        self.proj_attn = nn.Linear(ch, ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        out = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        hd = c // self.heads
+        q = self.query(out).reshape(b, h * w, self.heads, hd)
+        k = self.key(out).reshape(b, h * w, self.heads, hd)
+        v = self.value(out).reshape(b, h * w, self.heads, hd)
+        out = dot_product_attention(q, k, v, use_flash=False).reshape(b, h * w, c)
+        out = self.proj_attn(out)
+        return out.reshape(b, h, w, c).permute(0, 3, 1, 2) + x

@@ -1,0 +1,171 @@
+"""Bulk generation: checkpoint -> prompts -> sampling -> PNGs.
+
+Counterpart of ``dcr_tpu/sampling/pipeline.py`` on one device. It reads the
+HF-layout checkpoint directory the JAX package exports (``model_index.json``
+with the native ``model_config``, ``<component>/params.npz``), carries the
+weights into the port's modules, builds the prompt list for the model's
+conditioning style and writes ``<savepath>/generations/{count}.png`` and
+``prompts.txt``: the directory contract the eval stage reads.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+from pathlib import Path
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from dcr_tpu_torch.core import rng as rngmod
+from dcr_tpu_torch.core.checkpoint import import_npz
+from dcr_tpu_torch.core.config import (ModelConfig, NotPortedError, SampleConfig,
+                                       from_dict, validate_fast_config)
+from dcr_tpu_torch.core.device import resolve_device
+from dcr_tpu_torch.data.tokenizer import TokenizerBase, load_tokenizer
+from dcr_tpu_torch.models import export as EX
+from dcr_tpu_torch.models import schedulers as S
+from dcr_tpu_torch.models.clip_text import CLIPTextModel
+from dcr_tpu_torch.models.unet2d import UNet2DCondition
+from dcr_tpu_torch.models.vae import AutoencoderKL
+from dcr_tpu_torch.sampling.png import write_png
+from dcr_tpu_torch.sampling.prompts import build_prompt_list, save_prompts
+from dcr_tpu_torch.sampling.sampler import DiffusionModels, make_sampler
+
+log = logging.getLogger("dcr_tpu_torch")
+
+
+def build_models(model_cfg: ModelConfig, device: str | torch.device = "cuda",
+                 seed: Optional[int] = None) -> DiffusionModels:
+    """The module bundle on ``device``, in eval mode, with PyTorch's default
+    initialisation (seeded when ``seed`` is given); weights are loaded over
+    it by :func:`load_params`."""
+    device = resolve_device(device)
+    # a seeded build draws from a forked global generator, leaving the
+    # caller's RNG state as it was
+    with torch.random.fork_rng(devices=[device] if device.type == "cuda" else [],
+                               enabled=seed is not None), torch.device(device):
+        if seed is not None:
+            torch.manual_seed(seed)
+        models = DiffusionModels(
+            unet=UNet2DCondition(model_cfg).eval(),
+            vae=AutoencoderKL(model_cfg).eval(),
+            text_encoder=CLIPTextModel(model_cfg).eval(),
+            schedule=S.make_schedule(
+                num_train_timesteps=model_cfg.num_train_timesteps,
+                beta_schedule=model_cfg.beta_schedule,
+                beta_start=model_cfg.beta_start, beta_end=model_cfg.beta_end,
+                prediction_type=model_cfg.prediction_type, device=device))
+    return models
+
+
+def _modules(models: DiffusionModels) -> dict[str, torch.nn.Module]:
+    return {"unet": models.unet, "vae": models.vae, "text": models.text_encoder}
+
+
+def load_params(models: DiffusionModels, params: dict) -> None:
+    """Load ``{"unet", "vae", "text"}`` state dicts into the modules (strict)."""
+    for name, module in _modules(models).items():
+        module.load_state_dict(params[name], strict=True)
+
+
+def load_checkpoint_models(ckpt_dir: str | Path, device: str | torch.device = "cuda"):
+    """(models, params, model_cfg) from an HF-layout dir the JAX package
+    exported. ``params`` holds the state dicts the modules were loaded with."""
+    device = resolve_device(device)
+    ckpt_dir = Path(ckpt_dir)
+    index = json.loads((ckpt_dir / "model_index.json").read_text())
+    if "model_config" in index:
+        cfg_dict = index["model_config"]
+    elif "block_out_channels" in index:
+        # round-1 flat dict, whose text tower hardcoded quick_gelu
+        cfg_dict = {**index, "text_act": index.get("text_act", "quick_gelu")}
+    else:
+        raise NotPortedError(
+            f"{ckpt_dir} is a genuine diffusers checkpoint; reading its configs "
+            "and safetensors is not ported to dcr_tpu_torch yet")
+    model_cfg = from_dict(ModelConfig, cfg_dict)
+    n_blocks = len(model_cfg.block_out_channels)
+    params = {
+        "unet": EX.unet_from_flax(import_npz(ckpt_dir, "unet"), n_blocks),
+        "vae": EX.vae_from_flax(import_npz(ckpt_dir, "vae")),
+        "text": EX.text_from_flax(import_npz(ckpt_dir, "text_encoder")),
+    }
+    models = build_models(model_cfg, device)
+    try:
+        load_params(models, params)
+    except RuntimeError as e:
+        raise ValueError(f"checkpoint {ckpt_dir} does not match the architecture its "
+                         f"config describes: {e}") from e
+    return models, params, model_cfg
+
+
+def resolve_checkpoint(cfg: SampleConfig) -> Path:
+    """checkpoint_<iternum>/ or checkpoint/ under the run dir."""
+    root = Path(cfg.model_path)
+    if (root / "unet").exists():  # already a checkpoint dir
+        return root
+    if cfg.iternum and cfg.iternum > 0:
+        cand = root / f"checkpoint_{cfg.iternum}"
+        if not cand.exists():
+            raise FileNotFoundError(f"no checkpoint_{cfg.iternum} under {root}")
+        return cand
+    cand = root / "checkpoint"
+    if not cand.exists():
+        raise FileNotFoundError(f"no exported checkpoint/ under {root} "
+                                "(export one or pass iternum)")
+    return cand
+
+
+def generate(cfg: SampleConfig, *, modelstyle: str,
+             tokenizer: Optional[TokenizerBase] = None,
+             caption_json: Optional[str] = None,
+             prompts: Optional[Sequence[str]] = None,
+             models: Optional[DiffusionModels] = None, params: Optional[dict] = None,
+             device: str | torch.device = "cuda") -> Path:
+    """Run bulk generation; returns the savepath containing generations/.
+
+    ``models`` may be passed pre-built (with ``params``, state dicts loaded
+    into them strictly); otherwise they come from ``cfg.model_path``."""
+    device = resolve_device(device)
+    validate_fast_config(cfg.fast)
+    if models is None:
+        models, _, _ = load_checkpoint_models(resolve_checkpoint(cfg), device)
+    elif params is not None:
+        load_params(models, params)
+    text_cfg = models.text_encoder.config
+    tokenizer = tokenizer or load_tokenizer(cfg.model_path or None,
+                                            vocab_size=text_cfg.text_vocab_size,
+                                            model_max_length=text_cfg.text_max_length)
+    if prompts is None:
+        prompts = build_prompt_list(
+            modelstyle, cfg.num_batches, seed=cfg.seed, tokenizer=tokenizer,
+            caption_json=caption_json,
+            rand_augs=cfg.rand_augs if cfg.rand_augs != "none" else None,
+            rand_aug_repeats=cfg.rand_aug_repeats)
+    savepath = Path(cfg.savepath or "inferences/run")
+    gen_dir = savepath / "generations"
+    gen_dir.mkdir(parents=True, exist_ok=True)
+    save_prompts(prompts, savepath)
+
+    sampler = make_sampler(cfg, models, device)
+    uncond_ids = tokenizer([""])[0]
+    # fixed device batch, as the JAX pipeline sizes it for one device
+    prompts_per_batch = max(1, 1 // max(1, cfg.im_batch))
+    device_batch = prompts_per_batch * cfg.im_batch
+    count = 0
+    for start in range(0, len(prompts), prompts_per_batch):
+        chunk = list(prompts[start:start + prompts_per_batch])
+        ids = np.repeat(tokenizer(chunk), cfg.im_batch, axis=0)    # [P*im_batch, L]
+        real = len(ids)
+        if real < device_batch:                                     # pad to fixed batch
+            ids = np.concatenate([ids, np.repeat(ids[-1:], device_batch - real, axis=0)])
+        unc = np.broadcast_to(uncond_ids, ids.shape).copy()
+        gen = rngmod.stream_generator(cfg.seed, "sample", start, device=device)
+        images = sampler(None, ids, unc, gen)[:real].cpu().numpy()
+        for img in images:
+            write_png(gen_dir / f"{count}.png", (img * 255).round().astype(np.uint8))
+            count += 1
+    log.info("wrote %d generations to %s", count, gen_dir)
+    return savepath

@@ -1,0 +1,141 @@
+"""Text-to-image sampler: a Python loop over denoising steps with CFG.
+
+Counterpart of ``dcr_tpu/sampling/sampler.py``. The JAX package compiles the
+trajectory into one ``lax.scan``; here each step runs eagerly on the device,
+and the host-side timestep grid, the CFG order ``[uncond, cond]``, the
+guidance ``u + g*(c - u)``, the first-order final step under 15 steps and
+the output ``clip(x*0.5+0.5, 0, 1)`` are the same.
+
+Randomness comes from one explicit ``torch.Generator``, drawn in a fixed
+order: x_T (unless ``init_latents`` hands it in), then the Newpipe
+embedding noise, then DDPM's per-step noise.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from dcr_tpu_torch.core.config import SampleConfig, validate_fast_config
+from dcr_tpu_torch.core.device import resolve_device
+from dcr_tpu_torch.models import schedulers as S
+from dcr_tpu_torch.models.clip_text import CLIPTextModel
+from dcr_tpu_torch.models.unet2d import UNet2DCondition
+from dcr_tpu_torch.models.vae import AutoencoderKL, vae_scale_factor
+
+
+class DiffusionModels(NamedTuple):
+    """The modules (holding their weights) and the noise schedule."""
+
+    unet: UNet2DCondition
+    vae: AutoencoderKL
+    text_encoder: CLIPTextModel
+    schedule: S.NoiseSchedule
+
+
+def encode_prompts(models: DiffusionModels, input_ids: torch.Tensor,
+                   uncond_ids: torch.Tensor, *, rand_noise_lam: float = 0.0,
+                   generator: Optional[torch.Generator] = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cond, uncond) embeddings [B, L, D] from the last hidden state;
+    optional Newpipe noise on both halves."""
+    cond = models.text_encoder(input_ids).last_hidden_state
+    uncond = models.text_encoder(uncond_ids).last_hidden_state
+    if rand_noise_lam > 0.0:
+        noise = torch.randn((2,) + tuple(cond.shape), generator=generator,
+                            device=cond.device, dtype=cond.dtype)
+        cond = cond + rand_noise_lam * noise[0]
+        uncond = uncond + rand_noise_lam * noise[1]
+    return cond, uncond
+
+
+def sampler_grid(sampler: str, sched: S.NoiseSchedule,
+                 num_inference_steps: int) -> tuple[np.ndarray, np.ndarray, bool]:
+    """(ts, prev_ts, lower_order_final) for a sampler name: linspace spacing
+    for dpm++, leading otherwise; steps_offset 1 except for ddpm; the final
+    step targets t=0 (prev_t=-1, acp=1, for ddpm); first-order final step
+    under 15 steps."""
+    spacing = "linspace" if sampler == "dpm++" else "leading"
+    offset = 0 if sampler == "ddpm" else 1
+    ts = S.inference_timesteps(sched, num_inference_steps, spacing=spacing,
+                               steps_offset=offset)
+    final_prev = -1 if sampler == "ddpm" else 0
+    prev_ts = np.concatenate([ts[1:], np.array([final_prev], ts.dtype)])
+    return ts, prev_ts, num_inference_steps < 15
+
+
+def scheduler_step(sampler: str, sched: S.NoiseSchedule, pred: torch.Tensor,
+                   x: torch.Tensor, t, prev_t, dpm_state: S.DPMState, *,
+                   force_first_order: bool = False,
+                   generator: Optional[torch.Generator] = None):
+    """One denoising update ``x_t -> x_{prev_t}``; returns ``(x_new, dpm_state)``.
+    ``generator`` feeds the ancestral ``ddpm`` sampler's noise."""
+    if sampler == "ddim":
+        return S.ddim_step(sched, pred, x, t, prev_t), dpm_state
+    if sampler == "dpm++":
+        return S.dpmpp_2m_step(sched, pred, x, t, prev_t, dpm_state,
+                               force_first_order=force_first_order)
+    if sampler == "ddpm":
+        if generator is None:
+            raise ValueError("ddpm needs a generator for its per-step noise")
+        return S.ddpm_step(sched, pred, x, t, prev_t, generator=generator), dpm_state
+    raise ValueError(f"unknown sampler {sampler!r}")
+
+
+def make_sampler(cfg: SampleConfig, models: DiffusionModels,
+                 device: str | torch.device = "cuda") -> Callable:
+    """Build the sampler: ``(models | None, input_ids, uncond_ids, generator, *,
+    init_latents=None) -> images [B, H, W, 3]`` float32 in [0, 1].
+
+    ``models=None`` uses the modules given here. ``init_latents`` is x_T in
+    the JAX layout [B, h, w, C]; without it x_T is drawn from ``generator``
+    on the device."""
+    device = resolve_device(device)
+    validate_fast_config(cfg.fast)
+    vae_cfg = models.vae.config
+    latent_size = cfg.resolution // vae_scale_factor(vae_cfg)
+    latent_ch = vae_cfg.vae_latent_channels
+    scaling = vae_cfg.vae_scaling_factor
+    guidance = cfg.guidance_scale
+    ts, prev_ts, lower_order_final = sampler_grid(
+        cfg.sampler, models.schedule, cfg.num_inference_steps)
+
+    @torch.no_grad()
+    def sample_fn(modules: Optional[DiffusionModels], input_ids, uncond_ids,
+                  generator: Optional[torch.Generator], *,
+                  init_latents=None) -> torch.Tensor:
+        m = modules or models
+        sched = m.schedule.to(device)
+        ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long, device=device)
+        unc = torch.as_tensor(np.asarray(uncond_ids), dtype=torch.long, device=device)
+        bsz = ids.shape[0]
+        if init_latents is None:
+            x = torch.randn((bsz, latent_ch, latent_size, latent_size),
+                            generator=generator, device=device)
+        else:
+            x = torch.as_tensor(np.array(init_latents, dtype=np.float32),
+                                device=device).permute(0, 3, 1, 2).contiguous()
+            if x.shape != (bsz, latent_ch, latent_size, latent_size):
+                raise ValueError(f"init_latents shape {tuple(x.shape)} (NCHW) does not "
+                                 f"match {(bsz, latent_ch, latent_size, latent_size)}")
+        cond, uncond = encode_prompts(m, ids, unc, rand_noise_lam=cfg.rand_noise_lam,
+                                      generator=generator)
+        ctx = torch.cat([uncond, cond], dim=0)             # [2B, L, D]
+
+        dpm_state = S.dpm_init_state(tuple(x.shape), device=device)
+        for i, (t, prev_t) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
+            tb = torch.full((2 * bsz,), t, dtype=torch.long, device=device)
+            pred = m.unet(torch.cat([x, x], dim=0), tb, ctx)
+            pred_uncond, pred_cond = pred.chunk(2, dim=0)
+            pred = pred_uncond + guidance * (pred_cond - pred_uncond)
+            force1 = lower_order_final and i == len(ts) - 1
+            x, dpm_state = scheduler_step(cfg.sampler, sched, pred, x, t, prev_t,
+                                          dpm_state, force_first_order=force1,
+                                          generator=generator)
+
+        images = m.vae.decode(x / scaling)
+        return torch.clamp(images * 0.5 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)
+
+    return sample_fn
