@@ -4,18 +4,28 @@
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 1. card: name and power limit from nvidia-smi; TF32 off for matmuls and convs;
-2. build: every kernel of the sampling path from dcr_tpu_torch/csrc (nvcc);
+2. build: every kernel source in dcr_tpu_torch/csrc (one nvcc each, at once);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and a few edge shapes, with times (CUDA events,
-   median), the plain version's and the library call's time, and the bound;
-4. small reference: a kernel-shaped tiny sampler on the card against the same
-   sampler on the CPU (plain attention), from the same x_T;
-5. main path: dcr_tpu_torch.sampling.pipeline.generate at SD-2.1 widths
-   (ModelConfig()), 512 px, 20 DPM-Solver++ steps with CFG, 2 prompts x 2
-   images, seeded random weights built on the card; the flash kernel's
-   launch count must be 15 per UNet call.
-The last line is {"ok": true, "device": {...}}; the line before it holds the
-kernels' numbers as JSON.
+   the main paths' shapes and a few edge shapes, with times (CUDA events,
+   median), the plain version's and the library call's time, and the bound:
+   the forward kernel (B1), then the dQ (B2) and dK/dV (B3) backward
+   kernels, which must also give bit-identical gradients over two launches;
+   a gradient probe through the autograd Function;
+4. small references: a kernel-shaped tiny sampler, and 2 train steps of a
+   kernel-shaped tiny model, on the card against the same on the CPU (plain
+   attention), from the same x_T / weights and draws;
+5. sampling main path: dcr_tpu_torch.sampling.pipeline.generate at SD-2.1
+   widths (ModelConfig()), 512 px, 20 DPM-Solver++ steps with CFG, 2
+   prompts x 2 images, seeded random weights built on the card; the forward
+   kernel's launch count must be 15 per UNet call;
+6. training main path: dcr_tpu_torch.diffusion.trainer.Trainer(TrainConfig())
+   (SD-2.1 widths, 256 px, batch 16, bf16, AdamW with warmup) on a
+   class-folder of PNGs written here, seeded random weights, a few optimizer
+   steps; 10 launches of each kernel per step, finite losses, a checkpoint
+   and an HF-layout export that loads back.
+Each main path runs with every launch count set to 0 just before it and
+read just after. The last line is {"ok": true, "device": {...}}; the line
+before it holds the kernels' numbers as JSON.
 """
 
 from __future__ import annotations
@@ -67,6 +77,22 @@ def flash_bound(b: int, sq: int, sk: int, h: int, d: int, dtype) -> tuple[float,
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def reset_launches() -> None:
+    from dcr_tpu_torch.ops import flash_attention as fa
+
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.dq_launches = 0
+    fa.flash_attention_bwd.dkv_launches = 0
+
+
+def read_launches() -> tuple[int, int, int]:
+    """(forward, dQ, dK/dV) launch counts."""
+    from dcr_tpu_torch.ops import flash_attention as fa
+
+    return (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.dq_launches,
+            fa.flash_attention_bwd.dkv_launches)
+
+
 def phase_card() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -85,7 +111,7 @@ def phase_build() -> None:
     from dcr_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    logs = build.build([fa.SOURCE])
+    logs = build.build([fa.SOURCE, fa.BWD_SOURCE])
     log(f"build: {len(logs)} kernel source(s) in {time.perf_counter() - t0:.2f} s "
         f"with {build.nvcc_path()}")
     for stem, text in logs.items():
@@ -106,6 +132,8 @@ def phase_kernels(reps: int) -> dict:
         ("level0", 4, 4096, 4096, 5, 64, 1.0, True),
         ("level1", 4, 1024, 1024, 10, 64, 1.0, True),
         ("level2", 4, 256, 256, 20, 64, 1.0, True),
+        ("train_level0", 16, 1024, 1024, 5, 64, 1.0, True),
+        ("train_level1", 16, 256, 256, 10, 64, 1.0, True),
         ("d128", 2, 1024, 1024, 4, 128, 1.0, False),
         ("d256", 2, 512, 512, 4, 256, 1.0, False),
         ("rect", 2, 1024, 256, 4, 64, 1.0, False),
@@ -158,14 +186,23 @@ def phase_kernels(reps: int) -> dict:
             if main and dtype is torch.float32:
                 worst = max(worst, err_o)
 
-    # what the kernel does not take raises on the card; nothing falls back
-    x = torch.randn((1, 128, 2, 64), device=dev, requires_grad=True)
-    try:
-        fa.flash_attention_fwd(x, x, x)
-    except RuntimeError as e:
-        log(f"requires_grad input refused on the card: {e}")
-    else:
-        raise AssertionError("flash kernel accepted an input that requires grad")
+    # a gradient through the autograd Function reaches the backward kernels
+    # and agrees with autograd through the plain version
+    q, k, v = (torch.randn((2, 256, 2, 64), generator=gen, device=dev).requires_grad_()
+               for _ in range(3))
+    before = (fa.flash_attention_bwd.dq_launches, fa.flash_attention_bwd.dkv_launches)
+    out = fa.flash_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), out.detach())
+    torch.cuda.synchronize()
+    ref_out, _ = fa.flash_attention_reference(q, k, v)
+    ref = torch.autograd.grad(ref_out, (q, k, v), out.detach())
+    launched = (fa.flash_attention_bwd.dq_launches - before[0],
+                fa.flash_attention_bwd.dkv_launches - before[1])
+    err_g = max((g - r).abs().max().item() for g, r in zip(grads, ref))
+    log(f"gradient probe: autograd through the flash Function vs through the plain "
+        f"version, max|diff| {err_g:.3e}, backward launches (dQ, dK/dV) {launched}")
+    if not (err_g <= 1e-4 and launched == (1, 1)):
+        raise AssertionError(f"gradient probe failed: err {err_g:.3e}, launches {launched}")
     y = torch.randn((1, 128, 2, 48), device=dev)
     try:
         fa.flash_attention_fwd(y, y, y)
@@ -174,6 +211,103 @@ def phase_kernels(reps: int) -> dict:
     else:
         raise AssertionError("flash kernel accepted head dim 48")
     return {"rows": rows, "worst_main_f32_err": worst}
+
+
+def bwd_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int,
+              dtype) -> tuple[float, str]:
+    """Least time (ms) for one backward kernel: q, k, v, o, dO and lse read
+    once, its gradients written once; the dQ kernel does 6*Sq*Sk*D flops per
+    (b, h) (S and dP recomputed, then dQ), the dK/dV kernel 8*Sq*Sk*D (S, dP,
+    dV, dK), at the dtype's peak rate."""
+    el = torch.finfo(dtype).bits // 8
+    reads = el * (3 * b * sq * h * d + 2 * b * sk * h * d) + 4 * b * h * sq
+    writes = el * (b * sq * h * d if kind == "dq" else 2 * b * sk * h * d)
+    flops = (6.0 if kind == "dq" else 8.0) * b * h * sq * sk * d
+    t_bytes, t_ops = (reads + writes) / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_bwd_kernels(reps: int) -> dict:
+    """The dQ (B2) and dK/dV (B3) kernels against flash_attention_bwd_reference
+    on the same inputs (the forward kernel's o and lse), bit-identical over two
+    launches, with times. library_ms is the backward alone of
+    F.scaled_dot_product_attention on the same q, k, v and dO:
+    torch.autograd.grad on a graph built once, CUDA events around the call;
+    it computes dq, dk and dv, so it stands beside the pair of kernels."""
+    import torch.nn.functional as F
+
+    from dcr_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    # (name, B, Sq, Sk, H, D, logit scale, train main-path shape)
+    cases = [
+        ("train_level0", 16, 1024, 1024, 5, 64, 1.0, True),
+        ("train_level1", 16, 256, 256, 10, 64, 1.0, True),
+        ("d128", 2, 1024, 1024, 4, 128, 1.0, False),
+        ("d256", 2, 512, 512, 4, 256, 1.0, False),
+        ("sq_gt_sk", 2, 1024, 256, 4, 64, 1.0, False),
+        ("sk_gt_sq", 2, 256, 1024, 4, 64, 1.0, False),
+        ("logits_x100", 2, 1024, 1024, 4, 64, 100.0, False),
+    ]
+    rows = []
+    for name, b, sq, sk, h, d, scale, main in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = (torch.randn((b, sq, h, d), generator=gen, device=dev) * scale).to(dtype)
+            k, v = (torch.randn((b, sk, h, d), generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            do = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
+            with torch.no_grad():
+                o, lse = fa.flash_attention_fwd(q, k, v)
+                dq = fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+                dk, dv = fa.flash_attention_bwd_dkv(q, k, v, o, lse, do)
+                dq2 = fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+                dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, o, lse, do)
+                torch.cuda.synchronize()
+                ref = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(),
+                                                       o.float(), lse, do.float())
+            same = torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+            # tolerance relative to the gradient's magnitude: f32 kernels
+            # differ from the plain version by summation order only; bf16
+            # kernels round P and dS to bf16 before their products and
+            # write bf16, as the TPU kernels do
+            rel = 1e-5 if dtype is torch.float32 else 1e-2
+            errs, tols = [], []
+            for got, want in zip((dq, dk, dv), ref):
+                errs.append((got.float() - want).abs().max().item())
+                tols.append(rel * max(1.0, want.abs().max().item()))
+            finite = all(bool(torch.isfinite(g.float()).all()) for g in (dq, dk, dv))
+            with torch.no_grad():
+                ms_dq = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do), reps)
+                ms_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, o, lse, do), reps)
+                plain_ms = time_ms(lambda: fa.flash_attention_bwd_reference(
+                    q, k, v, o, lse, do), reps)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt)
+            dot = do.transpose(1, 2)
+            lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                         retain_graph=True), reps)
+            del out
+            b_dq, by_dq = bwd_bound("dq", b, sq, sk, h, d, dtype)
+            b_dkv, by_dkv = bwd_bound("dkv", b, sq, sk, h, d, dtype)
+            row = dict(case=name, shape=[b, sq, sk, h, d], dtype=str(dtype).split(".")[-1],
+                       main_path=main, bit_identical=same,
+                       max_abs_err={"dq": errs[0], "dk": errs[1], "dv": errs[2]},
+                       tol={"dq": tols[0], "dk": tols[1], "dv": tols[2]},
+                       dq_ms=ms_dq, dkv_ms=ms_dkv, plain_ms=plain_ms, library_ms=lib_ms,
+                       dq_bound_ms=b_dq, dq_bound_by=by_dq, dkv_bound_ms=b_dkv,
+                       dkv_bound_by=by_dkv)
+            rows.append(row)
+            log(f"flash bwd {name:12s} {row['dtype']:8s} B={b} Sq={sq} Sk={sk} H={h} D={d}: "
+                f"dQ {ms_dq:.4f} ms (bound {b_dq:.4f}, {by_dq}), dK/dV {ms_dkv:.4f} ms "
+                f"(bound {b_dkv:.4f}, {by_dkv}), plain {plain_ms:.4f} ms, sdpa bwd "
+                f"{lib_ms:.4f} ms, max err dq/dk/dv "
+                f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, bit-identical {same}")
+            if not (same and finite and all(e <= t for e, t in zip(errs, tols))):
+                raise AssertionError(f"flash backward kernels disagree with their plain "
+                                     f"version at {name} {dtype}: errs {errs}, tols {tols}, "
+                                     f"bit-identical {same}, finite {finite}")
+    return {"rows": rows}
 
 
 def phase_small_reference() -> None:
@@ -253,12 +387,12 @@ def phase_main_path(out_dir: Path) -> dict:
                        guidance_scale=7.5, num_batches=2, im_batch=2, seed=0,
                        savepath=str(out_dir))
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fwd.launches = 0
+    reset_launches()
     try:
         out = P.generate(cfg, modelstyle="nolevel", models=models, params=params,
                          device="cuda")
     finally:
-        launches = fa.flash_attention_fwd.launches
+        launches, bwd_launches = fa.flash_attention_fwd.launches, read_launches()[1:]
         P.make_sampler = make
     peak = torch.cuda.max_memory_allocated()
     pngs = sorted((out / "generations").glob("*.png"))
@@ -272,11 +406,195 @@ def phase_main_path(out_dir: Path) -> dict:
         raise AssertionError(f"expected 4 PNGs of 512x512, got {len(pngs)}, {tuple(imgs.shape)}")
     if not (torch.isfinite(imgs).all() and imgs.min() >= 0.0 and imgs.max() <= 1.0):
         raise AssertionError("main path images are not finite values in [0, 1]")
-    if len(calls) != 2 or launches != expected:
-        raise AssertionError(f"flash kernel launched {launches} times, expected {expected}")
+    if len(calls) != 2 or launches != expected or bwd_launches != (0, 0):
+        raise AssertionError(f"flash kernel launched {launches} times, expected {expected} "
+                             f"(backward kernels {bwd_launches}, expected none)")
     return {"launches": launches, "sampler_call_s": calls,
             "step_s": statistics.mean(calls) / steps, "peak_bytes": peak,
             "image_std": float(np.std(imgs.numpy()))}
+
+
+def _tiny_kernel_cfg():
+    """The kernel-shaped tiny model of the small references: head dim 64 over
+    16x16 latents (256 tokens) at level 0, so 3 self-attentions per UNet
+    call take the kernels and the rest goes to SDPA."""
+    from dcr_tpu_torch.core.config import ModelConfig
+
+    return ModelConfig(sample_size=16, block_out_channels=(64, 128), layers_per_block=1,
+                       attention_head_dim=64, cross_attention_dim=64, norm_num_groups=16,
+                       vae_block_out_channels=(32, 64, 64, 64), vae_layers_per_block=1,
+                       text_vocab_size=1000, text_hidden_size=64, text_layers=2,
+                       text_heads=2, text_max_length=16)
+
+
+def phase_small_train_reference() -> dict:
+    """2 train steps of the kernel-shaped tiny model on the card (kernels)
+    against the same on the CPU (plain versions): same weights, batch and
+    injected draws, f32, TF32 off. Held: loss at rtol 1e-4 and grad norm at
+    1e-3 per step; params within 0.1 lr per step at most and 0.01 lr per
+    step on average (Adam turns rounding noise in a near-zero gradient into
+    an O(lr) step, so the bound on params is absolute); 3 launches of each
+    kernel per step. Then the first step once more with remat on the card:
+    6 forward launches, and the loss within 1e-6 of the step without it."""
+    import numpy as np
+
+    from dcr_tpu_torch.core.config import OptimConfig, TrainConfig
+    from dcr_tpu_torch.diffusion import train as T
+    from dcr_tpu_torch.sampling.pipeline import build_models
+
+    lr, steps, bsz = 1e-3, 2, 2
+    cfg = TrainConfig(mixed_precision="no", seed=0, train_batch_size=bsz)
+    cfg.model = _tiny_kernel_cfg()
+    cfg.optim = OptimConfig(learning_rate=lr, lr_scheduler="constant", lr_warmup_steps=0,
+                            adam_epsilon=1e-6)
+    cpu = build_models(cfg.model, "cpu", seed=2)
+    gpu = build_models(cfg.model, "cuda")
+    sds = {"unet": cpu.unet.state_dict(), "text": cpu.text_encoder.state_dict(),
+           "vae": cpu.vae.state_dict()}
+    states = {}
+    for dev, models in (("cpu", cpu), ("cuda", gpu)):
+        p = {name: {k: v.detach().clone().to(dev) for k, v in sd.items()}
+             for name, sd in sds.items()}
+        states[dev] = T.init_train_state(cfg, models, unet_params=p["unet"],
+                                         text_params=p["text"], vae_params=p["vae"])
+    rng = np.random.default_rng(3)
+    batch = {"pixel_values": rng.uniform(-1, 1, (bsz, 128, 128, 3)).astype(np.float32),
+             "input_ids": rng.integers(0, 999, (bsz, 16))}
+    metrics = {"cpu": [], "cuda": []}
+    launched = (0, 0, 0)
+    all_draws = []
+    for i in range(steps):
+        draws = {"vae_sample": torch.from_numpy(rng.standard_normal((bsz, 4, 16, 16),
+                                                                    np.float32)),
+                 "noise": torch.from_numpy(rng.standard_normal((bsz, 4, 16, 16), np.float32)),
+                 "timesteps": torch.from_numpy(rng.integers(0, 1000, (bsz,)))}
+        all_draws.append(draws)
+        for dev, models in (("cpu", cpu), ("cuda", gpu)):
+            before = read_launches()
+            states[dev], m = T.make_train_step(cfg, models)(states[dev], batch, draws)
+            metrics[dev].append({k: float(v) for k, v in m.items()})
+            if dev == "cuda":
+                launched = tuple(a + b - c for a, b, c in zip(launched, read_launches(),
+                                                              before))
+    diffs = torch.cat([(states["cuda"].unet_params[k].detach().cpu()
+                        - states["cpu"].unet_params[k].detach()).abs().flatten()
+                       for k in states["cpu"].unet_params])
+    loss_rel = max(abs(g["loss"] - c["loss"]) / abs(c["loss"])
+                   for g, c in zip(metrics["cuda"], metrics["cpu"]))
+    norm_rel = max(abs(g["grad_norm"] - c["grad_norm"]) / abs(c["grad_norm"])
+                   for g, c in zip(metrics["cuda"], metrics["cpu"]))
+    out = {"loss_rel_err": loss_rel, "grad_norm_rel_err": norm_rel,
+           "param_max_abs_err": diffs.max().item(), "param_mean_abs_err": diffs.mean().item(),
+           "launches": launched, "losses_cuda": [m["loss"] for m in metrics["cuda"]]}
+    # the first step again with remat on the card: torch.utils.checkpoint
+    # recomputes the UNet forward, so the forward kernel runs twice
+    cfg.remat = True
+    p = {name: {k: v.detach().clone().to("cuda") for k, v in sd.items()}
+         for name, sd in sds.items()}
+    state = T.init_train_state(cfg, gpu, unet_params=p["unet"], text_params=p["text"],
+                               vae_params=p["vae"])
+    before = read_launches()
+    _, m = T.make_train_step(cfg, gpu)(state, batch, all_draws[0])
+    out["remat_launches"] = tuple(b - a for a, b in zip(before, read_launches()))
+    out["remat_loss_rel_err"] = abs(float(m["loss"]) - metrics["cuda"][0]["loss"]) / abs(
+        metrics["cuda"][0]["loss"])
+    log(f"small train reference (kernel-shaped tiny model, 128 px, {steps} steps, f32): "
+        f"card vs cpu {json.dumps(out)}")
+    if not (loss_rel <= 1e-4 and norm_rel <= 1e-3 and out["param_max_abs_err"] <= 0.1 * lr * steps
+            and out["param_mean_abs_err"] <= 0.01 * lr * steps
+            and launched == (3 * steps, 3 * steps, 3 * steps)
+            and out["remat_launches"] == (6, 3, 3) and out["remat_loss_rel_err"] <= 1e-6):
+        raise AssertionError(f"small train reference failed: {out}")
+    return out
+
+
+def phase_train_main_path(out_dir: Path, steps: int) -> dict:
+    """Trainer(TrainConfig()) at the JAX defaults (SD-2.1 widths, 256 px,
+    batch 16, bf16, remat off, AdamW with constant_with_warmup) on a
+    class-folder of 48 random 256 px PNGs, HashTokenizer, seeded random
+    weights built on the card, ``steps`` optimizer steps."""
+    import shutil
+
+    import numpy as np
+
+    from dcr_tpu_torch.core.config import TrainConfig
+    from dcr_tpu_torch.diffusion.trainer import Trainer
+    from dcr_tpu_torch.sampling.pipeline import load_checkpoint_models
+    from dcr_tpu_torch.sampling.png import write_png
+
+    rng = np.random.default_rng(0)
+    data = out_dir / "data"
+    for i in range(48):
+        (data / f"class{i % 2}").mkdir(parents=True, exist_ok=True)
+        write_png(data / f"class{i % 2}" / f"{i}.png",
+                  rng.integers(0, 256, (256, 256, 3), dtype=np.uint8))
+    free = shutil.disk_usage(out_dir).free
+    cfg = TrainConfig(output_dir=str(out_dir / "run"), max_train_steps=steps, log_every=1,
+                      modelsavesteps=10 ** 6, checkpoints_total_limit=1)
+    cfg.data.train_data_dir = str(data)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = {name: sum(p.numel() for p in d.values()) for name, d in
+                (("unet", trainer.state.unet_params), ("text", trainer.state.text_params),
+                 ("vae", trainer.state.vae_params))}
+    log(f"train main path: TrainConfig() defaults, params {n_params}, built on the card in "
+        f"{build_s:.2f} s, {free / 2**30:.1f} GiB free on disk")
+
+    step_s, losses = [], []
+    step_fn = trainer.step_fn
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - start)
+        return state, metrics
+
+    trainer.step_fn = timed
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        last = trainer.train()
+    finally:
+        launches = read_launches()
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    run = out_dir / "run"
+    rows = [json.loads(x) for x in (run / "logs" / "metrics.jsonl").read_text().splitlines()]
+    median_s = statistics.median(step_s[1:])
+    stats = {"steps": steps, "batch": cfg.train_batch_size, "step_s": step_s,
+             "median_step_s_after_first": median_s,
+             "images_per_s": cfg.train_batch_size / median_s,
+             "peak_bytes": peak, "losses": losses, "launches_fwd_dq_dkv": launches,
+             "loop_and_save_s": total_s, "save_and_export_s": total_s - sum(step_s),
+             "last_metrics": last}
+    log(f"train main path: {json.dumps(stats)}")
+    expected = (10 * steps,) * 3
+    if launches != expected:
+        raise AssertionError(f"train main path launched (fwd, dQ, dK/dV) {launches}, "
+                             f"expected {expected}")
+    if len(losses) != steps or not all(np.isfinite(losses)) or len(rows) != steps:
+        raise AssertionError(f"train main path: losses {losses}, {len(rows)} metric rows")
+    if not (run / "checkpoints" / str(steps) / "state.pt").exists():
+        raise AssertionError("train main path wrote no checkpoint")
+    models, _, mcfg = load_checkpoint_models(run / "checkpoint", "cuda")
+    if mcfg != cfg.model:
+        raise AssertionError(f"export's model config {mcfg} differs from {cfg.model}")
+    for want, module in ((trainer.state.unet_params, models.unet),
+                         (trainer.state.vae_params, models.vae),
+                         (trainer.state.text_params, models.text_encoder)):
+        loaded = dict(module.named_parameters())
+        bad = [k for k, t in want.items() if not torch.equal(t.detach(), loaded[k])]
+        if bad or set(want) != set(loaded):
+            raise AssertionError(f"export does not load back: {bad[:3]}")
+    log("train main path: checkpoint written; HF-layout export loads back through "
+        "load_checkpoint_models with every tensor equal")
+    return stats
 
 
 def main() -> int:
@@ -289,25 +607,67 @@ def main() -> int:
     phase_card()
     phase_build()
     kern = phase_kernels(reps=10)
+    bwd = phase_bwd_kernels(reps=10)
     phase_small_reference()
+    small_train = phase_small_train_reference()
     with tempfile.TemporaryDirectory() as tmp:
         main_stats = phase_main_path(Path(tmp))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_stats = phase_train_main_path(Path(tmp), steps=6)
 
-    lead = next(r for r in kern["rows"] if r["case"] == "level0" and r["dtype"] == "float32")
-    entry = {
+    def fwd_row(case, dtype):
+        return next(r for r in kern["rows"] if r["case"] == case and r["dtype"] == dtype)
+
+    def bwd_row(case, dtype):
+        return next(r for r in bwd["rows"] if r["case"] == case and r["dtype"] == dtype)
+
+    # the kernels' share of a train step, from this run's kernel times at the
+    # train shapes: 5 attentions at level 0 and 5 at level 1 per step
+    kernel_ms = sum(5 * (fwd_row(c, "bfloat16")["ms"] + bwd_row(c, "bfloat16")["dq_ms"]
+                         + bwd_row(c, "bfloat16")["dkv_ms"])
+                    for c in ("train_level0", "train_level1"))
+    train_stats["kernel_ms_per_step"] = kernel_ms
+    train_stats["kernel_share_of_step"] = kernel_ms / 1e3 / train_stats[
+        "median_step_s_after_first"]
+    lead = fwd_row("level0", "float32")
+    entries = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "dcr_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "dcr_tpu/ops/flash_attention.py:112",
-        "launches": main_stats["launches"],
+        "launches": main_stats["launches"] + train_stats["launches_fwd_dq_dkv"][0],
+        "launches_by_path": {"sample": main_stats["launches"],
+                             "train": train_stats["launches_fwd_dq_dkv"][0]},
         "max_abs_err": kern["worst_main_f32_err"],
         "ms": lead["ms"], "plain_ms": lead["plain_ms"], "bound_ms": lead["bound_ms"],
         "bound_by": lead["bound_by"], "library_ms": lead["library_ms"],
         "shape": "B=4 S=4096 H=5 D=64 float32 (UNet level 0 at 512 px)",
         "per_shape": kern["rows"],
-    }
+    }]
+    train_lead = bwd_row("train_level0", "bfloat16")
+    for kind, line, index in (("dq", 181, 1), ("dkv", 209, 2)):
+        errs = train_lead["max_abs_err"]
+        entries.append({
+            "name": f"flash_attention_bwd_{kind}",
+            "route": "cuda",
+            "source": "dcr_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"dcr_tpu/ops/flash_attention.py:{line}",
+            "launches": train_stats["launches_fwd_dq_dkv"][index],
+            "max_abs_err": errs["dq"] if kind == "dq" else max(errs["dk"], errs["dv"]),
+            "ms": train_lead[f"{kind}_ms"], "plain_ms": train_lead["plain_ms"],
+            "bound_ms": train_lead[f"{kind}_bound_ms"],
+            "bound_by": train_lead[f"{kind}_bound_by"],
+            "library_ms": train_lead["library_ms"],
+            "shape": "B=16 S=1024 H=5 D=64 bfloat16 (UNet level 0 at 256 px, training)",
+            "plain_and_library_compute": "dq, dk and dv together (the backward of one "
+                                         "attention); library_ms is the SDPA backward alone",
+            "per_shape": bwd["rows"] if kind == "dq" else "see flash_attention_bwd_dq",
+        })
     log(f"main path stats: {json.dumps(main_stats)}")
-    print(json.dumps({"kernels": [entry]}))
+    log(f"train path stats: {json.dumps(train_stats)}")
+    log(f"small train reference: {json.dumps(small_train)}")
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 """Command-line entry points of the PyTorch port.
 
     python -m dcr_tpu_torch.cli.sample --model_path=... --num_batches=...
+    python -m dcr_tpu_torch.cli.train --output_dir=... --data.train_data_dir=...
 
 They run on CUDA. ``DCR_TPU_PLATFORM=cpu`` (the JAX CLIs' own switch) selects
 the CPU; nothing else does, and without a GPU the commands fail.

@@ -1,10 +1,16 @@
 """Config dataclasses + dotted-key CLI overrides for the PyTorch port.
 
-Own copy of the fields of ``dcr_tpu/core/config.py`` that the sampling path
-reads (``ModelConfig``, ``SampleConfig``, ``FastSampleConfig``) and of its
-``from_dict``/``parse_cli`` machinery, so a ``model_index.json`` written by
-either package and a ``dcr-sample`` command line parse the same way here.
-The mesh and warm-cache sections of ``SampleConfig`` are not ported yet.
+Own copy of the fields of ``dcr_tpu/core/config.py`` that the sampling and
+training paths read (``ModelConfig``, ``SampleConfig``, ``FastSampleConfig``,
+``DataConfig``, ``OptimConfig``, ``TrainConfig`` and its nested sections)
+and of its ``from_dict``/``parse_cli``/``save_config`` machinery, so a
+``model_index.json`` or ``config.json`` written by either package and a
+``dcr-sample`` or ``dcr-train`` command line parse the same way here.
+Sections the port does not run yet (mesh, fault-tolerance budgets, warm
+cache, copy risk, pipelined training) parse, and
+:func:`validate_train_config` refuses a setting that would need them with
+:class:`NotPortedError`. The mesh and warm-cache sections of
+``SampleConfig`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Any, Optional, Sequence, Type, TypeVar, get_args, get_origin
 
 T = TypeVar("T")
 
+DUPLICATION_REGIMES = ("nodup", "dup_both", "dup_image")
 CONDITIONING_REGIMES = (
     "nolevel",
     "classlevel",
@@ -25,6 +32,7 @@ CONDITIONING_REGIMES = (
     "instancelevel_random",
     "instancelevel_ogcap",
 )
+TRAIN_MITIGATIONS = ("none", "allcaps", "randrepl", "randwordadd", "wordrepeat")
 INFERENCE_AUGS = ("none", "rand_numb_add", "rand_word_add", "rand_word_repeat")
 
 
@@ -152,6 +160,266 @@ def validate_fast_config(f: FastSampleConfig) -> None:
             "dcr_tpu_torch yet; run without it or use the JAX package")
 
 
+@dataclass
+class MeshConfig:
+    """Device-mesh shape (parsed; the port runs on one device)."""
+
+    data: int = -1  # -1: all remaining devices
+    fsdp: int = 1
+    tensor: int = 1
+    seq: int = 1
+
+
+@dataclass
+class DataConfig:
+    """Dataset + duplication + conditioning knobs (reference datasets.py:32-152)."""
+
+    train_data_dir: str = ""
+    resolution: int = 256
+    center_crop: bool = True
+    random_flip: bool = True
+    class_prompt: str = "nolevel"          # CONDITIONING_REGIMES
+    instance_prompt: str = "an image"      # nolevel constant caption
+    duplication: str = "nodup"             # DUPLICATION_REGIMES
+    weight_pc: float = 0.1                 # fraction of samples duplicated
+    dup_weight: int = 5                    # sampling weight for duplicated samples
+    caption_jsons: tuple[str, ...] = ()    # blip/ogcap caption tables
+    trainspecial: str = "none"             # TRAIN_MITIGATIONS
+    trainspecial_prob: float = 0.1
+    trainsubset: int = -1                  # -1: full dataset (reference --trainsubset)
+    rand_caption_tokens: int = 4           # instancelevel_random token count
+    num_workers: int = 8
+    seed: int = 42
+
+
+@dataclass
+class FaultToleranceConfig:
+    """Recovery knobs. The port is fail-fast: the budgets must stay 0."""
+
+    decode_retries: int = 1
+    max_bad_sample_frac: float = 0.0
+    max_rollbacks: int = 0
+    verify_checkpoints: bool = True
+    io_retries: int = 3
+    retry_base_delay: float = 0.05
+    retry_max_delay: float = 2.0
+    stage_deadline_secs: float = 0.0
+    barrier_timeout_s: float = 0.0
+    hang_timeout_s: float = 0.0
+
+
+@dataclass
+class WarmCacheConfig:
+    """Persistent executable cache (parsed; ``dir`` is not ported)."""
+
+    dir: str = ""
+    warm_start: bool = True
+
+
+@dataclass
+class RiskConfig:
+    """Online copy-risk scoring (parsed; an index or store is not ported)."""
+
+    index_path: str = ""
+    store_dir: str = ""
+    segment_rows: int = 0
+    ann: bool = False
+    nprobe: int = 8
+    weights_path: str = ""
+    threshold: float = 0.5
+    top_k: int = 1
+    image_size: int = 224
+    evidence_dir: str = ""
+    max_evidence: int = 32
+
+
+@dataclass
+class PipeConfig:
+    """Pipelined training and the latent cache (parsed; not ported)."""
+
+    enabled: bool = False
+    depth: int = 2
+    latent_cache: str = ""
+    cache_shard_size: int = 512
+
+
+@dataclass
+class OptimConfig:
+    learning_rate: float = 5e-6
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    lr_scheduler: str = "constant_with_warmup"
+    lr_warmup_steps: int = 5000
+    gradient_accumulation_steps: int = 1
+    scale_lr: bool = False
+    use_8bit_adam: bool = False            # not ported
+
+
+@dataclass
+class TrainConfig:
+    output_dir: str = "runs/dcr"
+    pretrained_model: str = ""             # tokenizer source (weights: pretrained_params=)
+    seed: int = 42
+    generation_seed: int = 1024
+    train_batch_size: int = 16             # per-device
+    max_train_steps: int = 100_000
+    num_train_epochs: int = 100
+    train_text_encoder: bool = False
+    unet_from_scratch: bool = False
+    mixed_precision: str = "bf16"          # "no" | "bf16"
+    remat: bool = False                    # torch.utils.checkpoint around the UNet
+    ema_decay: float = 0.0                 # 0 disables EMA
+    # train-time embedding mitigations (reference diff_train.py:637-642)
+    rand_noise_lam: float = 0.0
+    mixup_noise_lam: float = 0.0
+    # cadence (reference diff_train.py:709-716)
+    save_steps: int = 500                  # sample-image grids (not ported)
+    modelsavesteps: int = 1000             # checkpoints
+    log_every: int = 50
+    use_wandb: bool = False                # not ported
+    checkpoints_total_limit: int = 3
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    fault: FaultToleranceConfig = field(default_factory=FaultToleranceConfig)
+    warm: WarmCacheConfig = field(default_factory=WarmCacheConfig)
+    risk: RiskConfig = field(default_factory=RiskConfig)
+    pipe: PipeConfig = field(default_factory=PipeConfig)
+
+
+def validate_risk_config(r: RiskConfig) -> None:
+    if r.top_k < 1:
+        raise ValueError("risk.top_k must be >= 1")
+    if r.image_size < 16:
+        raise ValueError("risk.image_size must be >= 16 (the SSCD backbone "
+                         "downsamples 32x; tiny crops degenerate)")
+    if not r.threshold == r.threshold:   # NaN compares unequal to itself
+        raise ValueError("risk.threshold must be a number, not NaN")
+    if r.max_evidence < 0:
+        raise ValueError("risk.max_evidence must be >= 0")
+    if r.ann and not r.store_dir:
+        raise ValueError("risk.ann needs risk.store_dir (the IVF tier is "
+                         "an index over a built store — the dump-file path "
+                         "is exact-only)")
+    if r.nprobe < 1:
+        raise ValueError("risk.nprobe must be >= 1")
+
+
+def validate_pipe_config(cfg: TrainConfig) -> None:
+    p = cfg.pipe
+    if p.depth < 1:
+        raise ValueError("pipe.depth must be >= 1 (the prefetch ring needs "
+                         "at least one slot)")
+    if p.cache_shard_size < 1:
+        raise ValueError("pipe.cache_shard_size must be >= 1")
+    if p.latent_cache:
+        if cfg.train_text_encoder:
+            raise ValueError(
+                "pipe.latent_cache requires train_text_encoder=False: the "
+                "cache replaces the frozen text encoder's output; a trained "
+                "text encoder must run live (use pipe.enabled without a "
+                "cache)")
+        if cfg.data.trainspecial != "none":
+            raise ValueError(
+                "pipe.latent_cache is incompatible with caption mitigations "
+                "(data.trainspecial): they redraw captions per occurrence, "
+                "but the cache holds one frozen text embedding per image")
+        if cfg.data.duplication == "dup_image":
+            raise ValueError(
+                "pipe.latent_cache is incompatible with duplication="
+                "'dup_image': that regime redraws a DIFFERENT caption per "
+                "occurrence of a duplicated image, but the cache holds one "
+                "frozen text embedding per image (dup_both/nodup are fine "
+                "— their captions are deterministic per index)")
+        if cfg.data.random_flip:
+            raise ValueError(
+                "pipe.latent_cache requires data.random_flip=false: the "
+                "cache holds one pixel realization per image, a "
+                "per-occurrence flip cannot be served from it")
+        if not cfg.data.center_crop:
+            raise ValueError(
+                "pipe.latent_cache requires data.center_crop=true: "
+                "center_crop=false draws a RANDOM crop per occurrence, "
+                "which the cache would silently freeze to one realization")
+
+
+def _not_ported(cfg: TrainConfig) -> list[str]:
+    """Settings of a valid config that need a part of the JAX package the
+    port does not have yet."""
+    m = cfg.mesh
+    mesh_devices = max(1, m.data) * max(1, m.fsdp) * max(1, m.tensor) * max(1, m.seq)
+    checks = [
+        (cfg.optim.use_8bit_adam, "optim.use_8bit_adam (8-bit Adam)"),
+        (cfg.pipe.enabled, "pipe.enabled (pipelined training)"),
+        (bool(cfg.pipe.latent_cache), "pipe.latent_cache (the latent cache)"),
+        (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
+        (bool(cfg.risk.index_path), "risk.index_path (copy-risk scoring)"),
+        (bool(cfg.risk.store_dir), "risk.store_dir (copy-risk scoring)"),
+        (cfg.fault.max_rollbacks > 0, "fault.max_rollbacks > 0 (NaN rollback)"),
+        (cfg.fault.max_bad_sample_frac > 0,
+         "fault.max_bad_sample_frac > 0 (bad-sample quarantine)"),
+        (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port trains on one)"),
+        (cfg.use_wandb, "use_wandb (the wandb sink)"),
+    ]
+    return [name for on, name in checks if on]
+
+
+def validate_train_config(cfg: TrainConfig) -> None:
+    """Cross-flag validation (reference diff_train.py:739-743), then
+    NotPortedError for anything this port does not run yet."""
+    d = cfg.data
+    if d.duplication not in DUPLICATION_REGIMES:
+        raise ValueError(f"duplication must be one of {DUPLICATION_REGIMES}")
+    if d.class_prompt not in CONDITIONING_REGIMES:
+        raise ValueError(f"class_prompt must be one of {CONDITIONING_REGIMES}")
+    if d.trainspecial not in TRAIN_MITIGATIONS:
+        raise ValueError(f"trainspecial must be one of {TRAIN_MITIGATIONS}")
+    if d.duplication == "dup_image" and d.class_prompt == "instancelevel_ogcap":
+        # guarded invalid in the reference (diff_train.py:739)
+        raise ValueError("dup_image requires multiple captions per image; ogcap has one")
+    if d.trainspecial != "none" and d.class_prompt != "instancelevel_blip":
+        # caption mitigations are blip-captions-only (reference diff_train.py:741-743)
+        raise ValueError("trainspecial mitigations require class_prompt=instancelevel_blip")
+    validate_risk_config(cfg.risk)
+    validate_pipe_config(cfg)
+    if cfg.model.seq_parallel_mode not in ("ring", "ulysses"):
+        raise ValueError("seq_parallel_mode must be 'ring' or 'ulysses'")
+    ft = cfg.fault
+    if ft.decode_retries < 0 or ft.max_rollbacks < 0:
+        raise ValueError("fault.decode_retries/max_rollbacks must be >= 0")
+    if not 0.0 <= ft.max_bad_sample_frac <= 1.0:
+        raise ValueError("fault.max_bad_sample_frac must be in [0, 1]")
+    if ft.io_retries < 1:
+        raise ValueError("fault.io_retries must be >= 1")
+    missing = _not_ported(cfg)
+    if missing:
+        raise NotPortedError(
+            "not ported to dcr_tpu_torch yet: " + "; ".join(missing)
+            + ". Run without them or use the JAX package.")
+
+
+def run_name(cfg: TrainConfig) -> str:
+    """Human-readable run directory name (reference diff_train.py:745-760);
+    informational only, the source of truth is config.json."""
+    d = cfg.data
+    parts = [d.class_prompt, d.duplication]
+    if d.duplication != "nodup":
+        parts += [str(d.weight_pc), str(d.dup_weight)]
+    if cfg.rand_noise_lam:
+        parts.append(f"glam{cfg.rand_noise_lam}")
+    if cfg.mixup_noise_lam:
+        parts.append(f"mixlam{cfg.mixup_noise_lam}")
+    if d.trainspecial != "none":
+        parts.append(f"special_{d.trainspecial}_{d.trainspecial_prob}")
+    if d.trainsubset > 0:
+        parts.append(f"{d.trainsubset}subset")
+    return "_".join(parts)
+
+
 # ---------------------------------------------------------------------------
 # (de)serialization + CLI
 # ---------------------------------------------------------------------------
@@ -198,6 +466,12 @@ def from_dict(cls: Type[T], d: dict) -> T:
             raise KeyError(f"unknown config key {k!r} for {cls.__name__}")
         kwargs[k] = _coerce(v, hints[k])
     return cls(**kwargs)
+
+
+def save_config(cfg: Any, path: str | Path) -> None:
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(to_dict(cfg), indent=2, sort_keys=True) + "\n")
 
 
 def load_config(cls: Type[T], path: str | Path) -> T:

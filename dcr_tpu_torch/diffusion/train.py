@@ -1,0 +1,332 @@
+"""The diffusion finetuning train step and its state, on one device.
+
+Counterpart of ``dcr_tpu/diffusion/train.py``. One eager function computes
+vae-encode -> q-sample -> text-encode (+ embedding mitigations) -> unet ->
+mse(eps|v) -> clip -> AdamW, in the JAX step's order (reference
+diff_train.py:613-666). Train-time mitigations (arXiv:2305.20086):
+
+- ``rand_noise_lam``: Gaussian noise added to the text embeddings;
+- ``mixup_noise_lam``: Beta(lambda, 1)-weighted mixup of the text embeddings
+  across the batch with a random permutation.
+
+The optimizer is written out rather than taken from ``torch.optim``, so that
+it is the JAX package's optax chain step for step: global-norm clipping by
+``g * max_norm / g_norm`` (no epsilon), AdamW that decays every parameter,
+the learning-rate schedule indexed by the optimizer-update count (the first
+update uses ``schedule(0)``), and ``optax.MultiSteps``' running mean of the
+gradients when ``gradient_accumulation_steps > 1``.
+
+Parameters are dicts of f32 master tensors under the port's state-dict
+names (the modules' own parameters in the trainer). Under
+``mixed_precision="bf16"`` they are cast to bf16 for the forward with
+``.to()``, so the gradient flows back to the f32 masters, and the modules
+then compute in bf16. Device draws come from per-step ``torch.Generator``s
+of :func:`dcr_tpu_torch.core.rng.stream_generator`; the ``draws`` argument
+hands them in as tensors instead (the parity tests inject the JAX step's).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
+
+from dcr_tpu_torch.core import rng as rngmod
+from dcr_tpu_torch.core.config import NotPortedError, OptimConfig, TrainConfig
+from dcr_tpu_torch.core.precision import policy_from_string
+from dcr_tpu_torch.models import schedulers as S
+from dcr_tpu_torch.sampling.sampler import DiffusionModels  # noqa: F401 (the bundle)
+
+Params = dict[str, torch.Tensor]
+# the per-step device draws, named as the JAX step's key streams
+DRAW_STREAMS = ("vae_sample", "noise", "timesteps", "emb_noise", "mixup_beta", "mixup_perm")
+
+
+@dataclass
+class OptState:
+    """optax's state for clip + AdamW (+ MultiSteps), flat over
+    ``<group>/<param name>`` keys. ``count`` is AdamW's update count (it also
+    indexes the schedule); ``mini_step`` and ``acc_grads`` are MultiSteps'."""
+
+    count: int
+    mu: Params
+    nu: Params
+    mini_step: int = 0
+    acc_grads: Optional[Params] = None
+
+
+@dataclass
+class TrainState:
+    step: int                        # micro-step counter
+    unet_params: Params
+    text_params: Params              # trainable iff cfg.train_text_encoder
+    vae_params: Params               # always frozen
+    opt_state: OptState
+    ema_params: Optional[Params] = None
+
+
+def trainable_of(state: TrainState, train_text_encoder: bool) -> dict[str, Params]:
+    t = {"unet": state.unet_params}
+    if train_text_encoder:
+        t["text_encoder"] = state.text_params
+    return t
+
+
+def _flat(trainable: dict[str, Params]) -> Params:
+    return {f"{group}/{name}": p for group, params in trainable.items()
+            for name, p in params.items()}
+
+
+def resolve_scale_lr(cfg: TrainConfig) -> TrainConfig:
+    """Fold scale_lr (lr x grad-accum x per-device batch x device count, one
+    device here) into a new config with scale_lr cleared."""
+    if not cfg.optim.scale_lr:
+        return cfg
+    new_optim = dataclasses.replace(
+        cfg.optim, scale_lr=False,
+        learning_rate=cfg.optim.learning_rate * cfg.optim.gradient_accumulation_steps
+        * cfg.train_batch_size)
+    return dataclasses.replace(cfg, optim=new_optim)
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule."""
+    if steps <= 0:
+        return lambda count: init
+
+    def f(count: int) -> float:
+        frac = 1.0 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+    return f
+
+
+def _cosine(init: float, decay_steps: int) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule with alpha 0."""
+    def f(count: int) -> float:
+        return init * 0.5 * (1.0 + math.cos(math.pi * min(count, decay_steps) / decay_steps))
+    return f
+
+
+def _join(first: Callable[[int], float], then: Callable[[int], float],
+          boundary: int) -> Callable[[int], float]:
+    """optax.join_schedules over two schedules."""
+    return lambda count: first(count) if count < boundary else then(count - boundary)
+
+
+def make_lr_schedule(cfg: OptimConfig) -> Callable[[int], float]:
+    """The reference's get_scheduler surface (diff_train.py:506-511), with
+    optax's values: count -> learning rate."""
+    lr, warmup = cfg.learning_rate, cfg.lr_warmup_steps
+    if cfg.lr_scheduler == "constant":
+        return lambda count: lr
+    if cfg.lr_scheduler == "constant_with_warmup":
+        return _join(_linear(0.0, lr, warmup), lambda count: lr, warmup)
+    if cfg.lr_scheduler == "linear":
+        return _join(_linear(0.0, lr, warmup), _linear(lr, 0.0, 10 ** 9), warmup)
+    if cfg.lr_scheduler == "cosine":
+        return _join(_linear(0.0, lr, warmup), _cosine(lr, 10 ** 6), warmup)
+    raise ValueError(f"unknown lr_scheduler {cfg.lr_scheduler!r}")
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum of squares over every element, f32."""
+    return torch.stack([t.float().pow(2).sum() for t in tensors]).sum().sqrt()
+
+
+class Optimizer:
+    """optax.chain(clip_by_global_norm, adamw) wrapped in MultiSteps when
+    accumulating; :meth:`update` applies the update to the params in place."""
+
+    def __init__(self, cfg: OptimConfig):
+        if cfg.use_8bit_adam:
+            raise NotPortedError("optim.use_8bit_adam is not ported to dcr_tpu_torch yet")
+        self.cfg = cfg
+        self.schedule = make_lr_schedule(cfg)
+        self.accum = max(1, cfg.gradient_accumulation_steps)
+
+    def init(self, trainable: dict[str, Params]) -> OptState:
+        flat = _flat(trainable)
+        zeros = lambda: {k: torch.zeros_like(p, dtype=torch.float32) for k, p in flat.items()}
+        return OptState(count=0, mu=zeros(), nu=zeros(),
+                        acc_grads=zeros() if self.accum > 1 else None)
+
+    @torch.no_grad()
+    def update(self, grads: Params, opt: OptState, trainable: dict[str, Params]) -> bool:
+        """One optimizer call on flat ``grads``; returns whether the params
+        were updated (always, unless inside a gradient accumulation)."""
+        if self.accum > 1:
+            n = opt.mini_step
+            for k, g in grads.items():                 # running mean, as MultiSteps
+                acc = opt.acc_grads[k]
+                acc.add_((g - acc) / (n + 1))
+            if n < self.accum - 1:
+                opt.mini_step = n + 1
+                return False
+            opt.mini_step = 0
+            grads = opt.acc_grads
+        self._adamw(self._clip(grads), opt, _flat(trainable))
+        if self.accum > 1:
+            for acc in opt.acc_grads.values():
+                acc.zero_()
+        return True
+
+    def _clip(self, grads: Params) -> Params:
+        max_norm = self.cfg.max_grad_norm
+        g_norm = global_norm(grads.values())
+        keep = g_norm < max_norm
+        return {k: torch.where(keep, g, (g / g_norm) * max_norm) for k, g in grads.items()}
+
+    def _adamw(self, grads: Params, opt: OptState, params: Params) -> None:
+        c = self.cfg
+        lr = self.schedule(opt.count)
+        opt.count += 1
+        bc1 = 1.0 - c.adam_beta1 ** opt.count
+        bc2 = 1.0 - c.adam_beta2 ** opt.count
+        for k, g in grads.items():
+            mu, nu, p = opt.mu[k], opt.nu[k], params[k]
+            mu.mul_(c.adam_beta1).add_(g, alpha=1.0 - c.adam_beta1)
+            nu.mul_(c.adam_beta2).addcmul_(g, g, value=1.0 - c.adam_beta2)
+            upd = (mu / bc1) / ((nu / bc2).sqrt_() + c.adam_epsilon)
+            upd.add_(p, alpha=c.adam_weight_decay)
+            p.add_(upd, alpha=-lr)
+
+
+def make_optimizer(cfg: OptimConfig) -> Optimizer:
+    """AdamW with global-norm clipping and gradient accumulation (reference:
+    AdamW diff_train.py:424-446, clip 657-663, accumulate 618)."""
+    return Optimizer(cfg)
+
+
+def init_train_state(cfg: TrainConfig, models: DiffusionModels, *, unet_params: Params,
+                     text_params: Params, vae_params: Params) -> TrainState:
+    """The state over the given f32 params (used as they are, not copied);
+    marks the trainable ones as requiring grad and the frozen ones not."""
+    cfg = resolve_scale_lr(cfg)
+    for params, trained in ((unet_params, True), (text_params, cfg.train_text_encoder),
+                            (vae_params, False)):
+        for p in params.values():
+            p.requires_grad_(trained)
+    trainable = {"unet": unet_params}
+    if cfg.train_text_encoder:
+        trainable["text_encoder"] = text_params
+    return TrainState(
+        step=0, unet_params=unet_params, text_params=text_params, vae_params=vae_params,
+        opt_state=make_optimizer(cfg.optim).init(trainable),
+        ema_params=({k: p.detach().clone() for k, p in unet_params.items()}
+                    if cfg.ema_decay > 0 else None))
+
+
+class _Encode(nn.Module):
+    """The VAE's ``encode`` as a forward, for ``functional_call``."""
+
+    def __init__(self, vae: nn.Module):
+        super().__init__()
+        self.vae = vae
+
+    def forward(self, x: torch.Tensor):
+        return self.vae.encode(x)
+
+
+def make_train_step(cfg: TrainConfig, models: DiffusionModels) -> Callable:
+    """The train step: (state, batch, draws=None) -> (state, metrics).
+
+    batch: ``pixel_values`` [B, H, W, 3] f32 in [-1, 1] (NHWC, as the loader
+    gives it) and ``input_ids`` [B, L]. ``draws`` maps the names of
+    :data:`DRAW_STREAMS` to tensors that replace the step's own draws:
+    ``vae_sample`` and ``noise`` [B, C, h, w], ``timesteps`` [B],
+    ``emb_noise`` [B, L, D], ``mixup_beta`` (lambda) and ``mixup_perm`` [B].
+    The state is updated in place and returned; metrics are device tensors
+    (``loss``, ``grad_norm``) and a float (``lr``).
+    """
+    cfg = resolve_scale_lr(cfg)
+    policy = policy_from_string(cfg.mixed_precision)
+    tx = make_optimizer(cfg.optim)
+    sched = models.schedule
+    accum = tx.accum
+    encoder = _Encode(models.vae)
+    scaling = models.vae.config.vae_scaling_factor
+
+    def step_fn(state: TrainState, batch: dict, draws: Optional[dict] = None):
+        device = next(iter(state.unet_params.values())).device
+        pixels = torch.as_tensor(batch["pixel_values"], dtype=torch.float32, device=device)
+        pixels = pixels.permute(0, 3, 1, 2).contiguous()
+        input_ids = torch.as_tensor(batch["input_ids"], dtype=torch.long, device=device)
+        bsz = pixels.shape[0]
+        step = state.step
+
+        def draw(name: str, make: Callable[[torch.Generator], torch.Tensor]) -> torch.Tensor:
+            if draws is not None and name in draws:
+                return torch.as_tensor(draws[name], device=device)
+            return make(rngmod.stream_generator(cfg.seed, f"train/{name}", step, device))
+
+        # frozen VAE encode, posterior sample, scale
+        with torch.no_grad():
+            post = functional_call(encoder, {f"vae.{k}": v for k, v in
+                                             policy.cast_to_compute(state.vae_params).items()},
+                                   (policy.cast_to_compute(pixels),))
+            eps = draw("vae_sample", lambda g: torch.randn(
+                post.mean.shape, generator=g, device=device))
+            std = torch.exp(0.5 * torch.clamp(post.logvar, -30.0, 20.0))
+            latents = ((post.mean + std * eps) * scaling).float()
+            noise = draw("noise", lambda g: torch.randn(latents.shape, generator=g,
+                                                        device=device))
+            timesteps = draw("timesteps", lambda g: torch.randint(
+                0, sched.num_train_timesteps, (bsz,), generator=g, device=device)).long()
+            noisy_latents = S.add_noise(sched, latents, noise, timesteps)
+            target = S.training_target(sched, latents, noise, timesteps)
+
+        def text_encode(text_params: Params) -> torch.Tensor:
+            return functional_call(models.text_encoder, policy.cast_to_compute(text_params),
+                                   (input_ids,)).last_hidden_state
+
+        trainable = trainable_of(state, cfg.train_text_encoder)
+        with torch.enable_grad():
+            if cfg.train_text_encoder:
+                ctx = text_encode(trainable["text_encoder"])
+            else:
+                with torch.no_grad():
+                    ctx = text_encode(state.text_params)
+            if cfg.rand_noise_lam > 0:
+                ctx = ctx + cfg.rand_noise_lam * draw("emb_noise", lambda g: torch.randn(
+                    ctx.shape, generator=g, device=device, dtype=ctx.dtype))
+            if cfg.mixup_noise_lam > 0:
+                # Beta(a, 1) by inversion: U ** (1 / a)
+                lam = draw("mixup_beta", lambda g: torch.rand(
+                    (), generator=g, device=device) ** (1.0 / cfg.mixup_noise_lam))
+                perm = draw("mixup_perm", lambda g: torch.randperm(
+                    bsz, generator=g, device=device)).long()
+                ctx = lam * ctx + (1.0 - lam) * ctx[perm]
+
+            unet_params = policy.cast_to_compute(trainable["unet"])
+
+            def unet_apply(x, t, c):
+                return functional_call(models.unet, unet_params, (x, t, c))
+
+            args = (policy.cast_to_compute(noisy_latents), timesteps,
+                    policy.cast_to_compute(ctx))
+            pred = (checkpoint(unet_apply, *args, use_reentrant=False) if cfg.remat
+                    else unet_apply(*args))
+            loss = torch.mean((pred.float() - target) ** 2)
+            flat = _flat(trainable)
+            grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+
+        grad_norm = global_norm(grads.values())
+        applied = tx.update(grads, state.opt_state, trainable)
+        if state.ema_params is not None and applied:
+            d = cfg.ema_decay
+            with torch.no_grad():
+                for k, e in state.ema_params.items():
+                    e.mul_(d).add_(state.unet_params[k], alpha=1.0 - d)
+        state.step = step + 1
+        # the schedule advances once per accumulation boundary
+        metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
+                   "lr": tx.schedule(step // accum)}
+        return state, metrics
+
+    return step_fn

@@ -1,10 +1,12 @@
-"""Carry the JAX package's parameter trees into the port's state dicts.
+"""Carry parameter trees between the JAX package and the port's state dicts.
 
 Own copy of the name maps and layout rules of ``dcr_tpu/models/export.py``:
-each function takes a Flax param tree (nested dicts of numpy arrays, as
-``params.npz`` holds them) and returns a torch state dict under diffusers /
-transformers naming that the port's modules load with ``strict=True``.
+each ``*_from_flax`` takes a Flax param tree (nested dicts of numpy arrays,
+as ``params.npz`` holds them) and returns a torch state dict under diffusers
+/ transformers naming that the port's modules load with ``strict=True``.
 Dense kernels [in, out] become [out, in]; conv kernels HWIO become OIHW.
+Each ``*_to_flax`` is the inverse, for the port's own exports: a round trip
+gives back the same tree, key for key and bit for bit.
 """
 
 from __future__ import annotations
@@ -134,3 +136,124 @@ def text_from_flax(params: Any) -> dict[str, torch.Tensor]:
     sd[f"{p}final_layer_norm.weight"] = np.asarray(params["final_layer_norm"]["scale"])
     sd[f"{p}final_layer_norm.bias"] = np.asarray(params["final_layer_norm"]["bias"])
     return _to_torch(sd)
+
+
+# ---------------------------------------------------------------------------
+# the inverse: the port's state dicts -> Flax trees of numpy arrays
+# ---------------------------------------------------------------------------
+
+def _nest(flat: dict[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, value in flat.items():
+        *parents, leaf = path.split("/")
+        cur = tree
+        for p in parents:
+            cur = cur.setdefault(p, {})
+        cur[leaf] = value
+    return tree
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def _sd_to_tree(sd: dict[str, torch.Tensor],
+                inverse_map: Callable[[str], str]) -> dict:
+    """Inverse of :func:`_tree_to_sd`. A module's kind comes from its weight's
+    rank: 4 a conv (OIHW -> HWIO), 2 a dense ([out, in] -> [in, out]), 1 a
+    norm (``weight`` -> ``scale``). Every GroupNorm outside the transformer
+    blocks sits one level down in Flax, under ``GroupNorm_0``."""
+    flat: dict[str, np.ndarray] = {}
+    for key, value in sd.items():
+        prefix, leaf = key.rsplit(".", 1)
+        rank = sd[f"{prefix}.weight"].ndim
+        path = inverse_map(prefix)
+        if rank == 1 and "transformer_blocks" not in prefix:
+            path += "/GroupNorm_0"
+        arr = _numpy(value)
+        if leaf == "weight":
+            leaf = {4: "kernel", 2: "kernel", 1: "scale"}[rank]
+            arr = np.transpose(arr, (2, 3, 1, 0)) if rank == 4 else (arr.T if rank == 2 else arr)
+        flat[f"{path}/{leaf}"] = np.ascontiguousarray(arr)
+    return _nest(flat)
+
+
+def unet_inverse_name_map(n_blocks: int) -> Callable[[str], str]:
+    def f(p: str) -> str:
+        p = re.sub(r"^down_blocks\.(\d+)\.resnets\.(\d+)", r"down_\1_res_\2", p)
+        p = re.sub(r"^down_blocks\.(\d+)\.attentions\.(\d+)", r"down_\1_attn_\2", p)
+        p = re.sub(r"^down_blocks\.(\d+)\.downsamplers\.0", r"down_\1_downsample", p)
+        p = re.sub(r"^up_blocks\.(\d+)\.resnets\.(\d+)",
+                   lambda m: f"up_{n_blocks - 1 - int(m.group(1))}_res_{m.group(2)}", p)
+        p = re.sub(r"^up_blocks\.(\d+)\.attentions\.(\d+)",
+                   lambda m: f"up_{n_blocks - 1 - int(m.group(1))}_attn_{m.group(2)}", p)
+        p = re.sub(r"^up_blocks\.(\d+)\.upsamplers\.0",
+                   lambda m: f"up_{n_blocks - 1 - int(m.group(1))}_upsample", p)
+        p = re.sub(r"^mid_block\.resnets\.(\d)", r"mid_res_\1", p)
+        p = p.replace("mid_block.attentions.0", "mid_attn")
+        p = re.sub(r"transformer_blocks\.(\d+)", r"blocks_\1", p)
+        p = re.sub(r"\.(attn\d)\.to_out\.0$", r".\1.to_out", p)
+        p = p.replace(".ff.net.0.proj", ".ff.proj_in").replace(".ff.net.2", ".ff.proj_out")
+        return p.replace(".", "/")
+    return f
+
+
+def unet_to_flax(sd: dict[str, torch.Tensor], n_blocks: int) -> dict:
+    """The port's UNet2DCondition state dict -> the JAX package's param tree."""
+    return _sd_to_tree(sd, unet_inverse_name_map(n_blocks))
+
+
+_VAE_ATTN_NEW = {v: k for k, v in _VAE_ATTN_OLD.items()}
+
+
+def vae_inverse_name_map(p: str) -> str:
+    p = re.sub(r"^encoder\.down_blocks\.(\d+)\.resnets\.(\d+)", r"encoder.down_\1_res_\2", p)
+    p = re.sub(r"^encoder\.down_blocks\.(\d+)\.downsamplers\.0", r"encoder.down_\1_downsample", p)
+    p = re.sub(r"^(encoder|decoder)\.mid_block\.resnets\.(\d)", r"\1.mid_res_\2", p)
+    p = re.sub(r"^(encoder|decoder)\.mid_block\.attentions\.0", r"\1.mid_attn", p)
+    p = re.sub(r"^decoder\.up_blocks\.(\d+)\.resnets\.(\d+)", r"decoder.up_\1_res_\2", p)
+    p = re.sub(r"^decoder\.up_blocks\.(\d+)\.upsamplers\.0", r"decoder.up_\1_upsample", p)
+    p = re.sub(r"^quant_conv", "encoder.quant_conv", p)
+    p = re.sub(r"^post_quant_conv", "decoder.post_quant_conv", p)
+    p = re.sub(r"\.(query|key|value|proj_attn)$", lambda m: "." + _VAE_ATTN_NEW[m.group(1)], p)
+    return p.replace(".", "/")
+
+
+def vae_to_flax(sd: dict[str, torch.Tensor]) -> dict:
+    """The port's AutoencoderKL state dict -> the JAX package's param tree."""
+    return _sd_to_tree(sd, vae_inverse_name_map)
+
+
+def text_to_flax(sd: dict[str, torch.Tensor], heads: int) -> dict:
+    """The port's CLIPTextModel state dict -> the JAX package's param tree;
+    the [D, D] attention linears unfold into flax's [D, H, hd] / [H, hd, D]."""
+    p = "text_model."
+    g = lambda k: _numpy(sd[f"{p}{k}"])
+    tree: dict = {
+        "token_embedding": {"embedding": g("embeddings.token_embedding.weight")},
+        "position_embedding": g("embeddings.position_embedding.weight"),
+        "final_layer_norm": {"scale": g("final_layer_norm.weight"),
+                             "bias": g("final_layer_norm.bias")},
+    }
+    names = {"query": "q_proj", "key": "k_proj", "value": "v_proj"}
+    i = 0
+    while f"{p}encoder.layers.{i}.layer_norm1.weight" in sd:
+        src = f"encoder.layers.{i}"
+        d = g(f"{src}.self_attn.q_proj.weight").shape[0]
+        hd = d // heads
+        attn = {ours: {"kernel": np.ascontiguousarray(
+                           g(f"{src}.self_attn.{theirs}.weight").T.reshape(d, heads, hd)),
+                       "bias": g(f"{src}.self_attn.{theirs}.bias").reshape(heads, hd)}
+                for ours, theirs in names.items()}
+        attn["out"] = {"kernel": np.ascontiguousarray(
+                           g(f"{src}.self_attn.out_proj.weight").T.reshape(heads, hd, d)),
+                       "bias": g(f"{src}.self_attn.out_proj.bias")}
+        layer = {"attn": attn}
+        for ours, theirs in (("ln1", "layer_norm1"), ("ln2", "layer_norm2")):
+            layer[ours] = {"scale": g(f"{src}.{theirs}.weight"), "bias": g(f"{src}.{theirs}.bias")}
+        for fc in ("fc1", "fc2"):
+            layer[fc] = {"kernel": np.ascontiguousarray(g(f"{src}.mlp.{fc}.weight").T),
+                         "bias": g(f"{src}.mlp.{fc}.bias")}
+        tree[f"layers_{i}"] = layer
+        i += 1
+    return tree

@@ -1,8 +1,10 @@
 """Attention dispatcher (counterpart of dcr_tpu/ops/attention.py).
 
 One function for every attention in the models. A kernel-capable shape with
-no mask goes to the hand-written flash-attention kernel (on the CPU, to its
-plain version); everything else goes to ``F.scaled_dot_product_attention``,
+no mask goes to the hand-written flash-attention kernels through the autograd
+Function ``FlashAttention``: the forward kernel, and under autograd the dQ
+and dK/dV kernels for its gradient (on the CPU, their plain versions).
+Everything else goes to ``F.scaled_dot_product_attention``,
 the role XLA's fused attention plays in the JAX package: cross-attention over
 77 text tokens, the 8x8 mid self-attention, the VAE attention (D=512) and
 CLIP's causal attention. The choice depends on shapes alone.
