@@ -5,12 +5,18 @@
 Phases, in order; any failure ends the run with a non-zero exit code:
 1. card: name and power limit from nvidia-smi; TF32 off for matmuls and convs;
 2. build: every kernel source in dcr_tpu_torch/csrc (one nvcc each, at once);
+   per kernel symbol, its registers and spill bytes (ptxas) and its count of
+   tensor-core instructions (HMMA/HGMMA in cuobjdump's SASS); the bf16
+   forward and dK/dV kernels must have tensor-core instructions, and no
+   spills at D=64;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes and a few edge shapes, with times (CUDA events,
-   median), the plain version's and the library call's time, and the bound:
-   the forward kernel (B1), then the dQ (B2) and dK/dV (B3) backward
-   kernels, which must also give bit-identical gradients over two launches;
-   a gradient probe through the autograd Function;
+   the main paths' shapes and a few edge shapes, in f32 and bf16 (bf16
+   against the plain version in bf16, which rounds where the kernels round),
+   with times, the plain version's and the library call's time, the bound
+   and the share of it reached: the forward kernel (B1), then the dQ (B2)
+   and dK/dV (B3) backward kernels, which must also give bit-identical
+   gradients over two launches; a gradient probe through the autograd
+   Function;
 4. small references: a kernel-shaped tiny sampler, and 2 train steps of a
    kernel-shaped tiny model, on the card against the same on the CPU (plain
    attention), from the same x_T / weights and draws;
@@ -31,6 +37,8 @@ before it holds the kernels' numbers as JSON.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -51,10 +59,40 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# bf16 kernels against their plain versions in bf16: max-abs error at most
+# this share of max(1, max|reference|)
+BF16_TOL = 2.0 ** -6
+
+
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of one call, CUDA events around each call."""
+    """Device time of one call: ``reps`` calls captured in one CUDA graph, so
+    no host time lies between them; CUDA events around each of 5 replays,
+    median over the replays of the time per call."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    run = g.replay
+    run()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def call_ms(fn, reps: int) -> float:
+    """Median time of one call with the device idle before it, CUDA events
+    around each call: the kernel plus the wrapper's host time (the kernel
+    table's older measure)."""
+    fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -65,6 +103,10 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bf16_tol(ref: torch.Tensor) -> float:
+    return BF16_TOL * max(1.0, ref.float().abs().max().item())
 
 
 def flash_bound(b: int, sq: int, sk: int, h: int, d: int, dtype) -> tuple[float, str]:
@@ -106,18 +148,92 @@ def phase_card() -> None:
         f"device {torch.cuda.get_device_name(0)}")
 
 
-def phase_build() -> None:
+# kernels that must run on the tensor cores (bf16 instantiations of B1, B3)
+TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel")
+
+
+def _ptxas_stats(text: str) -> dict[str, dict]:
+    """{mangled kernel: {"registers": n, "spill_bytes": stores + loads}}
+    from nvcc -Xptxas -v output."""
+    stats: dict[str, dict] = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?",
+                      line)
+        if m:
+            cur = stats.setdefault(m.group(1), {"registers": None, "spill_bytes": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return stats
+
+
+def _sass_tensor_core_counts(lib: Path, cuobjdump: Path) -> dict[str, int]:
+    """{mangled kernel: count of HMMA/HGMMA instructions} in a built library."""
+    out = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts: dict[str, int] = {}
+    cur = None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and re.search(r"\bHG?MMA\.", line):
+            counts[cur] += 1
+    return counts
+
+
+def _demangle(names: list[str]) -> list[str]:
+    filt = shutil.which("c++filt")
+    if not filt or not names:
+        return names
+    out = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+def phase_build() -> dict:
+    """Builds both sources at once; prints, per kernel symbol, registers,
+    spill bytes and tensor-core instruction count; raises if a bf16
+    forward or dK/dV instantiation has no tensor-core instruction or
+    spills at D=64."""
     from dcr_tpu_torch.ops import build
     from dcr_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    logs = build.build([fa.SOURCE, fa.BWD_SOURCE])
+    sources = [fa.SOURCE, fa.BWD_SOURCE]
+    logs = build.build(sources)
     log(f"build: {len(logs)} kernel source(s) in {time.perf_counter() - t0:.2f} s "
         f"with {build.nvcc_path()}")
-    for stem, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {stem}: {line.strip()}")
+    cuobjdump = build.nvcc_path().parent / "cuobjdump"
+    kernels = {}
+    for source in sources:
+        text = logs[source.stem] or (build.BUILD_DIR / f"{source.stem}.log").read_text()
+        ptxas = _ptxas_stats(text)
+        counts = _sass_tensor_core_counts(build.library_path(source), cuobjdump)
+        names = sorted(counts)
+        for name, pretty in zip(names, _demangle(names)):
+            st = ptxas.get(name, {"registers": None, "spill_bytes": None})
+            kernels[pretty] = {"source": source.name, "symbol": name,
+                               "tensor_core_instructions": counts[name], **st}
+            log(f"  {source.stem}: {pretty}: {st['registers']} registers, "
+                f"{st['spill_bytes']} spill bytes, {counts[name]} HMMA/HGMMA")
+    bad = [(k, v) for k, v in kernels.items()
+           if any(t in v["symbol"] for t in TENSOR_CORE_KERNELS)
+           and (v["tensor_core_instructions"] == 0
+                or ("ILi64E" in v["symbol"] and v["spill_bytes"] != 0))]
+    if bad or not any(any(t in v["symbol"] for t in TENSOR_CORE_KERNELS)
+                      for v in kernels.values()):
+        raise AssertionError(f"bf16 kernels without tensor-core instructions or spilling "
+                             f"at D=64: {bad or 'none found'}")
+    return kernels
 
 
 def phase_kernels(reps: int) -> dict:
@@ -143,8 +259,6 @@ def phase_kernels(reps: int) -> dict:
     worst = 0.0
     for name, b, sq, sk, h, d, scale, main in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            if not main and dtype is torch.bfloat16 and name != "d256":
-                continue
             q = torch.randn((b, sq, h, d), generator=gen, device=dev) * scale
             k = torch.randn((b, sk, h, d), generator=gen, device=dev)
             v = torch.randn((b, sk, h, d), generator=gen, device=dev)
@@ -152,32 +266,36 @@ def phase_kernels(reps: int) -> dict:
             with torch.no_grad():
                 o, lse = fa.flash_attention_fwd(q, k, v)
                 torch.cuda.synchronize()
-                ref_o, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float())
-            err_o = (o.float() - ref_o).abs().max().item()
+                ref_o, ref_lse = fa.flash_attention_reference(q, k, v)
+            err_o = (o.float() - ref_o.float()).abs().max().item()
             err_lse = (lse - ref_lse).abs().max().item()
             if dtype is torch.bfloat16:
-                tol_o = dict(atol=3e-2, rtol=0.0)      # bf16 output vs f32 plain
+                tol_o = dict(atol=bf16_tol(ref_o), rtol=0.0)  # vs the plain version in bf16
             elif scale != 1.0:
                 tol_o = dict(atol=2e-4, rtol=2e-4)     # x100 logits: JAX repo's bound
             else:
                 tol_o = dict(atol=2e-5, rtol=0.0)
-            ok_o = torch.allclose(o.float(), ref_o, **tol_o)
+            ok_o = torch.allclose(o.float(), ref_o.float(), **tol_o)
             ok_lse = torch.allclose(lse, ref_lse, atol=1e-4, rtol=1e-5)
             finite = bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all())
             with torch.no_grad():
                 ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v), reps)
+                per_call_ms = call_ms(lambda: fa.flash_attention_fwd(q, k, v), reps)
                 plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v), reps)
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
                 lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)
             bound_ms, bound_by = flash_bound(b, sq, sk, h, d, dtype)
             row = dict(case=name, shape=[b, sq, sk, h, d], dtype=str(dtype).split(".")[-1],
                        max_abs_err=err_o, lse_max_abs_err=err_lse, ms=ms,
-                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, main_path=main, tol=tol_o)
+                       call_ms=per_call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       pct_of_bound=100.0 * bound_ms / ms, main_path=main, tol=tol_o)
             rows.append(row)
             log(f"flash {name:12s} {row['dtype']:8s} B={b} Sq={sq} Sk={sk} H={h} D={d}: "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}), max|o-ref| {err_o:.3e}, "
+                f"kernel {ms:.4f} ms ({row['pct_of_bound']:.1f} % of bound; "
+                f"{per_call_ms:.4f} ms per call with host), plain {plain_ms:.4f} ms, "
+                f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                f"max|o-ref| {err_o:.3e} (tol {tol_o['atol']:.3e}), "
                 f"max|lse-ref| {err_lse:.3e}")
             if not (ok_o and ok_lse and finite):
                 raise AssertionError(f"flash kernel disagrees with its plain version at "
@@ -231,9 +349,10 @@ def phase_bwd_kernels(reps: int) -> dict:
     """The dQ (B2) and dK/dV (B3) kernels against flash_attention_bwd_reference
     on the same inputs (the forward kernel's o and lse), bit-identical over two
     launches, with times. library_ms is the backward alone of
-    F.scaled_dot_product_attention on the same q, k, v and dO:
-    torch.autograd.grad on a graph built once, CUDA events around the call;
-    it computes dq, dk and dv, so it stands beside the pair of kernels."""
+    F.scaled_dot_product_attention on the same q, k, v and dO, on the device
+    (its forward and backward in one CUDA graph, less its forward alone);
+    library_call_ms is one torch.autograd.grad call, host included. It
+    computes dq, dk and dv, so it stands beside the pair of kernels."""
     import torch.nn.functional as F
 
     from dcr_tpu_torch.ops import flash_attention as fa
@@ -264,29 +383,42 @@ def phase_bwd_kernels(reps: int) -> dict:
                 dq2 = fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
                 dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, o, lse, do)
                 torch.cuda.synchronize()
-                ref = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(),
-                                                       o.float(), lse, do.float())
+                ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
             same = torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
             # tolerance relative to the gradient's magnitude: f32 kernels
             # differ from the plain version by summation order only; bf16
-            # kernels round P and dS to bf16 before their products and
-            # write bf16, as the TPU kernels do
-            rel = 1e-5 if dtype is torch.float32 else 1e-2
+            # kernels are held against the plain version in bf16, which
+            # rounds P and dS to bf16 before their products as they do
             errs, tols = [], []
             for got, want in zip((dq, dk, dv), ref):
-                errs.append((got.float() - want).abs().max().item())
-                tols.append(rel * max(1.0, want.abs().max().item()))
+                errs.append((got.float() - want.float()).abs().max().item())
+                tols.append(1e-5 * max(1.0, want.abs().max().item())
+                            if dtype is torch.float32 else bf16_tol(want))
             finite = all(bool(torch.isfinite(g.float()).all()) for g in (dq, dk, dv))
             with torch.no_grad():
                 ms_dq = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do), reps)
                 ms_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, o, lse, do), reps)
+                call_dq = call_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do), reps)
+                call_dkv = call_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, o, lse, do),
+                                   reps)
                 plain_ms = time_ms(lambda: fa.flash_attention_bwd_reference(
                     q, k, v, o, lse, do), reps)
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-            out = F.scaled_dot_product_attention(qt, kt, vt)
             dot = do.transpose(1, 2)
-            lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                         retain_graph=True), reps)
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(qt, kt, vt)
+                torch.autograd.grad(out, (qt, kt, vt), dot)
+
+            # SDPA's backward on the device alone: its forward and backward
+            # captured in one graph, less its forward captured alone
+            with torch.no_grad():
+                lib_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)
+            lib_ms = time_ms(sdpa_fwd_bwd, reps) - lib_fwd_ms
+            # and host included: one autograd.grad call on a graph built once
+            out = F.scaled_dot_product_attention(qt, kt, vt)
+            lib_call_ms = call_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                              retain_graph=True), reps)
             del out
             b_dq, by_dq = bwd_bound("dq", b, sq, sk, h, d, dtype)
             b_dkv, by_dkv = bwd_bound("dkv", b, sq, sk, h, d, dtype)
@@ -294,15 +426,21 @@ def phase_bwd_kernels(reps: int) -> dict:
                        main_path=main, bit_identical=same,
                        max_abs_err={"dq": errs[0], "dk": errs[1], "dv": errs[2]},
                        tol={"dq": tols[0], "dk": tols[1], "dv": tols[2]},
-                       dq_ms=ms_dq, dkv_ms=ms_dkv, plain_ms=plain_ms, library_ms=lib_ms,
+                       dq_ms=ms_dq, dkv_ms=ms_dkv, dq_call_ms=call_dq, dkv_call_ms=call_dkv,
+                       plain_ms=plain_ms, library_ms=lib_ms, library_call_ms=lib_call_ms,
                        dq_bound_ms=b_dq, dq_bound_by=by_dq, dkv_bound_ms=b_dkv,
-                       dkv_bound_by=by_dkv)
+                       dkv_bound_by=by_dkv, dq_pct_of_bound=100.0 * b_dq / ms_dq,
+                       dkv_pct_of_bound=100.0 * b_dkv / ms_dkv)
             rows.append(row)
             log(f"flash bwd {name:12s} {row['dtype']:8s} B={b} Sq={sq} Sk={sk} H={h} D={d}: "
-                f"dQ {ms_dq:.4f} ms (bound {b_dq:.4f}, {by_dq}), dK/dV {ms_dkv:.4f} ms "
-                f"(bound {b_dkv:.4f}, {by_dkv}), plain {plain_ms:.4f} ms, sdpa bwd "
-                f"{lib_ms:.4f} ms, max err dq/dk/dv "
-                f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, bit-identical {same}")
+                f"dQ {ms_dq:.4f} ms (bound {b_dq:.4f}, {by_dq}, "
+                f"{row['dq_pct_of_bound']:.1f} %; {call_dq:.4f} per call), dK/dV "
+                f"{ms_dkv:.4f} ms (bound {b_dkv:.4f}, {by_dkv}, "
+                f"{row['dkv_pct_of_bound']:.1f} %; {call_dkv:.4f} per call), plain "
+                f"{plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms ({lib_call_ms:.4f} per "
+                f"autograd.grad call), max err dq/dk/dv "
+                f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol "
+                f"{tols[0]:.3e}/{tols[1]:.3e}/{tols[2]:.3e}), bit-identical {same}")
             if not (same and finite and all(e <= t for e, t in zip(errs, tols))):
                 raise AssertionError(f"flash backward kernels disagree with their plain "
                                      f"version at {name} {dtype}: errs {errs}, tols {tols}, "
@@ -605,7 +743,7 @@ def main() -> int:
     import dcr_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     phase_card()
-    phase_build()
+    built = phase_build()
     kern = phase_kernels(reps=10)
     bwd = phase_bwd_kernels(reps=10)
     phase_small_reference()
@@ -630,6 +768,12 @@ def main() -> int:
     train_stats["kernel_ms_per_step"] = kernel_ms
     train_stats["kernel_share_of_step"] = kernel_ms / 1e3 / train_stats[
         "median_step_s_after_first"]
+
+    def tensor_cores(kernel):
+        """{instantiation: HMMA/HGMMA count} of a kernel's symbols"""
+        return {name: k["tensor_core_instructions"] for name, k in built.items()
+                if kernel + "<" in name or kernel in k["symbol"]}
+
     lead = fwd_row("level0", "float32")
     entries = [{
         "name": "flash_attention_fwd",
@@ -642,7 +786,13 @@ def main() -> int:
         "max_abs_err": kern["worst_main_f32_err"],
         "ms": lead["ms"], "plain_ms": lead["plain_ms"], "bound_ms": lead["bound_ms"],
         "bound_by": lead["bound_by"], "library_ms": lead["library_ms"],
+        "pct_of_bound": lead["pct_of_bound"],
         "shape": "B=4 S=4096 H=5 D=64 float32 (UNet level 0 at 512 px)",
+        "bf16_train": {c: {k: fwd_row(c, "bfloat16")[k] for k in
+                           ("shape", "ms", "bound_ms", "pct_of_bound", "library_ms",
+                            "max_abs_err")}
+                       for c in ("train_level0", "train_level1")},
+        "tensor_core_instructions": tensor_cores("flash_fwd_bf16_kernel"),
         "per_shape": kern["rows"],
     }]
     train_lead = bwd_row("train_level0", "bfloat16")
@@ -659,9 +809,22 @@ def main() -> int:
             "bound_ms": train_lead[f"{kind}_bound_ms"],
             "bound_by": train_lead[f"{kind}_bound_by"],
             "library_ms": train_lead["library_ms"],
+            "library_call_ms": train_lead["library_call_ms"],
+            "pct_of_bound": train_lead[f"{kind}_pct_of_bound"],
             "shape": "B=16 S=1024 H=5 D=64 bfloat16 (UNet level 0 at 256 px, training)",
+            "bf16_train": {c: {"shape": bwd_row(c, "bfloat16")["shape"],
+                               "ms": bwd_row(c, "bfloat16")[f"{kind}_ms"],
+                               "bound_ms": bwd_row(c, "bfloat16")[f"{kind}_bound_ms"],
+                               "pct_of_bound": bwd_row(c, "bfloat16")[f"{kind}_pct_of_bound"],
+                               "library_ms": bwd_row(c, "bfloat16")["library_ms"]}
+                           for c in ("train_level0", "train_level1")},
+            "tensor_core_instructions": tensor_cores(
+                "flash_bwd_dq_kernel" if kind == "dq" else "flash_bwd_dkv_bf16_kernel"),
             "plain_and_library_compute": "dq, dk and dv together (the backward of one "
-                                         "attention); library_ms is the SDPA backward alone",
+                                         "attention); library_ms is SDPA's backward on the "
+                                         "device (forward and backward in one CUDA graph, "
+                                         "less the forward); library_call_ms is one "
+                                         "autograd.grad call, host included",
             "per_shape": bwd["rows"] if kind == "dq" else "see flash_attention_bwd_dq",
         })
     log(f"main path stats: {json.dumps(main_stats)}")

@@ -1,8 +1,8 @@
 // Flash-attention backward for Hopper (sm_90a): dQ and dK/dV, f32 and bf16.
 //
 // Replaces the Pallas TPU kernels of dcr_tpu/ops/flash_attention.py:
-//   flash_bwd_dq_kernel  <- _bwd_dq_kernel  (launched by _flash_bwd)
-//   flash_bwd_dkv_kernel <- _bwd_dkv_kernel (launched by _flash_bwd)
+//   flash_bwd_dq_kernel                          <- _bwd_dq_kernel  (launched by _flash_bwd)
+//   flash_bwd_dkv_bf16_kernel, flash_bwd_dkv_kernel <- _bwd_dkv_kernel (launched by _flash_bwd)
 // Same functions, by recomputation from the forward's log-sum-exp:
 //   S = Q K^T * D^-1/2, P = exp(S - lse), dP = dO V^T, delta = rowsum(dO o O),
 //   dS = P o (dP - delta), dQ = D^-1/2 dS K, dK = D^-1/2 dS^T Q, dV = P^T dO.
@@ -16,37 +16,73 @@
 // 6*Sq*Sk*D flops per (b, h) (S and dP recomputed, then dQ), the dK/dV kernel
 // 8*Sq*Sk*D (S, dP, dV, dK), against ~(4*Sq + 2*Sk)*D elements of traffic, so
 // at the UNet's training shapes (S = 256..1024, D = 64) both are bound by
-// operations. This first version computes in f32 FMA on the CUDA cores (no
-// TF32, no tensor cores) for either dtype, so its ceiling is the 67 TFLOP/s
-// f32 rate; mma/wgmma and TMA are later work.
+// operations: the 989 TFLOP/s of the bf16 tensor cores for bf16 operands,
+// the 67 TFLOP/s f32 rate of the CUDA cores for f32 operands.
 //
-// Design. The TPU grid runs in order, and its dK/dV kernel carries f32 VMEM
+// The TPU grid runs in order, and its dK/dV kernel carries f32 VMEM
 // accumulators across a sequential ("arbitrary") q-block axis. Hopper runs
-// blocks in no order, so here:
+// blocks in no order, so the dK/dV kernels take one block per (b*h, key
+// tile) that loops over every query tile itself, in place of the TPU's
+// sequential grid axis; dK and dV accumulate in f32 registers and are
+// written once. No atomics: the gradients are bit-identical run to run.
+//
+// dK/dV, bf16 (flash_bwd_dkv_bf16_kernel), on the tensor cores:
+// - with mma.sync every warp reads the whole Q and dO tiles from shared
+//   memory, twice (plain and transposed), so shared-memory bandwidth, not
+//   the tensor cores, sets the pace. A block has 4 warps; each warp owns MT
+//   m-tiles of 16 keys, so a block holds 64 * MT keys. MT = 2 (D = 64, when
+//   the grid still gives every SM two blocks) makes each Q or dO fragment
+//   feed two products and cuts the reads per product by a third; MT = 1
+//   otherwise. The block's K and V stay resident, bf16, in padded shared
+//   memory (conflict-free ldmatrix);
+// - Q, dO, O and lse of each stage of query rows stream through a 2-stage
+//   cp.async ring, so stage i+1 loads while stage i is computed, with two
+//   barriers per stage (one for the data, one for delta); delta =
+//   rowsum(dO o O) is computed from the O tile in shared memory, not
+//   re-read from device memory. The barriers weigh: with MT = 2 a stage is
+//   64 rows computed as two 32-row sub-tiles, which halves the barriers per
+//   row and timed faster on an H100 than 32-row stages. Forming delta from
+//   each thread's own copies to drop one barrier per stage timed slower (it
+//   waits for stage i+1 at the end of stage i, and spilled at MT = 2);
+// - S^T = K Q^T and dP^T = V dO^T are mma.sync m16n8k16 bf16 products (K
+//   and V as A fragments by ldmatrix, Q and dO as B by ldmatrix);
+//   P^T = exp2(S^T * scale*log2(e) - lse*log2(e)) and dS^T = P^T (dP^T -
+//   delta) are formed on the f32 accumulator fragments in registers, and,
+//   packed to bf16, are the A operands of dV += P^T dO and dK += dS^T Q
+//   straight from registers (dO and Q enter through ldmatrix.trans);
+// - product sub-tiles of 64 query rows at D = 64 with MT = 1, else 32,
+//   which keeps the accumulators in registers (the MT = 2 kernel sits at
+//   255 registers with no spills; row strides are 32-bit inside it); at
+//   D = 256 each block computes half of dK/dV's columns (grid z = 2) and
+//   recomputes S^T and dP^T for it, since 16 x 256 f32 dK plus dV per warp
+//   would not fit the register file. Shared memory is 73-165 KB; every
+//   instantiation opts in.
+// The helpers (cp.async, ldmatrix, mma, fragment packing) are in mma_bf16.cuh.
+//
+// dQ (both dtypes) and dK/dV in f32 run f32 FMA on the CUDA cores:
 // - dQ: one block of 256 threads per (b*h, query tile). Q and dO tiles, lse
 //   and delta stay in shared memory; K and V tiles stream through it; dQ
 //   accumulates in registers over every key tile and is written once.
-// - dK/dV: one block per (b*h, key tile). K and V stay in shared memory; the
-//   block loops over every query tile itself, in place of the TPU's
-//   sequential grid axis, and dK and dV accumulate in f32 registers and are
-//   written once. No atomics: both gradients are bit-identical from run to
-//   run.
-// Products are register-tiled as in flash_attention_fwd.cu: 16 x 16 threads,
-// padded shared-memory rows so the 16-byte loads of a quarter warp hit
-// distinct banks. Tiles are 64 x 64 at D = 64 and 128; at D = 256 the f32
-// tiles of the dK/dV kernel would need 278 KB at 64 rows, more than the
-// 227 KB a block may use, so D = 256 takes 32 x 32 tiles. Shared memory is
-// 88-171 KB, so every instantiation opts in to large dynamic shared memory.
+// - dK/dV f32: one block per (b*h, key tile), the same loop as above.
+// Products are register-tiled as in flash_attention_fwd.cu's f32 kernel:
+// 16 x 16 threads, padded shared-memory rows so the 16-byte loads of a
+// quarter warp hit distinct banks. Tiles are 64 x 64 at D = 64 and 128; at
+// D = 256 the f32 tiles of the dK/dV kernel would need 278 KB at 64 rows,
+// more than the 227 KB a block may use, so D = 256 takes 32 x 32 tiles.
+// Shared memory is 88-171 KB, so every instantiation opts in to large
+// dynamic shared memory.
 //
 // The inputs are [B, S, H, D] tensors read through their strides (the last
-// dimension must be contiguous); the gradients are written [B, S, H, D] the
-// same way. lse is the compact [B*H, Sq] f32 array the forward kernel writes.
-// Each C entry point returns cudaGetLastError() after its launch so a refused
-// launch reaches the caller.
+// dimension contiguous, the others multiples of 16 bytes); the gradients are
+// written [B, S, H, D] the same way. lse is the compact [B*H, Sq] f32 array
+// the forward kernel writes. Each C entry point returns cudaGetLastError()
+// after its launch so a refused launch reaches the caller.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -399,6 +435,266 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
   store_rows<T, D, RK>(dvg, p.st[DV_][1], k0 + ty * RK, dv, 1.f, tx);
 }
 
+template <int D, int MT>
+struct DkvBf16Tiles {
+  static constexpr int BN = 64 * MT;             // keys per block: MT m-tiles of 16 per warp
+  static constexpr int BQ = D == 64 && MT == 1 ? 64 : 32;  // query rows per product sub-tile
+  static constexpr int BS = D == 64 ? 64 : 32;   // query rows per streamed stage
+  static constexpr int NSUB = BS / BQ;           // product sub-tiles per stage
+  static constexpr int DOUT = D == 256 ? 128 : D;  // dK/dV columns per block
+  static constexpr int LD = D + mma_bf16::PAD;   // shared-memory row, elements
+  // Ks, Vs [BN][LD]; 2 stages of Qs, dOs, Os [BS][LD] and lse [BS]; delta [BS]
+  static constexpr int STAGE = 3 * BS * LD * 2 + BS * 4;
+  static constexpr int SMEM = 2 * BN * LD * 2 + 2 * STAGE + BS * 4;
+};
+
+constexpr int MMA_NT = 128;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D, int MT>
+__global__ void __launch_bounds__(MMA_NT) flash_bwd_dkv_bf16_kernel(const Params p) {
+  using namespace mma_bf16;
+  using Tl = DkvBf16Tiles<D, MT>;
+  constexpr int BN = Tl::BN, BQ = Tl::BQ, BS = Tl::BS, NSUB = Tl::NSUB, DOUT = Tl::DOUT;
+  constexpr int LD = Tl::LD;
+  constexpr int KD = D / 16;    // k-steps of S^T and dP^T over D
+  constexpr int NQ = BQ / 8;    // n-tiles of S^T (queries)
+  constexpr int NO = DOUT / 8;  // n-tiles of dK, dV
+  extern __shared__ uint4 smem_u4[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem_u4);
+  bf16* Ks = reinterpret_cast<bf16*>(base);
+  bf16* Vs = Ks + BN * LD;
+  unsigned char* ring = base + 2 * BN * LD * 2;
+  float* deltas = reinterpret_cast<float*>(ring + 2 * Tl::STAGE);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int k0 = blockIdx.x * BN;
+  const int c0 = D == DOUT ? 0 : blockIdx.z * DOUT;  // first dK/dV column of this block
+  // m-tile mt of this warp is keys mt*64 + warp*16 .. +16 of the block: each
+  // 64-key part lies wholly inside Sk or wholly past it (Sk % 64 == 0)
+  const int parts = min(MT, (p.Sk - k0) / 64);
+
+  const bf16* qg = head<bf16>(p.q, p.st[Q_], b, h);
+  const bf16* kg = head<bf16>(p.k, p.st[K_], b, h);
+  const bf16* vg = head<bf16>(p.v, p.st[V_], b, h);
+  const bf16* og = head<bf16>(p.o, p.st[O_], b, h);
+  const bf16* dog = head<bf16>(p.dout, p.st[DO_], b, h);
+  const float* lseg = p.lse + (int64_t)bh * p.Sq;
+  // row strides fit 32 bits (checked at launch), which spares registers
+  const int q_ss = (int)p.st[Q_][1], o_ss = (int)p.st[O_][1], do_ss = (int)p.st[DO_][1];
+  const int k_ss = (int)p.st[K_][1], v_ss = (int)p.st[V_][1];
+
+  auto stage = [&](int i, bf16*& Qs, bf16*& dOs, bf16*& Os, float*& lses) {
+    unsigned char* st = ring + (i & 1) * Tl::STAGE;
+    Qs = reinterpret_cast<bf16*>(st);
+    dOs = Qs + BS * LD;
+    Os = dOs + BS * LD;
+    lses = reinterpret_cast<float*>(Os + BS * LD);
+  };
+  auto load_stage = [&](int i) {
+    bf16 *Qs, *dOs, *Os;
+    float* lses;
+    stage(i, Qs, dOs, Os, lses);
+    const int64_t q0 = (int64_t)i * BS;
+    load_tile_async<BS, D, MMA_NT>(Qs, qg + q0 * q_ss, q_ss, tid);
+    load_tile_async<BS, D, MMA_NT>(dOs, dog + q0 * do_ss, do_ss, tid);
+    load_tile_async<BS, D, MMA_NT>(Os, og + q0 * o_ss, o_ss, tid);
+    if (tid < BS / 4) cp_async_16(lses + tid * 4, lseg + q0 + tid * 4);
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    if (mt < parts) {
+      const int64_t r = k0 + mt * 64;
+      load_tile_async<64, D, MMA_NT>(Ks + mt * 64 * LD, kg + r * k_ss, k_ss, tid);
+      load_tile_async<64, D, MMA_NT>(Vs + mt * 64 * LD, vg + r * v_ss, v_ss, tid);
+    }
+  }
+  load_stage(0);
+
+  float dk[MT][NO][4], dv[MT][NO][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dk[mt][n][c] = dv[mt][n][c] = 0.f;
+  const float sl2 = p.scale * LOG2E;
+
+  // the loop over every query stage replaces the TPU's sequential grid axis
+  const int n_tiles = p.Sq / BS;
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage i has landed for all, and stage (i+1)&1 is free
+    if (i + 1 < n_tiles) load_stage(i + 1);
+    bf16 *Qs0, *dOs0, *Os;
+    float* lses0;
+    stage(i, Qs0, dOs0, Os, lses0);
+
+    // delta[r] = sum_d dO[r][d] * O[r][d] in f32, TPR threads per row
+    {
+      const bf16* dOs = dOs0;
+      constexpr int TPR = MMA_NT / BS;
+      constexpr int PER = D / TPR;  // elements per thread, a multiple of 8
+      const int r = tid / TPR, part = tid - r * TPR;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < PER / 8; ++c) {
+        const int d = part * PER + c * 8;
+        const uint4 a = *reinterpret_cast<const uint4*>(dOs + r * LD + d);
+        const uint4 o = *reinterpret_cast<const uint4*>(Os + r * LD + d);
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = __bfloat1622float2(a2[e]);
+          const float2 y = __bfloat1622float2(o2[e]);
+          sum += x.x * y.x + x.y * y.y;
+        }
+      }
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (part == 0) deltas[r] = sum;
+    }
+    __syncthreads();
+
+    // the stage's BS query rows as NSUB sub-tiles of BQ, one after another
+#pragma unroll 1
+    for (int sub = 0; sub < NSUB; ++sub) {
+      const bf16* Qs = Qs0 + sub * BQ * LD;
+      const bf16* dOs = dOs0 + sub * BQ * LD;
+      const float* lses = lses0 + sub * BQ;
+      const float* dls = deltas + sub * BQ;
+
+      // S^T = K Q^T: MT x 16 keys x BQ queries per warp; each Q fragment feeds
+      // MT products
+      float pt[MT][NQ][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+          pt[mt][n][0] = pt[mt][n][1] = pt[mt][n][2] = pt[mt][n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) load_a<LD>(a[mt], Ks, mt * 64 + warp * 16, kk * 16, lane);
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          uint32_t bq[4];
+          load_b_rows<LD>(bq, Qs, np * 16, kk * 16, lane);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma(pt[mt][2 * np], a[mt], bq[0], bq[1]);
+            mma(pt[mt][2 * np + 1], a[mt], bq[2], bq[3]);
+          }
+        }
+      }
+      // P^T = exp(S^T * scale - lse[q]); this thread's queries are 8n + 2t, +1
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const float2 lq = *reinterpret_cast<const float2*>(lses + n * 8 + 2 * t);
+        const float l0 = lq.x * LOG2E, l1 = lq.y * LOG2E;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          pt[mt][n][0] = exp2_approx(fmaf(pt[mt][n][0], sl2, -l0));
+          pt[mt][n][1] = exp2_approx(fmaf(pt[mt][n][1], sl2, -l1));
+          pt[mt][n][2] = exp2_approx(fmaf(pt[mt][n][2], sl2, -l0));
+          pt[mt][n][3] = exp2_approx(fmaf(pt[mt][n][3], sl2, -l1));
+        }
+      }
+      // dV += P^T dO, P^T rounded to bf16 as the A operand from registers
+#pragma unroll
+      for (int kq = 0; kq < BQ / 16; ++kq) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) pack_a(a[mt], pt[mt][2 * kq], pt[mt][2 * kq + 1]);
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          uint32_t bo[4];
+          load_b_trans<LD>(bo, dOs, kq * 16, c0 + dp * 16, lane);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma(dv[mt][2 * dp], a[mt], bo[0], bo[1]);
+            mma(dv[mt][2 * dp + 1], a[mt], bo[2], bo[3]);
+          }
+        }
+      }
+      // dP^T = V dO^T
+      float ds[MT][NQ][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+          ds[mt][n][0] = ds[mt][n][1] = ds[mt][n][2] = ds[mt][n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) load_a<LD>(a[mt], Vs, mt * 64 + warp * 16, kk * 16, lane);
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          uint32_t bo[4];
+          load_b_rows<LD>(bo, dOs, np * 16, kk * 16, lane);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma(ds[mt][2 * np], a[mt], bo[0], bo[1]);
+            mma(ds[mt][2 * np + 1], a[mt], bo[2], bo[3]);
+          }
+        }
+      }
+      // dS^T = P^T (dP^T - delta[q]) with the unrounded P^T
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const float2 dl = *reinterpret_cast<const float2*>(dls + n * 8 + 2 * t);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          ds[mt][n][0] = pt[mt][n][0] * (ds[mt][n][0] - dl.x);
+          ds[mt][n][1] = pt[mt][n][1] * (ds[mt][n][1] - dl.y);
+          ds[mt][n][2] = pt[mt][n][2] * (ds[mt][n][2] - dl.x);
+          ds[mt][n][3] = pt[mt][n][3] * (ds[mt][n][3] - dl.y);
+        }
+      }
+      // dK += dS^T Q, dS^T rounded to bf16 as the A operand from registers
+#pragma unroll
+      for (int kq = 0; kq < BQ / 16; ++kq) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) pack_a(a[mt], ds[mt][2 * kq], ds[mt][2 * kq + 1]);
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          uint32_t bq[4];
+          load_b_trans<LD>(bq, Qs, kq * 16, c0 + dp * 16, lane);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma(dk[mt][2 * dp], a[mt], bq[0], bq[1]);
+            mma(dk[mt][2 * dp + 1], a[mt], bq[2], bq[3]);
+          }
+        }
+      }
+    }
+  }
+  bf16* dkg = head<bf16>(p.dk, p.st[DK_], b, h);
+  bf16* dvg = head<bf16>(p.dv, p.st[DV_], b, h);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    if (mt >= parts) break;
+    const int row0 = k0 + mt * 64 + warp * 16;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      store_c(dkg, p.st[DK_][1], row0, c0 + n * 8, dk[mt][n], p.scale, p.scale, lane);
+      store_c(dvg, p.st[DV_][1], row0, c0 + n * 8, dv[mt][n], 1.f, 1.f, lane);
+    }
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const Params& p, int bh, cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * dq_smem_floats<D>();
@@ -422,12 +718,44 @@ cudaError_t launch_dkv(const Params& p, int bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D, int MT>
+cudaError_t launch_dkv_bf16_mt(const Params& p, int bh, cudaStream_t stream) {
+  using Tl = DkvBf16Tiles<D, MT>;
+  for (int t = 0; t < N_OPERANDS; ++t)
+    if (p.st[t][1] > INT32_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D, MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.Sk + Tl::BN - 1) / Tl::BN, bh, D / Tl::DOUT);
+  flash_bwd_dkv_bf16_kernel<D, MT><<<grid, MMA_NT, Tl::SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// at D = 64, two key m-tiles per warp cut the shared-memory reads per
+// product by a third, but halve the blocks too: they are taken only while
+// the grid still gives each of the H100's 132 SMs two blocks
+template <int D>
+cudaError_t launch_dkv_bf16(const Params& p, int bh, cudaStream_t stream) {
+  if constexpr (D == 64)
+    if ((p.Sk + 127) / 128 * bh >= 2 * 132) return launch_dkv_bf16_mt<64, 2>(p, bh, stream);
+  return launch_dkv_bf16_mt<D, 1>(p, bh, stream);
+}
+
+// dQ: the f32 FMA kernel for both dtypes; dK/dV: the tensor-core kernel for
+// bf16, the f32 FMA kernel for f32
 template <typename T>
 cudaError_t dispatch(bool dq, const Params& p, int bh, int d, cudaStream_t s) {
+  constexpr bool BF = sizeof(T) == 2;
   switch (d) {
-    case 64: return dq ? launch_dq<T, 64>(p, bh, s) : launch_dkv<T, 64>(p, bh, s);
-    case 128: return dq ? launch_dq<T, 128>(p, bh, s) : launch_dkv<T, 128>(p, bh, s);
-    case 256: return dq ? launch_dq<T, 256>(p, bh, s) : launch_dkv<T, 256>(p, bh, s);
+    case 64:
+      return dq ? launch_dq<T, 64>(p, bh, s)
+                : (BF ? launch_dkv_bf16<64>(p, bh, s) : launch_dkv<float, 64>(p, bh, s));
+    case 128:
+      return dq ? launch_dq<T, 128>(p, bh, s)
+                : (BF ? launch_dkv_bf16<128>(p, bh, s) : launch_dkv<float, 128>(p, bh, s));
+    case 256:
+      return dq ? launch_dq<T, 256>(p, bh, s)
+                : (BF ? launch_dkv_bf16<256>(p, bh, s) : launch_dkv<float, 256>(p, bh, s));
     default: return cudaErrorInvalidValue;
   }
 }

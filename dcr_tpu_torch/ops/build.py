@@ -3,8 +3,9 @@
 Each source under ``dcr_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface. The library lands
 in ``dcr_tpu_torch/_build/`` (gitignored) under a name keyed by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged one
-loads the library already there. Nothing is built when a module is imported.
+the source, the headers it includes from its own directory and the flags, so
+an edited source or header rebuilds and an unchanged one loads the library
+already there. Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,8 +47,30 @@ def nvcc_path() -> Path:
     raise FileNotFoundError(f"nvcc not found (tried {', '.join(tried)})")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def dependencies(source: Path) -> list[Path]:
+    """``source`` and every header it includes with quotes, transitively,
+    that lies beside it, in a fixed order."""
+    seen: list[Path] = []
+    todo = [Path(source)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            header = path.parent / name.decode()
+            if header.exists():
+                todo.append(header)
+    return seen
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes())
+    digest = hashlib.sha256()
+    for path in dependencies(source):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 

@@ -52,21 +52,33 @@ def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version: (softmax(q k^T D^-1/2) v in q's dtype, lse [B*H, Sq] f32),
-    computed in f32 over [B, S, H, D] inputs."""
+    computed in f32 over [B, S, H, D] inputs. With bf16 operands it rounds
+    where the kernels round: P = exp(s - rowmax) goes to bf16 before P v, and
+    the row sum it divides by is the unrounded one (the Pallas kernel's
+    ``p.astype(in_dtype)``)."""
     b, sq, h, d = q.shape
     scale = 1.0 / (d ** 0.5)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    lse = torch.logsumexp(logits, dim=-1)                       # [B, H, Sq]
-    p = torch.exp(logits - lse[..., None])
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    if q.dtype == torch.float32:
+        lse = torch.logsumexp(logits, dim=-1)                   # [B, H, Sq]
+        p = torch.exp(logits - lse[..., None])
+        out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    else:
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp(logits - m)
+        l = p.sum(dim=-1, keepdim=True)
+        lse = (m + torch.log(l))[..., 0]
+        out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), v.float())
+        out = out / l.permute(0, 2, 1, 3)
     return out.to(q.dtype), lse.reshape(b * h, sq)
 
 
 def _strided_ok(t: torch.Tensor) -> bool:
     """The kernels' layout: 16-byte aligned, contiguous last dim, other
-    strides multiples of 4 elements."""
+    strides multiples of 16 bytes (4 f32 or 8 bf16 elements), so every row
+    starts on a 16-byte boundary for the kernels' 16-byte copies."""
     return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and all(s % 4 == 0 for s in t.stride()[:3]))
+            and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3]))
 
 
 def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -92,8 +104,8 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _strided_ok(t):
             raise ValueError(f"flash kernel needs 16-byte aligned {name} with a contiguous "
-                             f"last dim and strides that are multiples of 4 elements, "
-                             f"got {t.stride()}")
+                             f"last dim and strides that are multiples of 16 bytes, "
+                             f"got {t.stride()} in {t.dtype}")
 
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -166,7 +178,9 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
                                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the two backward kernels, in f32 by recomputation:
     P = exp(S - lse), dP = dO V^T, dS = P (dP - rowsum(dO O)); returns
-    (dq, dk, dv) in the inputs' dtypes over [B, S, H, D]."""
+    (dq, dk, dv) in the inputs' dtypes over [B, S, H, D]. With bf16 operands
+    P is rounded to bf16 before dV and dS before dQ and dK, where the
+    kernels round (the Pallas kernels' ``astype(in_dtype)``)."""
     b, sq, h, d = q.shape
     scale = 1.0 / (d ** 0.5)
     qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
@@ -175,6 +189,8 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     delta = (dof * of).sum(-1).permute(0, 2, 1)                     # [B, H, Sq]
     ds = p * (dp - delta[..., None])
+    # the operand dtype's rounding (none for f32)
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)

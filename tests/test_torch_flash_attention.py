@@ -74,6 +74,54 @@ def test_plain_flash_bf16_close_to_f32():
     np.testing.assert_allclose(o.float().numpy(), ref, atol=3e-2, rtol=3e-2)
 
 
+# bf16 operands, for the plain versions that round where the kernels round
+BF16_CASES = [
+    pytest.param(dict(b=2, sq=256, sk=256, h=2, d=64), 1.0, id="square"),
+    pytest.param(dict(b=1, sq=384, sk=128, h=2, d=64), 1.0, id="sq_gt_sk"),
+    pytest.param(dict(b=1, sq=256, sk=256, h=1, d=128), 1.0, id="d128"),
+    pytest.param(dict(b=2, sq=256, sk=256, h=2, d=64), 10.0, id="logits_x10"),
+]
+
+
+def bf16_bound(ref: np.ndarray) -> float:
+    """Max-abs bound of a bf16 plain version against the Pallas kernel in
+    bf16: 2^-9 max(1, max|ref|). A plain version that does not round where
+    the kernels round lands at 3e-3 to 6e-3 of max|ref| on these cases, outside it."""
+    return 2.0 ** -9 * max(1.0, float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("shape,scale_q", BF16_CASES)
+def test_plain_flash_bf16_matches_jax_interpret(shape, scale_q):
+    """bf16 operands: the plain version rounds P to bf16 before P v and
+    divides by the unrounded row sum, as the Pallas kernel does
+    (p.astype(in_dtype)); o within bf16_bound of the kernel run through its
+    interpreter in bf16, lse at 1e-4."""
+    q, k, v = _qkv(21, **shape, scale_q=scale_q)
+    jq, jk, jv = (FA._to3(jnp.asarray(x, jnp.bfloat16)) for x in (q, k, v))
+    ref_o, ref_lse = FA._flash_fwd(jq, jk, jv, interpret=True)
+    ref_o = np.asarray(FA._from3(ref_o, shape["b"], shape["h"]).astype(jnp.float32))
+    o, lse = TFA.flash_attention_fwd(*_t(q, k, v, dtype=torch.bfloat16))
+    assert o.dtype == torch.bfloat16
+    assert np.abs(o.float().numpy() - ref_o).max() <= bf16_bound(ref_o)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[:, :, 0], atol=1e-4, rtol=1e-5)
+
+
+def test_kernel_inputs_need_16_byte_row_strides():
+    """The kernels copy rows 16 bytes at a time: a bf16 tensor whose seq
+    stride is a multiple of 4 elements but not of 8 is refused; the same
+    strides in f32 (16-byte multiples) are taken."""
+    shape, strides = (1, 128, 1, 64), (128 * 68, 68, 64, 1)
+    for dtype, refused in ((torch.bfloat16, True), (torch.float32, False)):
+        q = torch.zeros(128 * 68, dtype=dtype).as_strided(shape, strides)
+        kv = torch.zeros(shape, dtype=dtype)
+        if refused:
+            with pytest.raises(ValueError, match="multiples of 16 bytes"):
+                TFA._check_kernel_inputs(q, kv, kv)
+        else:
+            TFA._check_kernel_inputs(q, kv, kv)
+        TFA._check_kernel_inputs(kv, kv, kv)
+
+
 def test_supported_agrees_with_jax_predicate():
     for sq in (64, 100, 128, 256, 4096):
         for sk in (77, 128, 1024):

@@ -76,6 +76,37 @@ def test_plain_bwd_large_logits():
         np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=2e-4)
 
 
+BF16_CASES = [
+    pytest.param(dict(b=2, sq=256, sk=256, h=2, d=64), 1.0, id="square"),
+    pytest.param(dict(b=1, sq=384, sk=128, h=2, d=64), 1.0, id="sq_gt_sk"),
+    pytest.param(dict(b=1, sq=256, sk=256, h=1, d=128), 1.0, id="d128"),
+    pytest.param(dict(b=2, sq=256, sk=256, h=2, d=64), 10.0, id="logits_x10"),
+]
+
+
+@pytest.mark.parametrize("shape,scale_q", BF16_CASES)
+def test_plain_bwd_bf16_matches_jax_interpret(shape, scale_q):
+    """bf16 operands: the plain version rounds P to bf16 before dV and dS
+    before dQ and dK, as the Pallas kernels do; each gradient within
+    2^-9 max(1, max|ref|) of the kernels run through their interpreter in
+    bf16, from the same residuals (the Pallas o and lse). A plain version
+    that does not round where the kernels round lands at 3e-3 to 6e-3 of
+    max|ref| on these cases, outside that bound."""
+    q, k, v, do = _inputs(31, **shape, scale_q=scale_q)
+    b, h = shape["b"], shape["h"]
+    q3, k3, v3, do3 = (FA._to3(jnp.asarray(x, jnp.bfloat16)) for x in (q, k, v, do))
+    o3, lse = FA._flash_fwd(q3, k3, v3, interpret=True)
+    grads3 = FA._flash_bwd(q3, k3, v3, o3, lse, do3, interpret=True)
+    want = [np.asarray(FA._from3(x, b, h).astype(jnp.float32)) for x in grads3]
+    jo = np.array(FA._from3(o3, b, h).astype(jnp.float32))
+    tq, tk, tv, tdo, to = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do, jo))
+    got = TFA.flash_attention_bwd_reference(tq, tk, tv, to,
+                                            torch.from_numpy(np.array(lse[:, :, 0])), tdo)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert np.abs(g.float().numpy() - w).max() <= 2.0 ** -9 * max(1.0, np.abs(w).max())
+
+
 def _jax_grads(q, k, v, do):
     def f(q, k, v):
         return jnp.sum(FA.flash_attention(q, k, v, True) * jnp.asarray(do))
