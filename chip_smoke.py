@@ -6,14 +6,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. card: name and power limit from nvidia-smi; TF32 off for matmuls and convs;
 2. build: every kernel source in dcr_tpu_torch/csrc (one nvcc each, at once);
    per kernel symbol, its registers and spill bytes (ptxas) and its count of
-   tensor-core instructions (HMMA/HGMMA in cuobjdump's SASS); the bf16
-   forward and dK/dV kernels must have tensor-core instructions, and no
-   spills at D=64;
+   tensor-core instructions (HMMA/HGMMA in cuobjdump's SASS); the kernels of
+   TENSOR_CORE_KERNELS (the forward in both dtypes, as split TF32 for f32;
+   dQ and dK/dV in bf16) must have tensor-core instructions, and no spills
+   at D=64;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and a few edge shapes, in f32 and bf16 (bf16
    against the plain version in bf16, which rounds where the kernels round),
    with times, the plain version's and the library call's time, the bound
-   and the share of it reached: the forward kernel (B1), then the dQ (B2)
+   and the share of it reached, and for f32 the kernel's and the plain
+   version's errors against f64: the forward kernel (B1), then the dQ (B2)
    and dK/dV (B3) backward kernels, which must also give bit-identical
    gradients over two launches; a gradient probe through the autograd
    Function;
@@ -28,10 +30,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (SD-2.1 widths, 256 px, batch 16, bf16, AdamW with warmup) on a
    class-folder of PNGs written here, seeded random weights, a few optimizer
    steps; 10 launches of each kernel per step, finite losses, a checkpoint
-   and an HF-layout export that loads back.
+   and an HF-layout export that loads back;
+7. the f32 training mode: 2 steps of the train step (make_train_step) at
+   SD-2.1 widths with mixed_precision="no"; 10 launches of each kernel per
+   step, all in f32, finite losses.
 Each main path runs with every launch count set to 0 just before it and
 read just after. The last line is {"ok": true, "device": {...}}; the line
-before it holds the kernels' numbers as JSON.
+before it holds the kernels' numbers as JSON, one record per kernel and
+dtype.
 """
 
 from __future__ import annotations
@@ -49,9 +55,12 @@ from pathlib import Path
 import torch
 
 
-# H100 SXM data-sheet peaks at 700 W (dense): f32 outside the tensor cores,
-# bf16 on the tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# H100 SXM data-sheet peaks at 700 W (dense), HBM3 bandwidth. bf16: the
+# tensor cores. f32: the least time for f32-accurate work is that of split
+# TF32 on the tensor cores (3 TF32 products per f32 product, 495 / 3
+# TFLOP/s), above the 67 TFLOP/s of the CUDA cores; one TF32 product alone
+# misses f32 accuracy
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -148,8 +157,10 @@ def phase_card() -> None:
         f"device {torch.cuda.get_device_name(0)}")
 
 
-# kernels that must run on the tensor cores (bf16 instantiations of B1, B3)
-TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel")
+# kernels that must run on the tensor cores: B1 in both dtypes, B2 and B3
+# in bf16
+TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel", "flash_fwd_tf32x3_kernel",
+                       "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")
 
 
 def _ptxas_stats(text: str) -> dict[str, dict]:
@@ -201,9 +212,9 @@ def _demangle(names: list[str]) -> list[str]:
 
 def phase_build() -> dict:
     """Builds both sources at once; prints, per kernel symbol, registers,
-    spill bytes and tensor-core instruction count; raises if a bf16
-    forward or dK/dV instantiation has no tensor-core instruction or
-    spills at D=64."""
+    spill bytes and tensor-core instruction count; raises if a kernel of
+    TENSOR_CORE_KERNELS is missing, or has an instantiation with no
+    tensor-core instruction or that spills at D=64."""
     from dcr_tpu_torch.ops import build
     from dcr_tpu_torch.ops import flash_attention as fa
 
@@ -229,10 +240,11 @@ def phase_build() -> dict:
            if any(t in v["symbol"] for t in TENSOR_CORE_KERNELS)
            and (v["tensor_core_instructions"] == 0
                 or ("ILi64E" in v["symbol"] and v["spill_bytes"] != 0))]
-    if bad or not any(any(t in v["symbol"] for t in TENSOR_CORE_KERNELS)
-                      for v in kernels.values()):
-        raise AssertionError(f"bf16 kernels without tensor-core instructions or spilling "
-                             f"at D=64: {bad or 'none found'}")
+    missing = [t for t in TENSOR_CORE_KERNELS
+               if not any(t in v["symbol"] for v in kernels.values())]
+    if bad or missing:
+        raise AssertionError(f"tensor-core kernels missing {missing}, or without tensor-core "
+                             f"instructions or spilling at D=64: {bad}")
     return kernels
 
 
@@ -256,7 +268,6 @@ def phase_kernels(reps: int) -> dict:
         ("logits_x100", 2, 1024, 1024, 4, 64, 100.0, False),
     ]
     rows = []
-    worst = 0.0
     for name, b, sq, sk, h, d, scale, main in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((b, sq, h, d), generator=gen, device=dev) * scale
@@ -278,6 +289,15 @@ def phase_kernels(reps: int) -> dict:
             ok_o = torch.allclose(o.float(), ref_o.float(), **tol_o)
             ok_lse = torch.allclose(lse, ref_lse, atol=1e-4, rtol=1e-5)
             finite = bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all())
+            f64 = None
+            if dtype is torch.float32:
+                # the kernel's and the plain version's own errors, against f64
+                with torch.no_grad():
+                    lg = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) / d ** 0.5
+                    o64 = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(lg, -1), v.double())
+                    f64 = {"kernel": (o.double() - o64).abs().max().item(),
+                           "plain": (ref_o.double() - o64).abs().max().item()}
+                    del lg, o64
             with torch.no_grad():
                 ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v), reps)
                 per_call_ms = call_ms(lambda: fa.flash_attention_fwd(q, k, v), reps)
@@ -289,20 +309,21 @@ def phase_kernels(reps: int) -> dict:
                        max_abs_err=err_o, lse_max_abs_err=err_lse, ms=ms,
                        call_ms=per_call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
-                       pct_of_bound=100.0 * bound_ms / ms, main_path=main, tol=tol_o)
+                       pct_of_bound=100.0 * bound_ms / ms, main_path=main, tol=tol_o,
+                       max_abs_err_vs_f64=f64)
             rows.append(row)
             log(f"flash {name:12s} {row['dtype']:8s} B={b} Sq={sq} Sk={sk} H={h} D={d}: "
                 f"kernel {ms:.4f} ms ({row['pct_of_bound']:.1f} % of bound; "
                 f"{per_call_ms:.4f} ms per call with host), plain {plain_ms:.4f} ms, "
                 f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                 f"max|o-ref| {err_o:.3e} (tol {tol_o['atol']:.3e}), "
-                f"max|lse-ref| {err_lse:.3e}")
+                f"max|lse-ref| {err_lse:.3e}"
+                + (f", max|o-f64| kernel {f64['kernel']:.3e} plain {f64['plain']:.3e}"
+                   if f64 else ""))
             if not (ok_o and ok_lse and finite):
                 raise AssertionError(f"flash kernel disagrees with its plain version at "
                                      f"{name} {dtype}: o err {err_o:.3e} (tol {tol_o}), "
                                      f"lse err {err_lse:.3e}, finite={finite}")
-            if main and dtype is torch.float32:
-                worst = max(worst, err_o)
 
     # a gradient through the autograd Function reaches the backward kernels
     # and agrees with autograd through the plain version
@@ -328,7 +349,7 @@ def phase_kernels(reps: int) -> dict:
         log(f"unsupported head dim refused on the card: {e}")
     else:
         raise AssertionError("flash kernel accepted head dim 48")
-    return {"rows": rows, "worst_main_f32_err": worst}
+    return {"rows": rows}
 
 
 def bwd_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int,
@@ -735,6 +756,96 @@ def phase_train_main_path(out_dir: Path, steps: int) -> dict:
     return stats
 
 
+def phase_train_f32_step(steps: int) -> dict:
+    """The f32 training mode (mixed_precision="no") at SD-2.1 widths and the
+    JAX defaults otherwise (256 px, batch 16): its train step's entry point,
+    dcr_tpu_torch.diffusion.train.make_train_step, on seeded random weights
+    built on the card and a random batch, ``steps`` steps. Every attention
+    kernel runs in f32 (B1 as split TF32): 10 launches of each per step,
+    finite losses."""
+    import numpy as np
+
+    from dcr_tpu_torch.core.config import TrainConfig
+    from dcr_tpu_torch.diffusion import train as T
+    from dcr_tpu_torch.sampling.pipeline import build_models
+
+    cfg = TrainConfig(mixed_precision="no")
+    models = build_models(cfg.model, "cuda", seed=0)
+    params = {name: dict(m.named_parameters()) for name, m in
+              (("unet", models.unet), ("text", models.text_encoder), ("vae", models.vae))}
+    state = T.init_train_state(cfg, models, unet_params=params["unet"],
+                               text_params=params["text"], vae_params=params["vae"])
+    step_fn = T.make_train_step(cfg, models)
+    rng = np.random.default_rng(4)
+    bsz, res = cfg.train_batch_size, cfg.data.resolution
+    batch = {"pixel_values": rng.uniform(-1, 1, (bsz, res, res, 3)).astype(np.float32),
+             "input_ids": rng.integers(0, cfg.model.text_vocab_size - 1,
+                                       (bsz, cfg.model.text_max_length))}
+    losses, step_s = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - start)
+    finally:
+        launches = read_launches()
+    stats = {"steps": steps, "batch": bsz, "step_s": step_s, "losses": losses,
+             "peak_bytes": torch.cuda.max_memory_allocated(), "launches_fwd_dq_dkv": launches}
+    log(f"f32 train step: {json.dumps(stats)}")
+    if launches != (10 * steps,) * 3 or not all(np.isfinite(losses)):
+        raise AssertionError(f"f32 train step: launches (fwd, dQ, dK/dV) {launches}, expected "
+                             f"{(10 * steps,) * 3}; losses {losses}")
+    return stats
+
+
+def kernel_entry(kind: str, dtype: str, rows: list[dict], cases: tuple[str, ...],
+                 launches: dict, tensor_core_instructions: dict) -> dict:
+    """One kernel's record for the JSON line, from its phase-3 rows at the
+    shapes of its main path (the first is the lead) and its launches on the
+    main paths. kind: "fwd" (B1), "dq" (B2) or "dkv" (B3)."""
+    key = "" if kind == "fwd" else f"{kind}_"
+    by_case = {r["case"]: r for r in rows if r["dtype"] == dtype}
+
+    def err(row):
+        e = row["max_abs_err"]
+        return e if kind == "fwd" else (e["dq"] if kind == "dq" else max(e["dk"], e["dv"]))
+
+    lead = by_case[cases[0]]
+    entry = {
+        "name": ("flash_attention_fwd" if kind == "fwd" else f"flash_attention_bwd_{kind}")
+        + f"[{dtype}]",
+        "route": "cuda",
+        "source": "dcr_tpu_torch/csrc/" + ("flash_attention_fwd.cu" if kind == "fwd"
+                                           else "flash_attention_bwd.cu"),
+        "replaces": "dcr_tpu/ops/flash_attention.py:" + {"fwd": "112", "dq": "181",
+                                                         "dkv": "209"}[kind],
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max(err(by_case[c]) for c in cases),
+        "ms": lead[f"{key}ms"], "plain_ms": lead["plain_ms"], "bound_ms": lead[f"{key}bound_ms"],
+        "bound_by": lead[f"{key}bound_by"], "library_ms": lead["library_ms"],
+        "pct_of_bound": lead[f"{key}pct_of_bound"],
+        "shape": "B={} Sq={} Sk={} H={} D={} {}".format(*lead["shape"], dtype),
+        "main_path_shapes": {c: {"shape": by_case[c]["shape"], "ms": by_case[c][f"{key}ms"],
+                                 "bound_ms": by_case[c][f"{key}bound_ms"],
+                                 "pct_of_bound": by_case[c][f"{key}pct_of_bound"],
+                                 "library_ms": by_case[c]["library_ms"]} for c in cases},
+        "tensor_core_instructions": tensor_core_instructions,
+    }
+    if kind != "fwd":
+        entry["library_call_ms"] = lead["library_call_ms"]
+        entry["plain_and_library_compute"] = (
+            "dq, dk and dv together (the backward of one attention); library_ms is SDPA's "
+            "backward on the device (forward and backward in one CUDA graph, less the "
+            "forward); library_call_ms is one autograd.grad call, host included")
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -753,6 +864,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         train_stats = phase_train_main_path(Path(tmp), steps=6)
+    torch.cuda.empty_cache()
+    f32_train_stats = phase_train_f32_step(steps=2)
 
     def fwd_row(case, dtype):
         return next(r for r in kern["rows"] if r["case"] == case and r["dtype"] == dtype)
@@ -768,67 +881,39 @@ def main() -> int:
     train_stats["kernel_ms_per_step"] = kernel_ms
     train_stats["kernel_share_of_step"] = kernel_ms / 1e3 / train_stats[
         "median_step_s_after_first"]
+    # and B1's share of a UNet call in sampling: 5 attentions at each level
+    main_stats["b1_ms_per_unet_call"] = sum(5 * fwd_row(c, "float32")["ms"]
+                                            for c in ("level0", "level1", "level2"))
 
     def tensor_cores(kernel):
         """{instantiation: HMMA/HGMMA count} of a kernel's symbols"""
         return {name: k["tensor_core_instructions"] for name, k in built.items()
                 if kernel + "<" in name or kernel in k["symbol"]}
 
-    lead = fwd_row("level0", "float32")
-    entries = [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "dcr_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "dcr_tpu/ops/flash_attention.py:112",
-        "launches": main_stats["launches"] + train_stats["launches_fwd_dq_dkv"][0],
-        "launches_by_path": {"sample": main_stats["launches"],
-                             "train": train_stats["launches_fwd_dq_dkv"][0]},
-        "max_abs_err": kern["worst_main_f32_err"],
-        "ms": lead["ms"], "plain_ms": lead["plain_ms"], "bound_ms": lead["bound_ms"],
-        "bound_by": lead["bound_by"], "library_ms": lead["library_ms"],
-        "pct_of_bound": lead["pct_of_bound"],
-        "shape": "B=4 S=4096 H=5 D=64 float32 (UNet level 0 at 512 px)",
-        "bf16_train": {c: {k: fwd_row(c, "bfloat16")[k] for k in
-                           ("shape", "ms", "bound_ms", "pct_of_bound", "library_ms",
-                            "max_abs_err")}
-                       for c in ("train_level0", "train_level1")},
-        "tensor_core_instructions": tensor_cores("flash_fwd_bf16_kernel"),
-        "per_shape": kern["rows"],
-    }]
-    train_lead = bwd_row("train_level0", "bfloat16")
-    for kind, line, index in (("dq", 181, 1), ("dkv", 209, 2)):
-        errs = train_lead["max_abs_err"]
-        entries.append({
-            "name": f"flash_attention_bwd_{kind}",
-            "route": "cuda",
-            "source": "dcr_tpu_torch/csrc/flash_attention_bwd.cu",
-            "replaces": f"dcr_tpu/ops/flash_attention.py:{line}",
-            "launches": train_stats["launches_fwd_dq_dkv"][index],
-            "max_abs_err": errs["dq"] if kind == "dq" else max(errs["dk"], errs["dv"]),
-            "ms": train_lead[f"{kind}_ms"], "plain_ms": train_lead["plain_ms"],
-            "bound_ms": train_lead[f"{kind}_bound_ms"],
-            "bound_by": train_lead[f"{kind}_bound_by"],
-            "library_ms": train_lead["library_ms"],
-            "library_call_ms": train_lead["library_call_ms"],
-            "pct_of_bound": train_lead[f"{kind}_pct_of_bound"],
-            "shape": "B=16 S=1024 H=5 D=64 bfloat16 (UNet level 0 at 256 px, training)",
-            "bf16_train": {c: {"shape": bwd_row(c, "bfloat16")["shape"],
-                               "ms": bwd_row(c, "bfloat16")[f"{kind}_ms"],
-                               "bound_ms": bwd_row(c, "bfloat16")[f"{kind}_bound_ms"],
-                               "pct_of_bound": bwd_row(c, "bfloat16")[f"{kind}_pct_of_bound"],
-                               "library_ms": bwd_row(c, "bfloat16")["library_ms"]}
-                           for c in ("train_level0", "train_level1")},
-            "tensor_core_instructions": tensor_cores(
-                "flash_bwd_dq_kernel" if kind == "dq" else "flash_bwd_dkv_bf16_kernel"),
-            "plain_and_library_compute": "dq, dk and dv together (the backward of one "
-                                         "attention); library_ms is SDPA's backward on the "
-                                         "device (forward and backward in one CUDA graph, "
-                                         "less the forward); library_call_ms is one "
-                                         "autograd.grad call, host included",
-            "per_shape": bwd["rows"] if kind == "dq" else "see flash_attention_bwd_dq",
-        })
+    # launches by main path: sampling is f32, the default training path
+    # bf16, the f32 training mode f32
+    train = dict(zip(("fwd", "dq", "dkv"), train_stats["launches_fwd_dq_dkv"]))
+    f32_train = dict(zip(("fwd", "dq", "dkv"), f32_train_stats["launches_fwd_dq_dkv"]))
+    sample_cases, train_cases = ("level0", "level1", "level2"), ("train_level0", "train_level1")
+    entries = [
+        kernel_entry("fwd", "float32", kern["rows"], sample_cases,
+                     {"sample": main_stats["launches"], "train_f32": f32_train["fwd"]},
+                     tensor_cores("flash_fwd_tf32x3_kernel")),
+        kernel_entry("fwd", "bfloat16", kern["rows"], train_cases, {"train": train["fwd"]},
+                     tensor_cores("flash_fwd_bf16_kernel")),
+    ]
+    for kind in ("dq", "dkv"):
+        entries += [
+            kernel_entry(kind, "float32", bwd["rows"], train_cases,
+                         {"train_f32": f32_train[kind]}, tensor_cores(f"flash_bwd_{kind}_kernel")),
+            kernel_entry(kind, "bfloat16", bwd["rows"], train_cases, {"train": train[kind]},
+                         tensor_cores(f"flash_bwd_{kind}_bf16_kernel")),
+        ]
+    entries[0]["per_shape"] = kern["rows"]
+    entries[2]["per_shape"] = bwd["rows"]
     log(f"main path stats: {json.dumps(main_stats)}")
     log(f"train path stats: {json.dumps(train_stats)}")
+    log(f"f32 train step stats: {json.dumps(f32_train_stats)}")
     log(f"small train reference: {json.dumps(small_train)}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,40 +1,68 @@
 // Flash-attention backward for Hopper (sm_90a): dQ and dK/dV, f32 and bf16.
 //
 // Replaces the Pallas TPU kernels of dcr_tpu/ops/flash_attention.py:
-//   flash_bwd_dq_kernel                          <- _bwd_dq_kernel  (launched by _flash_bwd)
+//   flash_bwd_dq_bf16_kernel, flash_bwd_dq_kernel   <- _bwd_dq_kernel  (launched by _flash_bwd)
 //   flash_bwd_dkv_bf16_kernel, flash_bwd_dkv_kernel <- _bwd_dkv_kernel (launched by _flash_bwd)
-// Same functions, by recomputation from the forward's log-sum-exp:
+// (the bf16 kernel of each pair runs on the tensor cores, the other takes
+// f32 operands). Same functions, by recomputation from the forward's
+// log-sum-exp:
 //   S = Q K^T * D^-1/2, P = exp(S - lse), dP = dO V^T, delta = rowsum(dO o O),
 //   dS = P o (dP - delta), dQ = D^-1/2 dS K, dK = D^-1/2 dS^T Q, dV = P^T dO.
 // Logits, statistics and accumulators are f32. With bf16 operands dS (and P
 // before dV = P^T dO) is rounded to bf16 before its product, as the TPU
-// kernels do (ds.astype(in_dtype), p.astype(in_dtype)); delta is computed
-// from dO and O in f32 inside each block, per query tile, as the TPU kernels
-// do. No mask, no causal; Sq may differ from Sk.
+// kernels do (ds.astype(in_dtype), p.astype(in_dtype)); P itself stays f32
+// in dS. delta is computed from dO and O in f32 inside each block, per
+// query tile, as the TPU kernels do. No mask, no causal; Sq may differ from
+// Sk.
 //
 // Bound on an H100 SXM (700 W data-sheet peaks): the dQ kernel does
 // 6*Sq*Sk*D flops per (b, h) (S and dP recomputed, then dQ), the dK/dV kernel
 // 8*Sq*Sk*D (S, dP, dV, dK), against ~(4*Sq + 2*Sk)*D elements of traffic, so
 // at the UNet's training shapes (S = 256..1024, D = 64) both are bound by
-// operations: the 989 TFLOP/s of the bf16 tensor cores for bf16 operands,
-// the 67 TFLOP/s f32 rate of the CUDA cores for f32 operands.
+// operations: the 989 TFLOP/s of the bf16 tensor cores for bf16 operands;
+// for f32 operands the 165 TFLOP/s that f32-accurate work gets from the
+// TF32 tensor cores as split TF32 (flash_attention_fwd.cu), which the f32
+// kernels here, on the CUDA cores' 67 TFLOP/s, do not use.
 //
 // The TPU grid runs in order, and its dK/dV kernel carries f32 VMEM
 // accumulators across a sequential ("arbitrary") q-block axis. Hopper runs
 // blocks in no order, so the dK/dV kernels take one block per (b*h, key
 // tile) that loops over every query tile itself, in place of the TPU's
-// sequential grid axis; dK and dV accumulate in f32 registers and are
-// written once. No atomics: the gradients are bit-identical run to run.
+// sequential grid axis; the dQ kernels take one block per (b*h, query tile)
+// that loops over every key tile, as the TPU's does. Each block owns its
+// rows, loops in a fixed order and writes its gradients once from f32
+// registers: no atomics, so the gradients are bit-identical run to run. dQ
+// is not folded into the dK/dV kernel (that would need atomics).
 //
-// dK/dV, bf16 (flash_bwd_dkv_bf16_kernel), on the tensor cores:
-// - with mma.sync every warp reads the whole Q and dO tiles from shared
-//   memory, twice (plain and transposed), so shared-memory bandwidth, not
-//   the tensor cores, sets the pace. A block has 4 warps; each warp owns MT
-//   m-tiles of 16 keys, so a block holds 64 * MT keys. MT = 2 (D = 64, when
-//   the grid still gives every SM two blocks) makes each Q or dO fragment
-//   feed two products and cuts the reads per product by a third; MT = 1
-//   otherwise. The block's K and V stay resident, bf16, in padded shared
-//   memory (conflict-free ldmatrix);
+// With mma.sync every warp reads its own B fragments from shared memory, so
+// shared-memory traffic and instruction issue, not the tensor cores, set
+// the pace of the bf16 kernels; the accumulators and the fragments a warp
+// keeps fill its registers, which sets the tiles.
+//
+// dQ, bf16 (flash_bwd_dq_bf16_kernel), flash_attention_fwd.cu's bf16
+// structure with three products in place of two:
+// - one block of 4 warps per (b*h, 64 query rows), 16 rows per warp. The
+//   prologue loads Q, dO and lse, computes delta from dO in shared memory
+//   and O from device memory, and keeps the Q and dO fragments in
+//   registers (ldmatrix; at D = 256 they are re-read from shared memory);
+// - K and V tiles stream in bf16 through a 2-stage cp.async ring (padded
+//   rows, conflict-free ldmatrix) with one barrier per tile;
+// - S = Q K^T and dP = dO V^T are m16n8k16 products (K and V as B rows);
+//   P = exp2(S * scale*log2(e) - lse*log2(e)) and dS = P (dP - delta) are
+//   formed on the f32 accumulator fragments, and dS, packed to bf16 in
+//   registers, is the A operand of dQ += dS K, K entering through
+//   ldmatrix.trans from the same shared tile: each K tile is loaded once
+//   and serves two products;
+// - dQ accumulates in f32 registers and is scaled once at the end. Keys per
+//   tile: 64 at D = 64, 32 at D = 128 and 256, which keeps S, dP, dQ and
+//   the fragments in registers; 55-133 KB of shared memory.
+//
+// dK/dV, bf16 (flash_bwd_dkv_bf16_kernel):
+// - a block has 4 warps; each warp owns MT m-tiles of 16 keys, so a block
+//   holds 64 * MT keys. MT = 2 (D = 64, when the grid still gives every SM
+//   two blocks) makes each Q or dO fragment feed two products and cuts the
+//   reads per product by a third; MT = 1 otherwise. The block's K and V
+//   stay resident, bf16, in padded shared memory (conflict-free ldmatrix);
 // - Q, dO, O and lse of each stage of query rows stream through a 2-stage
 //   cp.async ring, so stage i+1 loads while stage i is computed, with two
 //   barriers per stage (one for the data, one for delta); delta =
@@ -59,18 +87,18 @@
 //   instantiation opts in.
 // The helpers (cp.async, ldmatrix, mma, fragment packing) are in mma_bf16.cuh.
 //
-// dQ (both dtypes) and dK/dV in f32 run f32 FMA on the CUDA cores:
+// f32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel; the f32 training mode)
+// runs f32 FMA on the CUDA cores:
 // - dQ: one block of 256 threads per (b*h, query tile). Q and dO tiles, lse
 //   and delta stay in shared memory; K and V tiles stream through it; dQ
 //   accumulates in registers over every key tile and is written once.
-// - dK/dV f32: one block per (b*h, key tile), the same loop as above.
-// Products are register-tiled as in flash_attention_fwd.cu's f32 kernel:
-// 16 x 16 threads, padded shared-memory rows so the 16-byte loads of a
-// quarter warp hit distinct banks. Tiles are 64 x 64 at D = 64 and 128; at
-// D = 256 the f32 tiles of the dK/dV kernel would need 278 KB at 64 rows,
-// more than the 227 KB a block may use, so D = 256 takes 32 x 32 tiles.
-// Shared memory is 88-171 KB, so every instantiation opts in to large
-// dynamic shared memory.
+// - dK/dV: one block per (b*h, key tile), the same loop as above.
+// Products are register-tiled 16 x 16 threads, with padded shared-memory
+// rows so the 16-byte loads of a quarter warp hit distinct banks. Tiles are
+// 64 x 64 at D = 64 and 128; at D = 256 the dK/dV tiles would need 278 KB
+// at 64 rows, more than the 227 KB a block may use, so D = 256 takes
+// 32 x 32 tiles. Shared memory is 88-171 KB, so every instantiation opts in
+// to large dynamic shared memory.
 //
 // The inputs are [B, S, H, D] tensors read through their strides (the last
 // dimension contiguous, the others multiples of 16 bytes); the gradients are
@@ -86,7 +114,9 @@
 
 namespace {
 
-constexpr int NT = 256;  // threads per block, viewed as 16 (ty) x 16 (tx)
+constexpr int NT = 256;      // threads of an f32 block, viewed as 16 (ty) x 16 (tx)
+constexpr int MMA_NT = 128;  // threads of a bf16 block: 4 warps
+constexpr float LOG2E = 1.4426950408889634f;
 
 // stride triples (batch, seq, head) in elements, in this order
 enum Operand { Q_ = 0, K_, V_, O_, DO_, DQ_, DK_, DV_, N_OPERANDS };
@@ -106,40 +136,9 @@ struct Params {
   float scale;
 };
 
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ void store4(float* p, float4 x) {
-    *reinterpret_cast<float4*>(p) = x;
-  }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    uint2 raw = *reinterpret_cast<const uint2*>(p);
-    float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
-    float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-    __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-    __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&a);
-    raw.y = *reinterpret_cast<uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-};
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
 __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
@@ -151,16 +150,16 @@ __device__ __forceinline__ T* head(const void* base, const int64_t* st, int b, i
   return const_cast<T*>(static_cast<const T*>(base)) + b * st[0] + h * st[2];
 }
 
-// rows [row0, row0 + ROWS) of a [S, D] head slice -> f32 shared tile [ROWS][P]
-template <typename T, int D, int ROWS, int P>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t row_stride,
+// rows [row0, row0 + ROWS) of a [S, D] head slice -> shared tile [ROWS][P]
+template <int D, int ROWS, int P>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t row_stride,
                                           int row0, int tid) {
   constexpr int C4 = D / 4;
   for (int c = tid; c < ROWS * C4; c += NT) {
     const int r = c / C4;
     const int d = (c - r * C4) * 4;
     *reinterpret_cast<float4*>(&dst[r * P + d]) =
-        Elem<T>::load4(src + (int64_t)(row0 + r) * row_stride + d);
+        load4(src + (int64_t)(row0 + r) * row_stride + d);
   }
 }
 
@@ -225,8 +224,8 @@ __device__ __forceinline__ void acc_product(float (&acc)[RA][D / 16], const floa
 }
 
 // delta[r] = sum_d dO[r][d] * O[row0 + r][d] in f32, NT / ROWS threads per row
-template <typename T, int D, int ROWS, int P>
-__device__ __forceinline__ void row_delta(float* delta, const float* dOs, const T* og,
+template <int D, int ROWS, int P>
+__device__ __forceinline__ void row_delta(float* delta, const float* dOs, const float* og,
                                           int64_t o_ss, int row0, int tid) {
   constexpr int TPR = NT / ROWS;
   const int r = tid / TPR;
@@ -234,7 +233,7 @@ __device__ __forceinline__ void row_delta(float* delta, const float* dOs, const 
   float sum = 0.f;
   for (int d = part * 4; d < D; d += TPR * 4) {
     const float4 a = *reinterpret_cast<const float4*>(&dOs[r * P + d]);
-    const float4 b = Elem<T>::load4(og + (int64_t)(row0 + r) * o_ss + d);
+    const float4 b = load4(og + (int64_t)(row0 + r) * o_ss + d);
     sum += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
   }
 #pragma unroll
@@ -244,18 +243,18 @@ __device__ __forceinline__ void row_delta(float* delta, const float* dOs, const 
 }
 
 // write rows [row0 + i] of a [rows][D] register tile, scaled
-template <typename T, int D, int RA>
-__device__ __forceinline__ void store_rows(T* g, int64_t row_stride, int row0,
+template <int D, int RA>
+__device__ __forceinline__ void store_rows(float* g, int64_t row_stride, int row0,
                                            const float (&acc)[RA][D / 16], float scale,
                                            int tx) {
 #pragma unroll
   for (int i = 0; i < RA; ++i) {
-    T* row = g + (int64_t)(row0 + i) * row_stride;
+    float* row = g + (int64_t)(row0 + i) * row_stride;
 #pragma unroll
     for (int gg = 0; gg < D / 64; ++gg) {
-      Elem<T>::store4(row + gg * 64 + tx * 4,
-                      make_float4(acc[i][gg * 4 + 0] * scale, acc[i][gg * 4 + 1] * scale,
-                                  acc[i][gg * 4 + 2] * scale, acc[i][gg * 4 + 3] * scale));
+      *reinterpret_cast<float4*>(row + gg * 64 + tx * 4) =
+          make_float4(acc[i][gg * 4 + 0] * scale, acc[i][gg * 4 + 1] * scale,
+                      acc[i][gg * 4 + 2] * scale, acc[i][gg * 4 + 3] * scale);
     }
   }
 }
@@ -281,7 +280,7 @@ constexpr int dkv_smem_floats() {
          2 * Tiles<D>::BN * (Tiles<D>::BM + 4) + 2 * Tiles<D>::BM;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   constexpr int BM = Tiles<D>::BM, BN = Tiles<D>::BN;
   constexpr int P = D + 4, PS = BN + 4;
@@ -303,18 +302,18 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   const int h = bh - b * p.H;
   const int q0 = blockIdx.x * BM;
 
-  const T* qg = head<T>(p.q, p.st[Q_], b, h);
-  const T* kg = head<T>(p.k, p.st[K_], b, h);
-  const T* vg = head<T>(p.v, p.st[V_], b, h);
-  const T* og = head<T>(p.o, p.st[O_], b, h);
-  const T* dog = head<T>(p.dout, p.st[DO_], b, h);
-  T* dqg = head<T>(p.dq, p.st[DQ_], b, h);
+  const float* qg = head<float>(p.q, p.st[Q_], b, h);
+  const float* kg = head<float>(p.k, p.st[K_], b, h);
+  const float* vg = head<float>(p.v, p.st[V_], b, h);
+  const float* og = head<float>(p.o, p.st[O_], b, h);
+  const float* dog = head<float>(p.dout, p.st[DO_], b, h);
+  float* dqg = head<float>(p.dq, p.st[DQ_], b, h);
 
-  load_tile<T, D, BM, P>(Qs, qg, p.st[Q_][1], q0, tid);
-  load_tile<T, D, BM, P>(dOs, dog, p.st[DO_][1], q0, tid);
+  load_tile<D, BM, P>(Qs, qg, p.st[Q_][1], q0, tid);
+  load_tile<D, BM, P>(dOs, dog, p.st[DO_][1], q0, tid);
   if (tid < BM) lses[tid] = p.lse[(int64_t)bh * p.Sq + q0 + tid];
   __syncthreads();
-  row_delta<T, D, BM, P>(deltas, dOs, og, p.st[O_][1], q0, tid);
+  row_delta<D, BM, P>(deltas, dOs, og, p.st[O_][1], q0, tid);
 
   float acc[RM][D / 16];
 #pragma unroll
@@ -326,8 +325,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   for (int kt = 0; kt < n_tiles; ++kt) {
     __syncthreads();  // the previous tile's readers are done (and delta is visible)
     const int k0 = kt * BN;
-    load_tile<T, D, BN, P>(Ks, kg, p.st[K_][1], k0, tid);
-    load_tile<T, D, BN, P>(Vs, vg, p.st[V_][1], k0, tid);
+    load_tile<D, BN, P>(Ks, kg, p.st[K_][1], k0, tid);
+    load_tile<D, BN, P>(Vs, vg, p.st[V_][1], k0, tid);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T for rows ty*RM + i and keys tx + 16 j
@@ -342,7 +341,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
 #pragma unroll
       for (int j = 0; j < RN; ++j) {
         const float pr = expf(s[i][j] * p.scale - l);
-        dSs[r * PS + tx + 16 * j] = Elem<T>::round(pr * (dp[i][j] - dl));
+        dSs[r * PS + tx + 16 * j] = pr * (dp[i][j] - dl);
       }
     }
     __syncthreads();
@@ -350,10 +349,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
     // dQ += dS K for rows ty*RM + i and columns g*64 + tx*4 + (0..3)
     acc_product<D, RM, BN, PS, P>(acc, dSs, ty * RM, Ks, tx);
   }
-  store_rows<T, D, RM>(dqg, p.st[DQ_][1], q0 + ty * RM, acc, p.scale, tx);
+  store_rows<D, RM>(dqg, p.st[DQ_][1], q0 + ty * RM, acc, p.scale, tx);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
   constexpr int BM = Tiles<D>::BM, BN = Tiles<D>::BN;
   constexpr int P = D + 4, PT = BM + 4;
@@ -376,16 +375,16 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
   const int h = bh - b * p.H;
   const int k0 = blockIdx.x * BN;
 
-  const T* qg = head<T>(p.q, p.st[Q_], b, h);
-  const T* kg = head<T>(p.k, p.st[K_], b, h);
-  const T* vg = head<T>(p.v, p.st[V_], b, h);
-  const T* og = head<T>(p.o, p.st[O_], b, h);
-  const T* dog = head<T>(p.dout, p.st[DO_], b, h);
-  T* dkg = head<T>(p.dk, p.st[DK_], b, h);
-  T* dvg = head<T>(p.dv, p.st[DV_], b, h);
+  const float* qg = head<float>(p.q, p.st[Q_], b, h);
+  const float* kg = head<float>(p.k, p.st[K_], b, h);
+  const float* vg = head<float>(p.v, p.st[V_], b, h);
+  const float* og = head<float>(p.o, p.st[O_], b, h);
+  const float* dog = head<float>(p.dout, p.st[DO_], b, h);
+  float* dkg = head<float>(p.dk, p.st[DK_], b, h);
+  float* dvg = head<float>(p.dv, p.st[DV_], b, h);
 
-  load_tile<T, D, BN, P>(Ks, kg, p.st[K_][1], k0, tid);
-  load_tile<T, D, BN, P>(Vs, vg, p.st[V_][1], k0, tid);
+  load_tile<D, BN, P>(Ks, kg, p.st[K_][1], k0, tid);
+  load_tile<D, BN, P>(Vs, vg, p.st[V_][1], k0, tid);
 
   float dk[RK][D / 16], dv[RK][D / 16];
 #pragma unroll
@@ -401,11 +400,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
   for (int qt = 0; qt < n_tiles; ++qt) {
     __syncthreads();  // the previous tile's readers are done
     const int q0 = qt * BM;
-    load_tile<T, D, BM, P>(Qs, qg, p.st[Q_][1], q0, tid);
-    load_tile<T, D, BM, P>(dOs, dog, p.st[DO_][1], q0, tid);
+    load_tile<D, BM, P>(Qs, qg, p.st[Q_][1], q0, tid);
+    load_tile<D, BM, P>(dOs, dog, p.st[DO_][1], q0, tid);
     if (tid < BM) lses[tid] = p.lse[(int64_t)bh * p.Sq + q0 + tid];
     __syncthreads();
-    row_delta<T, D, BM, P>(deltas, dOs, og, p.st[O_][1], q0, tid);
+    row_delta<D, BM, P>(deltas, dOs, og, p.st[O_][1], q0, tid);
     __syncthreads();
 
     // S^T = K Q^T and dP^T = V dO^T for keys ty*RK + i and queries tx + 16 j
@@ -421,8 +420,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
       for (int i = 0; i < RK; ++i) {
         const int n = ty * RK + i;
         const float pr = expf(s[i][j] * p.scale - l);
-        PTs[n * PT + m] = Elem<T>::round(pr);
-        dSTs[n * PT + m] = Elem<T>::round(pr * (dp[i][j] - dl));
+        PTs[n * PT + m] = pr;
+        dSTs[n * PT + m] = pr * (dp[i][j] - dl);
       }
     }
     __syncthreads();
@@ -431,8 +430,175 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
     acc_product<D, RK, BM, PT, P>(dv, PTs, ty * RK, dOs, tx);
     acc_product<D, RK, BM, PT, P>(dk, dSTs, ty * RK, Qs, tx);
   }
-  store_rows<T, D, RK>(dkg, p.st[DK_][1], k0 + ty * RK, dk, p.scale, tx);
-  store_rows<T, D, RK>(dvg, p.st[DV_][1], k0 + ty * RK, dv, 1.f, tx);
+  store_rows<D, RK>(dkg, p.st[DK_][1], k0 + ty * RK, dk, p.scale, tx);
+  store_rows<D, RK>(dvg, p.st[DV_][1], k0 + ty * RK, dv, 1.f, tx);
+}
+
+template <int D>
+struct DqBf16Tiles {
+  static constexpr int BM = 64;                 // query rows per block, 16 per warp
+  static constexpr int BN = D == 64 ? 64 : 32;  // keys per tile
+  static constexpr bool QREG = D <= 128;        // Q and dO fragments held in registers
+  static constexpr int LD = D + mma_bf16::PAD;  // shared-memory row, elements
+  // Qs, dOs [BM][LD]; K and V rings of 2 stages [BN][LD]; lse, delta [BM] f32
+  static constexpr int SMEM = (2 * BM + 4 * BN) * LD * 2 + 2 * BM * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(MMA_NT) flash_bwd_dq_bf16_kernel(const Params p) {
+  using namespace mma_bf16;
+  using Tl = DqBf16Tiles<D>;
+  constexpr int BM = Tl::BM, BN = Tl::BN, LD = Tl::LD;
+  constexpr bool QREG = Tl::QREG;
+  constexpr int KD = D / 16;  // k-steps of S and dP over D
+  constexpr int NS = BN / 8;  // n-tiles of S and dP (keys)
+  constexpr int NO = D / 8;   // n-tiles of dQ (head dim)
+  extern __shared__ uint4 smem_u4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_u4);
+  bf16* dOs = Qs + BM * LD;
+  bf16* Ks = dOs + BM * LD;
+  bf16* Vs = Ks + 2 * BN * LD;
+  float* lses = reinterpret_cast<float*>(Vs + 2 * BN * LD);
+  float* deltas = lses + BM;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int q0 = blockIdx.x * BM;
+
+  const bf16* qg = head<bf16>(p.q, p.st[Q_], b, h) + (int64_t)q0 * p.st[Q_][1];
+  const bf16* dog = head<bf16>(p.dout, p.st[DO_], b, h) + (int64_t)q0 * p.st[DO_][1];
+  const bf16* og = head<bf16>(p.o, p.st[O_], b, h) + (int64_t)q0 * p.st[O_][1];
+  const bf16* kg = head<bf16>(p.k, p.st[K_], b, h);
+  const bf16* vg = head<bf16>(p.v, p.st[V_], b, h);
+  const int64_t k_ss = p.st[K_][1], v_ss = p.st[V_][1];
+
+  load_tile_async<BM, D, MMA_NT>(Qs, qg, p.st[Q_][1], tid);
+  load_tile_async<BM, D, MMA_NT>(dOs, dog, p.st[DO_][1], tid);
+  if (tid < BM / 4) cp_async_16(lses + tid * 4, p.lse + (int64_t)bh * p.Sq + q0 + tid * 4);
+  cp_async_commit();
+  load_tile_async<BN, D, MMA_NT>(Ks, kg, k_ss, tid);
+  load_tile_async<BN, D, MMA_NT>(Vs, vg, v_ss, tid);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q, dO and lse; K/V tile 0 may still be in flight
+  __syncthreads();
+
+  // delta[r] = sum_d dO[r][d] * O[r][d] in f32, TPR threads per row, dO
+  // from shared memory and O from device memory, once per block
+  {
+    constexpr int TPR = MMA_NT / BM;
+    constexpr int PER = D / TPR;  // elements per thread, a multiple of 8
+    const int r = tid / TPR, part = tid - r * TPR;
+    const bf16* orow = og + (int64_t)r * p.st[O_][1];
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < PER / 8; ++c) {
+      const int d = part * PER + c * 8;
+      const uint4 a = *reinterpret_cast<const uint4*>(dOs + r * LD + d);
+      const uint4 o = *reinterpret_cast<const uint4*>(orow + d);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(a2[e]);
+        const float2 y = __bfloat1622float2(o2[e]);
+        sum += x.x * y.x + x.y * y.y;
+      }
+    }
+#pragma unroll
+    for (int off = TPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (part == 0) deltas[r] = sum;
+  }
+  uint32_t qf[QREG ? KD : 1][4], dof[QREG ? KD : 1][4];
+  if constexpr (QREG) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      load_a<LD>(qf[kk], Qs, warp * 16, kk * 16, lane);
+      load_a<LD>(dof[kk], dOs, warp * 16, kk * 16, lane);
+    }
+  }
+  __syncthreads();  // delta is visible
+  // rows g and g + 8 of this warp: lse in log2 units, delta
+  const float lse0 = lses[warp * 16 + g] * LOG2E, lse1 = lses[warp * 16 + g + 8] * LOG2E;
+  const float dl0 = deltas[warp * 16 + g], dl1 = deltas[warp * 16 + g + 8];
+  const float sl2 = p.scale * LOG2E;
+
+  float dq[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  const int n_tiles = p.Sk / BN;
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j has landed for all, and stage (j+1)&1 is free
+    if (j + 1 < n_tiles) {
+      const int st = (j + 1) & 1;
+      const int64_t k0 = (int64_t)(j + 1) * BN;
+      load_tile_async<BN, D, MMA_NT>(Ks + st * BN * LD, kg + k0 * k_ss, k_ss, tid);
+      load_tile_async<BN, D, MMA_NT>(Vs + st * BN * LD, vg + k0 * v_ss, v_ss, tid);
+      cp_async_commit();
+    }
+    const bf16* Kt = Ks + (j & 1) * BN * LD;
+    const bf16* Vt = Vs + (j & 1) * BN * LD;
+
+    // S = Q K^T and dP = dO V^T, 16 rows x BN keys per warp
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t aq[4], ado[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) aq[i] = qf[kk][i], ado[i] = dof[kk][i];
+      } else {
+        load_a<LD>(aq, Qs, warp * 16, kk * 16, lane);
+        load_a<LD>(ado, dOs, warp * 16, kk * 16, lane);
+      }
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        load_b_rows<LD>(bk, Kt, np * 16, kk * 16, lane);
+        load_b_rows<LD>(bv, Vt, np * 16, kk * 16, lane);
+        mma(s[2 * np], aq, bk[0], bk[1]);
+        mma(s[2 * np + 1], aq, bk[2], bk[3]);
+        mma(dp[2 * np], ado, bv[0], bv[1]);
+        mma(dp[2 * np + 1], ado, bv[2], bv[3]);
+      }
+    }
+    // dS = P (dP - delta) with P = exp(S * scale - lse) unrounded, in place of S
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      s[n][0] = exp2_approx(fmaf(s[n][0], sl2, -lse0)) * (dp[n][0] - dl0);
+      s[n][1] = exp2_approx(fmaf(s[n][1], sl2, -lse0)) * (dp[n][1] - dl0);
+      s[n][2] = exp2_approx(fmaf(s[n][2], sl2, -lse1)) * (dp[n][2] - dl1);
+      s[n][3] = exp2_approx(fmaf(s[n][3], sl2, -lse1)) * (dp[n][3] - dl1);
+    }
+    // dQ += dS K: dS rounded to bf16 as the A operand from registers, K
+    // through ldmatrix.trans from the tile S was computed from
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t a[4];
+      pack_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dp2 = 0; dp2 < NO / 2; ++dp2) {
+        uint32_t bk[4];
+        load_b_trans<LD>(bk, Kt, kk * 16, dp2 * 16, lane);
+        mma(dq[2 * dp2], a, bk[0], bk[1]);
+        mma(dq[2 * dp2 + 1], a, bk[2], bk[3]);
+      }
+    }
+  }
+  bf16* dqg = head<bf16>(p.dq, p.st[DQ_], b, h);
+  const int row0 = q0 + warp * 16;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    store_c(dqg, p.st[DQ_][1], row0, n * 8, dq[n], p.scale, p.scale, lane);
 }
 
 template <int D, int MT>
@@ -447,9 +613,6 @@ struct DkvBf16Tiles {
   static constexpr int STAGE = 3 * BS * LD * 2 + BS * 4;
   static constexpr int SMEM = 2 * BN * LD * 2 + 2 * STAGE + BS * 4;
 };
-
-constexpr int MMA_NT = 128;
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D, int MT>
 __global__ void __launch_bounds__(MMA_NT) flash_bwd_dkv_bf16_kernel(const Params p) {
@@ -695,26 +858,37 @@ __global__ void __launch_bounds__(MMA_NT) flash_bwd_dkv_bf16_kernel(const Params
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const Params& p, int bh, cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * dq_smem_floats<D>();
   // set on every launch: the attribute belongs to the current device
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(p.Sq / Tiles<D>::BM, bh);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+  flash_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const Params& p, int bh, cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * dkv_smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(p.Sk / Tiles<D>::BN, bh);
-  flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+  flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_bf16(const Params& p, int bh, cudaStream_t stream) {
+  using Tl = DqBf16Tiles<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.Sq / Tl::BM, bh);
+  flash_bwd_dq_bf16_kernel<D><<<grid, MMA_NT, Tl::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -741,23 +915,11 @@ cudaError_t launch_dkv_bf16(const Params& p, int bh, cudaStream_t stream) {
   return launch_dkv_bf16_mt<D, 1>(p, bh, stream);
 }
 
-// dQ: the f32 FMA kernel for both dtypes; dK/dV: the tensor-core kernel for
-// bf16, the f32 FMA kernel for f32
-template <typename T>
-cudaError_t dispatch(bool dq, const Params& p, int bh, int d, cudaStream_t s) {
-  constexpr bool BF = sizeof(T) == 2;
-  switch (d) {
-    case 64:
-      return dq ? launch_dq<T, 64>(p, bh, s)
-                : (BF ? launch_dkv_bf16<64>(p, bh, s) : launch_dkv<float, 64>(p, bh, s));
-    case 128:
-      return dq ? launch_dq<T, 128>(p, bh, s)
-                : (BF ? launch_dkv_bf16<128>(p, bh, s) : launch_dkv<float, 128>(p, bh, s));
-    case 256:
-      return dq ? launch_dq<T, 256>(p, bh, s)
-                : (BF ? launch_dkv_bf16<256>(p, bh, s) : launch_dkv<float, 256>(p, bh, s));
-    default: return cudaErrorInvalidValue;
-  }
+// bf16: the tensor-core kernels; f32: the FMA kernels
+template <int D>
+cudaError_t launch(bool dq, bool bf16, const Params& p, int bh, cudaStream_t s) {
+  if (bf16) return dq ? launch_dq_bf16<D>(p, bh, s) : launch_dkv_bf16<D>(p, bh, s);
+  return dq ? launch_dq<D>(p, bh, s) : launch_dkv<D>(p, bh, s);
 }
 
 int run(bool dq, const void* q, const void* k, const void* v, const void* o,
@@ -765,21 +927,21 @@ int run(bool dq, const void* q, const void* k, const void* v, const void* o,
         int H, int Sq, int Sk, int D, const int64_t* strides, float scale,
         void* stream) {
   const int64_t bh = (int64_t)B * H;
-  if (Sq <= 0 || Sk <= 0 || Sq % 64 || Sk % 64 || bh <= 0 || bh > 65535)
+  if (Sq <= 0 || Sk <= 0 || Sq % 64 || Sk % 64 || bh <= 0 || bh > 65535 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, dout, lse, dq ? g0 : nullptr, dq ? nullptr : g0,
            dq ? nullptr : g1, H, Sq, Sk, {}, scale};
   for (int t = 0; t < N_OPERANDS; ++t)
     for (int a = 0; a < 3; ++a) p.st[t][a] = strides[t * 3 + a];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch<float>(dq, p, (int)bh, D, s);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(dq, p, (int)bh, D, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  const bool bf16 = dtype == 1;
+  switch (D) {
+    case 64: return (int)launch<64>(dq, bf16, p, (int)bh, s);
+    case 128: return (int)launch<128>(dq, bf16, p, (int)bh, s);
+    case 256: return (int)launch<256>(dq, bf16, p, (int)bh, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -28,7 +28,7 @@ from dcr_tpu_torch.ops import build
 
 SOURCE = build.CSRC_DIR / "flash_attention_fwd.cu"
 BWD_SOURCE = build.CSRC_DIR / "flash_attention_bwd.cu"
-# the kernel's query and key tile (csrc/flash_attention_fwd.cu BM, BN)
+# sequence lengths are multiples of this (csrc/flash_attention_fwd.cu TILE)
 KERNEL_TILE = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _I64 = ctypes.c_int64

@@ -106,6 +106,74 @@ def test_plain_flash_bf16_matches_jax_interpret(shape, scale_q):
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[:, :, 0], atol=1e-4, rtol=1e-5)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 explicit mantissa bits), ties away
+    from zero: cvt.rna.tf32.f32 on the bits of an int32 view."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the f32 forward kernel takes it on the tensor cores: each
+    operand split into hi = tf32(x), lo = tf32(x - hi), and the product
+    hi*hi' + hi*lo' + lo*hi' with f32 sums (each TF32 product is exact in
+    f32); lo*lo' dropped."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _attention_3xtf32(q, k, v):
+    """(o, lse) over [B, S, H, D] f32 with both products in split TF32,
+    softmax statistics in f32."""
+    qh, kh, vh = (torch.from_numpy(x).permute(0, 2, 1, 3) for x in (q, k, v))
+    s = _matmul_3xtf32(qh, kh.transpose(-1, -2)) * (1.0 / q.shape[-1] ** 0.5)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = _matmul_3xtf32(p, vh) / l
+    return o.permute(0, 2, 1, 3).numpy(), (m + torch.log(l))[..., 0].numpy()
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 3.0], dtype=torch.float32)
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, 1.0,
+                         -(1.0 + 2.0 ** -10), 3.0], dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(1000).astype(np.float32))
+    hi = _tf32(y)
+    assert torch.equal(hi.view(torch.int32) & 0x1FFF, torch.zeros(1000, dtype=torch.int32))
+    assert ((y - hi).abs() <= y.abs() * 2.0 ** -11).all()
+
+
+@pytest.mark.parametrize("shape,scale_q,tol", [
+    pytest.param(dict(b=1, sq=1024, sk=1024, h=2, d=64), 1.0, 2e-5, id="s1024_d64"),
+    pytest.param(dict(b=1, sq=256, sk=256, h=1, d=128), 1.0, 2e-5, id="s256_d128"),
+    pytest.param(dict(b=1, sq=256, sk=256, h=1, d=64), 100.0, 2e-4, id="logits_x100"),
+])
+def test_split_tf32_arithmetic_meets_the_f32_bound(shape, scale_q, tol):
+    """The f32 forward kernel's arithmetic (3xTF32 products, f32 softmax)
+    emulated here against the Pallas kernel in f32 through its interpreter:
+    o within the sampling path's bound (2e-5; 2e-4 at x100 logits, the JAX
+    repo's), lse within 1e-4. One TF32 product alone misses it."""
+    q, k, v = _qkv(41, **shape, scale_q=scale_q)
+    ref_o, ref_lse = FA._flash_fwd(*(FA._to3(jnp.asarray(x)) for x in (q, k, v)),
+                                   interpret=True)
+    ref_o = np.asarray(FA._from3(ref_o, shape["b"], shape["h"]))
+    ref_lse = np.asarray(ref_lse)[:, :, 0].reshape(shape["b"], shape["h"], shape["sq"])
+    o, lse = _attention_3xtf32(q, k, v)
+    np.testing.assert_allclose(o, ref_o, atol=tol, rtol=tol)
+    np.testing.assert_allclose(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    if scale_q == 1.0:
+        # the same with one TF32 product per product: outside the bound
+        qh, kh, vh = (_tf32(torch.from_numpy(x).permute(0, 2, 1, 3)) for x in (q, k, v))
+        s = qh @ kh.transpose(-1, -2) / shape["d"] ** 0.5
+        p = torch.softmax(s, -1)
+        o1 = (_tf32(p) @ vh).permute(0, 2, 1, 3).numpy()
+        assert np.abs(o1 - ref_o).max() > tol
+
+
 def test_kernel_inputs_need_16_byte_row_strides():
     """The kernels copy rows 16 bytes at a time: a bf16 tensor whose seq
     stride is a multiple of 4 elements but not of 8 is refused; the same

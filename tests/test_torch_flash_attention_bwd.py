@@ -81,6 +81,8 @@ BF16_CASES = [
     pytest.param(dict(b=1, sq=384, sk=128, h=2, d=64), 1.0, id="sq_gt_sk"),
     pytest.param(dict(b=1, sq=256, sk=256, h=1, d=128), 1.0, id="d128"),
     pytest.param(dict(b=2, sq=256, sk=256, h=2, d=64), 10.0, id="logits_x10"),
+    # the training path's level-0 length, which the bf16 dQ kernel loops over
+    pytest.param(dict(b=1, sq=1024, sk=1024, h=1, d=64), 1.0, id="train_level0"),
 ]
 
 
