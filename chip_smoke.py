@@ -7,9 +7,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 2. build: every kernel source in dcr_tpu_torch/csrc (one nvcc each, at once);
    per kernel symbol, its registers and spill bytes (ptxas) and its count of
    tensor-core instructions (HMMA/HGMMA in cuobjdump's SASS); the kernels of
-   TENSOR_CORE_KERNELS (the forward in both dtypes, as split TF32 for f32;
-   dQ and dK/dV in bf16) must have tensor-core instructions, and no spills
-   at D=64;
+   TENSOR_CORE_KERNELS (every kernel: bf16 products in bf16, split TF32 in
+   f32) must have tensor-core instructions, and no spills at D=64;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and a few edge shapes, in f32 and bf16 (bf16
    against the plain version in bf16, which rounds where the kernels round),
@@ -17,8 +16,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and the share of it reached, and for f32 the kernel's and the plain
    version's errors against f64: the forward kernel (B1), then the dQ (B2)
    and dK/dV (B3) backward kernels, which must also give bit-identical
-   gradients over two launches; a gradient probe through the autograd
-   Function;
+   gradients over two launches, with the pair's time beside SDPA's
+   backward; a gradient probe through the autograd Function;
 4. small references: a kernel-shaped tiny sampler, and 2 train steps of a
    kernel-shaped tiny model, on the card against the same on the CPU (plain
    attention), from the same x_T / weights and draws;
@@ -157,10 +156,10 @@ def phase_card() -> None:
         f"device {torch.cuda.get_device_name(0)}")
 
 
-# kernels that must run on the tensor cores: B1 in both dtypes, B2 and B3
-# in bf16
+# kernels that must run on the tensor cores: B1, B2 and B3 in both dtypes
 TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel", "flash_fwd_tf32x3_kernel",
-                       "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")
+                       "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
+                       "flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel")
 
 
 def _ptxas_stats(text: str) -> dict[str, dict]:
@@ -366,14 +365,33 @@ def bwd_bound(kind: str, b: int, sq: int, sk: int, h: int, d: int,
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def bwd_f64(q, k, v, o, lse, do) -> tuple:
+    """(dq, dk, dv) in f64 from the same o and lse the kernels take: the
+    plain version's formula without its f32 roundings."""
+    b, sq, h, d = q.shape
+    q, k, v, o, do = (x.double() for x in (q, k, v, o, do))
+    scale = 1.0 / d ** 0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.exp(s - lse.double().reshape(b, h, sq)[..., None])
+    del s
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v)
+              - (do * o).sum(-1).permute(0, 2, 1)[..., None])
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", p, do))
+
+
 def phase_bwd_kernels(reps: int) -> dict:
     """The dQ (B2) and dK/dV (B3) kernels against flash_attention_bwd_reference
     on the same inputs (the forward kernel's o and lse), bit-identical over two
-    launches, with times. library_ms is the backward alone of
+    launches, with times; for f32 the kernels' and the plain version's
+    errors against f64 (bwd_f64), printed, not held. library_ms is the
+    backward alone of
     F.scaled_dot_product_attention on the same q, k, v and dO, on the device
     (its forward and backward in one CUDA graph, less its forward alone);
     library_call_ms is one torch.autograd.grad call, host included. It
-    computes dq, dk and dv, so it stands beside the pair of kernels."""
+    computes dq, dk and dv, so it stands beside the pair of kernels
+    (pair_ms = dq_ms + dkv_ms)."""
     import torch.nn.functional as F
 
     from dcr_tpu_torch.ops import flash_attention as fa
@@ -416,6 +434,14 @@ def phase_bwd_kernels(reps: int) -> dict:
                 tols.append(1e-5 * max(1.0, want.abs().max().item())
                             if dtype is torch.float32 else bf16_tol(want))
             finite = all(bool(torch.isfinite(g.float()).all()) for g in (dq, dk, dv))
+            f64 = None
+            if dtype is torch.float32:
+                with torch.no_grad():
+                    exact = bwd_f64(q, k, v, o, lse, do)
+                    f64 = {side: {n: (g.double() - e).abs().max().item()
+                                  for n, g, e in zip(("dq", "dk", "dv"), grads, exact)}
+                           for side, grads in (("kernel", (dq, dk, dv)), ("plain", ref))}
+                del exact
             with torch.no_grad():
                 ms_dq = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do), reps)
                 ms_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, o, lse, do), reps)
@@ -451,17 +477,22 @@ def phase_bwd_kernels(reps: int) -> dict:
                        plain_ms=plain_ms, library_ms=lib_ms, library_call_ms=lib_call_ms,
                        dq_bound_ms=b_dq, dq_bound_by=by_dq, dkv_bound_ms=b_dkv,
                        dkv_bound_by=by_dkv, dq_pct_of_bound=100.0 * b_dq / ms_dq,
-                       dkv_pct_of_bound=100.0 * b_dkv / ms_dkv)
+                       dkv_pct_of_bound=100.0 * b_dkv / ms_dkv, pair_ms=ms_dq + ms_dkv,
+                       pair_over_library=(ms_dq + ms_dkv) / lib_ms, max_abs_err_vs_f64=f64)
             rows.append(row)
             log(f"flash bwd {name:12s} {row['dtype']:8s} B={b} Sq={sq} Sk={sk} H={h} D={d}: "
                 f"dQ {ms_dq:.4f} ms (bound {b_dq:.4f}, {by_dq}, "
                 f"{row['dq_pct_of_bound']:.1f} %; {call_dq:.4f} per call), dK/dV "
                 f"{ms_dkv:.4f} ms (bound {b_dkv:.4f}, {by_dkv}, "
-                f"{row['dkv_pct_of_bound']:.1f} %; {call_dkv:.4f} per call), plain "
+                f"{row['dkv_pct_of_bound']:.1f} %; {call_dkv:.4f} per call), pair "
+                f"{row['pair_ms']:.4f} ms ({row['pair_over_library']:.2f}x sdpa bwd), plain "
                 f"{plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms ({lib_call_ms:.4f} per "
                 f"autograd.grad call), max err dq/dk/dv "
                 f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol "
-                f"{tols[0]:.3e}/{tols[1]:.3e}/{tols[2]:.3e}), bit-identical {same}")
+                f"{tols[0]:.3e}/{tols[1]:.3e}/{tols[2]:.3e}), bit-identical {same}"
+                + "".join(f", max|{side}-f64| dq/dk/dv "
+                          + "/".join(f"{e[n]:.3e}" for n in ("dq", "dk", "dv"))
+                          for side, e in (f64 or {}).items()))
             if not (same and finite and all(e <= t for e, t in zip(errs, tols))):
                 raise AssertionError(f"flash backward kernels disagree with their plain "
                                      f"version at {name} {dtype}: errs {errs}, tols {tols}, "
@@ -761,8 +792,8 @@ def phase_train_f32_step(steps: int) -> dict:
     JAX defaults otherwise (256 px, batch 16): its train step's entry point,
     dcr_tpu_torch.diffusion.train.make_train_step, on seeded random weights
     built on the card and a random batch, ``steps`` steps. Every attention
-    kernel runs in f32 (B1 as split TF32): 10 launches of each per step,
-    finite losses."""
+    kernel runs in f32 (split TF32): 10 launches of each per step, finite
+    losses."""
     import numpy as np
 
     from dcr_tpu_torch.core.config import TrainConfig
@@ -881,6 +912,10 @@ def main() -> int:
     train_stats["kernel_ms_per_step"] = kernel_ms
     train_stats["kernel_share_of_step"] = kernel_ms / 1e3 / train_stats[
         "median_step_s_after_first"]
+    # and of an f32 train step: the same attentions, every kernel in f32
+    f32_train_stats["kernel_ms_per_step"] = sum(
+        5 * (fwd_row(c, "float32")["ms"] + bwd_row(c, "float32")["pair_ms"])
+        for c in ("train_level0", "train_level1"))
     # and B1's share of a UNet call in sampling: 5 attentions at each level
     main_stats["b1_ms_per_unet_call"] = sum(5 * fwd_row(c, "float32")["ms"]
                                             for c in ("level0", "level1", "level2"))
@@ -905,7 +940,8 @@ def main() -> int:
     for kind in ("dq", "dkv"):
         entries += [
             kernel_entry(kind, "float32", bwd["rows"], train_cases,
-                         {"train_f32": f32_train[kind]}, tensor_cores(f"flash_bwd_{kind}_kernel")),
+                         {"train_f32": f32_train[kind]},
+                         tensor_cores(f"flash_bwd_{kind}_tf32x3_kernel")),
             kernel_entry(kind, "bfloat16", bwd["rows"], train_cases, {"train": train[kind]},
                          tensor_cores(f"flash_bwd_{kind}_bf16_kernel")),
         ]

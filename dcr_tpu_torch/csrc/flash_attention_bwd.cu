@@ -1,11 +1,11 @@
 // Flash-attention backward for Hopper (sm_90a): dQ and dK/dV, f32 and bf16.
 //
 // Replaces the Pallas TPU kernels of dcr_tpu/ops/flash_attention.py:
-//   flash_bwd_dq_bf16_kernel, flash_bwd_dq_kernel   <- _bwd_dq_kernel  (launched by _flash_bwd)
-//   flash_bwd_dkv_bf16_kernel, flash_bwd_dkv_kernel <- _bwd_dkv_kernel (launched by _flash_bwd)
-// (the bf16 kernel of each pair runs on the tensor cores, the other takes
-// f32 operands). Same functions, by recomputation from the forward's
-// log-sum-exp:
+//   flash_bwd_dq_bf16_kernel, flash_bwd_dq_tf32x3_kernel   <- _bwd_dq_kernel
+//   flash_bwd_dkv_bf16_kernel, flash_bwd_dkv_tf32x3_kernel <- _bwd_dkv_kernel
+// (both launched by _flash_bwd; the first of each pair takes bf16
+// operands, the second f32). Same functions, by recomputation from the
+// forward's log-sum-exp:
 //   S = Q K^T * D^-1/2, P = exp(S - lse), dP = dO V^T, delta = rowsum(dO o O),
 //   dS = P o (dP - delta), dQ = D^-1/2 dS K, dK = D^-1/2 dS^T Q, dV = P^T dO.
 // Logits, statistics and accumulators are f32. With bf16 operands dS (and P
@@ -21,8 +21,7 @@
 // at the UNet's training shapes (S = 256..1024, D = 64) both are bound by
 // operations: the 989 TFLOP/s of the bf16 tensor cores for bf16 operands;
 // for f32 operands the 165 TFLOP/s that f32-accurate work gets from the
-// TF32 tensor cores as split TF32 (flash_attention_fwd.cu), which the f32
-// kernels here, on the CUDA cores' 67 TFLOP/s, do not use.
+// TF32 tensor cores as split TF32 (mma_tf32.cuh).
 //
 // The TPU grid runs in order, and its dK/dV kernel carries f32 VMEM
 // accumulators across a sequential ("arbitrary") q-block axis. Hopper runs
@@ -36,8 +35,8 @@
 //
 // With mma.sync every warp reads its own B fragments from shared memory, so
 // shared-memory traffic and instruction issue, not the tensor cores, set
-// the pace of the bf16 kernels; the accumulators and the fragments a warp
-// keeps fill its registers, which sets the tiles.
+// the pace; the accumulators and the fragments a warp keeps fill its
+// registers, which sets the tiles and how many warps an SM holds.
 //
 // dQ, bf16 (flash_bwd_dq_bf16_kernel), flash_attention_fwd.cu's bf16
 // structure with three products in place of two:
@@ -87,18 +86,46 @@
 //   instantiation opts in.
 // The helpers (cp.async, ldmatrix, mma, fragment packing) are in mma_bf16.cuh.
 //
-// f32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel; the f32 training mode)
-// runs f32 FMA on the CUDA cores:
-// - dQ: one block of 256 threads per (b*h, query tile). Q and dO tiles, lse
-//   and delta stay in shared memory; K and V tiles stream through it; dQ
-//   accumulates in registers over every key tile and is written once.
-// - dK/dV: one block per (b*h, key tile), the same loop as above.
-// Products are register-tiled 16 x 16 threads, with padded shared-memory
-// rows so the 16-byte loads of a quarter warp hit distinct banks. Tiles are
-// 64 x 64 at D = 64 and 128; at D = 256 the dK/dV tiles would need 278 KB
-// at 64 rows, more than the 227 KB a block may use, so D = 256 takes
-// 32 x 32 tiles. Shared memory is 88-171 KB, so every instantiation opts in
-// to large dynamic shared memory.
+// f32 (flash_bwd_dq_tf32x3_kernel, flash_bwd_dkv_tf32x3_kernel; the f32
+// training mode): dP and the gradient products are split TF32 on the tensor
+// cores (mma_tf32.cuh: x = hi + lo, hi*hi' + hi*lo' + lo*hi' on m16n8k8,
+// the k order inside each 8-wide step permuted so P^T, dS and dS^T are A
+// operands straight from their accumulator fragments); S stays on the CUDA
+// cores. The card holds these kernels at 1e-5 max(1, max|ref|) of the f32
+// plain version, logits x100 included. There P = exp(S * scale - lse) with
+// S ~ 1e3 turns one unit in the last place of S into ~3e-5 of P, and an S
+// rounded in any other way than the plain product's, an exactly rounded S
+// too, lands outside that bound (tests/test_torch_flash_attention_bwd.py). So each element of S is one
+// f32 fmaf chain over d = 0 .. D-1 in order, as cuBLAS's f32 product (and
+// the FMA kernels these replace) round it, and P's exponent is rounded step
+// by step as the plain version's; the products after it are as accurate as
+// f32. The design:
+// - dQ: one block of 4 warps per (b*h, 64 query rows), 16 rows per warp; Q,
+//   dO and lse stay in shared memory, delta is computed once per block (O
+//   from device memory); K and V tiles (32 keys at D = 64, else 16) stream
+//   through a 2-stage cp.async ring. Per key tile each warp computes S in
+//   the accumulator layout (rows g, g + 8; keys 2t, 2t + 1 of each n-tile)
+//   from float4 rows of Q and K, dP = dO V^T in split TF32, then dS =
+//   P (dP - delta) in registers, the A operand of dQ += dS K with K's rows
+//   2t, 2t + 1 as B.
+// - dK/dV: one block of 4 warps per (b*h, 64 keys), 16 per warp, K and V
+//   resident; Q, dO, O and lse of 16 query rows per stage stream through a
+//   2-stage cp.async ring, delta per stage from dO and O in shared memory.
+//   Per stage each warp computes S^T (its keys against the stage's rows),
+//   P^T, dV += P^T dO, dP^T = V dO^T, dS^T and dK += dS^T Q, P^T and dS^T
+//   split in registers as A operands. dO is read as pairs (dP^T) and as k
+//   rows (dV), so its tile (and O's, to pair up for delta) is swizzled; K,
+//   V and Q are padded. At D = 256 each block takes half of dK/dV's columns
+//   (grid z = 2) and recomputes S^T and dP^T for it.
+// - The tensor cores round their sums toward zero: the cross terms of dP
+//   (and, at D = 64, of the long dQ, dK and dV sums) go to accumulators of
+//   their own, added in f32 at the end.
+// - Every operand is split per fragment as a warp reads it. Splitting once
+//   per block into hi/lo shared tiles (dO in dQ; K and V per tile; V, and Q
+//   and dO per stage, in dK/dV) cut the instructions but, on an H100, timed
+//   slower: the extra shared memory and registers cost more warps per SM
+//   than the splits cost (registers already hold each SM to 8-12 warps).
+// 61-232 KB of shared memory; every instantiation opts in.
 //
 // The inputs are [B, S, H, D] tensors read through their strides (the last
 // dimension contiguous, the others multiples of 16 bytes); the gradients are
@@ -111,11 +138,11 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int NT = 256;      // threads of an f32 block, viewed as 16 (ty) x 16 (tx)
-constexpr int MMA_NT = 128;  // threads of a bf16 block: 4 warps
+constexpr int MMA_NT = 128;  // threads of a block: 4 warps
 constexpr float LOG2E = 1.4426950408889634f;
 
 // stride triples (batch, seq, head) in elements, in this order
@@ -136,302 +163,433 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
-}
-
 // (b, h) head slice of one operand
 template <typename T>
 __device__ __forceinline__ T* head(const void* base, const int64_t* st, int b, int h) {
   return const_cast<T*>(static_cast<const T*>(base)) + b * st[0] + h * st[2];
 }
 
-// rows [row0, row0 + ROWS) of a [S, D] head slice -> shared tile [ROWS][P]
-template <int D, int ROWS, int P>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t row_stride,
-                                          int row0, int tid) {
-  constexpr int C4 = D / 4;
-  for (int c = tid; c < ROWS * C4; c += NT) {
-    const int r = c / C4;
-    const int d = (c - r * C4) * 4;
-    *reinterpret_cast<float4*>(&dst[r * P + d]) =
-        load4(src + (int64_t)(row0 + r) * row_stride + d);
-  }
-}
-
-// acc[i][j] = sum_d A[a0 + i][d] * B[tx + 16 j][d], both [rows][P] in shared memory
-template <int D, int RA, int RB, int P>
-__device__ __forceinline__ void dot_rows(float (&acc)[RA][RB], const float* A, int a0,
-                                         const float* B, int tx) {
-#pragma unroll
-  for (int i = 0; i < RA; ++i)
-#pragma unroll
-    for (int j = 0; j < RB; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[RA], bb[RB];
-#pragma unroll
-    for (int i = 0; i < RA; ++i)
-      a[i] = *reinterpret_cast<const float4*>(&A[(a0 + i) * P + d]);
-#pragma unroll
-    for (int j = 0; j < RB; ++j)
-      bb[j] = *reinterpret_cast<const float4*>(&B[(tx + 16 * j) * P + d]);
-#pragma unroll
-    for (int i = 0; i < RA; ++i)
-#pragma unroll
-      for (int j = 0; j < RB; ++j) {
-        acc[i][j] = fmaf(a[i].x, bb[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, bb[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, bb[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, bb[j].w, acc[i][j]);
-      }
-  }
-}
-
-// acc[i][g*4 + c] += sum_n X[x0 + i][n] * Y[n][g*64 + tx*4 + c]
-// X: [rows][PX], Y: [N][PY], both in shared memory
-template <int D, int RA, int N, int PX, int PY>
-__device__ __forceinline__ void acc_product(float (&acc)[RA][D / 16], const float* X,
-                                            int x0, const float* Y, int tx) {
-  constexpr int G = D / 64;
-#pragma unroll 2
-  for (int n = 0; n < N; n += 4) {
-    float4 xa[RA];
-#pragma unroll
-    for (int i = 0; i < RA; ++i)
-      xa[i] = *reinterpret_cast<const float4*>(&X[(x0 + i) * PX + n]);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 yb =
-            *reinterpret_cast<const float4*>(&Y[(n + kk) * PY + g * 64 + tx * 4]);
-#pragma unroll
-        for (int i = 0; i < RA; ++i) {
-          const float xv = comp(xa[i], kk);
-          acc[i][g * 4 + 0] = fmaf(xv, yb.x, acc[i][g * 4 + 0]);
-          acc[i][g * 4 + 1] = fmaf(xv, yb.y, acc[i][g * 4 + 1]);
-          acc[i][g * 4 + 2] = fmaf(xv, yb.z, acc[i][g * 4 + 2]);
-          acc[i][g * 4 + 3] = fmaf(xv, yb.w, acc[i][g * 4 + 3]);
-        }
-      }
-    }
-  }
-}
-
-// delta[r] = sum_d dO[r][d] * O[row0 + r][d] in f32, NT / ROWS threads per row
-template <int D, int ROWS, int P>
-__device__ __forceinline__ void row_delta(float* delta, const float* dOs, const float* og,
-                                          int64_t o_ss, int row0, int tid) {
-  constexpr int TPR = NT / ROWS;
-  const int r = tid / TPR;
-  const int part = tid - r * TPR;
-  float sum = 0.f;
-  for (int d = part * 4; d < D; d += TPR * 4) {
-    const float4 a = *reinterpret_cast<const float4*>(&dOs[r * P + d]);
-    const float4 b = load4(og + (int64_t)(row0 + r) * o_ss + d);
-    sum += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-  }
-#pragma unroll
-  for (int off = TPR / 2; off > 0; off >>= 1)
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (part == 0) delta[r] = sum;
-}
-
-// write rows [row0 + i] of a [rows][D] register tile, scaled
-template <int D, int RA>
-__device__ __forceinline__ void store_rows(float* g, int64_t row_stride, int row0,
-                                           const float (&acc)[RA][D / 16], float scale,
-                                           int tx) {
-#pragma unroll
-  for (int i = 0; i < RA; ++i) {
-    float* row = g + (int64_t)(row0 + i) * row_stride;
-#pragma unroll
-    for (int gg = 0; gg < D / 64; ++gg) {
-      *reinterpret_cast<float4*>(row + gg * 64 + tx * 4) =
-          make_float4(acc[i][gg * 4 + 0] * scale, acc[i][gg * 4 + 1] * scale,
-                      acc[i][gg * 4 + 2] * scale, acc[i][gg * 4 + 3] * scale);
-    }
-  }
-}
-
 template <int D>
-struct Tiles {
-  // query rows and keys per tile; D = 256 halves them to fit shared memory
-  static constexpr int BM = D == 256 ? 32 : 64;
-  static constexpr int BN = D == 256 ? 32 : 64;
+struct DqTf32Tiles {
+  static constexpr int BM = 64;                 // query rows per block, 16 per warp
+  static constexpr int BN = D == 64 ? 32 : 16;  // keys per tile
+  static constexpr bool XACC = D == 64;         // dQ's cross terms summed apart
+  // Q and K rows are read whole (S) or as the k index (dS K); dO and V as pairs
+  static constexpr int LDR = D + mma_tf32::PAD_K_ROWS;
+  static constexpr int LDP = D + mma_tf32::PAD_PAIRS;
+  // Q [BM][LDR]; dO [BM][LDP]; K ring [2][BN][LDR]; V ring [2][BN][LDP];
+  // lse, delta [BM]
+  static constexpr int DO_OFF = BM * LDR;
+  static constexpr int K_OFF = DO_OFF + BM * LDP;
+  static constexpr int V_OFF = K_OFF + 2 * BN * LDR;
+  static constexpr int LSE_OFF = V_OFF + 2 * BN * LDP;
+  static constexpr int SMEM = (LSE_OFF + 2 * BM) * 4;
 };
 
 template <int D>
-constexpr int dq_smem_floats() {
-  // Qs, dOs [BM][D+4]; Ks, Vs [BN][D+4]; dSs [BM][BN+4]; lse, delta [BM]
-  return 2 * Tiles<D>::BM * (D + 4) + 2 * Tiles<D>::BN * (D + 4) +
-         Tiles<D>::BM * (Tiles<D>::BN + 4) + 2 * Tiles<D>::BM;
-}
-
-template <int D>
-constexpr int dkv_smem_floats() {
-  // Ks, Vs [BN][D+4]; Qs, dOs [BM][D+4]; P^T, dS^T [BN][BM+4]; lse, delta [BM]
-  return 2 * Tiles<D>::BN * (D + 4) + 2 * Tiles<D>::BM * (D + 4) +
-         2 * Tiles<D>::BN * (Tiles<D>::BM + 4) + 2 * Tiles<D>::BM;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
-  constexpr int BM = Tiles<D>::BM, BN = Tiles<D>::BN;
-  constexpr int P = D + 4, PS = BN + 4;
-  constexpr int RM = BM / 16, RN = BN / 16;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + BM * P;
-  float* Ks = dOs + BM * P;
-  float* Vs = Ks + BN * P;
-  float* dSs = Vs + BN * P;
-  float* lses = dSs + BM * PS;
+__global__ void __launch_bounds__(MMA_NT) flash_bwd_dq_tf32x3_kernel(const Params p) {
+  using namespace mma_tf32;
+  using Tl = DqTf32Tiles<D>;
+  constexpr int BM = Tl::BM, BN = Tl::BN, LDR = Tl::LDR, LDP = Tl::LDP;
+  constexpr bool XACC = Tl::XACC;
+  constexpr int KD = D / 8;            // k-steps of dP over D
+  constexpr int NS = BN / 8;           // n-tiles of S and dP (keys), k-steps of dQ
+  constexpr int NO = D / 8;            // n-tiles of dQ
+  constexpr int NP = NO > 8 ? 8 : NO;  // n-tiles per pass of split B fragments
+  extern __shared__ float4 smem_f4[];
+  float* Qs = reinterpret_cast<float*>(smem_f4);
+  float* dOs = Qs + Tl::DO_OFF;
+  float* Ks = Qs + Tl::K_OFF;
+  float* Vs = Qs + Tl::V_OFF;
+  float* lses = Qs + Tl::LSE_OFF;
   float* deltas = lses + BM;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int q0 = blockIdx.x * BM;
+  const int qr = warp * 16 + g;  // this thread's query rows qr and qr + 8 of the block
 
-  const float* qg = head<float>(p.q, p.st[Q_], b, h);
+  const float* qg = head<float>(p.q, p.st[Q_], b, h) + (int64_t)q0 * p.st[Q_][1];
+  const float* dog = head<float>(p.dout, p.st[DO_], b, h) + (int64_t)q0 * p.st[DO_][1];
+  const float* og = head<float>(p.o, p.st[O_], b, h) + (int64_t)q0 * p.st[O_][1];
   const float* kg = head<float>(p.k, p.st[K_], b, h);
   const float* vg = head<float>(p.v, p.st[V_], b, h);
-  const float* og = head<float>(p.o, p.st[O_], b, h);
-  const float* dog = head<float>(p.dout, p.st[DO_], b, h);
-  float* dqg = head<float>(p.dq, p.st[DQ_], b, h);
+  const int64_t k_ss = p.st[K_][1], v_ss = p.st[V_][1];
 
-  load_tile<D, BM, P>(Qs, qg, p.st[Q_][1], q0, tid);
-  load_tile<D, BM, P>(dOs, dog, p.st[DO_][1], q0, tid);
-  if (tid < BM) lses[tid] = p.lse[(int64_t)bh * p.Sq + q0 + tid];
+  load_tile_async<BM, D, LDR, MMA_NT>(Qs, qg, p.st[Q_][1], tid);
+  load_tile_async<BM, D, LDP, MMA_NT>(dOs, dog, p.st[DO_][1], tid);
+  if (tid < BM / 4)
+    mma_bf16::cp_async_16(lses + tid * 4, p.lse + (int64_t)bh * p.Sq + q0 + tid * 4);
+  mma_bf16::cp_async_commit();
+  load_tile_async<BN, D, LDR, MMA_NT>(Ks, kg, k_ss, tid);
+  load_tile_async<BN, D, LDP, MMA_NT>(Vs, vg, v_ss, tid);
+  mma_bf16::cp_async_commit();
+  mma_bf16::cp_async_wait<1>();  // Q, dO and lse; K/V tile 0 may still be in flight
   __syncthreads();
-  row_delta<D, BM, P>(deltas, dOs, og, p.st[O_][1], q0, tid);
 
-  float acc[RM][D / 16];
+  // delta[r] = sum_d dO[r][d] * O[r][d] in f32, TPR threads per row, dO
+  // from shared memory and O from device memory, once per block
+  {
+    constexpr int TPR = MMA_NT / BM;
+    constexpr int CPT = D / 4 / TPR;  // 16-byte chunks per thread
+    const int r = tid / TPR, part = tid - r * TPR;
+    const float* orow = og + (int64_t)r * p.st[O_][1];
+    float sum = 0.f;
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+    for (int c = 0; c < CPT; ++c) {
+      const int d = (part + c * TPR) * 4;
+      const float4 a = *reinterpret_cast<const float4*>(dOs + r * LDP + d);
+      const float4 o = *reinterpret_cast<const float4*>(orow + d);
+      sum += a.x * o.x + a.y * o.y + a.z * o.z + a.w * o.w;
+    }
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+    for (int off = TPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (part == 0) deltas[r] = sum;
+  }
+  __syncthreads();  // delta is visible
+  const float lse0 = lses[qr], lse1 = lses[qr + 8];
+  const float dl0 = deltas[qr], dl1 = deltas[qr + 8];
+  const float* q_row = Qs + qr * LDR;            // rows qr and qr + 8 of Q
+  const float* do_row = dOs + qr * LDP + 2 * t;  // dO's A fragments
+
+  // dQ: the hi*hi' sum and, at D = 64, the cross terms' sum apart
+  float dq[NO][4], dq_x[XACC ? NO : 1][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      dq[n][c] = 0.f;
+      if constexpr (XACC) dq_x[n][c] = 0.f;
+    }
 
   const int n_tiles = p.Sk / BN;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();  // the previous tile's readers are done (and delta is visible)
-    const int k0 = kt * BN;
-    load_tile<D, BN, P>(Ks, kg, p.st[K_][1], k0, tid);
-    load_tile<D, BN, P>(Vs, vg, p.st[V_][1], k0, tid);
-    __syncthreads();
+  for (int j = 0; j < n_tiles; ++j) {
+    mma_bf16::cp_async_wait<0>();
+    __syncthreads();  // tile j has landed for all, and stage (j+1)&1 is free
+    if (j + 1 < n_tiles) {
+      const int st = (j + 1) & 1;
+      const int64_t k0 = (int64_t)(j + 1) * BN;
+      load_tile_async<BN, D, LDR, MMA_NT>(Ks + st * BN * LDR, kg + k0 * k_ss, k_ss, tid);
+      load_tile_async<BN, D, LDP, MMA_NT>(Vs + st * BN * LDP, vg + k0 * v_ss, v_ss, tid);
+      mma_bf16::cp_async_commit();
+    }
+    const float* Kt = Ks + (j & 1) * BN * LDR;
+    const float* Vt = Vs + (j & 1) * BN * LDP;
 
-    // S = Q K^T and dP = dO V^T for rows ty*RM + i and keys tx + 16 j
-    float s[RM][RN], dp[RM][RN];
-    dot_rows<D, RM, RN, P>(s, Qs, ty * RM, Ks, tx);
-    dot_rows<D, RM, RN, P>(dp, dOs, ty * RM, Vs, tx);
+    // S = Q K^T on the CUDA cores, in the fragment layout (rows qr, qr + 8;
+    // keys 8n + 2t, + 1): each element one f32 fmaf chain over d in order,
+    // as the plain version's product rounds it
+    float s[NS][4];
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = ty * RM + i;
-      const float l = lses[r];
-      const float dl = deltas[r];
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      const float4 a0 = *reinterpret_cast<const float4*>(q_row + d);
+      const float4 a1 = *reinterpret_cast<const float4*>(q_row + 8 * LDR + d);
 #pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const float pr = expf(s[i][j] * p.scale - l);
-        dSs[r * PS + tx + 16 * j] = pr * (dp[i][j] - dl);
+      for (int n = 0; n < NS; ++n) {
+        const float* kp = Kt + (n * 8 + 2 * t) * LDR + d;
+        const float4 b0 = *reinterpret_cast<const float4*>(kp);
+        const float4 b1 = *reinterpret_cast<const float4*>(kp + LDR);
+        fma4(s[n][0], a0, b0);
+        fma4(s[n][1], a0, b1);
+        fma4(s[n][2], a1, b0);
+        fma4(s[n][3], a1, b1);
       }
     }
-    __syncthreads();
-
-    // dQ += dS K for rows ty*RM + i and columns g*64 + tx*4 + (0..3)
-    acc_product<D, RM, BN, PS, P>(acc, dSs, ty * RM, Ks, tx);
+    // dP = dO V^T as split TF32: hi*hi' in dp, the cross terms in dp_x
+    float dp[NS][4], dp_x[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dp[n][c] = dp_x[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a_hi[4], a_lo[4], b_hi[NS][2], b_lo[NS][2];
+      split_a_rows(a_hi, a_lo, *reinterpret_cast<const float2*>(do_row + kk * 8),
+                   *reinterpret_cast<const float2*>(do_row + 8 * LDP + kk * 8));
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const float2 x = *reinterpret_cast<const float2*>(Vt + (n * 8 + g) * LDP + kk * 8 + 2 * t);
+        split_b(b_hi[n], b_lo[n], x.x, x.y);
+      }
+      mma3(dp, dp_x, a_hi, a_lo, b_hi, b_lo);
+    }
+    // dS = P (dP - delta), P = exp(S * scale - lse) rounded step by step as
+    // the plain version rounds it, in place of s
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        s[n][c] = expf(__fsub_rn(__fmul_rn(s[n][c], p.scale), c < 2 ? lse0 : lse1)) *
+                  (dp[n][c] + dp_x[n][c] - (c < 2 ? dl0 : dl1));
+    // dQ += dS K: dS from registers is the A operand (k = keys in the
+    // permuted order), K's rows 8kk + 2t and + 1 of the tile S came from
+    // the B operand
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      uint32_t a_hi[4], a_lo[4];
+      split_a(a_hi, a_lo, s[kk]);
+      const float* kp = Kt + (kk * 8 + 2 * t) * LDR + g;
+#pragma unroll
+      for (int n0 = 0; n0 < NO; n0 += NP) {
+        uint32_t b_hi[NP][2], b_lo[NP][2];
+#pragma unroll
+        for (int n = 0; n < NP; ++n)
+          split_b(b_hi[n], b_lo[n], kp[(n0 + n) * 8], kp[LDR + (n0 + n) * 8]);
+        auto& big = *reinterpret_cast<float(*)[NP][4]>(&dq[n0]);
+        if constexpr (XACC)
+          mma3(big, *reinterpret_cast<float(*)[NP][4]>(&dq_x[n0]), a_hi, a_lo, b_hi, b_lo);
+        else
+          mma3(big, big, a_hi, a_lo, b_hi, b_lo);
+      }
+    }
   }
-  store_rows<D, RM>(dqg, p.st[DQ_][1], q0 + ty * RM, acc, p.scale, tx);
+  float* dqg = head<float>(p.dq, p.st[DQ_], b, h) + (int64_t)(q0 + qr) * p.st[DQ_][1] + 2 * t;
+  const int64_t dq8 = 8 * p.st[DQ_][1];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    if constexpr (XACC) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dq[n][c] += dq_x[n][c];
+    }
+    *reinterpret_cast<float2*>(dqg + n * 8) = make_float2(dq[n][0] * p.scale, dq[n][1] * p.scale);
+    *reinterpret_cast<float2*>(dqg + dq8 + n * 8) =
+        make_float2(dq[n][2] * p.scale, dq[n][3] * p.scale);
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
-  constexpr int BM = Tiles<D>::BM, BN = Tiles<D>::BN;
-  constexpr int P = D + 4, PT = BM + 4;
-  constexpr int RK = BN / 16, RQ = BM / 16;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + BN * P;
-  float* Qs = Vs + BN * P;
-  float* dOs = Qs + BM * P;
-  float* PTs = dOs + BM * P;
-  float* dSTs = PTs + BN * PT;
-  float* lses = dSTs + BN * PT;
-  float* deltas = lses + BM;
+struct DkvTf32Tiles {
+  static constexpr int BN = 64;                    // keys per block, 16 per warp
+  static constexpr int BS = 16;                    // query rows per streamed stage
+  static constexpr int DOUT = D == 256 ? 128 : D;  // dK/dV columns per block
+  static constexpr bool XACC = D == 64;            // dK/dV cross terms summed apart
+  // K and Q rows are read whole (S^T) or, Q, as the k index (dS^T Q); V as
+  // pairs (at D = 256 the narrower pad keeps shared memory under the
+  // limit); dO and O are swizzled
+  static constexpr int LDR = D + mma_tf32::PAD_K_ROWS;
+  static constexpr int LDV = D + (D == 256 ? mma_tf32::PAD_K_ROWS : mma_tf32::PAD_PAIRS);
+  // K [BN][LDR]; V [BN][LDV]; 2 stages of Q [BS][LDR], dO and O [BS][D],
+  // lse [BS]; delta [BS]
+  static constexpr int KV = BN * LDR + BN * LDV;
+  static constexpr int STAGE = BS * LDR + 2 * BS * D + BS;
+  static constexpr int SMEM = (KV + 2 * STAGE + BS) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(MMA_NT) flash_bwd_dkv_tf32x3_kernel(const Params p) {
+  using namespace mma_tf32;
+  using Tl = DkvTf32Tiles<D>;
+  constexpr int BN = Tl::BN, BS = Tl::BS, DOUT = Tl::DOUT, LDR = Tl::LDR, LDV = Tl::LDV;
+  constexpr bool XACC = Tl::XACC;
+  constexpr int KD = D / 8;            // k-steps of dP^T over D
+  constexpr int NQ = BS / 8;           // n-tiles of S^T (queries), k-steps of dK and dV
+  constexpr int NO = DOUT / 8;         // n-tiles of dK, dV
+  constexpr int NP = NO > 8 ? 8 : NO;  // n-tiles per pass of split B fragments
+  extern __shared__ float4 smem_f4[];
+  float* Ks = reinterpret_cast<float*>(smem_f4);
+  float* Vs = Ks + BN * LDR;
+  float* ring = Ks + Tl::KV;
+  float* deltas = ring + 2 * Tl::STAGE;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int k0 = blockIdx.x * BN;
+  const int c0 = D == DOUT ? 0 : blockIdx.z * DOUT;  // first dK/dV column of this block
+  const int kr = warp * 16 + g;  // this thread's key rows kr and kr + 8 of the block
 
   const float* qg = head<float>(p.q, p.st[Q_], b, h);
   const float* kg = head<float>(p.k, p.st[K_], b, h);
   const float* vg = head<float>(p.v, p.st[V_], b, h);
   const float* og = head<float>(p.o, p.st[O_], b, h);
   const float* dog = head<float>(p.dout, p.st[DO_], b, h);
-  float* dkg = head<float>(p.dk, p.st[DK_], b, h);
-  float* dvg = head<float>(p.dv, p.st[DV_], b, h);
+  const float* lseg = p.lse + (int64_t)bh * p.Sq;
+  // row strides fit 32 bits (checked at launch), which spares registers
+  const int q_ss = (int)p.st[Q_][1], o_ss = (int)p.st[O_][1], do_ss = (int)p.st[DO_][1];
+  const int k_ss = (int)p.st[K_][1], v_ss = (int)p.st[V_][1];
 
-  load_tile<D, BN, P>(Ks, kg, p.st[K_][1], k0, tid);
-  load_tile<D, BN, P>(Vs, vg, p.st[V_][1], k0, tid);
+  load_tile_async<BN, D, LDR, MMA_NT>(Ks, kg + (int64_t)k0 * k_ss, k_ss, tid);
+  load_tile_async<BN, D, LDV, MMA_NT>(Vs, vg + (int64_t)k0 * v_ss, v_ss, tid);
+  mma_bf16::cp_async_commit();
+  // stage i: Q, dO, O and lse of query rows i * BS .. + BS
+  auto load_stage = [&](int i) {
+    float* st = ring + (i & 1) * Tl::STAGE;
+    const int64_t q0 = (int64_t)i * BS;
+    load_tile_async<BS, D, LDR, MMA_NT>(st, qg + q0 * q_ss, q_ss, tid);
+    st += BS * LDR;
+    load_tile_swz<BS, D, MMA_NT>(st, dog + q0 * do_ss, do_ss, tid);
+    load_tile_swz<BS, D, MMA_NT>(st + BS * D, og + q0 * o_ss, o_ss, tid);
+    if (tid < BS / 4) mma_bf16::cp_async_16(st + 2 * BS * D + tid * 4, lseg + q0 + tid * 4);
+    mma_bf16::cp_async_commit();
+  };
+  load_stage(0);
+  const float* k_row = Ks + kr * LDR;          // rows kr and kr + 8 of K
+  const float* v_row = Vs + kr * LDV + 2 * t;  // V's A fragments
 
-  float dk[RK][D / 16], dv[RK][D / 16];
+  // dK and dV: hi*hi' sums and, at D = 64, the cross terms' sums apart
+  float dk[NO][4], dv[NO][4], dk_x[XACC ? NO : 1][4], dv_x[XACC ? NO : 1][4];
 #pragma unroll
-  for (int i = 0; i < RK; ++i)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      dk[i][c] = 0.f;
-      dv[i][c] = 0.f;
+    for (int c = 0; c < 4; ++c) {
+      dk[n][c] = dv[n][c] = 0.f;
+      if constexpr (XACC) dk_x[n][c] = dv_x[n][c] = 0.f;
     }
 
-  // the loop over every query tile replaces the TPU's sequential grid axis
-  const int n_tiles = p.Sq / BM;
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    __syncthreads();  // the previous tile's readers are done
-    const int q0 = qt * BM;
-    load_tile<D, BM, P>(Qs, qg, p.st[Q_][1], q0, tid);
-    load_tile<D, BM, P>(dOs, dog, p.st[DO_][1], q0, tid);
-    if (tid < BM) lses[tid] = p.lse[(int64_t)bh * p.Sq + q0 + tid];
-    __syncthreads();
-    row_delta<D, BM, P>(deltas, dOs, og, p.st[O_][1], q0, tid);
+  // the loop over every query stage replaces the TPU's sequential grid axis
+  const int n_tiles = p.Sq / BS;
+  for (int i = 0; i < n_tiles; ++i) {
+    mma_bf16::cp_async_wait<0>();
+    __syncthreads();  // stage i has landed for all, and stage (i+1)&1 is free
+    if (i + 1 < n_tiles) load_stage(i + 1);
+    const float* Qs = ring + (i & 1) * Tl::STAGE;
+    const float* dOs = Qs + BS * LDR;
+    const float* Os = dOs + BS * D;
+    const float* lses = Os + BS * D;
+
+    // delta[r] = sum_d dO[r][d] * O[r][d] in f32, TPR threads per row; the
+    // rows of dO and O share one swizzle, so their chunks pair up in place
+    {
+      constexpr int TPR = MMA_NT / BS;
+      constexpr int CPT = D / 4 / TPR;  // 16-byte chunks per thread
+      const int r = tid / TPR, part = tid - r * TPR;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int idx = r * D + (part + c * TPR) * 4;
+        const float4 a = *reinterpret_cast<const float4*>(dOs + idx);
+        const float4 o = *reinterpret_cast<const float4*>(Os + idx);
+        sum += a.x * o.x + a.y * o.y + a.z * o.z + a.w * o.w;
+      }
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (part == 0) deltas[r] = sum;
+    }
     __syncthreads();
 
-    // S^T = K Q^T and dP^T = V dO^T for keys ty*RK + i and queries tx + 16 j
-    float s[RK][RQ], dp[RK][RQ];
-    dot_rows<D, RK, RQ, P>(s, Ks, ty * RK, Qs, tx);
-    dot_rows<D, RK, RQ, P>(dp, Vs, ty * RK, dOs, tx);
+    // S^T = K Q^T on the CUDA cores, in the fragment layout (keys kr, kr + 8;
+    // queries 8n + 2t, + 1): each element one f32 fmaf chain over d in
+    // order, as the plain version's product rounds S
+    float s[NQ][4];
 #pragma unroll
-    for (int j = 0; j < RQ; ++j) {
-      const int m = tx + 16 * j;
-      const float l = lses[m];
-      const float dl = deltas[m];
+    for (int n = 0; n < NQ; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      const float4 a0 = *reinterpret_cast<const float4*>(k_row + d);
+      const float4 a1 = *reinterpret_cast<const float4*>(k_row + 8 * LDR + d);
 #pragma unroll
-      for (int i = 0; i < RK; ++i) {
-        const int n = ty * RK + i;
-        const float pr = expf(s[i][j] * p.scale - l);
-        PTs[n * PT + m] = pr;
-        dSTs[n * PT + m] = pr * (dp[i][j] - dl);
+      for (int n = 0; n < NQ; ++n) {
+        const float* qp = Qs + (n * 8 + 2 * t) * LDR + d;
+        const float4 b0 = *reinterpret_cast<const float4*>(qp);
+        const float4 b1 = *reinterpret_cast<const float4*>(qp + LDR);
+        fma4(s[n][0], a0, b0);
+        fma4(s[n][1], a0, b1);
+        fma4(s[n][2], a1, b0);
+        fma4(s[n][3], a1, b1);
       }
     }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q for keys ty*RK + i, columns g*64 + tx*4 + (0..3)
-    acc_product<D, RK, BM, PT, P>(dv, PTs, ty * RK, dOs, tx);
-    acc_product<D, RK, BM, PT, P>(dk, dSTs, ty * RK, Qs, tx);
+    // P^T = exp(S^T * scale - lse[q]) rounded step by step as the plain
+    // version rounds it; this thread's queries are 8n + 2t, + 1
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const float2 l = *reinterpret_cast<const float2*>(lses + n * 8 + 2 * t);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        s[n][c] = expf(__fsub_rn(__fmul_rn(s[n][c], p.scale), (c & 1) ? l.y : l.x));
+    }
+    // dV += P^T dO: P^T from registers is the A operand (k = queries in the
+    // permuted order), dO's rows 8kq + 2t and + 1 the B operand
+#pragma unroll
+    for (int kq = 0; kq < NQ; ++kq) {
+      uint32_t a_hi[4], a_lo[4];
+      split_a(a_hi, a_lo, s[kq]);
+#pragma unroll
+      for (int n0 = 0; n0 < NO; n0 += NP) {
+        uint32_t b_hi[NP][2], b_lo[NP][2];
+#pragma unroll
+        for (int n = 0; n < NP; ++n) {
+          const int col = c0 + (n0 + n) * 8 + g;
+          split_b(b_hi[n], b_lo[n], elem<D>(dOs, kq * 8 + 2 * t, col),
+                  elem<D>(dOs, kq * 8 + 2 * t + 1, col));
+        }
+        auto& big = *reinterpret_cast<float(*)[NP][4]>(&dv[n0]);
+        if constexpr (XACC)
+          mma3(big, *reinterpret_cast<float(*)[NP][4]>(&dv_x[n0]), a_hi, a_lo, b_hi, b_lo);
+        else
+          mma3(big, big, a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+    // dP^T = V dO^T as split TF32: hi*hi' in dp, the cross terms in dp_x
+    float dp[NQ][4], dp_x[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dp[n][c] = dp_x[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a_hi[4], a_lo[4], b_hi[NQ][2], b_lo[NQ][2];
+      split_a_rows(a_hi, a_lo, *reinterpret_cast<const float2*>(v_row + kk * 8),
+                   *reinterpret_cast<const float2*>(v_row + 8 * LDV + kk * 8));
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const float2 x = pair<D>(dOs, n * 8 + g, kk * 8 + 2 * t);
+        split_b(b_hi[n], b_lo[n], x.x, x.y);
+      }
+      mma3(dp, dp_x, a_hi, a_lo, b_hi, b_lo);
+    }
+    // dS^T = P^T (dP^T - delta[q]), in place of dP^T
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const float2 dl = *reinterpret_cast<const float2*>(deltas + n * 8 + 2 * t);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        dp[n][c] = s[n][c] * (dp[n][c] + dp_x[n][c] - ((c & 1) ? dl.y : dl.x));
+    }
+    // dK += dS^T Q, as dV += P^T dO
+#pragma unroll
+    for (int kq = 0; kq < NQ; ++kq) {
+      uint32_t a_hi[4], a_lo[4];
+      split_a(a_hi, a_lo, dp[kq]);
+      const float* qp = Qs + (kq * 8 + 2 * t) * LDR + c0 + g;
+#pragma unroll
+      for (int n0 = 0; n0 < NO; n0 += NP) {
+        uint32_t b_hi[NP][2], b_lo[NP][2];
+#pragma unroll
+        for (int n = 0; n < NP; ++n)
+          split_b(b_hi[n], b_lo[n], qp[(n0 + n) * 8], qp[LDR + (n0 + n) * 8]);
+        auto& big = *reinterpret_cast<float(*)[NP][4]>(&dk[n0]);
+        if constexpr (XACC)
+          mma3(big, *reinterpret_cast<float(*)[NP][4]>(&dk_x[n0]), a_hi, a_lo, b_hi, b_lo);
+        else
+          mma3(big, big, a_hi, a_lo, b_hi, b_lo);
+      }
+    }
   }
-  store_rows<D, RK>(dkg, p.st[DK_][1], k0 + ty * RK, dk, p.scale, tx);
-  store_rows<D, RK>(dvg, p.st[DV_][1], k0 + ty * RK, dv, 1.f, tx);
+
+  float* dkg = head<float>(p.dk, p.st[DK_], b, h) + (int64_t)(k0 + kr) * p.st[DK_][1] + c0 + 2 * t;
+  float* dvg = head<float>(p.dv, p.st[DV_], b, h) + (int64_t)(k0 + kr) * p.st[DV_][1] + c0 + 2 * t;
+  const int64_t dk8 = 8 * p.st[DK_][1], dv8 = 8 * p.st[DV_][1];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    if constexpr (XACC) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dk[n][c] += dk_x[n][c], dv[n][c] += dv_x[n][c];
+    }
+    *reinterpret_cast<float2*>(dkg + n * 8) = make_float2(dk[n][0] * p.scale, dk[n][1] * p.scale);
+    *reinterpret_cast<float2*>(dkg + dk8 + n * 8) =
+        make_float2(dk[n][2] * p.scale, dk[n][3] * p.scale);
+    *reinterpret_cast<float2*>(dvg + n * 8) = make_float2(dv[n][0], dv[n][1]);
+    *reinterpret_cast<float2*>(dvg + dv8 + n * 8) = make_float2(dv[n][2], dv[n][3]);
+  }
 }
 
 template <int D>
@@ -859,25 +1017,27 @@ __global__ void __launch_bounds__(MMA_NT) flash_bwd_dkv_bf16_kernel(const Params
 }
 
 template <int D>
-cudaError_t launch_dq(const Params& p, int bh, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * dq_smem_floats<D>();
+cudaError_t launch_dq_tf32(const Params& p, int bh, cudaStream_t stream) {
+  using Tl = DqTf32Tiles<D>;
   // set on every launch: the attribute belongs to the current device
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tf32x3_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid(p.Sq / Tiles<D>::BM, bh);
-  flash_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(p);
+  dim3 grid(p.Sq / Tl::BM, bh);
+  flash_bwd_dq_tf32x3_kernel<D><<<grid, MMA_NT, Tl::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkv(const Params& p, int bh, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * dkv_smem_floats<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_dkv_tf32(const Params& p, int bh, cudaStream_t stream) {
+  using Tl = DkvTf32Tiles<D>;
+  for (int t = 0; t < N_OPERANDS; ++t)
+    if (p.st[t][1] > INT32_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tf32x3_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid(p.Sk / Tiles<D>::BN, bh);
-  flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(p);
+  dim3 grid(p.Sk / Tl::BN, bh, D / Tl::DOUT);
+  flash_bwd_dkv_tf32x3_kernel<D><<<grid, MMA_NT, Tl::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -915,11 +1075,11 @@ cudaError_t launch_dkv_bf16(const Params& p, int bh, cudaStream_t stream) {
   return launch_dkv_bf16_mt<D, 1>(p, bh, stream);
 }
 
-// bf16: the tensor-core kernels; f32: the FMA kernels
+// bf16: m16n8k16 bf16 products; f32: split TF32
 template <int D>
 cudaError_t launch(bool dq, bool bf16, const Params& p, int bh, cudaStream_t s) {
   if (bf16) return dq ? launch_dq_bf16<D>(p, bh, s) : launch_dkv_bf16<D>(p, bh, s);
-  return dq ? launch_dq<D>(p, bh, s) : launch_dkv<D>(p, bh, s);
+  return dq ? launch_dq_tf32<D>(p, bh, s) : launch_dkv_tf32<D>(p, bh, s);
 }
 
 int run(bool dq, const void* q, const void* k, const void* v, const void* o,

@@ -30,6 +30,20 @@
 // operand whose rows are the k index (rows 2t and 2t+1, column g: V in
 // O = P V) takes LD = D + 4, so rows 2t start 8 banks apart. Both are free
 // of bank conflicts.
+//
+// A tile read both ways (dO in dK/dV: the B operand of dP^T = V dO^T as
+// pairs, of dV += P^T dO as k rows) would want both paddings; no padding
+// serves both, and there is no 32-bit ldmatrix.trans. Such a tile is
+// swizzled instead: [rows][D] with no padding, the 16-byte chunk ch of row
+// r stored at chunk ch ^ 2 sw(r), sw(r) = (r ^ r >> 2) & 3 (swz below). For
+// row bases that are multiples of 8, sw takes four distinct values over
+// rows 0-3, over rows 4-7, over the even rows and over the odd rows; the
+// chunk pairs {2j, 2j + 1} stay together. So the 64-bit pairs of rows g
+// (one half warp: four rows, eight columns) and the 32-bit elements of rows
+// 2t, column g (four rows, eight columns) both fall on 32 distinct banks.
+// Rows read whole as float4 by the lanes of a quad (rows g, or rows 2t and
+// 2t + 1: eight rows, one 16-byte chunk each) are free of conflicts at
+// LD = D + 4.
 
 #pragma once
 
@@ -57,6 +71,36 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* src,
     const int ch = c - r * CH;
     mma_bf16::cp_async_16(dst + r * LD + ch * 4, src + r * row_stride + ch * 4);
   }
+}
+
+// column of element (r, c) inside row r of a swizzled tile
+__device__ __forceinline__ int swz(int r, int c) { return c ^ (((r ^ (r >> 2)) & 3) << 3); }
+
+// rows [0, ROWS) of a [S, D] f32 head slice -> swizzled shared tile [ROWS][D]
+template <int ROWS, int D, int NT>
+__device__ __forceinline__ void load_tile_swz(float* dst, const float* src, int64_t row_stride,
+                                              int tid) {
+  constexpr int CH = D / 4;  // 16-byte chunks per row
+  static_assert((ROWS * CH) % NT == 0, "tile chunks must divide over the threads");
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / NT; ++i) {
+    const int c = tid + i * NT;
+    const int r = c / CH;
+    const int ch = c - r * CH;
+    mma_bf16::cp_async_16(dst + r * D + swz(r, ch * 4), src + r * row_stride + ch * 4);
+  }
+}
+
+// the pair (r, c), (r, c + 1) of a swizzled tile [rows][D], c even
+template <int D>
+__device__ __forceinline__ float2 pair(const float* tile, int r, int c) {
+  return *reinterpret_cast<const float2*>(tile + r * D + swz(r, c));
+}
+
+// the element (r, c) of a swizzled tile [rows][D]
+template <int D>
+__device__ __forceinline__ float elem(const float* tile, int r, int c) {
+  return tile[r * D + swz(r, c)];
 }
 
 // f32 -> tf32 bit pattern, rounded to nearest with ties away from zero:
@@ -119,6 +163,25 @@ __device__ __forceinline__ void split_b(uint32_t (&hi)[2], uint32_t (&lo)[2], fl
                                         float x1) {
   split(x0, hi[0], lo[0]);
   split(x1, hi[1], lo[1]);
+}
+
+// split A fragments (rows g, g + 8; k pair 2t, 2t + 1) from the f32 pairs
+// x0 (row g) and x1 (row g + 8) of a row-major tile
+__device__ __forceinline__ void split_a_rows(uint32_t (&hi)[4], uint32_t (&lo)[4], float2 x0,
+                                             float2 x1) {
+  split(x0.x, hi[0], lo[0]);
+  split(x1.x, hi[1], lo[1]);
+  split(x0.y, hi[2], lo[2]);
+  split(x1.y, hi[3], lo[3]);
+}
+
+// acc = fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc)))):
+// four more steps of an f32 dot product taken in order
+__device__ __forceinline__ void fma4(float& acc, const float4& a, const float4& b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  acc = fmaf(a.w, b.w, acc);
 }
 
 // an accumulator n-tile as split A fragments of the next product

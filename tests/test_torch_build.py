@@ -52,10 +52,10 @@ def test_a_header_the_source_does_not_include_is_not_hashed(tmp_path):
 
 
 def test_both_kernel_sources_depend_on_the_shared_header():
-    """Both sources include the bf16 fragment header; the forward source
-    also the split-TF32 one (which includes the bf16 one for cp.async)."""
+    """Both sources include the bf16 fragment header and the split-TF32 one
+    (which includes the bf16 one for cp.async)."""
     assert build.dependencies(TFA.SOURCE) == [TFA.SOURCE, HEADER, TF32_HEADER]
-    assert build.dependencies(TFA.BWD_SOURCE) == [TFA.BWD_SOURCE, HEADER]
+    assert build.dependencies(TFA.BWD_SOURCE) == [TFA.BWD_SOURCE, HEADER, TF32_HEADER]
     assert build.dependencies(TF32_HEADER) == [TF32_HEADER, HEADER]
 
 
@@ -95,7 +95,8 @@ def test_every_kernel_that_issues_mma_sync_is_held_to_the_tensor_cores():
     for source in sorted(build.CSRC_DIR.glob("*.cu")):
         kernels.update(_bodies(source.read_text(),
                                r"__global__ void (?:__launch_bounds__\(\w+\) )?(\w+)\("))
-    assert {"flash_fwd_tf32x3_kernel", "flash_bwd_dq_kernel"} <= set(kernels)
+    assert {"flash_fwd_tf32x3_kernel", "flash_bwd_dq_tf32x3_kernel",
+            "flash_bwd_dkv_tf32x3_kernel"} <= set(kernels)
     on_tensor_cores = {n for n, body in kernels.items() if _calls_any(body, issuing)}
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   build.PKG_DIR.parent / "chip_smoke.py")

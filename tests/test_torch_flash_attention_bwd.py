@@ -21,6 +21,7 @@ import torch
 from dcr_tpu.ops import flash_attention as FA
 from dcr_tpu_torch.ops import attention as TA
 from dcr_tpu_torch.ops import flash_attention as TFA
+from tests.test_torch_flash_attention import _matmul_3xtf32, _tf32
 
 SHAPES = [
     pytest.param(dict(b=2, sq=256, sk=256, h=2, d=64), 1e-4, id="square"),
@@ -178,3 +179,73 @@ def test_bwd_wrapper_rejects_mixed_devices():
     o, lse = TFA.flash_attention_fwd(q, k, v)
     with pytest.raises(ValueError):
         TFA.flash_attention_bwd(q, k, v, o, lse, do.to("meta"))
+
+
+def _bwd_kernel_arithmetic(q, k, v, o, lse, do, product):
+    """(dq, dk, dv) over [B, S, H, D] f32 as the f32 backward kernels take
+    them: S = Q K^T in f32 on the CUDA cores (an in-order fmaf chain, as the
+    plain version's product rounds it), P = exp(S * scale - lse) and
+    delta = rowsum(dO o O) in f32, and the products dP = dO V^T, dQ = dS K,
+    dK = dS^T Q and dV = P^T dO taken by ``product``."""
+    d = q.shape[-1]
+    scale = 1.0 / d ** 0.5
+    qh, kh, vh, oh, doh = (torch.from_numpy(x).permute(0, 2, 1, 3) for x in (q, k, v, o, do))
+    b, h, sq, _ = qh.shape
+    p = torch.exp((qh @ kh.transpose(-1, -2)) * scale
+                  - torch.from_numpy(lse).reshape(b, h, sq, 1))
+    ds = p * (product(doh, vh.transpose(-1, -2)) - (doh * oh).sum(-1, keepdim=True))
+    grads = (product(ds, kh) * scale, product(ds.transpose(-1, -2), qh) * scale,
+             product(p.transpose(-1, -2), doh))
+    return [g.permute(0, 2, 1, 3).numpy() for g in grads]
+
+
+def _matmul_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+@pytest.mark.parametrize("shape,scale_q,tol", [
+    pytest.param(dict(b=1, sq=1024, sk=1024, h=1, d=64), 1.0, 1e-4, id="s1024_d64"),
+    pytest.param(dict(b=1, sq=256, sk=256, h=1, d=128), 1.0, 1e-4, id="s256_d128"),
+    pytest.param(dict(b=1, sq=256, sk=256, h=1, d=64), 100.0, 2e-4, id="logits_x100"),
+])
+def test_split_tf32_bwd_arithmetic_meets_the_f32_bound(shape, scale_q, tol):
+    """The f32 backward kernels' arithmetic (split-TF32 products, S in f32,
+    f32 statistics and delta) emulated here against the Pallas backward
+    kernels in f32 through their interpreter, from the same residuals:
+    every gradient within the JAX repo's f32 bound (1e-4; 2e-4 at x100
+    logits, where dk = D^-1/2 dS^T q carries q's factor and is held once
+    that factor is divided out, as in test_autograd_grads_large_logits).
+    The same with one TF32 product per product lands farther off."""
+    q, k, v, do = _inputs(51, **shape, scale_q=scale_q)
+    *want, jo, jlse = _jax_bwd(q, k, v, do)
+    got = _bwd_kernel_arithmetic(q, k, v, jo, jlse, do, _matmul_3xtf32)
+    for g, w, unit in zip(got, want, (1.0, scale_q, 1.0)):
+        np.testing.assert_allclose(g / unit, w / unit, atol=tol, rtol=tol)
+    one = _bwd_kernel_arithmetic(q, k, v, jo, jlse, do, _matmul_1xtf32)
+    split_err = max(np.abs(g - w).max() for g, w in zip(got, want))
+    assert max(np.abs(g - w).max() for g, w in zip(one, want)) > split_err
+
+
+def test_x100_logits_gradients_follow_the_rounding_of_s():
+    """Why the kernels keep S = Q K^T in f32 on the CUDA cores: at x100
+    logits, S rounded in any other way (here once, from f64, and as a
+    split-TF32 product) moves the gradients by more than the card's bound
+    of 1e-5 max(1, max|ref|) against the f32 plain version, though every
+    other step is the same f32 arithmetic; only an S rounded as the plain
+    version's product rounds it stays inside."""
+    q, k, v, do = _inputs(52, b=1, sq=256, sk=256, h=1, d=64, scale_q=100.0)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = TFA.flash_attention_reference(tq, tk, tv)
+    plain = TFA.flash_attention_bwd_reference(tq, tk, tv, o, lse, tdo)
+    qh, kh = tq[0, :, 0], tk[0, :, 0]
+    same = qh @ kh.T
+    others = {"rounded once": (qh.double() @ kh.double().T).float(),
+              "split TF32": _matmul_3xtf32(qh, kh.T)}
+    for name, s in [("plain", same), *others.items()]:
+        assert (s != same).any() == (name != "plain")
+        p = torch.exp(s * 0.125 - lse[0][:, None])
+        ds = p * (tdo[0, :, 0] @ tv[0, :, 0].T - (tdo * o).sum(-1)[0, :, 0][:, None])
+        grads = (ds @ kh * 0.125, ds.T @ qh * 0.125, p.T @ tdo[0, :, 0])
+        worst = max(((g - r[0, :, 0]).abs().max() / max(1.0, r.abs().max())).item()
+                    for g, r in zip(grads, plain))
+        assert (worst > 1e-5) == (name != "plain"), (name, worst)
