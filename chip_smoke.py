@@ -4,8 +4,10 @@
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 1. card: name and power limit from nvidia-smi; TF32 off for matmuls and convs;
-2. build: every kernel source in dcr_tpu_torch/csrc (one nvcc each, at once);
-   per kernel symbol, its registers and spill bytes (ptxas) and its count of
+2. build: every kernel source in dcr_tpu_torch/csrc (one nvcc each, at once;
+   each kernel in two instantiations, without and with the chunk base of a
+   B*H above the grid's limit); per kernel symbol, its registers and spill
+   bytes (ptxas) and its count of
    tensor-core instructions (HMMA/HGMMA in cuobjdump's SASS); the kernels of
    TENSOR_CORE_KERNELS (every kernel: bf16 products in bf16, split TF32 in
    f32) must have tensor-core instructions, and no spills at D=64;
@@ -32,7 +34,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and an HF-layout export that loads back;
 7. the f32 training mode: 2 steps of the train step (make_train_step) at
    SD-2.1 widths with mixed_precision="no"; 10 launches of each kernel per
-   step, all in f32, finite losses.
+   step, all in f32, finite losses;
+8. kernel limits (after phase 3): B*H = 66560, above the grid's y limit,
+   with a misaligned q, forward and backward through the dispatcher and the
+   autograd Function in both dtypes, against the plain versions;
+9. small eval reference (after phase 4): the port's run_eval on the card
+   and on the CPU over one tiny folder, every scalar within 1e-4;
+10. eval main path (last): run_eval at the JAX defaults but
+   compute_complexity=False (SSCD at 224, FID, precision/recall, CLIP score,
+   galleries) on 256 generations at 512 px (16 of them copies of training
+   files) and 512 training PNGs at 256 px; scalars finite, the copies found,
+   the artifacts written; stage seconds, SSCD images/s and ms per batch,
+   host decode against device time, peak memory. No kernel lies on this
+   path (its attention is the CLIP towers', which takes SDPA): its launch
+   counts must stay 0.
 Each main path runs with every launch count set to 0 just before it and
 read just after. The last line is {"ok": true, "device": {...}}; the line
 before it holds the kernels' numbers as JSON, one record per kernel and
@@ -500,6 +515,75 @@ def phase_bwd_kernels(reps: int) -> dict:
     return {"rows": rows}
 
 
+def phase_kernel_limits() -> dict:
+    """Inputs past the kernels' own limits, which ``supported`` admits: B*H =
+    66560 (above the grid's y limit of 65535: two chunks per launch) with a
+    q whose seq stride is H*D + 1 elements (2 bytes off a 16-byte multiple
+    in bf16), forward and backward through ops/attention's dispatcher and
+    the autograd Function, in bf16 and f32. Held: one launch of each kernel
+    per call, and the plain versions' bounds of phase 3 (forward: bf16
+    2^-6 max(1, max|ref|), f32 2e-5; backward against the plain version on
+    the kernel's o and lse: bf16 the same share, f32 1e-5 max(1, max|ref|))."""
+    from dcr_tpu_torch.ops import attention as A
+    from dcr_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    b, s, h, d = 1024, 128, 65, 64
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(11)
+        qbuf = torch.randn((b, s, h * d + 1), generator=gen, device=dev).to(dtype)
+        q = qbuf[:, :, 1:].unflatten(-1, (h, d))
+        k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+                    for _ in range(3))
+        if fa._strided_ok(q) or not fa.supported(q, k, v):
+            raise AssertionError("kernel limits: q should be misaligned and supported")
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        before = read_launches()
+        o = A.dot_product_attention(qg, kg, vg)
+        grads = torch.autograd.grad(o, (qg, kg, vg), do)
+        torch.cuda.synchronize()
+        launched = tuple(a - c for a, c in zip(read_launches(), before))
+        o = o.detach()
+        with torch.no_grad():
+            # the forward kernel is deterministic: this is the o and lse the
+            # autograd Function saved for its backward (launches not counted)
+            o_k, lse_k = fa.flash_attention_fwd(q, k, v)
+            same_o = torch.equal(o_k, o)
+            errs = {"o": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+            refmax = dict.fromkeys(errs, 0.0)
+            step = 128   # the plain versions one batch slice at a time (memory)
+            for i in range(0, b, step):
+                sl = slice(i, i + step)
+                ref_o, _ = fa.flash_attention_reference(q[sl], k[sl], v[sl])
+                lse_sl = lse_k.view(b, h * s)[sl].reshape(-1, s)
+                ref = fa.flash_attention_bwd_reference(q[sl], k[sl], v[sl], o_k[sl], lse_sl,
+                                                       do[sl])
+                for name, got, want in zip(errs, (o[sl], *(g[sl] for g in grads)),
+                                           (ref_o, *ref)):
+                    errs[name] = max(errs[name], (got.float() - want.float()).abs().max().item())
+                    refmax[name] = max(refmax[name], want.float().abs().max().item())
+                del ref_o, ref
+        if dtype is torch.bfloat16:
+            tols = {n: BF16_TOL * max(1.0, m) for n, m in refmax.items()}
+        else:
+            tols = {n: (2e-5 if n == "o" else 1e-5 * max(1.0, m)) for n, m in refmax.items()}
+        key = str(dtype).split(".")[-1]
+        out[key] = {"shape": [b, s, s, h, d], "launches_fwd_dq_dkv": launched,
+                    "chunks": fa.grid_chunks(b * h), "q_strides": list(q.stride()),
+                    "max_abs_err": errs, "tol": tols, "o_equals_raw_launch": same_o}
+        log(f"kernel limits {key}: B={b} S={s} H={h} D={d} (B*H={b * h}, chunks "
+            f"{fa.grid_chunks(b * h)}), q strides {tuple(q.stride())}: launches (fwd, dQ, "
+            f"dK/dV) {launched}, max err o/dq/dk/dv "
+            + "/".join(f"{errs[n]:.3e}" for n in errs) + " (tol "
+            + "/".join(f"{tols[n]:.3e}" for n in tols) + ")")
+        if not (launched == (1, 1, 1) and same_o and all(errs[n] <= tols[n] for n in errs)):
+            raise AssertionError(f"kernel limits failed in {key}: {out[key]}")
+        del qbuf, q, k, v, do, qg, kg, vg, o, grads, o_k, lse_k
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_small_reference() -> None:
     """Kernel-shaped tiny sampler: card (kernel) vs CPU (plain), same weights
     and x_T; images within 1e-3 (f32 both sides, TF32 off; the CFG and solver
@@ -834,6 +918,252 @@ def phase_train_f32_step(steps: int) -> dict:
     return stats
 
 
+class StageLog:
+    """Collects the eval runner's ``[stage] <name>: done`` records
+    ({stage: seconds}) while installed on the port's logger."""
+
+    def __init__(self):
+        import logging
+
+        self.seconds: dict[str, float] = {}
+        self.handler = logging.Handler()
+        self.handler.emit = self._emit
+        self.logger = logging.getLogger("dcr_tpu_torch")
+
+    def _emit(self, record) -> None:
+        if hasattr(record, "stage"):
+            self.seconds[record.stage] = record.seconds
+
+    def __enter__(self) -> "StageLog":
+        import logging
+
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def _write_eval_folders(root: Path, n_gen: int, gen_px: int, n_train: int, train_px: int,
+                        n_copies: int, seed: int) -> tuple[Path, Path, Path, dict]:
+    """Generations (``n_gen`` PNGs, natural order, prompts.txt beside them)
+    and training images (two class folders, a caption json), random pixels;
+    ``n_copies`` training files copied byte for byte into the generations
+    (every ``n_gen // n_copies``-th name). Returns (generations, train,
+    caption json, {generation name: source training path})."""
+    import shutil
+
+    import numpy as np
+
+    from dcr_tpu_torch.sampling.png import write_png
+
+    rng = np.random.default_rng(seed)
+    gen, train = root / "gens" / "generations", root / "train"
+    gen.mkdir(parents=True)
+    caps, train_paths = {}, []
+    for i in range(n_train):
+        d = train / f"class{i % 2}"
+        d.mkdir(parents=True, exist_ok=True)
+        p = d / f"{i}.png"
+        write_png(p, rng.integers(0, 256, (train_px, train_px, 3), dtype=np.uint8))
+        caps[str(p)] = [f"class{i % 2} image {i}"]
+        train_paths.append(p)
+    (root / "caps.json").write_text(json.dumps(caps))
+    every = n_gen // n_copies if n_copies else 0
+    copies = {}
+    for i in range(n_gen):
+        name = f"{i}.png"
+        if n_copies and i % every == 0 and len(copies) < n_copies:
+            src = train_paths[(37 * len(copies) + 5) % n_train]
+            shutil.copyfile(src, gen / name)
+            copies[name] = src
+        else:
+            write_png(gen / name, rng.integers(0, 256, (gen_px, gen_px, 3), dtype=np.uint8))
+    (root / "gens" / "prompts.txt").write_text("".join(f"a prompt number {i}\n"
+                                                       for i in range(n_gen // 2)))
+    return gen, train, root / "caps.json", copies
+
+
+# the JAX runner's scalar list (tests/test_eval_runner.py) less the
+# complexity correlations, which the port does not compute
+EVAL_SCALARS = ("sim_mean", "sim_std", "sim_75pc", "sim_90pc", "sim_95pc", "sim_gt_05pc",
+                "bg_mean", "bg_std", "FID_val", "precision", "recall", "gen_clipscore",
+                "train_clipscore")
+
+
+def phase_small_eval_reference(root: Path) -> dict:
+    """The port's run_eval on the card and on the CPU over one tiny folder (8
+    generations, 10 training PNGs at 80 px), SSCD at image_size=64, every
+    other default stage on (FID, precision/recall, CLIP score, galleries),
+    compute_complexity=false, TF32 off, the same seeded weights. Held:
+    every scalar within 1e-4 absolute; the top-1 indices equal wherever the
+    CPU's top-1/top-2 margin exceeds 1e-4."""
+    import numpy as np
+
+    from dcr_tpu_torch.core.config import EvalConfig
+    from dcr_tpu_torch.eval.runner import run_eval
+
+    gen, train, caps, _ = _write_eval_folders(root, 8, 80, 10, 80, 0, seed=7)
+    out, sims = {}, {}
+    for dev in ("cuda", "cpu"):
+        cfg = EvalConfig(query_dir=str(gen), values_dir=str(train), image_size=64,
+                         batch_size=4, compute_complexity=False, gallery_topk=3,
+                         gallery_max_rank=8, output_dir=str(root / f"out_{dev}"))
+        out[dev] = run_eval(cfg, device=dev, values_caption_json=str(caps))
+        sims[dev] = np.load(root / f"out_{dev}" / "similarity.npy")
+    errs = {k: abs(out["cuda"][k] - out["cpu"][k]) for k in out["cpu"]}
+    top2 = np.sort(sims["cpu"], axis=1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 1e-4
+    same_top1 = bool(np.array_equal(sims["cuda"].argmax(1)[decided],
+                                    sims["cpu"].argmax(1)[decided]))
+    stats = {"max_abs_err": max(errs.values()), "errs": errs, "scalars_cpu": out["cpu"],
+             "decided_rows": int(decided.sum()), "same_top1": same_top1,
+             "sim_max_abs_err": float(np.abs(sims["cuda"] - sims["cpu"]).max())}
+    log(f"small eval reference (8 gens, 10 train, sscd at 64 px, FID/IPR/CLIP/galleries on): "
+        f"card vs cpu {json.dumps(stats)}")
+    if (list(out["cuda"]) != list(out["cpu"]) or not all(e <= 1e-4 for e in errs.values())
+            or not same_top1):
+        raise AssertionError(f"small eval reference failed: {stats}")
+    return stats
+
+
+def phase_eval_main_path(root: Path) -> dict:
+    """dcr_tpu_torch.eval.runner.run_eval(EvalConfig(...)) at the JAX
+    defaults but compute_complexity=False (SSCD ResNet-50 at 224 px, batch 64;
+    FID with Inception at 299; precision/recall with VGG16; CLIP score with
+    ViT-B/16; galleries), seeded random weights, on 256 generations at 512 px
+    (16 of them training files copied byte for byte) and 512 training PNGs at
+    256 px in two class folders. Checks the scalars, the copies' top-1
+    matches and the artifacts; prints stage seconds, SSCD images/s, device ms
+    per SSCD batch of 64, host decode + transform ms per batch, the device's
+    busy share during eval/features and peak memory."""
+    import numpy as np
+
+    from dcr_tpu_torch.core.config import EvalConfig
+    from dcr_tpu_torch.eval import runner as R
+    from dcr_tpu_torch.eval.features import EvalImageFolder
+
+    t0 = time.perf_counter()
+    gen, train, caps, copies = _write_eval_folders(root, 256, 512, 512, 256, 16, seed=8)
+    write_s = time.perf_counter() - t0
+    # per batch of each extraction: host ms to decode + transform it, device
+    # ms from CUDA events around the extractor's call (the batch's upload
+    # and forward). run_eval extracts in this order: SSCD over the query and
+    # the values (eval/features), then Inception and VGG16 (eval/fid_ipr)
+    passes = ("sscd", "sscd", "inception", "inception", "vgg", "vgg")
+    batches: list[dict] = []
+    calls = []
+    extract = R.extract_features
+
+    def timed_extract(folder, extractor, *, batch_size=64):
+        backbone = passes[len(calls)]
+        calls.append(backbone)
+        chunks = []
+        it = folder.batches(batch_size)
+        while True:
+            h0 = time.perf_counter()
+            try:
+                images, mask = next(it)
+            except StopIteration:
+                break
+            host_s = time.perf_counter() - h0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            feats = extractor(images)
+            end.record()
+            chunks.append(feats.float().cpu().numpy()[mask])
+            batches.append({"backbone": backbone, "n": int(mask.sum()),
+                            "host_ms": 1e3 * host_s, "device_ms": start.elapsed_time(end)})
+        return np.concatenate(chunks, axis=0)
+
+    cfg = EvalConfig(query_dir=str(gen), values_dir=str(train), compute_complexity=False,
+                     output_dir=str(root / "out"))
+    R.extract_features = timed_extract
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with StageLog() as stages:
+            scalars = R.run_eval(cfg, device="cuda", values_caption_json=str(caps))
+    finally:
+        R.extract_features = extract
+        launches = read_launches()
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    out = root / "out"
+    sim = np.load(out / "similarity.npy")
+    qpaths = EvalImageFolder(gen, 224).paths
+    vpaths = [str(p) for p in EvalImageFolder(train, 224).paths]
+    copy_rows = []
+    for name, src in copies.items():
+        qi = next(i for i, p in enumerate(qpaths) if p.name == name)
+        copy_rows.append({"gen": name, "source": vpaths.index(str(src)),
+                          "top1": int(sim[qi].argmax()), "sim": float(sim[qi].max())})
+    sscd = [b for b in batches if b["backbone"] == "sscd"]
+    feat_s = stages.seconds["eval/features"]
+    # device ms of one SSCD batch of 64 alone: CUDA events around 10 calls
+    backbone = R.build_backbone("sscd", cfg.arch, "cuda", seed=0)
+    x = torch.randn((64, 3, 224, 224), generator=torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    with torch.inference_mode():
+        for _ in range(2):
+            backbone(x)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            backbone(x)
+        end.record()
+        end.synchronize()
+    sscd_batch_ms = start.elapsed_time(end) / 10
+    del backbone, x
+    stats = {
+        "total_s": total_s, "write_data_s": write_s, "stage_s": stages.seconds,
+        "extract_calls": calls,
+        "sscd_images_per_s": sum(b["n"] for b in sscd) / feat_s,
+        "sscd_batch64_device_ms": sscd_batch_ms,
+        "features_host_ms_per_batch": statistics.mean(b["host_ms"] for b in sscd),
+        "features_device_ms_per_batch": statistics.mean(b["device_ms"] for b in sscd),
+        "features_device_busy_share": sum(b["device_ms"] for b in sscd) / 1e3 / feat_s,
+        "per_backbone": {name: {"batches": sum(b["backbone"] == name for b in batches),
+                                "host_ms_per_batch": statistics.mean(
+                                    b["host_ms"] for b in batches if b["backbone"] == name),
+                                "device_ms_per_batch": statistics.mean(
+                                    b["device_ms"] for b in batches if b["backbone"] == name)}
+                         for name in ("sscd", "inception", "vgg")},
+        "peak_bytes": peak, "launches_fwd_dq_dkv": launches, "scalars": scalars,
+        "copies": copy_rows,
+    }
+    log(f"eval main path: {json.dumps(stats)}")
+    log(f"eval main path: stages (s) " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                 stages.seconds.items())
+        + f"; SSCD {stats['sscd_images_per_s']:.1f} images/s, "
+        f"{sscd_batch_ms:.2f} device ms per batch of 64 alone; eval/features per batch of "
+        f"64: host decode + transform {stats['features_host_ms_per_batch']:.1f} ms, device "
+        f"{stats['features_device_ms_per_batch']:.1f} ms, device busy "
+        f"{100 * stats['features_device_busy_share']:.1f} % of the stage; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    missing = [k for k in EVAL_SCALARS if not (k in scalars and np.isfinite(scalars[k]))]
+    bad_copies = [r for r in copy_rows if r["top1"] != r["source"] or r["sim"] < 0.999]
+    artifacts = [out / "similarity.npy", out / "logs" / "metrics.jsonl",
+                 out / "fid_stats_values.npz", out / "provenance.json"]
+    absent = [str(p) for p in artifacts if not p.exists()]
+    if not list((out / "galleries").glob("gallery_rank*.png")):
+        absent.append("galleries/gallery_rank*.png")
+    if (missing or bad_copies or absent or sim.shape != (256, 512)
+            or scalars["sim_gt_05pc"] < 16 / 256 or len(copy_rows) != 16
+            or calls != list(passes)):
+        raise AssertionError(f"eval main path failed: scalars missing or not finite "
+                             f"{missing}, copies {bad_copies}, artifacts absent {absent}, "
+                             f"sim {sim.shape}, sim_gt_05pc {scalars.get('sim_gt_05pc')}")
+    return stats
+
+
 def kernel_entry(kind: str, dtype: str, rows: list[dict], cases: tuple[str, ...],
                  launches: dict, tensor_core_instructions: dict) -> dict:
     """One kernel's record for the JSON line, from its phase-3 rows at the
@@ -888,8 +1218,11 @@ def main() -> int:
     built = phase_build()
     kern = phase_kernels(reps=10)
     bwd = phase_bwd_kernels(reps=10)
+    limits = phase_kernel_limits()
     phase_small_reference()
     small_train = phase_small_train_reference()
+    with tempfile.TemporaryDirectory() as tmp:
+        small_eval = phase_small_eval_reference(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         main_stats = phase_main_path(Path(tmp))
     torch.cuda.empty_cache()
@@ -897,6 +1230,12 @@ def main() -> int:
         train_stats = phase_train_main_path(Path(tmp), steps=6)
     torch.cuda.empty_cache()
     f32_train_stats = phase_train_f32_step(steps=2)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_stats = phase_eval_main_path(Path(tmp))
+    if eval_stats["launches_fwd_dq_dkv"] != (0, 0, 0):
+        raise AssertionError(f"the eval path launched flash kernels: "
+                             f"{eval_stats['launches_fwd_dq_dkv']}")
 
     def fwd_row(case, dtype):
         return next(r for r in kern["rows"] if r["case"] == case and r["dtype"] == dtype)
@@ -951,6 +1290,9 @@ def main() -> int:
     log(f"train path stats: {json.dumps(train_stats)}")
     log(f"f32 train step stats: {json.dumps(f32_train_stats)}")
     log(f"small train reference: {json.dumps(small_train)}")
+    log(f"kernel limits: {json.dumps(limits)}")
+    log(f"small eval reference: {json.dumps(small_eval)}")
+    log(f"eval path stats: {json.dumps(eval_stats)}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

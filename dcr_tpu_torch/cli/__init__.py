@@ -2,6 +2,7 @@
 
     python -m dcr_tpu_torch.cli.sample --model_path=... --num_batches=...
     python -m dcr_tpu_torch.cli.train --output_dir=... --data.train_data_dir=...
+    python -m dcr_tpu_torch.cli.evaluate --query_dir=... --values_dir=... --compute_complexity=false
 
 They run on CUDA. ``DCR_TPU_PLATFORM=cpu`` (the JAX CLIs' own switch) selects
 the CPU; nothing else does, and without a GPU the commands fail.

@@ -1,14 +1,15 @@
 """Config dataclasses + dotted-key CLI overrides for the PyTorch port.
 
-Own copy of the fields of ``dcr_tpu/core/config.py`` that the sampling and
-training paths read (``ModelConfig``, ``SampleConfig``, ``FastSampleConfig``,
-``DataConfig``, ``OptimConfig``, ``TrainConfig`` and its nested sections)
-and of its ``from_dict``/``parse_cli``/``save_config`` machinery, so a
-``model_index.json`` or ``config.json`` written by either package and a
-``dcr-sample`` or ``dcr-train`` command line parse the same way here.
-Sections the port does not run yet (mesh, fault-tolerance budgets, warm
-cache, copy risk, pipelined training) parse, and
-:func:`validate_train_config` refuses a setting that would need them with
+Own copy of the fields of ``dcr_tpu/core/config.py`` that the sampling,
+training and eval paths read (``ModelConfig``, ``SampleConfig``,
+``FastSampleConfig``, ``DataConfig``, ``OptimConfig``, ``TrainConfig`` and
+its nested sections, ``EvalConfig``) and of its ``from_dict``/``parse_cli``/
+``save_config`` machinery, so a ``model_index.json`` or ``config.json``
+written by either package and a ``dcr-sample``, ``dcr-train`` or
+``dcr-eval`` command line parse the same way here. Sections the port does
+not run yet (mesh, fault-tolerance budgets, warm cache, copy risk,
+pipelined training) parse, and :func:`validate_train_config` and
+:func:`validate_eval_config` refuse a setting that would need them with
 :class:`NotPortedError`. The mesh and warm-cache sections of
 ``SampleConfig`` are not ported yet.
 """
@@ -347,11 +348,15 @@ def validate_pipe_config(cfg: TrainConfig) -> None:
                 "which the cache would silently freeze to one realization")
 
 
+def _mesh_devices(m: MeshConfig) -> int:
+    """Devices a mesh config asks for, counting "all remaining" (-1) as one."""
+    return max(1, m.data) * max(1, m.fsdp) * max(1, m.tensor) * max(1, m.seq)
+
+
 def _not_ported(cfg: TrainConfig) -> list[str]:
     """Settings of a valid config that need a part of the JAX package the
     port does not have yet."""
-    m = cfg.mesh
-    mesh_devices = max(1, m.data) * max(1, m.fsdp) * max(1, m.tensor) * max(1, m.seq)
+    mesh_devices = _mesh_devices(cfg.mesh)
     checks = [
         (cfg.optim.use_8bit_adam, "optim.use_8bit_adam (8-bit Adam)"),
         (cfg.pipe.enabled, "pipe.enabled (pipelined training)"),
@@ -396,6 +401,84 @@ def validate_train_config(cfg: TrainConfig) -> None:
     if ft.io_retries < 1:
         raise ValueError("fault.io_retries must be >= 1")
     missing = _not_ported(cfg)
+    if missing:
+        raise NotPortedError(
+            "not ported to dcr_tpu_torch yet: " + "; ".join(missing)
+            + ". Run without them or use the JAX package.")
+
+
+@dataclass
+class EvalConfig:
+    """Replication metrics (reference diff_retrieval.py:124-182); the JAX
+    package's fields and defaults. :func:`validate_eval_config` says which
+    settings the port runs."""
+
+    query_dir: str = ""                    # generations
+    values_dir: str = ""                   # train data
+    pt_style: str = "sscd"                 # "sscd" | "dino" | "clip"
+    arch: str = "resnet50_disc"
+    layer: int = 1                         # DINO ViT intermediate layer
+    similarity_metric: str = "dotproduct"  # "dotproduct" | "splitloss"
+    batch_size: int = 64
+    image_size: int = 224
+    multiscale: bool = False
+    num_loss_chunks: int = 1
+    chunk_style: str = "max"               # splitloss chunk reduce; "cross" variant
+    compute_fid: bool = True
+    compute_clip_score: bool = True
+    compute_complexity: bool = True
+    galleries: bool = True
+    gallery_topk: int = 10
+    gallery_rows: int = 10
+    gallery_max_rank: int = 200
+    dup_weights_pickle: str = ""           # training sampling-weights file
+    # pretrained checkpoint files; empty = seeded random weights (metrics are
+    # then not comparable to reference numbers)
+    weights_path: str = ""                 # copy-detection backbone (SSCD)
+    inception_weights_path: str = ""       # pt_inception-2015-12-05 for FID
+    clip_weights_path: str = ""            # OpenAI CLIP archive for the alignment score
+    output_dir: str = "ret_plots"
+    use_wandb: bool = False                # not ported
+    seed: int = 42
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    fault: FaultToleranceConfig = field(default_factory=FaultToleranceConfig)
+    warm: WarmCacheConfig = field(default_factory=WarmCacheConfig)
+
+
+# the fault settings the port's eval honours: the retries of its file reads
+_EVAL_FAULT_HONOURED = ("io_retries", "retry_base_delay", "retry_max_delay")
+
+
+def validate_eval_config(cfg: EvalConfig) -> None:
+    """ValueError for a setting no package runs, then NotPortedError for one
+    the port does not run yet: the dino and clip backbones (and ``layer``),
+    the complexity stage (its JPEG sizes need an encoder the card's machine
+    lacks), a mesh of more than one device, the warm cache, wandb, and any
+    fault setting other than the I/O retries at a non-default value."""
+    if cfg.pt_style not in ("sscd", "dino", "clip"):
+        raise ValueError(f"unknown pt_style {cfg.pt_style!r} (sscd | dino | clip)")
+    if cfg.similarity_metric not in ("dotproduct", "splitloss"):
+        raise ValueError(f"unknown similarity metric {cfg.similarity_metric!r}")
+    if cfg.fault.io_retries < 1:
+        raise ValueError("fault.io_retries must be >= 1")
+    mesh_devices = _mesh_devices(cfg.mesh)
+    default_fault = FaultToleranceConfig()
+    fault = [f"fault.{f.name}" for f in fields(FaultToleranceConfig)
+             if f.name not in _EVAL_FAULT_HONOURED
+             and getattr(cfg.fault, f.name) != getattr(default_fault, f.name)]
+    checks = [
+        (cfg.pt_style != "sscd",
+         f"pt_style={cfg.pt_style} (only the sscd backbone is ported)"),
+        (cfg.layer > 1, f"layer={cfg.layer} (DINO intermediate layers)"),
+        (cfg.compute_complexity,
+         "compute_complexity=true (the complexity stage's JPEG byte sizes need a JPEG "
+         "encoder; pass --compute_complexity=false)"),
+        (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port evaluates on one)"),
+        (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
+        (cfg.use_wandb, "use_wandb (the wandb sink)"),
+        (bool(fault), ", ".join(fault) + " (the port honours only the I/O retries)"),
+    ]
+    missing = [name for on, name in checks if on]
     if missing:
         raise NotPortedError(
             "not ported to dcr_tpu_torch yet: " + "; ".join(missing)

@@ -10,6 +10,8 @@ hand the JAX package's draws in as tensors instead.
 from __future__ import annotations
 
 import hashlib
+from contextlib import contextmanager
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -36,3 +38,13 @@ def stream_generator(seed: int, name: str, step: int | None = None,
                      device: str | torch.device = "cpu") -> torch.Generator:
     """A fresh ``torch.Generator`` on ``device`` for one named (per-step) stream."""
     return torch.Generator(device=device).manual_seed(stream_seed(seed, name, step))
+
+
+@contextmanager
+def seeded_cpu_init(seed: int) -> Iterator[None]:
+    """Modules built inside draw their initial weights from the CPU generator
+    seeded with ``seed``, forked so the caller's RNG state stays as it was.
+    Weights made on the CPU are the same whichever device they move to."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        yield

@@ -132,6 +132,11 @@
 // written [B, S, H, D] the same way. lse is the compact [B*H, Sq] f32 array
 // the forward kernel writes. Each C entry point returns cudaGetLastError()
 // after its launch so a refused launch reaches the caller.
+//
+// b*h runs on grid.y (limit 65535): each C entry point launches the b*h rows
+// bh0 .. bh0 + bh_count - 1, and the kernels' CHUNKED instantiations add bh0
+// to blockIdx.y, as the forward's do; at B*H <= 65535 the instantiations
+// without the offset run, the code of a launch without chunks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -143,6 +148,7 @@
 namespace {
 
 constexpr int MMA_NT = 128;  // threads of a block: 4 warps
+constexpr int MAX_GRID_Y = 65535;  // b*h rows of one launch
 constexpr float LOG2E = 1.4426950408889634f;
 
 // stride triples (batch, seq, head) in elements, in this order
@@ -161,6 +167,7 @@ struct Params {
   int H, Sq, Sk;
   int64_t st[N_OPERANDS][3];
   float scale;
+  int bh0;  // first b*h row of this launch; blockIdx.y counts from it
 };
 
 // (b, h) head slice of one operand
@@ -186,7 +193,7 @@ struct DqTf32Tiles {
   static constexpr int SMEM = (LSE_OFF + 2 * BM) * 4;
 };
 
-template <int D>
+template <int D, bool CHUNKED>
 __global__ void __launch_bounds__(MMA_NT) flash_bwd_dq_tf32x3_kernel(const Params p) {
   using namespace mma_tf32;
   using Tl = DqTf32Tiles<D>;
@@ -207,7 +214,7 @@ __global__ void __launch_bounds__(MMA_NT) flash_bwd_dq_tf32x3_kernel(const Param
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
+  const int bh = CHUNKED ? p.bh0 + blockIdx.y : blockIdx.y;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int q0 = blockIdx.x * BM;
@@ -381,7 +388,7 @@ struct DkvTf32Tiles {
   static constexpr int SMEM = (KV + 2 * STAGE + BS) * 4;
 };
 
-template <int D>
+template <int D, bool CHUNKED>
 __global__ void __launch_bounds__(MMA_NT) flash_bwd_dkv_tf32x3_kernel(const Params p) {
   using namespace mma_tf32;
   using Tl = DkvTf32Tiles<D>;
@@ -400,7 +407,7 @@ __global__ void __launch_bounds__(MMA_NT) flash_bwd_dkv_tf32x3_kernel(const Para
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
+  const int bh = CHUNKED ? p.bh0 + blockIdx.y : blockIdx.y;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int k0 = blockIdx.x * BN;
@@ -602,7 +609,7 @@ struct DqBf16Tiles {
   static constexpr int SMEM = (2 * BM + 4 * BN) * LD * 2 + 2 * BM * 4;
 };
 
-template <int D>
+template <int D, bool CHUNKED>
 __global__ void __launch_bounds__(MMA_NT) flash_bwd_dq_bf16_kernel(const Params p) {
   using namespace mma_bf16;
   using Tl = DqBf16Tiles<D>;
@@ -622,7 +629,7 @@ __global__ void __launch_bounds__(MMA_NT) flash_bwd_dq_bf16_kernel(const Params 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2;
-  const int bh = blockIdx.y;
+  const int bh = CHUNKED ? p.bh0 + blockIdx.y : blockIdx.y;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int q0 = blockIdx.x * BM;
@@ -772,7 +779,7 @@ struct DkvBf16Tiles {
   static constexpr int SMEM = 2 * BN * LD * 2 + 2 * STAGE + BS * 4;
 };
 
-template <int D, int MT>
+template <int D, int MT, bool CHUNKED>
 __global__ void __launch_bounds__(MMA_NT) flash_bwd_dkv_bf16_kernel(const Params p) {
   using namespace mma_bf16;
   using Tl = DkvBf16Tiles<D, MT>;
@@ -791,7 +798,7 @@ __global__ void __launch_bounds__(MMA_NT) flash_bwd_dkv_bf16_kernel(const Params
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3;
-  const int bh = blockIdx.y;
+  const int bh = CHUNKED ? p.bh0 + blockIdx.y : blockIdx.y;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int k0 = blockIdx.x * BN;
@@ -1016,90 +1023,96 @@ __global__ void __launch_bounds__(MMA_NT) flash_bwd_dkv_bf16_kernel(const Params
   }
 }
 
-template <int D>
+template <int D, bool C>
 cudaError_t launch_dq_tf32(const Params& p, int bh, cudaStream_t stream) {
   using Tl = DqTf32Tiles<D>;
   // set on every launch: the attribute belongs to the current device
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tf32x3_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tf32x3_kernel<D, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid(p.Sq / Tl::BM, bh);
-  flash_bwd_dq_tf32x3_kernel<D><<<grid, MMA_NT, Tl::SMEM, stream>>>(p);
+  flash_bwd_dq_tf32x3_kernel<D, C><<<grid, MMA_NT, Tl::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool C>
 cudaError_t launch_dkv_tf32(const Params& p, int bh, cudaStream_t stream) {
   using Tl = DkvTf32Tiles<D>;
   for (int t = 0; t < N_OPERANDS; ++t)
     if (p.st[t][1] > INT32_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tf32x3_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tf32x3_kernel<D, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid(p.Sk / Tl::BN, bh, D / Tl::DOUT);
-  flash_bwd_dkv_tf32x3_kernel<D><<<grid, MMA_NT, Tl::SMEM, stream>>>(p);
+  flash_bwd_dkv_tf32x3_kernel<D, C><<<grid, MMA_NT, Tl::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool C>
 cudaError_t launch_dq_bf16(const Params& p, int bh, cudaStream_t stream) {
   using Tl = DqBf16Tiles<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid(p.Sq / Tl::BM, bh);
-  flash_bwd_dq_bf16_kernel<D><<<grid, MMA_NT, Tl::SMEM, stream>>>(p);
+  flash_bwd_dq_bf16_kernel<D, C><<<grid, MMA_NT, Tl::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, int MT>
+template <int D, int MT, bool C>
 cudaError_t launch_dkv_bf16_mt(const Params& p, int bh, cudaStream_t stream) {
   using Tl = DkvBf16Tiles<D, MT>;
   for (int t = 0; t < N_OPERANDS; ++t)
     if (p.st[t][1] > INT32_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D, MT>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D, MT, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Sk + Tl::BN - 1) / Tl::BN, bh, D / Tl::DOUT);
-  flash_bwd_dkv_bf16_kernel<D, MT><<<grid, MMA_NT, Tl::SMEM, stream>>>(p);
+  flash_bwd_dkv_bf16_kernel<D, MT, C><<<grid, MMA_NT, Tl::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
 // at D = 64, two key m-tiles per warp cut the shared-memory reads per
 // product by a third, but halve the blocks too: they are taken only while
 // the grid still gives each of the H100's 132 SMs two blocks
-template <int D>
+template <int D, bool C>
 cudaError_t launch_dkv_bf16(const Params& p, int bh, cudaStream_t stream) {
   if constexpr (D == 64)
-    if ((p.Sk + 127) / 128 * bh >= 2 * 132) return launch_dkv_bf16_mt<64, 2>(p, bh, stream);
-  return launch_dkv_bf16_mt<D, 1>(p, bh, stream);
+    if ((p.Sk + 127) / 128 * bh >= 2 * 132) return launch_dkv_bf16_mt<64, 2, C>(p, bh, stream);
+  return launch_dkv_bf16_mt<D, 1, C>(p, bh, stream);
 }
 
 // bf16: m16n8k16 bf16 products; f32: split TF32
-template <int D>
+template <int D, bool C>
 cudaError_t launch(bool dq, bool bf16, const Params& p, int bh, cudaStream_t s) {
-  if (bf16) return dq ? launch_dq_bf16<D>(p, bh, s) : launch_dkv_bf16<D>(p, bh, s);
-  return dq ? launch_dq_tf32<D>(p, bh, s) : launch_dkv_tf32<D>(p, bh, s);
+  if (bf16) return dq ? launch_dq_bf16<D, C>(p, bh, s) : launch_dkv_bf16<D, C>(p, bh, s);
+  return dq ? launch_dq_tf32<D, C>(p, bh, s) : launch_dkv_tf32<D, C>(p, bh, s);
 }
 
 int run(bool dq, const void* q, const void* k, const void* v, const void* o,
         const void* dout, const float* lse, void* g0, void* g1, int dtype, int B,
-        int H, int Sq, int Sk, int D, const int64_t* strides, float scale,
-        void* stream) {
-  const int64_t bh = (int64_t)B * H;
-  if (Sq <= 0 || Sk <= 0 || Sq % 64 || Sk % 64 || bh <= 0 || bh > 65535 ||
+        int H, int Sq, int Sk, int D, int bh0, int bh_count, const int64_t* strides,
+        float scale, void* stream) {
+  if (Sq <= 0 || Sk <= 0 || Sq % 64 || Sk % 64 || B <= 0 || H <= 0 || bh0 < 0 ||
+      bh_count <= 0 || bh_count > MAX_GRID_Y || (int64_t)bh0 + bh_count > (int64_t)B * H ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, dout, lse, dq ? g0 : nullptr, dq ? nullptr : g0,
-           dq ? nullptr : g1, H, Sq, Sk, {}, scale};
+           dq ? nullptr : g1, H, Sq, Sk, {}, scale, bh0};
   for (int t = 0; t < N_OPERANDS; ++t)
     for (int a = 0; a < 3; ++a) p.st[t][a] = strides[t * 3 + a];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == 1;
+  // B*H within one grid: the kernels without the base offset, bh0 = 0
+  const bool chunked = (int64_t)B * H > MAX_GRID_Y;
+  if (!chunked && (bh0 != 0 || bh_count != B * H)) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 64: return (int)launch<64>(dq, bf16, p, (int)bh, s);
-    case 128: return (int)launch<128>(dq, bf16, p, (int)bh, s);
-    case 256: return (int)launch<256>(dq, bf16, p, (int)bh, s);
+    case 64: return (int)(chunked ? launch<64, true>(dq, bf16, p, bh_count, s)
+                                  : launch<64, false>(dq, bf16, p, bh_count, s));
+    case 128: return (int)(chunked ? launch<128, true>(dq, bf16, p, bh_count, s)
+                                   : launch<128, false>(dq, bf16, p, bh_count, s));
+    case 256: return (int)(chunked ? launch<256, true>(dq, bf16, p, bh_count, s)
+                                   : launch<256, false>(dq, bf16, p, bh_count, s));
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1108,22 +1121,23 @@ int run(bool dq, const void* q, const void* k, const void* v, const void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. strides: 8 x (batch, seq, head) element
-// strides of q, k, v, o, dO, dQ, dK, dV. Returns a cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16. Launches the b*h rows bh0 .. bh0 +
+// bh_count - 1 of the B*H. strides: 8 x (batch, seq, head) element strides of
+// q, k, v, o, dO, dQ, dK, dV. Returns a cudaError_t (0 = success).
 int dcr_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, void* dq, int dtype, int B,
-                     int H, int Sq, int Sk, int D, const int64_t* strides, float scale,
-                     void* stream) {
-  return run(true, q, k, v, o, dout, lse, dq, nullptr, dtype, B, H, Sq, Sk, D, strides,
-             scale, stream);
+                     int H, int Sq, int Sk, int D, int bh0, int bh_count,
+                     const int64_t* strides, float scale, void* stream) {
+  return run(true, q, k, v, o, dout, lse, dq, nullptr, dtype, B, H, Sq, Sk, D, bh0,
+             bh_count, strides, scale, stream);
 }
 
 int dcr_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, void* dk, void* dv, int dtype,
-                      int B, int H, int Sq, int Sk, int D, const int64_t* strides,
-                      float scale, void* stream) {
-  return run(false, q, k, v, o, dout, lse, dk, dv, dtype, B, H, Sq, Sk, D, strides,
-             scale, stream);
+                      int B, int H, int Sq, int Sk, int D, int bh0, int bh_count,
+                      const int64_t* strides, float scale, void* stream) {
+  return run(false, q, k, v, o, dout, lse, dk, dv, dtype, B, H, Sq, Sk, D, bh0, bh_count,
+             strides, scale, stream);
 }
 
 const char* dcr_cuda_error_string(int err) {

@@ -69,6 +69,13 @@
 // dimension contiguous, the others multiples of 16 bytes); O is written
 // [B, Sq, H, D] the same way. The C entry point returns cudaGetLastError()
 // after the launch so a refused launch reaches the caller.
+//
+// b*h runs on grid.y, whose limit is 65535. The C entry point launches the
+// b*h rows bh0 .. bh0 + bh_count - 1 (bh_count <= 65535); the caller issues
+// larger B*H in such chunks (ops/flash_attention.py grid_chunks), and the
+// kernels' CHUNKED instantiations add bh0 to blockIdx.y. At B*H <= 65535 it
+// is one launch of the instantiations without the offset: the grid, the
+// block order and the compiled code of a launch without chunks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +88,7 @@ namespace {
 
 constexpr int TILE = 64;     // Sq and Sk are multiples of this; every row and key tile divides it
 constexpr int MMA_NT = 128;  // threads per block: 4 warps
+constexpr int MAX_GRID_Y = 65535;  // b*h rows of one launch
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -97,6 +105,7 @@ struct Params {
   int64_t v_sb, v_ss, v_sh;
   int64_t o_sb, o_ss, o_sh;
   float scale;
+  int bh0;  // first b*h row of this launch; blockIdx.y counts from it
 };
 
 template <int D, int MT>
@@ -111,7 +120,7 @@ struct Tf32Tiles {
   static constexpr int SMEM = ((2 * BM + 2 * BN) * LDQK + 2 * BN * LDV) * 4;
 };
 
-template <int D, int MT>
+template <int D, int MT, bool CHUNKED>
 __global__ void __launch_bounds__(MMA_NT) flash_fwd_tf32x3_kernel(const Params p) {
   using namespace mma_tf32;
   using Tl = Tf32Tiles<D, MT>;
@@ -129,7 +138,7 @@ __global__ void __launch_bounds__(MMA_NT) flash_fwd_tf32x3_kernel(const Params p
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
+  const int bh = CHUNKED ? p.bh0 + blockIdx.y : blockIdx.y;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int q0 = blockIdx.x * BM;
@@ -341,7 +350,7 @@ struct Bf16Tiles {
   static constexpr int SMEM = (BM + 4 * BN) * LD * 2;
 };
 
-template <int D>
+template <int D, bool CHUNKED>
 __global__ void __launch_bounds__(MMA_NT) flash_fwd_bf16_kernel(const Params p) {
   using namespace mma_bf16;
   using Tl = Bf16Tiles<D>;
@@ -357,7 +366,7 @@ __global__ void __launch_bounds__(MMA_NT) flash_fwd_bf16_kernel(const Params p) 
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.y;
+  const int bh = CHUNKED ? p.bh0 + blockIdx.y : blockIdx.y;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int q0 = blockIdx.x * Tl::BM;
@@ -522,44 +531,47 @@ __global__ void __launch_bounds__(MMA_NT) flash_fwd_bf16_kernel(const Params p) 
   }
 }
 
-template <int D, int MT>
+template <int D, int MT, bool CHUNKED>
 cudaError_t launch_f32_mt(const Params& p, int bh, cudaStream_t stream) {
   using Tl = Tf32Tiles<D, MT>;
   // set on every launch: the attribute belongs to the current device
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tf32x3_kernel<D, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
+      flash_fwd_tf32x3_kernel<D, MT, CHUNKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tl::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid(p.Sq / Tl::BM, bh);
-  flash_fwd_tf32x3_kernel<D, MT><<<grid, MMA_NT, Tl::SMEM, stream>>>(p);
+  flash_fwd_tf32x3_kernel<D, MT, CHUNKED><<<grid, MMA_NT, Tl::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
 // at D = 64, two m-tiles per warp halve the split K and V fragments per
 // product, but halve the blocks too: they are taken only while the grid
 // still gives each of the H100's 132 SMs two blocks
-template <int D>
+template <int D, bool CHUNKED>
 cudaError_t launch_f32(const Params& p, int bh, cudaStream_t stream) {
   if constexpr (D == 64)
-    if (p.Sq % 128 == 0 && p.Sq / 128 * bh >= 2 * 132) return launch_f32_mt<64, 2>(p, bh, stream);
-  return launch_f32_mt<D, 1>(p, bh, stream);
+    if (p.Sq % 128 == 0 && p.Sq / 128 * bh >= 2 * 132)
+      return launch_f32_mt<64, 2, CHUNKED>(p, bh, stream);
+  return launch_f32_mt<D, 1, CHUNKED>(p, bh, stream);
 }
 
-template <int D>
+template <int D, bool CHUNKED>
 cudaError_t launch_bf16(const Params& p, int bh, cudaStream_t stream) {
   constexpr size_t smem = Bf16Tiles<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_bf16_kernel<D, CHUNKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Sq + Bf16Tiles<D>::BM - 1) / Bf16Tiles<D>::BM, bh);
-  flash_fwd_bf16_kernel<D><<<grid, MMA_NT, smem, stream>>>(p);
+  flash_fwd_bf16_kernel<D, CHUNKED><<<grid, MMA_NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <bool C>
 cudaError_t dispatch_d(const Params& p, bool bf16, int bh, int d, cudaStream_t stream) {
   switch (d) {
-    case 64: return bf16 ? launch_bf16<64>(p, bh, stream) : launch_f32<64>(p, bh, stream);
-    case 128: return bf16 ? launch_bf16<128>(p, bh, stream) : launch_f32<128>(p, bh, stream);
-    case 256: return bf16 ? launch_bf16<256>(p, bh, stream) : launch_f32<256>(p, bh, stream);
+    case 64: return bf16 ? launch_bf16<64, C>(p, bh, stream) : launch_f32<64, C>(p, bh, stream);
+    case 128: return bf16 ? launch_bf16<128, C>(p, bh, stream) : launch_f32<128, C>(p, bh, stream);
+    case 256: return bf16 ? launch_bf16<256, C>(p, bh, stream) : launch_f32<256, C>(p, bh, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -568,22 +580,28 @@ cudaError_t dispatch_d(const Params& p, bool bf16, int bh, int d, cudaStream_t s
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16. Launches the b*h rows bh0 .. bh0 +
+// bh_count - 1 of the B*H. Returns a cudaError_t (0 = success).
 int dcr_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                  int dtype, int B, int H, int Sq, int Sk, int D,
+                  int dtype, int B, int H, int Sq, int Sk, int D, int bh0, int bh_count,
                   int64_t q_sb, int64_t q_ss, int64_t q_sh,
                   int64_t k_sb, int64_t k_ss, int64_t k_sh,
                   int64_t v_sb, int64_t v_ss, int64_t v_sh,
                   int64_t o_sb, int64_t o_ss, int64_t o_sh,
                   float scale, void* stream) {
-  const int64_t bh = (int64_t)B * H;
-  if (Sq <= 0 || Sk <= 0 || Sq % TILE || Sk % TILE || bh <= 0 || bh > 65535 ||
+  if (Sq <= 0 || Sk <= 0 || Sq % TILE || Sk % TILE || B <= 0 || H <= 0 || bh0 < 0 ||
+      bh_count <= 0 || bh_count > MAX_GRID_Y || (int64_t)bh0 + bh_count > (int64_t)B * H ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, lse, H, Sq, Sk,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-           scale};
-  return (int)dispatch_d(p, dtype == 1, (int)bh, D, static_cast<cudaStream_t>(stream));
+           scale, bh0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // B*H within one grid: the kernels without the base offset, bh0 = 0
+  if ((int64_t)B * H <= MAX_GRID_Y)
+    return bh0 == 0 && bh_count == B * H ? (int)dispatch_d<false>(p, dtype == 1, bh_count, D, s)
+                                         : (int)cudaErrorInvalidValue;
+  return (int)dispatch_d<true>(p, dtype == 1, bh_count, D, s);
 }
 
 const char* dcr_cuda_error_string(int err) {

@@ -17,6 +17,9 @@ from the newest checkpoint, and exports the HF-layout checkpoint at the end.
   last periodic checkpoint is the recovery point (NaN rollback, the
   bad-sample quarantine, multi-host and the sample-image hook are not
   ported).
+- The JAX trainer writes sample grids every ``save_steps``; the port has no
+  sample hook yet, so with ``save_steps > 0`` :meth:`Trainer.train` logs
+  one warning at its start that no grids are written.
 """
 
 from __future__ import annotations
@@ -162,6 +165,10 @@ class Trainer:
         # optimizer steps, or the end of the requested epochs (a trailing
         # partial accumulation is not applied)
         max_micro = min(cfg.max_train_steps * accum, cfg.num_train_epochs * steps_per_epoch)
+        if cfg.save_steps > 0:
+            log.warning("save_steps=%d: sample grids are not written (the port has no "
+                        "sample hook yet; the JAX package's dcr-train writes them)",
+                        cfg.save_steps)
         log.info("training: %d optimizer steps (micro-batch accum %d, %d micro/epoch), "
                  "batch %d on %s", max_micro // accum, accum, steps_per_epoch,
                  cfg.train_batch_size, self.device)

@@ -4,6 +4,12 @@ Own copy of the name maps and layout rules of ``dcr_tpu/models/export.py``:
 each ``*_from_flax`` takes a Flax param tree (nested dicts of numpy arrays,
 as ``params.npz`` holds them) and returns a torch state dict under diffusers
 / transformers naming that the port's modules load with ``strict=True``.
+The eval backbones' (``sscd_from_flax``, ``inception_from_flax``,
+``vgg16_from_flax``, ``clip_image_from_flax``, ``clip_scorer_from_flax``)
+are the inverses of ``dcr_tpu/models/convert.py``'s ``convert_sscd``,
+``convert_inception_fid``, ``convert_vgg16``, ``convert_clip_image`` and
+``convert_openai_clip``: frozen batch norm's ``scale``/``mean``/``var``
+become ``weight``/``running_mean``/``running_var``.
 Dense kernels [in, out] become [out, in]; conv kernels HWIO become OIHW.
 Each ``*_to_flax`` is the inverse, for the port's own exports: a round trip
 gives back the same tree, key for key and bit for bit.
@@ -136,6 +142,88 @@ def text_from_flax(params: Any) -> dict[str, torch.Tensor]:
     sd[f"{p}final_layer_norm.weight"] = np.asarray(params["final_layer_norm"]["scale"])
     sd[f"{p}final_layer_norm.bias"] = np.asarray(params["final_layer_norm"]["bias"])
     return _to_torch(sd)
+
+
+# ---------------------------------------------------------------------------
+# the eval backbones
+# ---------------------------------------------------------------------------
+
+_BN_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _bn_tree_to_sd(params: Any, name_map: Callable[[str], str]) -> dict[str, torch.Tensor]:
+    """:func:`_tree_to_sd` for trees with frozen batch norms, whose ``mean``
+    and ``var`` leaves are ``running_mean`` and ``running_var`` in torch."""
+    sd = {}
+    for path, value in _leaves(params):
+        key, arr = _torch_leaf(path, value, name_map)
+        prefix, leaf = key.rsplit(".", 1)
+        sd[f"{prefix}.{_BN_LEAVES.get(leaf, leaf)}"] = arr
+    return _to_torch(sd)
+
+
+def sscd_name_map(p: str) -> str:
+    p = re.sub(r"layer(\d+)_(\d+)", r"layer\1.\2", p)
+    p = p.replace("downsample_conv", "downsample.0").replace("downsample_bn", "downsample.1")
+    return p.replace("/", ".")
+
+
+def sscd_from_flax(params: Any) -> dict[str, torch.Tensor]:
+    """SSCDModel tree (``backbone``, ``embeddings``) -> the port's SSCDModel
+    state dict, the SSCD TorchScript archive's names."""
+    return _bn_tree_to_sd(params, sscd_name_map)
+
+
+def inception_from_flax(params: Any) -> dict[str, torch.Tensor]:
+    """InceptionV3FID tree -> the port's InceptionV3FID state dict (the
+    pt_inception-2015-12-05 names: the JAX modules carry the same ones)."""
+    return _bn_tree_to_sd(params, lambda p: p.replace("/", "."))
+
+
+def vgg16_from_flax(params: Any) -> dict[str, torch.Tensor]:
+    """VGG16Features tree -> the port's VGG16Features state dict (torchvision
+    names). The JAX fc1 reads the 7x7x512 map flattened as (H, W, C), the
+    port's as (C, H, W): fc1's input columns are reordered back."""
+    from dcr_tpu_torch.models.vgg import conv_indices
+
+    idx = conv_indices()
+    names = {f"conv_{i}": f"features.{j}" for i, j in enumerate(idx)}
+    names.update(fc1="classifier.0", fc2="classifier.3")
+    sd = {}
+    for path, value in _leaves(params):
+        key, arr = _torch_leaf(path, value, lambda p: names[p])
+        if key == "classifier.0.weight":               # [4096, (h, w, c)] -> [4096, (c, h, w)]
+            arr = arr.reshape(-1, 7, 7, 512).transpose(0, 3, 1, 2).reshape(arr.shape[0], -1)
+        sd[key] = arr
+    return _to_torch(sd)
+
+
+def _clip_block_name_map(p: str) -> str:
+    p = re.sub(r"^blocks_(\d+)", r"blocks.\1", p)
+    p = re.sub(r"/(qkv|proj)$", r"/attn/\1", p)
+    p = re.sub(r"/(fc1|fc2)$", r"/mlp/\1", p)
+    return p.replace("/", ".")
+
+
+def clip_image_from_flax(params: Any) -> dict[str, torch.Tensor]:
+    """CLIPImageTower tree -> the port's CLIPImageTower state dict. The
+    class embedding, positional table and projection are plain parameters
+    in both packages and copy as they are ([width], [1, tokens, width],
+    [width, embed_dim])."""
+    plain = {k: np.asarray(params[k]) for k in ("class_embedding", "pos_embed", "proj")}
+    rest = {k: v for k, v in params.items() if k not in plain}
+    sd = dict(_to_torch(plain))
+    sd.update(_tree_to_sd(rest, _clip_block_name_map))
+    return sd
+
+
+def clip_scorer_from_flax(params: Any) -> dict[str, torch.Tensor]:
+    """CLIPScorer params ``{image, text, text_projection}`` -> the port's
+    CLIPScorer state dict."""
+    sd = {f"image.{k}": v for k, v in clip_image_from_flax(params["image"]).items()}
+    sd.update({f"text.{k}": v for k, v in text_from_flax(params["text"]).items()})
+    sd.update(_to_torch({"text_projection": np.asarray(params["text_projection"])}))
+    return sd
 
 
 # ---------------------------------------------------------------------------

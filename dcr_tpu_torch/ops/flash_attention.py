@@ -15,7 +15,11 @@ CPU tests); tensors on the GPU launch the kernels or raise. Nothing falls
 back from a kernel.
 
 Layout contract: [B, S, H, D] in and out, read through its strides; the
-log-sum-exp comes back compact as [B*H, Sq] float32.
+log-sum-exp comes back compact as [B*H, Sq] float32. An operand whose layout
+the kernels do not read (a row stride that is not a multiple of 16 bytes, a
+misaligned start) is copied to a contiguous tensor first, and a B*H above
+the grid's y limit is launched in chunks (:func:`grid_chunks`), so every
+input that :func:`supported` admits runs on the kernels.
 """
 
 from __future__ import annotations
@@ -32,21 +36,36 @@ BWD_SOURCE = build.CSRC_DIR / "flash_attention_bwd.cu"
 KERNEL_TILE = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _I64 = ctypes.c_int64
+# b*h runs on the grid's y dimension, whose limit this is
+MAX_GRID_Y = 65535
 
 
 def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Kernel-capable shapes, the predicate of dcr_tpu's ``supported``: 128
-    divides both sequence lengths, D is 64, 128 or 256, f32 or bf16."""
-    if q.ndim != 4:
+    """Kernel-capable inputs, the predicate of dcr_tpu's ``supported``: 128
+    divides both sequence lengths, D is 64, 128 or 256, f32 or bf16; q, k
+    and v [B, S, H, D] of one dtype on one device, k and v of one shape."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         return False
-    _, sq, _, d = q.shape
+    b, sq, h, d = q.shape
     sk = k.shape[1]
     return (
         sq % 128 == 0
         and sk % 128 == 0
         and d in (64, 128, 256)
         and q.dtype in (torch.float32, torch.bfloat16)
+        and q.dtype == k.dtype == v.dtype
+        and q.device == k.device == v.device
+        and k.shape == v.shape == (b, sk, h, d)
     )
+
+
+def grid_chunks(bh: int) -> list[tuple[int, int]]:
+    """(base, count) of each launch over ``bh`` = B*H rows: chunks of at most
+    MAX_GRID_Y rows, in order. At B*H <= MAX_GRID_Y it is one launch
+    [(0, bh)], the grid and block order of a launch without chunks."""
+    if bh <= 0:
+        raise ValueError(f"B*H must be positive, got {bh}")
+    return [(base, min(MAX_GRID_Y, bh - base)) for base in range(0, bh, MAX_GRID_Y)]
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -81,7 +100,16 @@ def _strided_ok(t: torch.Tensor) -> bool:
             and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3]))
 
 
+def kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernels read its layout, else a copy into a new
+    contiguous (so 16-byte aligned) tensor with the same values."""
+    return t if _strided_ok(t) else t.clone(memory_format=torch.contiguous_format)
+
+
 def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raises only for inputs :func:`supported` refuses (the kernels also
+    take sequence lengths that 64 divides); the layout is the caller's to
+    fix with :func:`kernel_layout`."""
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
@@ -96,16 +124,10 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
                          f"v {tuple(v.shape)}")
     if d not in (64, 128, 256):
         raise ValueError(f"flash kernel takes head dim 64, 128 or 256, got {d}")
-    if sq % KERNEL_TILE or sk % KERNEL_TILE or sq == 0 or sk == 0:
+    if sq % KERNEL_TILE or sk % KERNEL_TILE or sq == 0 or sk == 0 or b * h == 0:
         raise ValueError(f"flash kernel needs sequence lengths that are nonzero "
-                         f"multiples of {KERNEL_TILE}, got Sq={sq}, Sk={sk}")
-    if b * h > 65535:
-        raise ValueError(f"flash kernel takes at most 65535 batch*heads, got {b * h}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not _strided_ok(t):
-            raise ValueError(f"flash kernel needs 16-byte aligned {name} with a contiguous "
-                             f"last dim and strides that are multiples of 16 bytes, "
-                             f"got {t.stride()} in {t.dtype}")
+                         f"multiples of {KERNEL_TILE} and B*H > 0, got Sq={sq}, Sk={sk}, "
+                         f"B*H={b * h}")
 
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -119,12 +141,12 @@ def _library(source) -> ctypes.CDLL:
         if source == SOURCE:
             lib.dcr_flash_fwd.restype = ctypes.c_int
             lib.dcr_flash_fwd.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [_I64] * 12
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [_I64] * 12
                 + [ctypes.c_float, ctypes.c_void_p])
         else:
             for fn, n_out in ((lib.dcr_flash_bwd_dq, 1), (lib.dcr_flash_bwd_dkv, 2)):
                 fn.restype = ctypes.c_int
-                fn.argtypes = ([ctypes.c_void_p] * (6 + n_out) + [ctypes.c_int] * 6
+                fn.argtypes = ([ctypes.c_void_p] * (6 + n_out) + [ctypes.c_int] * 8
                                + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
         lib.dcr_cuda_error_string.restype = ctypes.c_char_p
         lib.dcr_cuda_error_string.argtypes = [ctypes.c_int]
@@ -142,14 +164,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(out [B, Sq, H, D], lse [B*H, Sq] f32) for [B, S, H, D] q/k/v.
     A raw launch that records no autograd graph: :func:`flash_attention`
-    is the differentiable op. ``flash_attention_fwd.launches`` counts kernel
-    launches."""
+    is the differentiable op. ``flash_attention_fwd.launches`` counts the
+    wrapper's launches (one per call, whatever its chunks)."""
     devices = {q.device.type, k.device.type, v.device.type}
     if devices == {"cpu"}:
         return flash_attention_reference(q, k, v)
     if devices != {"cuda"}:
         raise ValueError(f"flash attention takes cpu or cuda tensors, got {devices}")
     _check_kernel_inputs(q, k, v)
+    q, k, v = kernel_layout(q), kernel_layout(k), kernel_layout(v)
     lib = _library(SOURCE)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -157,15 +180,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dcr_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, h, sq, sk, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            1.0 / (d ** 0.5), stream)
-    _raise_on(lib, err, "flash-attention forward")
+        for base, count in grid_chunks(b * h):
+            err = lib.dcr_flash_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                _DTYPE_CODES[q.dtype], b, h, sq, sk, d, base, count,
+                q.stride(0), q.stride(1), q.stride(2),
+                k.stride(0), k.stride(1), k.stride(2),
+                v.stride(0), v.stride(1), v.stride(2),
+                out.stride(0), out.stride(1), out.stride(2),
+                1.0 / (d ** 0.5), stream)
+            _raise_on(lib, err, "flash-attention forward")
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -198,27 +222,23 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 
 
 def _bwd_operands(q, k, v, o, lse, do):
-    """Checks the backward's operands for the kernels; returns do in the
-    kernels' layout (a contiguous copy when autograd handed in other strides)."""
+    """Checks the backward's operands for the kernels; returns (q, k, v, o,
+    do) in the kernels' layout (:func:`kernel_layout`: autograd may hand in
+    ``do`` with any strides, and a caller any q, k, v)."""
     devices = {t.device for t in (q, k, v, o, lse, do)}
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash attention backward kernels take tensors on one cuda "
                          f"device, got {sorted(str(d) for d in devices)}")
     _check_kernel_inputs(q, k, v)
-    if not _strided_ok(do):
-        do = do.contiguous()
     b, sq, h, _ = q.shape
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype:
             raise ValueError(f"{name} must match q ({tuple(q.shape)}, {q.dtype}), got "
                              f"{tuple(t.shape)}, {t.dtype}")
-    if not _strided_ok(o):
-        raise ValueError(f"flash backward needs o in the kernels' layout, got strides "
-                         f"{o.stride()}")
     if lse.shape != (b * h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous float32 [{b * h}, {sq}] tensor, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    return do
+    return tuple(kernel_layout(t) for t in (q, k, v, o, do))
 
 
 def _bwd_launch(kind: str, q, k, v, o, lse, do, outs) -> None:
@@ -231,17 +251,18 @@ def _bwd_launch(kind: str, q, k, v, o, lse, do, outs) -> None:
     fn = lib.dcr_flash_bwd_dq if kind == "dq" else lib.dcr_flash_bwd_dkv
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), *(t.data_ptr() for t in outs),
-                 _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, strides,
-                 1.0 / (d ** 0.5), stream)
-    _raise_on(lib, err, f"flash-attention {'dQ' if kind == 'dq' else 'dK/dV'}")
+        for base, count in grid_chunks(b * h):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), *(t.data_ptr() for t in outs),
+                     _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, base, count, strides,
+                     1.0 / (d ** 0.5), stream)
+            _raise_on(lib, err, f"flash-attention {'dQ' if kind == 'dq' else 'dK/dV'}")
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do) -> torch.Tensor:
     """dq from the dQ kernel (CUDA tensors only); counts in
     ``flash_attention_bwd.dq_launches``."""
-    do = _bwd_operands(q, k, v, o, lse, do)
+    q, k, v, o, do = _bwd_operands(q, k, v, o, lse, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch("dq", q, k, v, o, lse, do, (dq,))
     flash_attention_bwd.dq_launches += 1
@@ -251,7 +272,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do) -> torch.Tensor:
 def flash_attention_bwd_dkv(q, k, v, o, lse, do) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) from the dK/dV kernel (CUDA tensors only); counts in
     ``flash_attention_bwd.dkv_launches``."""
-    do = _bwd_operands(q, k, v, o, lse, do)
+    q, k, v, o, do = _bwd_operands(q, k, v, o, lse, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("dkv", q, k, v, o, lse, do, (dk, dv))
@@ -265,12 +286,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) for the forward's (q, k, v, o, lse) and the output's
     gradient ``do``. On CUDA tensors it launches the dQ kernel, then the
     dK/dV kernel. ``do`` from autograd may come with any strides: the kernels
-    read [B, S, H, D] strides with a contiguous last dimension, so a ``do``
+    read [B, S, H, D] strides with a contiguous last dimension, so an operand
     without that layout is copied to a contiguous tensor first. Counts:
     ``flash_attention_bwd.dq_launches`` and ``.dkv_launches``."""
     if {t.device.type for t in (q, k, v, o, lse, do)} == {"cpu"}:
         return flash_attention_bwd_reference(q, k, v, o, lse, do)
-    do = _bwd_operands(q, k, v, o, lse, do)
+    q, k, v, o, do = _bwd_operands(q, k, v, o, lse, do)
     dq = flash_attention_bwd_dq(q, k, v, o, lse, do)
     dk, dv = flash_attention_bwd_dkv(q, k, v, o, lse, do)
     return dq, dk, dv

@@ -176,17 +176,19 @@ def test_split_tf32_arithmetic_meets_the_f32_bound(shape, scale_q, tol):
 
 def test_kernel_inputs_need_16_byte_row_strides():
     """The kernels copy rows 16 bytes at a time: a bf16 tensor whose seq
-    stride is a multiple of 4 elements but not of 8 is refused; the same
-    strides in f32 (16-byte multiples) are taken."""
+    stride is a multiple of 4 elements but not of 8 is not in their layout;
+    the same strides in f32 (16-byte multiples) are. The wrapper's layout
+    step copies the first into a contiguous tensor of equal values and
+    hands the second through as it is, and neither is refused."""
     shape, strides = (1, 128, 1, 64), (128 * 68, 68, 64, 1)
-    for dtype, refused in ((torch.bfloat16, True), (torch.float32, False)):
-        q = torch.zeros(128 * 68, dtype=dtype).as_strided(shape, strides)
+    for dtype, in_layout in ((torch.bfloat16, False), (torch.float32, True)):
+        q = torch.arange(128 * 68, dtype=torch.float32).to(dtype).as_strided(shape, strides)
         kv = torch.zeros(shape, dtype=dtype)
-        if refused:
-            with pytest.raises(ValueError, match="multiples of 16 bytes"):
-                TFA._check_kernel_inputs(q, kv, kv)
-        else:
-            TFA._check_kernel_inputs(q, kv, kv)
+        assert TFA._strided_ok(q) == in_layout
+        laid = TFA.kernel_layout(q)
+        assert TFA._strided_ok(laid) and torch.equal(laid, q)
+        assert (laid is q) == in_layout
+        TFA._check_kernel_inputs(q, kv, kv)
         TFA._check_kernel_inputs(kv, kv, kv)
 
 
