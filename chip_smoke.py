@@ -27,11 +27,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    widths (ModelConfig()), 512 px, 20 DPM-Solver++ steps with CFG, 2
    prompts x 2 images, seeded random weights built on the card; the forward
    kernel's launch count must be 15 per UNet call;
+5b. checkpoint interop: phase 5's weights through export_hf_layout
+   (params.npz + diffusers/transformers safetensors), made a genuine
+   diffusers directory (no params.npz, no model_config), loaded back by
+   load_checkpoint_models on the card bit for bit; one sampler call from
+   it equals phase 5's first call bit for bit, with 300 forward launches;
+   bytes written, export and load seconds, load GB/s, peak memory;
+5c. fast sampling: phase 5 with fast.enabled (reuse 0.5, order 2): 15
+   forward launches per UNet call of the plan, images finite in [0, 1];
+   seconds per call beside phase 5's, max |diff| to its images (reported);
 6. training main path: dcr_tpu_torch.diffusion.trainer.Trainer(TrainConfig())
    (SD-2.1 widths, 256 px, batch 16, bf16, AdamW with warmup) on a
    class-folder of PNGs written here, seeded random weights, a few optimizer
    steps; 10 launches of each kernel per step, finite losses, a checkpoint
-   and an HF-layout export that loads back;
+   and an HF-layout export that loads back; dcr-train's sample hook at
+   save_steps=3 writes grids at syncs 3 and 6 (read back with the port's
+   PNG reader, image_grid's size), 200 forward launches per grid, counted
+   apart from the steps' launches and times;
 7. the f32 training mode: 2 steps of the train step (make_train_step) at
    SD-2.1 widths with mixed_precision="no"; 10 launches of each kernel per
    step, all in f32, finite losses;
@@ -49,7 +61,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    path (its attention is the CLIP towers', which takes SDPA): its launch
    counts must stay 0.
 Each main path runs with every launch count set to 0 just before it and
-read just after. The last line is {"ok": true, "device": {...}}; the line
+read just after (the hook's launches are read around each hook call). The last line is {"ok": true, "device": {...}}; the line
 before it holds the kernels' numbers as JSON, one record per kernel and
 dtype.
 """
@@ -276,6 +288,9 @@ def phase_kernels(reps: int) -> dict:
         ("level2", 4, 256, 256, 20, 64, 1.0, True),
         ("train_level0", 16, 1024, 1024, 5, 64, 1.0, True),
         ("train_level1", 16, 256, 256, 10, 64, 1.0, True),
+        # dcr-train's sample hook: 1 prompt x 4 images with CFG at 256 px
+        ("hook_level0", 8, 1024, 1024, 5, 64, 1.0, True),
+        ("hook_level1", 8, 256, 256, 10, 64, 1.0, True),
         ("d128", 2, 1024, 1024, 4, 128, 1.0, False),
         ("d256", 2, 512, 512, 4, 256, 1.0, False),
         ("rect", 2, 1024, 256, 4, 64, 1.0, False),
@@ -417,6 +432,9 @@ def phase_bwd_kernels(reps: int) -> dict:
     cases = [
         ("train_level0", 16, 1024, 1024, 5, 64, 1.0, True),
         ("train_level1", 16, 256, 256, 10, 64, 1.0, True),
+        # dcr-train's sample hook: 1 prompt x 4 images with CFG at 256 px
+        ("hook_level0", 8, 1024, 1024, 5, 64, 1.0, True),
+        ("hook_level1", 8, 256, 256, 10, 64, 1.0, True),
         ("d128", 2, 1024, 1024, 4, 128, 1.0, False),
         ("d256", 2, 512, 512, 4, 256, 1.0, False),
         ("sq_gt_sk", 2, 1024, 256, 4, 64, 1.0, False),
@@ -621,23 +639,11 @@ def phase_small_reference() -> None:
         raise AssertionError(f"small reference failed: err {err:.3e}, launches {launched}")
 
 
-def phase_main_path(out_dir: Path) -> dict:
-    import numpy as np
-
-    from dcr_tpu_torch.core.config import ModelConfig, SampleConfig
-    from dcr_tpu_torch.ops import flash_attention as fa
+def _timed_generate(cfg, models, params=None) -> dict:
+    """dcr_tpu_torch.sampling.pipeline.generate with the sampler's calls
+    timed (host clock around each call, synchronised) and their images
+    kept; the launch counts are set to 0 just before and read just after."""
     from dcr_tpu_torch.sampling import pipeline as P
-
-    model_cfg = ModelConfig(sample_size=64)        # SD-2.1 widths, 512 px latents
-    t0 = time.perf_counter()
-    models = P.build_models(model_cfg, "cuda", seed=0)
-    params = {"unet": models.unet.state_dict(), "vae": models.vae.state_dict(),
-              "text": models.text_encoder.state_dict()}
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for m in (models.unet, models.vae, models.text_encoder)
-                   for p in m.parameters())
-    log(f"main path: SD-2.1 widths, {n_params / 1e6:.1f}M params built on the card "
-        f"in {time.perf_counter() - t0:.2f} s")
 
     calls, images = [], []
     make = P.make_sampler
@@ -653,39 +659,190 @@ def phase_main_path(out_dir: Path) -> dict:
             calls.append(time.perf_counter() - start)
             images.append(out.float().cpu())
             return out
+        timed.unet_calls = fn.unet_calls
         return timed
 
     P.make_sampler = timed_make_sampler
-    steps = 20
-    cfg = SampleConfig(resolution=512, num_inference_steps=steps, sampler="dpm++",
-                       guidance_scale=7.5, num_batches=2, im_batch=2, seed=0,
-                       savepath=str(out_dir))
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     try:
         out = P.generate(cfg, modelstyle="nolevel", models=models, params=params,
                          device="cuda")
     finally:
-        launches, bwd_launches = fa.flash_attention_fwd.launches, read_launches()[1:]
+        launches = read_launches()
         P.make_sampler = make
-    peak = torch.cuda.max_memory_allocated()
-    pngs = sorted((out / "generations").glob("*.png"))
-    imgs = torch.cat(images)
+    return {"calls": calls, "images": torch.cat(images), "launches": launches,
+            "peak": torch.cuda.max_memory_allocated(),
+            "pngs": sorted((out / "generations").glob("*.png"))}
+
+
+def _check_images(imgs: torch.Tensor, what: str) -> None:
+    if not (torch.isfinite(imgs).all() and imgs.min() >= 0.0 and imgs.max() <= 1.0):
+        raise AssertionError(f"{what} images are not finite values in [0, 1]")
+
+
+def phase_main_path(out_dir: Path) -> tuple[dict, dict]:
+    """Phase 5; returns its stats and what the phases after it reuse: the
+    models (on the card), their state dicts and the images."""
+    import numpy as np
+
+    from dcr_tpu_torch.core.config import ModelConfig, SampleConfig
+    from dcr_tpu_torch.sampling import pipeline as P
+
+    model_cfg = ModelConfig(sample_size=64)        # SD-2.1 widths, 512 px latents
+    t0 = time.perf_counter()
+    models = P.build_models(model_cfg, "cuda", seed=0)
+    params = {"unet": models.unet.state_dict(), "vae": models.vae.state_dict(),
+              "text": models.text_encoder.state_dict()}
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (models.unet, models.vae, models.text_encoder)
+                   for p in m.parameters())
+    log(f"main path: SD-2.1 widths, {n_params / 1e6:.1f}M params built on the card "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    steps = 20
+    cfg = SampleConfig(resolution=512, num_inference_steps=steps, sampler="dpm++",
+                       guidance_scale=7.5, num_batches=2, im_batch=2, seed=0,
+                       savepath=str(out_dir))
+    run = _timed_generate(cfg, models, params)
+    calls, imgs, (launches, *bwd_launches) = run["calls"], run["images"], run["launches"]
     expected = 15 * steps * len(calls)
     log(f"main path: {len(calls)} sampler calls, {[f'{c:.3f}' for c in calls]} s each, "
         f"{statistics.mean(calls) / steps:.4f} s per step (2x2 CFG batch), "
-        f"peak memory {peak / 2**30:.2f} GiB, {len(pngs)} PNGs, flash launches "
+        f"peak memory {run['peak'] / 2**30:.2f} GiB, {len(run['pngs'])} PNGs, flash launches "
         f"{launches} (expected {expected})")
-    if len(pngs) != 4 or imgs.shape != (4, 512, 512, 3):
-        raise AssertionError(f"expected 4 PNGs of 512x512, got {len(pngs)}, {tuple(imgs.shape)}")
-    if not (torch.isfinite(imgs).all() and imgs.min() >= 0.0 and imgs.max() <= 1.0):
-        raise AssertionError("main path images are not finite values in [0, 1]")
-    if len(calls) != 2 or launches != expected or bwd_launches != (0, 0):
+    if len(run["pngs"]) != 4 or imgs.shape != (4, 512, 512, 3):
+        raise AssertionError(f"expected 4 PNGs of 512x512, got {len(run['pngs'])}, "
+                             f"{tuple(imgs.shape)}")
+    _check_images(imgs, "main path")
+    if len(calls) != 2 or launches != expected or bwd_launches != [0, 0]:
         raise AssertionError(f"flash kernel launched {launches} times, expected {expected} "
                              f"(backward kernels {bwd_launches}, expected none)")
-    return {"launches": launches, "sampler_call_s": calls,
-            "step_s": statistics.mean(calls) / steps, "peak_bytes": peak,
-            "image_std": float(np.std(imgs.numpy()))}
+    stats = {"launches": launches, "sampler_call_s": calls,
+             "step_s": statistics.mean(calls) / steps, "peak_bytes": run["peak"],
+             "image_std": float(np.std(imgs.numpy()))}
+    return stats, {"models": models, "params": params, "model_cfg": model_cfg,
+                   "sample_cfg": cfg, "images": imgs}
+
+
+def phase_checkpoint_interop(root: Path, main: dict) -> dict:
+    """Phase 5's weights through the port's export_hf_layout (params.npz and
+    the diffusers/transformers safetensors), made genuine (params.npz and
+    model_index.json's model_config deleted, as tests/test_export.py does),
+    loaded back with load_checkpoint_models on the card: every tensor equal
+    to its source bit for bit. Before that, the export loads once through
+    params.npz alone (safetensors set aside), so both load paths are timed.
+    Then one sampler call of phase 5's seed and
+    batch from the loaded models, whose images must equal phase 5's first
+    call bit for bit, with 15 x 20 forward launches."""
+    import dataclasses
+
+    from dcr_tpu_torch.core.checkpoint import export_hf_layout
+    from dcr_tpu_torch.sampling import pipeline as P
+
+    mc, params = main["model_cfg"], main["params"]
+    ckpt = root / "sd21"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    export_hf_layout(ckpt, unet=params["unet"], vae=params["vae"],
+                     text_encoder=params["text"],
+                     scheduler_config={"num_train_timesteps": mc.num_train_timesteps,
+                                       "beta_schedule": mc.beta_schedule,
+                                       "beta_start": mc.beta_start, "beta_end": mc.beta_end,
+                                       "prediction_type": mc.prediction_type},
+                     model_config=dataclasses.asdict(mc))
+    export_s = time.perf_counter() - t0
+    written = {str(f.relative_to(ckpt)): f.stat().st_size for f in ckpt.rglob("*")
+               if f.is_file()}
+    npz_bytes = sum(f.stat().st_size for f in ckpt.rglob("params.npz"))
+    weight_bytes = sum(f.stat().st_size for f in ckpt.rglob("*.safetensors"))
+
+    def timed_load(what):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models, _, lcfg = P.load_checkpoint_models(ckpt, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        bad = []
+        for name, module in (("unet", models.unet), ("vae", models.vae),
+                             ("text", models.text_encoder)):
+            got = module.state_dict()
+            bad += [f"{name}/{k}" for k, t in params[name].items()
+                    if k not in got or got[k].dtype != t.dtype or not torch.equal(got[k], t)]
+            bad += [f"{name}/{k} (extra)" for k in set(got) - set(params[name])]
+        if bad:
+            raise AssertionError(f"{what} does not load back bit for bit: {bad[:5]}")
+        return models, lcfg, load_s
+
+    # the params.npz path alone: the safetensors set aside for one load
+    weights = sorted(ckpt.rglob("*.safetensors"))
+    for f in weights:
+        f.rename(f.with_name(f.name + ".aside"))
+    models, _, npz_load_s = timed_load("the export through params.npz")
+    del models
+    for f in weights:
+        f.with_name(f.name + ".aside").rename(f)
+    # genuine: no params.npz, no native model_config
+    for comp in ("unet", "vae", "text_encoder"):
+        (ckpt / comp / "params.npz").unlink()
+    index = json.loads((ckpt / "model_index.json").read_text())
+    del index["model_config"]
+    (ckpt / "model_index.json").write_text(json.dumps(index))
+    models, lcfg, load_s = timed_load("the genuine checkpoint")
+    scfg = dataclasses.replace(main["sample_cfg"], num_batches=1,
+                               savepath=str(root / "genuine_out"))
+    run = _timed_generate(scfg, models)
+    imgs, first = run["images"], main["images"][:2]
+    stats = {"bytes_written": sum(written.values()), "files": written,
+             "safetensors_bytes": weight_bytes, "export_s": export_s, "load_s": load_s,
+             "load_gb_per_s": weight_bytes / load_s / 1e9,
+             "npz_bytes": npz_bytes, "npz_load_s": npz_load_s,
+             "npz_load_gb_per_s": npz_bytes / npz_load_s / 1e9,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "sampler_call_s": run["calls"], "launches": run["launches"][0],
+             "max_abs_diff_to_phase5": (imgs - first).abs().max().item(),
+             "model_config_differs": [f.name for f in dataclasses.fields(mc)
+                                      if getattr(mc, f.name) != getattr(lcfg, f.name)]}
+    log(f"checkpoint interop (SD-2.1 widths): {json.dumps(stats)}")
+    if run["launches"] != (15 * 20, 0, 0) or len(run["calls"]) != 1:
+        raise AssertionError(f"genuine checkpoint sampling launched {run['launches']} "
+                             f"in {len(run['calls'])} calls, expected (300, 0, 0) in 1")
+    if not torch.equal(imgs, first):
+        raise AssertionError(f"genuine checkpoint images differ from phase 5's first call: "
+                             f"max|diff| {stats['max_abs_diff_to_phase5']:.3e}")
+    del models
+    return stats
+
+
+def phase_fast_sampling(out_dir: Path, main: dict, main_stats: dict) -> dict:
+    """Phase 5 again with score reuse: fast.enabled, reuse_ratio 0.5, order
+    2, dpm++, 20 steps, same prompts, seed and weights. Forward launches
+    15 x unet_calls(plan) per sampler call; images finite in [0, 1]; their
+    max |diff| to phase 5's is reported, not bounded."""
+    import dataclasses
+
+    from dcr_tpu_torch.core.config import FastSampleConfig
+    from dcr_tpu_torch.sampling import fastsample
+
+    cfg = dataclasses.replace(main["sample_cfg"], savepath=str(out_dir),
+                              fast=FastSampleConfig(enabled=True, reuse_ratio=0.5, order=2))
+    plan = fastsample.fast_plan(cfg.num_inference_steps, cfg.fast.reuse_ratio)
+    run = _timed_generate(cfg, main["models"])
+    calls, imgs = run["calls"], run["images"]
+    expected = 15 * fastsample.unet_calls(plan) * len(calls)
+    stats = {"plan": "".join("F" if f else "r" for f in plan),
+             "unet_calls": fastsample.unet_calls(plan), "sampler_call_s": calls,
+             "dense_sampler_call_s": main_stats["sampler_call_s"],
+             "speedup_per_call": statistics.mean(main_stats["sampler_call_s"])
+             / statistics.mean(calls),
+             "launches": run["launches"][0], "peak_bytes": run["peak"],
+             "max_abs_diff_to_dense": (imgs - main["images"]).abs().max().item()}
+    log(f"fast sampling (reuse 0.5, order 2): {json.dumps(stats)}")
+    _check_images(imgs, "fast sampling")
+    if len(calls) != 2 or run["launches"] != (expected, 0, 0):
+        raise AssertionError(f"fast sampling launched {run['launches']} in {len(calls)} "
+                             f"calls, expected ({expected}, 0, 0) in 2")
+    return stats
 
 
 def _tiny_kernel_cfg():
@@ -786,15 +943,19 @@ def phase_train_main_path(out_dir: Path, steps: int) -> dict:
     """Trainer(TrainConfig()) at the JAX defaults (SD-2.1 widths, 256 px,
     batch 16, bf16, remat off, AdamW with constant_with_warmup) on a
     class-folder of 48 random 256 px PNGs, HashTokenizer, seeded random
-    weights built on the card, ``steps`` optimizer steps."""
+    weights built on the card, ``steps`` optimizer steps, with dcr-train's
+    sample hook at save_steps=3 (grids at syncs 3 and 6; its launches and
+    seconds counted apart from the steps')."""
     import shutil
 
     import numpy as np
 
     from dcr_tpu_torch.core.config import TrainConfig
+    from dcr_tpu_torch.diffusion.sample_hook import make_sample_hook
     from dcr_tpu_torch.diffusion.trainer import Trainer
+    from dcr_tpu_torch.eval.gallery import image_grid
     from dcr_tpu_torch.sampling.pipeline import load_checkpoint_models
-    from dcr_tpu_torch.sampling.png import write_png
+    from dcr_tpu_torch.sampling.png import read_png, write_png
 
     rng = np.random.default_rng(0)
     data = out_dir / "data"
@@ -804,10 +965,24 @@ def phase_train_main_path(out_dir: Path, steps: int) -> dict:
                   rng.integers(0, 256, (256, 256, 3), dtype=np.uint8))
     free = shutil.disk_usage(out_dir).free
     cfg = TrainConfig(output_dir=str(out_dir / "run"), max_train_steps=steps, log_every=1,
-                      modelsavesteps=10 ** 6, checkpoints_total_limit=1)
+                      modelsavesteps=10 ** 6, checkpoints_total_limit=1, save_steps=3)
     cfg.data.train_data_dir = str(data)
+    # the sample hook dcr-train installs; its launches and time are counted
+    # apart from the train steps'
+    hook, hook_s, hook_launches = make_sample_hook(), [], [0, 0, 0]
+
+    def counted_hook(trainer, sync):
+        before = read_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        hook(trainer, sync)
+        torch.cuda.synchronize()
+        hook_s.append(time.perf_counter() - start)
+        for i, (a, b) in enumerate(zip(before, read_launches())):
+            hook_launches[i] += b - a
+
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, device="cuda")
+    trainer = Trainer(cfg, sample_hook=counted_hook, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_params = {name: sum(p.numel() for p in d.values()) for name, d in
@@ -835,23 +1010,39 @@ def phase_train_main_path(out_dir: Path, steps: int) -> dict:
     try:
         last = trainer.train()
     finally:
-        launches = read_launches()
+        launches = tuple(a - b for a, b in zip(read_launches(), hook_launches))
     total_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     run = out_dir / "run"
     rows = [json.loads(x) for x in (run / "logs" / "metrics.jsonl").read_text().splitlines()]
     median_s = statistics.median(step_s[1:])
+    grids = {n: read_png(run / "generations" / f"step_{n}.png").shape for n in (3, 6)}
     stats = {"steps": steps, "batch": cfg.train_batch_size, "step_s": step_s,
              "median_step_s_after_first": median_s,
              "images_per_s": cfg.train_batch_size / median_s,
              "peak_bytes": peak, "losses": losses, "launches_fwd_dq_dkv": launches,
-             "loop_and_save_s": total_s, "save_and_export_s": total_s - sum(step_s),
+             "loop_and_save_s": total_s,
+             "save_and_export_s": total_s - sum(step_s) - sum(hook_s),
+             "hook_s_per_grid": hook_s, "hook_launches_fwd_dq_dkv": tuple(hook_launches),
+             "hook_prompts": hook.state["prompts"], "grid_shapes": grids,
              "last_metrics": last}
     log(f"train main path: {json.dumps(stats)}")
     expected = (10 * steps,) * 3
     if launches != expected:
         raise AssertionError(f"train main path launched (fwd, dQ, dK/dV) {launches}, "
                              f"expected {expected}")
+    # the hook: a grid at syncs 3 and 6, each 20 DDIM steps of the f32
+    # weights at 256 px, 10 forward launches per UNet call (S = 64 takes SDPA),
+    # at phase 3's hook shapes: one prompt x 4 images, B = 8 with CFG
+    if len(hook.state["prompts"]) != 1:
+        raise AssertionError(f"sample hook prompts {hook.state['prompts']}: phase 3's "
+                             f"hook_level cases assume one prompt")
+    n_img = len(hook.state["prompts"]) * 4
+    layout = image_grid([np.zeros((256, 256, 3), np.float32)] * n_img, cols=4).shape
+    if (len(hook_s) != 2 or tuple(hook_launches) != (2 * 10 * 20, 0, 0)
+            or any(g != layout for g in grids.values())):
+        raise AssertionError(f"sample hook: {len(hook_s)} grids, launches {hook_launches} "
+                             f"(expected (400, 0, 0)), grids {grids} (expected {layout})")
     if len(losses) != steps or not all(np.isfinite(losses)) or len(rows) != steps:
         raise AssertionError(f"train main path: losses {losses}, {len(rows)} metric rows")
     if not (run / "checkpoints" / str(steps) / "state.pt").exists():
@@ -1224,7 +1415,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         small_eval = phase_small_eval_reference(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        main_stats = phase_main_path(Path(tmp))
+        main_stats, main = phase_main_path(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        interop_stats = phase_checkpoint_interop(Path(tmp), main)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        fast_stats = phase_fast_sampling(Path(tmp), main, main_stats)
+    del main
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         train_stats = phase_train_main_path(Path(tmp), steps=6)
@@ -1268,10 +1465,15 @@ def main() -> int:
     # bf16, the f32 training mode f32
     train = dict(zip(("fwd", "dq", "dkv"), train_stats["launches_fwd_dq_dkv"]))
     f32_train = dict(zip(("fwd", "dq", "dkv"), f32_train_stats["launches_fwd_dq_dkv"]))
-    sample_cases, train_cases = ("level0", "level1", "level2"), ("train_level0", "train_level1")
+    sample_cases = ("level0", "level1", "level2", "hook_level0", "hook_level1")
+    train_cases = ("train_level0", "train_level1")
     entries = [
         kernel_entry("fwd", "float32", kern["rows"], sample_cases,
-                     {"sample": main_stats["launches"], "train_f32": f32_train["fwd"]},
+                     {"sample": main_stats["launches"],
+                      "sample_genuine": interop_stats["launches"],
+                      "sample_fast": fast_stats["launches"],
+                      "train_hook": train_stats["hook_launches_fwd_dq_dkv"][0],
+                      "train_f32": f32_train["fwd"]},
                      tensor_cores("flash_fwd_tf32x3_kernel")),
         kernel_entry("fwd", "bfloat16", kern["rows"], train_cases, {"train": train["fwd"]},
                      tensor_cores("flash_fwd_bf16_kernel")),
@@ -1287,6 +1489,8 @@ def main() -> int:
     entries[0]["per_shape"] = kern["rows"]
     entries[2]["per_shape"] = bwd["rows"]
     log(f"main path stats: {json.dumps(main_stats)}")
+    log(f"checkpoint interop stats: {json.dumps(interop_stats)}")
+    log(f"fast sampling stats: {json.dumps(fast_stats)}")
     log(f"train path stats: {json.dumps(train_stats)}")
     log(f"f32 train step stats: {json.dumps(f32_train_stats)}")
     log(f"small train reference: {json.dumps(small_train)}")

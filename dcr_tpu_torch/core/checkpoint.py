@@ -1,4 +1,4 @@
-"""Checkpoints: the port's resume format and the HF-layout export.
+"""Checkpoints: the port's resume format, and the HF layout in and out.
 
 - :class:`CheckpointManager` keeps the full train state (params, optimizer,
   EMA, step) under ``<output_dir>/checkpoints/<step>/state.pt``, one
@@ -6,12 +6,18 @@
   keeping the newest ``max_to_keep``. It is the port's own format; the JAX
   package's orbax/npz checkpoints are not read.
 - :func:`export_hf_layout` writes the directory-of-subfolders export of
-  ``dcr_tpu/core/checkpoint.py``: ``<component>/params.npz`` (the Flax tree
-  flattened to ``a/b/c`` keys) with a diffusers/transformers
-  ``config.json``, ``scheduler/scheduler_config.json`` and
-  ``model_index.json`` carrying the native ``model_config``. The
-  torch-layout safetensors beside them are not written yet.
-- :func:`import_npz` reads one component of such a directory back.
+  ``dcr_tpu/core/checkpoint.py``: per component ``params.npz`` (the Flax
+  tree flattened to ``a/b/c`` keys) and the torch-layout weights under the
+  exact diffusers/transformers names (``diffusion_pytorch_model.safetensors``
+  for unet and vae, ``model.safetensors`` for text_encoder) with a
+  diffusers/transformers ``config.json``; ``scheduler/scheduler_config.json``
+  and ``model_index.json`` carrying the native ``model_config``. diffusers,
+  transformers and the JAX package load it.
+- :func:`import_torch_layout` reads one component back as the port's state
+  dict: the torch-layout weights (safetensors or ``.bin``, fp16 variants
+  too) when present, else ``params.npz``; for a genuine
+  diffusers/transformers checkpoint :func:`model_config_from_diffusers`
+  infers the ModelConfig fields from its ``config.json`` files.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from dcr_tpu_torch.core.config import NotPortedError
+from dcr_tpu_torch.core.safetensors import load_file, save_file
+from dcr_tpu_torch.models import convert as CV
+from dcr_tpu_torch.models import export as EX
 
 STATE_FILE = "state.pt"
 
@@ -50,18 +58,6 @@ def flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     for k, v in tree.items():
         out.update(flatten(v, f"{prefix}{k}/"))
     return out
-
-
-def import_npz(ckpt_dir: str | Path, component: str) -> dict:
-    """One component's Flax param tree (numpy) from ``<ckpt>/<component>/params.npz``."""
-    npz = Path(ckpt_dir) / component / "params.npz"
-    if not npz.exists():
-        raise NotPortedError(
-            f"no {npz}: loading torch-layout (safetensors/.bin) checkpoints is "
-            "not ported to dcr_tpu_torch yet; export with the JAX package, "
-            "which writes params.npz beside them")
-    with np.load(npz) as z:
-        return unflatten({k: z[k] for k in z.files})
 
 
 # ---------------------------------------------------------------------------
@@ -220,22 +216,50 @@ def diffusers_configs(mc: dict) -> dict[str, dict]:
     return {"unet": unet, "vae": vae, "text_encoder": text}
 
 
+# torch-layout weight file per component, as diffusers and transformers name it
+WEIGHT_FILE = {"unet": "diffusion_pytorch_model.safetensors",
+               "vae": "diffusion_pytorch_model.safetensors",
+               "text_encoder": "model.safetensors"}
+
+
+def _to_flax(component: str, sd: dict, mc: dict) -> dict:
+    """The Flax tree of ``params.npz``: the UNet's up-block numbering needs
+    its block count and the text encoder's attention its head count, which
+    the weights do not hold, so both come from the model config."""
+    if component == "vae":
+        return EX.vae_to_flax(sd)
+    key = "block_out_channels" if component == "unet" else "text_heads"
+    if key not in mc:
+        raise ValueError(f"export_hf_layout needs model_config[{key!r}] to write the "
+                         f"{component}'s params.npz")
+    if component == "unet":
+        return EX.unet_to_flax(sd, len(mc[key]))
+    return EX.text_to_flax(sd, mc[key])
+
+
 def export_hf_layout(out_dir: str | Path, *, unet: Optional[dict] = None,
                      vae: Optional[dict] = None, text_encoder: Optional[dict] = None,
                      scheduler_config: Optional[dict] = None,
                      model_config: Optional[dict] = None) -> None:
-    """Write ``<out_dir>/<component>/{params.npz,config.json}`` from Flax
-    trees (models/export ``*_to_flax``), the scheduler config and
-    ``model_index.json``: the layout ``dcr_tpu``'s ``export_hf_layout``
-    writes, which both packages' ``load_checkpoint_models`` read."""
+    """Write ``<out_dir>/<component>/{params.npz,<weights>.safetensors,
+    config.json}`` from the port's state dicts (f32, any device), the
+    scheduler config and ``model_index.json``: the layout ``dcr_tpu``'s
+    ``export_hf_layout`` writes. The safetensors hold the state dicts as
+    they are (the port's names are diffusers-0.14's and transformers'), so
+    their key sets, shapes and values are the JAX package's
+    ``unet_to_diffusers`` / ``vae_to_diffusers`` / ``text_to_transformers``
+    of the same params."""
     out = Path(out_dir)
-    configs = diffusers_configs(dict(model_config or {}))
-    for name, params in (("unet", unet), ("vae", vae), ("text_encoder", text_encoder)):
-        if params is None:
+    mc = dict(model_config or {})
+    configs = diffusers_configs(mc)
+    for name, sd in (("unet", unet), ("vae", vae), ("text_encoder", text_encoder)):
+        if sd is None:
             continue
         sub = out / name
         sub.mkdir(parents=True, exist_ok=True)
-        np.savez(sub / "params.npz", **flatten(params))
+        np.savez(sub / "params.npz", **flatten(_to_flax(name, sd, mc)))
+        save_file({k: t.detach().float() for k, t in sd.items()}, sub / WEIGHT_FILE[name],
+                  metadata={"format": "pt"})
         (sub / "config.json").write_text(json.dumps(configs[name], indent=2))
     if scheduler_config is not None:
         sub = out / "scheduler"
@@ -264,3 +288,137 @@ def export_hf_layout(out_dir: str | Path, *, unet: Optional[dict] = None,
             "model_config": model_config,
         }
         (out / "model_index.json").write_text(json.dumps(index, indent=2))
+
+
+# ---------------------------------------------------------------------------
+# HF-layout import
+# ---------------------------------------------------------------------------
+
+# the JAX package's search order (``_TORCH_WEIGHT_NAMES``), fp16 variants included
+TORCH_WEIGHT_NAMES = ("diffusion_pytorch_model.safetensors", "model.safetensors",
+                      "diffusion_pytorch_model.fp16.safetensors",
+                      "model.fp16.safetensors",
+                      "diffusion_pytorch_model.bin", "pytorch_model.bin",
+                      "diffusion_pytorch_model.fp16.bin", "pytorch_model.fp16.bin")
+
+
+def _npz_state_dict(npz: Path, component: str) -> dict[str, torch.Tensor]:
+    with np.load(npz) as z:
+        tree = unflatten({k: z[k] for k in z.files})
+    if component == "unet":
+        n_blocks = len({k.split("_")[1] for k in tree if k.startswith("down_")})
+        return EX.unet_from_flax(tree, n_blocks)
+    if component == "vae":
+        return EX.vae_from_flax(tree)
+    return EX.text_from_flax(tree)
+
+
+def load_torch_file(path: Path) -> dict[str, torch.Tensor]:
+    """A safetensors file (the port's reader) or a torch ``.bin`` state dict
+    (``torch.load(weights_only=True)``) as tensors on the CPU."""
+    if path.suffix == ".safetensors":
+        return load_file(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if not (isinstance(sd, dict) and all(isinstance(v, torch.Tensor) for v in sd.values())):
+        raise ValueError(f"{path} does not hold a state dict of tensors")
+    return sd
+
+
+def import_torch_layout(ckpt_dir: str | Path, component: str) -> dict[str, torch.Tensor]:
+    """One component (``unet``, ``vae`` or ``text_encoder``) of an HF-layout
+    directory as the port's state dict (f32, CPU): the first of
+    :data:`TORCH_WEIGHT_NAMES` present (a downloaded diffusers checkpoint,
+    or an export of either package) through ``models/convert``, else
+    ``params.npz`` (exports that hold no torch-layout weights). The
+    safetensors come first because the reader maps them: SD-2.1's 5.16 GB
+    load onto an H100 in ~1 s that way and in ~18 s through params.npz,
+    which np.load reads and the Flax-to-torch carry copies again
+    (``chip_smoke.py``'s checkpoint phase times both). Keys and shapes are
+    checked by the caller against the modules its config describes."""
+    if component not in CV.CONVERTERS:
+        raise ValueError(f"unknown component {component!r}")
+    sub = Path(ckpt_dir) / component
+    weight_file = next((sub / n for n in TORCH_WEIGHT_NAMES if (sub / n).exists()), None)
+    if weight_file is not None:
+        return CV.CONVERTERS[component](load_torch_file(weight_file))
+    if (sub / "params.npz").exists():
+        return _npz_state_dict(sub / "params.npz", component)
+    raise FileNotFoundError(f"no params.npz or torch weights "
+                            f"({'/'.join(TORCH_WEIGHT_NAMES)}) under {sub}")
+
+
+def _uniform_transformer_layers(unet_cfg: dict) -> int:
+    """SD-1.x/2.x UNets use one transformer depth everywhere; SDXL-style
+    per-block lists ([1, 2, 10]) are a different architecture and are
+    refused rather than built wrong from a subset of the weights."""
+    tl = unet_cfg.get("transformer_layers_per_block", 1)
+    if isinstance(tl, (list, tuple)):
+        if len(set(tl)) != 1:
+            raise ValueError(
+                f"per-block transformer depths {tl} (SDXL-family?) are not "
+                "supported by this UNet architecture")
+        tl = tl[0]
+    return int(tl)
+
+
+def model_config_from_diffusers(ckpt_dir: str | Path) -> dict:
+    """ModelConfig fields from a genuine diffusers checkpoint's
+    per-subfolder config.json files (the inverse of
+    :func:`diffusers_configs`). Both head conventions: SD-2.x per-block
+    head lists with a common head_dim, SD-1.x one fixed head count."""
+    ckpt = Path(ckpt_dir)
+    u = json.loads((ckpt / "unet" / "config.json").read_text())
+    block_out = list(u["block_out_channels"])
+    heads = u.get("attention_head_dim", 8)
+    out: dict = {
+        "sample_size": u.get("sample_size", 32),
+        "in_channels": u.get("in_channels", 4),
+        "out_channels": u.get("out_channels", 4),
+        "block_out_channels": tuple(block_out),
+        "layers_per_block": u.get("layers_per_block", 2),
+        "cross_attention_dim": u.get("cross_attention_dim", 1024),
+        "use_linear_projection": u.get("use_linear_projection", False),
+        "norm_num_groups": u.get("norm_num_groups", 32),
+    }
+    out["transformer_layers"] = _uniform_transformer_layers(u)
+    if isinstance(heads, (list, tuple)):
+        head_dims = {c // h for c, h in zip(block_out, heads)}
+        if len(head_dims) != 1:
+            raise ValueError(
+                f"per-block heads {heads} do not share one head_dim over "
+                f"channels {block_out}; not expressible by ModelConfig")
+        out["attention_head_dim"] = head_dims.pop()
+    else:
+        out["attention_num_heads"] = int(heads)
+        out["attention_head_dim"] = 0
+    vae_cfg = ckpt / "vae" / "config.json"
+    if vae_cfg.exists():
+        v = json.loads(vae_cfg.read_text())
+        out.update(
+            vae_block_out_channels=tuple(v["block_out_channels"]),
+            vae_layers_per_block=v.get("layers_per_block", 2),
+            vae_latent_channels=v.get("latent_channels", 4),
+            vae_scaling_factor=v.get("scaling_factor", 0.18215))
+    text_cfg = ckpt / "text_encoder" / "config.json"
+    if text_cfg.exists():
+        t = json.loads(text_cfg.read_text())
+        out.update(
+            text_vocab_size=t.get("vocab_size", 49408),
+            text_hidden_size=t.get("hidden_size", 1024),
+            text_layers=t.get("num_hidden_layers", 23),
+            text_heads=t.get("num_attention_heads", 16),
+            text_max_length=t.get("max_position_embeddings", 77),
+            # transformers serializes a config as its diff from the defaults,
+            # and CLIPTextConfig's default is quick_gelu: an omitted key
+            # means quick_gelu, not gelu
+            text_act=t.get("hidden_act", "quick_gelu"))
+    sched_cfg = ckpt / "scheduler" / "scheduler_config.json"
+    if sched_cfg.exists():
+        s = json.loads(sched_cfg.read_text())
+        out.update(
+            num_train_timesteps=s.get("num_train_timesteps", 1000),
+            beta_schedule=s.get("beta_schedule", "scaled_linear"),
+            beta_start=s.get("beta_start", 0.00085),
+            beta_end=s.get("beta_end", 0.012),
+            prediction_type=s.get("prediction_type", "epsilon"))
+    return out

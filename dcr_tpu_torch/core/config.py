@@ -124,9 +124,8 @@ class ModelConfig:
 
 @dataclass
 class FastSampleConfig:
-    """Training-free sampler acceleration (score reuse). Parsed so command
-    lines and configs of the JAX package load, but ``enabled=True`` is
-    refused by :func:`validate_fast_config`: the port has no fast path yet."""
+    """Training-free sampler acceleration (score reuse,
+    :mod:`dcr_tpu_torch.sampling.fastsample`)."""
 
     enabled: bool = False
     reuse_ratio: float = 0.5
@@ -155,10 +154,13 @@ class SampleConfig:
 
 
 def validate_fast_config(f: FastSampleConfig) -> None:
-    if f.enabled:
-        raise NotPortedError(
-            "fast.enabled=true (score-reuse sampling) is not ported to "
-            "dcr_tpu_torch yet; run without it or use the JAX package")
+    from dcr_tpu_torch.sampling.fastsample import MAX_REUSE_RATIO
+
+    if not 0.0 <= f.reuse_ratio <= MAX_REUSE_RATIO:
+        raise ValueError(f"fast.reuse_ratio must be in [0, {MAX_REUSE_RATIO}], "
+                         f"got {f.reuse_ratio}")
+    if f.order not in (1, 2):
+        raise ValueError(f"fast.order must be 1 or 2, got {f.order}")
 
 
 @dataclass
@@ -277,7 +279,7 @@ class TrainConfig:
     rand_noise_lam: float = 0.0
     mixup_noise_lam: float = 0.0
     # cadence (reference diff_train.py:709-716)
-    save_steps: int = 500                  # sample-image grids (not ported)
+    save_steps: int = 500                  # sample-image grids
     modelsavesteps: int = 1000             # checkpoints
     log_every: int = 50
     use_wandb: bool = False                # not ported

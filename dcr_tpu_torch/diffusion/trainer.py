@@ -15,11 +15,11 @@ from the newest checkpoint, and exports the HF-layout checkpoint at the end.
   count micro-steps, so a run stopped inside an accumulation resumes there.
 - A non-finite loss at a log boundary raises ``FloatingPointError``; the
   last periodic checkpoint is the recovery point (NaN rollback, the
-  bad-sample quarantine, multi-host and the sample-image hook are not
-  ported).
-- The JAX trainer writes sample grids every ``save_steps``; the port has no
-  sample hook yet, so with ``save_steps > 0`` :meth:`Trainer.train` logs
-  one warning at its start that no grids are written.
+  bad-sample quarantine and multi-host are not ported).
+- ``sample_hook(trainer, sync)`` runs every ``save_steps`` optimizer steps,
+  as in the JAX trainer; ``dcr-train`` installs
+  :func:`dcr_tpu_torch.diffusion.sample_hook.make_sample_hook`, which
+  writes the sample grids.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import math
 import shutil
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -65,6 +65,7 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, *, dataset: Optional[ObjectAttributeDataset] = None,
                  tokenizer: Optional[TokenizerBase] = None,
                  pretrained_params: Optional[dict] = None,
+                 sample_hook: Optional[Callable] = None,
                  device: str | torch.device = "cuda"):
         validate_train_config(cfg)
         self.device = resolve_device(device)
@@ -72,6 +73,7 @@ class Trainer:
         # effective lr
         cfg = T.resolve_scale_lr(cfg)
         self.cfg = cfg
+        self.sample_hook = sample_hook
         self.out_dir = Path(cfg.output_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
         save_config(cfg, self.out_dir / "config.json")
@@ -133,17 +135,15 @@ class Trainer:
         return step
 
     def export_checkpoint(self, tag: str = "checkpoint") -> Path:
-        """HF-layout export for the sampler and eval stages; with EMA on, the
-        EMA weights are the UNet that is exported."""
+        """HF-layout export (params.npz and diffusers/transformers
+        safetensors) for the sampler and eval stages of either package and
+        for diffusers; with EMA on, the EMA weights are the UNet exported."""
         cfg = self.cfg
         out = self.out_dir / tag
         unet = self.state.ema_params if self.state.ema_params is not None \
             else self.state.unet_params
         export_hf_layout(
-            out,
-            unet=EX.unet_to_flax(unet, len(cfg.model.block_out_channels)),
-            vae=EX.vae_to_flax(self.state.vae_params),
-            text_encoder=EX.text_to_flax(self.state.text_params, cfg.model.text_heads),
+            out, unet=unet, vae=self.state.vae_params, text_encoder=self.state.text_params,
             scheduler_config={
                 "num_train_timesteps": cfg.model.num_train_timesteps,
                 "beta_schedule": cfg.model.beta_schedule,
@@ -165,10 +165,6 @@ class Trainer:
         # optimizer steps, or the end of the requested epochs (a trailing
         # partial accumulation is not applied)
         max_micro = min(cfg.max_train_steps * accum, cfg.num_train_epochs * steps_per_epoch)
-        if cfg.save_steps > 0:
-            log.warning("save_steps=%d: sample grids are not written (the port has no "
-                        "sample hook yet; the JAX package's dcr-train writes them)",
-                        cfg.save_steps)
         log.info("training: %d optimizer steps (micro-batch accum %d, %d micro/epoch), "
                  "batch %d on %s", max_micro // accum, accum, steps_per_epoch,
                  cfg.train_batch_size, self.device)
@@ -195,6 +191,9 @@ class Trainer:
                         self.writer.scalars(sync, metrics)
                         last_metrics = metrics
                         t_last, imgs_last = time.time(), 0
+                    if (self.sample_hook and cfg.save_steps > 0 and at_sync
+                            and sync % cfg.save_steps == 0):
+                        self.sample_hook(self, sync)
                     if at_sync and sync % cfg.modelsavesteps == 0:
                         self.save()
                     if step >= max_micro:

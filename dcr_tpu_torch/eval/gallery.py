@@ -57,6 +57,14 @@ def concat_v(images: Sequence[np.ndarray], pad: int = 2,
     return out
 
 
+def image_grid(images: Sequence[np.ndarray], cols: int) -> np.ndarray:
+    """A uint8 grid of float [0, 1] images [H, W, 3], ``cols`` per row: the
+    trainer's periodic sample grids (values truncate to uint8 as in the JAX
+    package's ``image_grid``)."""
+    pix = [(np.clip(a, 0, 1) * 255).astype(np.uint8) for a in images]
+    return concat_v([concat_h(pix[i:i + cols]) for i in range(0, len(pix), cols)])
+
+
 def _load_thumb(path: str | Path, size: int) -> np.ndarray:
     return resize_square(decode_image(str(path)), size)
 

@@ -1,11 +1,13 @@
 """Bulk generation: checkpoint -> prompts -> sampling -> PNGs.
 
-Counterpart of ``dcr_tpu/sampling/pipeline.py`` on one device. It reads the
-HF-layout checkpoint directory the JAX package exports (``model_index.json``
-with the native ``model_config``, ``<component>/params.npz``), carries the
-weights into the port's modules, builds the prompt list for the model's
-conditioning style and writes ``<savepath>/generations/{count}.png`` and
-``prompts.txt``: the directory contract the eval stage reads.
+Counterpart of ``dcr_tpu/sampling/pipeline.py`` on one device. It reads an
+HF-layout checkpoint directory, an export of either package
+(``model_index.json`` with the native ``model_config``) or a genuine
+diffusers checkpoint such as a downloaded SD-2.1 (per-subfolder
+config.json, safetensors or ``.bin`` weights, its ``tokenizer/``), carries
+the weights into the port's modules, builds the prompt list for the
+model's conditioning style and writes ``<savepath>/generations/{count}.png``
+and ``prompts.txt``: the directory contract the eval stage reads.
 """
 
 from __future__ import annotations
@@ -19,13 +21,13 @@ import numpy as np
 import torch
 
 from dcr_tpu_torch.core import rng as rngmod
-from dcr_tpu_torch.core.checkpoint import import_npz
-from dcr_tpu_torch.core.config import (ModelConfig, NotPortedError, SampleConfig,
+from dcr_tpu_torch.core.checkpoint import import_torch_layout, model_config_from_diffusers
+from dcr_tpu_torch.core.config import (ModelConfig, SampleConfig,
                                        from_dict, validate_fast_config)
 from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.data.tokenizer import TokenizerBase, load_tokenizer
-from dcr_tpu_torch.models import export as EX
 from dcr_tpu_torch.models import schedulers as S
+from dcr_tpu_torch.models.convert import check_state_dict
 from dcr_tpu_torch.models.clip_text import CLIPTextModel
 from dcr_tpu_torch.models.unet2d import UNet2DCondition
 from dcr_tpu_torch.models.vae import AutoencoderKL
@@ -71,8 +73,12 @@ def load_params(models: DiffusionModels, params: dict) -> None:
 
 
 def load_checkpoint_models(ckpt_dir: str | Path, device: str | torch.device = "cuda"):
-    """(models, params, model_cfg) from an HF-layout dir the JAX package
-    exported. ``params`` holds the state dicts the modules were loaded with."""
+    """(models, params, model_cfg) from an HF-layout directory: an export of
+    either package (``model_index.json`` with the native ``model_config``)
+    or a genuine diffusers checkpoint such as a downloaded SD-2.1, whose
+    dims come from its per-subfolder config.json files and schedule from
+    ``scheduler/scheduler_config.json``. ``params`` holds the state dicts
+    the modules were loaded with."""
     device = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     index = json.loads((ckpt_dir / "model_index.json").read_text())
@@ -82,22 +88,20 @@ def load_checkpoint_models(ckpt_dir: str | Path, device: str | torch.device = "c
         # round-1 flat dict, whose text tower hardcoded quick_gelu
         cfg_dict = {**index, "text_act": index.get("text_act", "quick_gelu")}
     else:
-        raise NotPortedError(
-            f"{ckpt_dir} is a genuine diffusers checkpoint; reading its configs "
-            "and safetensors is not ported to dcr_tpu_torch yet")
+        cfg_dict = model_config_from_diffusers(ckpt_dir)
     model_cfg = from_dict(ModelConfig, cfg_dict)
-    n_blocks = len(model_cfg.block_out_channels)
-    params = {
-        "unet": EX.unet_from_flax(import_npz(ckpt_dir, "unet"), n_blocks),
-        "vae": EX.vae_from_flax(import_npz(ckpt_dir, "vae")),
-        "text": EX.text_from_flax(import_npz(ckpt_dir, "text_encoder")),
-    }
+    params = {"unet": import_torch_layout(ckpt_dir, "unet"),
+              "vae": import_torch_layout(ckpt_dir, "vae"),
+              "text": import_torch_layout(ckpt_dir, "text_encoder")}
     models = build_models(model_cfg, device)
-    try:
-        load_params(models, params)
-    except RuntimeError as e:
+    problems = [p for name, module in _modules(models).items()
+                for p in check_state_dict(module.state_dict(), params[name],
+                                          prefix=f"{name}/")]
+    if problems:
         raise ValueError(f"checkpoint {ckpt_dir} does not match the architecture its "
-                         f"config describes: {e}") from e
+                         f"configs describe ({len(problems)} mismatches): "
+                         + "; ".join(problems[:8]))
+    load_params(models, params)
     return models, params, model_cfg
 
 
@@ -151,6 +155,8 @@ def generate(cfg: SampleConfig, *, modelstyle: str,
 
     sampler = make_sampler(cfg, models, device)
     uncond_ids = tokenizer([""])[0]
+    log.info("sampling %d prompts: %d UNet calls per %d-step trajectory (fast %s)",
+             len(prompts), sampler.unet_calls, cfg.num_inference_steps, cfg.fast)
     # fixed device batch, as the JAX pipeline sizes it for one device
     prompts_per_batch = max(1, 1 // max(1, cfg.im_batch))
     device_batch = prompts_per_batch * cfg.im_batch

@@ -9,6 +9,10 @@ the output ``clip(x*0.5+0.5, 0, 1)`` are the same.
 Randomness comes from one explicit ``torch.Generator``, drawn in a fixed
 order: x_T (unless ``init_latents`` hands it in), then the Newpipe
 embedding noise, then DDPM's per-step noise.
+
+With ``cfg.fast.enabled`` the loop follows the score-reuse plan of
+:mod:`dcr_tpu_torch.sampling.fastsample`: a reuse step launches no UNet. A
+plan that skips nothing builds the plain loop.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from dcr_tpu_torch.models import schedulers as S
 from dcr_tpu_torch.models.clip_text import CLIPTextModel
 from dcr_tpu_torch.models.unet2d import UNet2DCondition
 from dcr_tpu_torch.models.vae import AutoencoderKL, vae_scale_factor
+from dcr_tpu_torch.sampling import fastsample
 
 
 class DiffusionModels(NamedTuple):
@@ -91,7 +96,8 @@ def make_sampler(cfg: SampleConfig, models: DiffusionModels,
 
     ``models=None`` uses the modules given here. ``init_latents`` is x_T in
     the JAX layout [B, h, w, C]; without it x_T is drawn from ``generator``
-    on the device."""
+    on the device. ``unet_calls`` on the sampler is its plan's UNet calls
+    per trajectory."""
     device = resolve_device(device)
     validate_fast_config(cfg.fast)
     vae_cfg = models.vae.config
@@ -101,6 +107,9 @@ def make_sampler(cfg: SampleConfig, models: DiffusionModels,
     guidance = cfg.guidance_scale
     ts, prev_ts, lower_order_final = sampler_grid(
         cfg.sampler, models.schedule, cfg.num_inference_steps)
+    plan = fastsample.fast_plan(cfg.num_inference_steps,
+                                cfg.fast.reuse_ratio if cfg.fast.enabled else 0.0)
+    use_fast = not fastsample.is_dense(plan)
 
     @torch.no_grad()
     def sample_fn(modules: Optional[DiffusionModels], input_ids, uncond_ids,
@@ -124,12 +133,21 @@ def make_sampler(cfg: SampleConfig, models: DiffusionModels,
                                       generator=generator)
         ctx = torch.cat([uncond, cond], dim=0)             # [2B, L, D]
 
-        dpm_state = S.dpm_init_state(tuple(x.shape), device=device)
-        for i, (t, prev_t) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
+        def predict(t: int) -> torch.Tensor:
             tb = torch.full((2 * bsz,), t, dtype=torch.long, device=device)
             pred = m.unet(torch.cat([x, x], dim=0), tb, ctx)
             pred_uncond, pred_cond = pred.chunk(2, dim=0)
-            pred = pred_uncond + guidance * (pred_cond - pred_uncond)
+            return pred_uncond + guidance * (pred_cond - pred_uncond)
+
+        dpm_state = S.dpm_init_state(tuple(x.shape), device=device)
+        bank = fastsample.bank_init(tuple(x.shape), device) if use_fast else None
+        for i, (t, prev_t) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
+            if plan[i]:
+                pred = predict(t)
+                if use_fast:
+                    bank = fastsample.bank_update(bank, pred, t)
+            else:
+                pred = fastsample.reuse_score(bank, t, cfg.fast.order)
             force1 = lower_order_final and i == len(ts) - 1
             x, dpm_state = scheduler_step(cfg.sampler, sched, pred, x, t, prev_t,
                                           dpm_state, force_first_order=force1,
@@ -138,4 +156,5 @@ def make_sampler(cfg: SampleConfig, models: DiffusionModels,
         images = m.vae.decode(x / scaling)
         return torch.clamp(images * 0.5 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)
 
+    sample_fn.unet_calls = fastsample.unet_calls(plan)
     return sample_fn

@@ -1,6 +1,7 @@
 """PyTorch port: the package stands alone. Importing every module of
-dcr_tpu_torch loads no jax, no flax and nothing of dcr_tpu, and no source
-file of the port imports them."""
+dcr_tpu_torch loads no jax, no flax and nothing of dcr_tpu, nor the
+safetensors package or PIL (the card's machine has neither), and no source
+file of the port or chip_smoke.py imports them."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "dcr_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dcr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dcr_tpu", "safetensors", "PIL")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -22,14 +23,14 @@ import dcr_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dcr_tpu_torch.__path__, "dcr_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "dcr_tpu"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print(json.dumps({"imported": names, "bad": bad}))
 """
 
 
 def test_importing_every_module_loads_no_jax_or_dcr_tpu():
-    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
+    proc = subprocess.run([sys.executable, "-c", _PROBE % (FORBIDDEN,)], cwd=REPO,
+                          capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     doc = json.loads(proc.stdout.strip().splitlines()[-1])

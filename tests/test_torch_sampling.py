@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 
 import jax
 import numpy as np
@@ -34,8 +35,7 @@ from dcr_tpu.sampling import prompts as JP
 from dcr_tpu.sampling.sampler import make_sampler as j_make_sampler
 from dcr_tpu_torch.cli import sample as tcli
 from dcr_tpu_torch.core import rng as TR
-from dcr_tpu_torch.core.config import (NotPortedError, SampleConfig, from_dict,
-                                       parse_cli)
+from dcr_tpu_torch.core.config import SampleConfig, from_dict, parse_cli
 from dcr_tpu_torch.data.tokenizer import ClipBPETokenizer as TBPE, HashTokenizer as THash
 from dcr_tpu_torch.models import export as EX
 from dcr_tpu_torch.sampling import pipeline as TPipe
@@ -211,22 +211,40 @@ def test_entry_points_refuse_without_gpu_or_with_fast(tiny, tmp_path, monkeypatc
         monkeypatch.delenv("DCR_TPU_PLATFORM", raising=False)
         with pytest.raises(RuntimeError, match="cuda"):
             tcli.main([f"--model_path={tmp_path}", "--resolution=16"])
-    fast = SampleConfig(resolution=16, fast=from_dict(type(cfg.fast), {"enabled": True}))
-    with pytest.raises(NotPortedError):
-        t_make_sampler(fast, tmodels, device="cpu")
+    # fast sampling runs (tests/test_torch_fastsample.py holds it to JAX);
+    # knobs out of range are refused, as in the JAX package
+    fast = SampleConfig(resolution=16, num_inference_steps=6,
+                        fast=from_dict(type(cfg.fast), {"enabled": True}))
+    tok = THash(1000, 16)
+    ids = tok(["x"])
+    out = t_make_sampler(fast, tmodels, device="cpu")(
+        None, ids, np.broadcast_to(tok([""])[0], ids.shape).copy(),
+        TR.stream_generator(0, "sample", 0))
+    assert out.shape == (1, 16, 16, 3) and torch.isfinite(out).all()
+    for bad in ({"enabled": True, "reuse_ratio": 0.9}, {"enabled": True, "order": 3}):
+        with pytest.raises(ValueError):
+            t_make_sampler(SampleConfig(resolution=16, fast=from_dict(type(cfg.fast), bad)),
+                           tmodels, device="cpu")
 
 
 def test_checkpoint_formats_not_ported_yet_are_refused(tmp_path):
-    """A genuine diffusers directory and a component without params.npz raise
-    NotPortedError instead of loading something else; run dirs resolve to
-    checkpoint/ or checkpoint_<iternum>/ as in the JAX pipeline."""
+    """A directory without weights raises FileNotFoundError, as in the JAX
+    package, whether its model_index.json is a genuine diffusers one or an
+    export's (genuine checkpoints load: tests/test_torch_checkpoint_interop.py);
+    run dirs resolve to checkpoint/ or checkpoint_<iternum>/ as in the JAX
+    pipeline."""
     (tmp_path / "model_index.json").write_text(json.dumps({"_class_name": "X"}))
-    with pytest.raises(NotPortedError):
+    with pytest.raises(FileNotFoundError):
         TPipe.load_checkpoint_models(tmp_path, device="cpu")
     (tmp_path / "model_index.json").write_text(
         json.dumps({"model_config": dataclasses.asdict(tiny_cfg())}))
-    with pytest.raises(NotPortedError):
+    with pytest.raises(FileNotFoundError):
         TPipe.load_checkpoint_models(tmp_path, device="cpu")
+    empty = tmp_path / "empty"
+    (empty / "unet").mkdir(parents=True)
+    shutil.copy(tmp_path / "model_index.json", empty)
+    with pytest.raises(FileNotFoundError, match="no params.npz or torch weights"):
+        TPipe.load_checkpoint_models(empty, device="cpu")
     (tmp_path / "checkpoint_7" / "unet").mkdir(parents=True)
     assert TPipe.resolve_checkpoint(SampleConfig(model_path=str(tmp_path), iternum=7)) \
         == tmp_path / "checkpoint_7"
