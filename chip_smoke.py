@@ -4,13 +4,19 @@
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 1. card: name and power limit from nvidia-smi; TF32 off for matmuls and convs;
-2. build: every kernel source in dcr_tpu_torch/csrc (one nvcc each, at once;
+2. build: every kernel source in dcr_tpu_torch/csrc (one nvcc each) and the
+   JPEG codec's host sources in dcr_tpu_torch/native (one g++ each), all at once;
    each kernel in two instantiations, without and with the chunk base of a
    B*H above the grid's limit); per kernel symbol, its registers and spill
    bytes (ptxas) and its count of
    tensor-core instructions (HMMA/HGMMA in cuobjdump's SASS); the kernels of
    TENSOR_CORE_KERNELS (every kernel: bf16 products in bf16, split TF32 in
    f32) must have tensor-core instructions, and no spills at D=64;
+2b. JPEG codec: every committed fixture of tests/fixtures/jpeg decoded to
+   PIL's pixels (its PNG) within 1 level, CMYK refused, truncated data
+   refused; the encoder's sizes within 0.5 % of PIL's and its files
+   decoding to PIL's pixels; decode rates (500x375 full scale, 1024x768 at
+   the scale that covers 256; 1 and 8 threads) and the encode time;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and a few edge shapes, in f32 and bf16 (bf16
    against the plain version in bf16, which rounds where the kernels round),
@@ -38,8 +44,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    seconds per call beside phase 5's, max |diff| to its images (reported);
 6. training main path: dcr_tpu_torch.diffusion.trainer.Trainer(TrainConfig())
    (SD-2.1 widths, 256 px, batch 16, bf16, AdamW with warmup) on a
-   class-folder of PNGs written here, seeded random weights, a few optimizer
-   steps; 10 launches of each kernel per step, finite losses, a checkpoint
+   class-folder of 48 JPEGs at 500x375 written by the port's encoder
+   (decoded at the 6/8 scale that covers 256, each decode timed), seeded
+   random weights, a few optimizer steps; 10 launches of each kernel per step, finite losses, a checkpoint
    and an HF-layout export that loads back; dcr-train's sample hook at
    save_steps=3 writes grids at syncs 3 and 6 (read back with the port's
    PNG reader, image_grid's size), 200 forward launches per grid, counted
@@ -52,14 +59,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    autograd Function in both dtypes, against the plain versions;
 9. small eval reference (after phase 4): the port's run_eval on the card
    and on the CPU over one tiny folder, every scalar within 1e-4;
-10. eval main path (last): run_eval at the JAX defaults but
-   compute_complexity=False (SSCD at 224, FID, precision/recall, CLIP score,
-   galleries) on 256 generations at 512 px (16 of them copies of training
-   files) and 512 training PNGs at 256 px; scalars finite, the copies found,
-   the artifacts written; stage seconds, SSCD images/s and ms per batch,
-   host decode against device time, peak memory. No kernel lies on this
-   path (its attention is the CLIP towers', which takes SDPA): its launch
-   counts must stay 0.
+9b. small dino eval reference: the dino run_eval (ViT-S/16, its layer 2
+   with splitloss, XCiT-S/16) on the card and on the CPU, within 1e-4;
+10. eval main path: run_eval at the JAX defaults (SSCD at 224, the
+   complexity stage, FID, precision/recall, CLIP score, galleries) on 256
+   generations at 512 px (16 of them copies of training files) and 512
+   training JPEGs at 256 px; scalars finite, the copies found, the
+   artifacts written; stage seconds, SSCD images/s and ms per batch, host
+   decode against device time, peak memory;
+11. backbones (last): one run_eval each with dino_vitb8, dino_xcit_small_12_p16,
+   dino_resnet50 and the CLIP image tower at full width over 500x375 JPEGs;
+   device ms per batch of 64, images/s, peak memory.
+No kernel lies on the eval paths (9-11: their attention is SDPA's, XCiT's
+is over channels): their launch counts must stay 0.
 Each main path runs with every launch count set to 0 just before it and
 read just after (the hook's launches are read around each hook call). The last line is {"ok": true, "device": {...}}; the line
 before it holds the kernels' numbers as JSON, one record per kernel and
@@ -237,18 +249,22 @@ def _demangle(names: list[str]) -> list[str]:
 
 
 def phase_build() -> dict:
-    """Builds both sources at once; prints, per kernel symbol, registers,
+    """Builds both kernel sources and the JPEG codec's two host sources at
+    once; prints, per kernel symbol, registers,
     spill bytes and tensor-core instruction count; raises if a kernel of
     TENSOR_CORE_KERNELS is missing, or has an instantiation with no
     tensor-core instruction or that spills at D=64."""
+    from dcr_tpu_torch.native import jpeg_decoder, jpeg_helper
     from dcr_tpu_torch.ops import build
     from dcr_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
     sources = [fa.SOURCE, fa.BWD_SOURCE]
-    logs = build.build(sources)
-    log(f"build: {len(logs)} kernel source(s) in {time.perf_counter() - t0:.2f} s "
-        f"with {build.nvcc_path()}")
+    host = [jpeg_decoder.SOURCE, jpeg_helper.SOURCE]
+    logs = build.build(sources + host)
+    log(f"build: {len(sources)} kernel source(s) with {build.nvcc_path()} and "
+        f"{len(host)} host source(s) (the JPEG codec) with {build.host_compiler()}, "
+        f"all at once, in {time.perf_counter() - t0:.2f} s")
     cuobjdump = build.nvcc_path().parent / "cuobjdump"
     kernels = {}
     for source in sources:
@@ -272,6 +288,106 @@ def phase_build() -> dict:
         raise AssertionError(f"tensor-core kernels missing {missing}, or without tensor-core "
                              f"instructions or spilling at D=64: {bad}")
     return kernels
+
+
+def _photo(seed: int, h: int, w: int):
+    """A seeded photo-like uint8 [h, w, 3]: gradients, a pattern, noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.stack([x * 255 / w, y * 255 / h,
+                     128 + 90 * np.sin((x + 2 * y) / (7 + seed % 5))], axis=-1)
+    return np.clip(base + rng.normal(0, 10, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def phase_jpeg_codec() -> dict:
+    """The port's host JPEG codec (dcr_tpu_torch/native, built in phase 2).
+    Held: every decodable fixture of tests/fixtures/jpeg equals its PNG
+    (PIL's pixels) within 1 level, the refused one (CMYK) raises
+    NotPortedError, truncated data raises ValueError; every size in the
+    manifest within 0.5 % of PIL's, and the port's encode then decode of
+    each input within 1 level of PIL's decode of its own file. Rates (host, wall clock): decode of 500x375
+    at full scale and of 1024x768 at the scale that covers 256, on one
+    thread and on 8; encode of 224x224 at quality 95."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from dcr_tpu_torch.core.config import NotPortedError
+    from dcr_tpu_torch.native import jpeg_decoder as D
+    from dcr_tpu_torch.native import jpeg_helper as H
+    from dcr_tpu_torch.sampling.png import read_png
+
+    fx = Path(__file__).resolve().parent / "tests" / "fixtures" / "jpeg"
+    manifest = json.loads((fx / "manifest.json").read_text())
+    fixture_err = {}
+    for name, png in manifest["decoded"].items():
+        ours, ref = D.decode((fx / name).read_bytes(), name=name), read_png(fx / png)
+        fixture_err[name] = (int(np.abs(ours.astype(int) - ref).max())
+                             if ours.shape == ref.shape else None)
+    refused = {}
+    for name in manifest["refused"]:
+        try:
+            D.decode((fx / name).read_bytes(), name=name)
+            refused[name] = "decoded"
+        except NotPortedError as e:
+            refused[name] = str(e)
+    data = (fx / "baseline_420_q50.jpg").read_bytes()
+    try:
+        D.decode(data[:len(data) // 2], name="truncated.jpg")
+        truncated = "decoded"
+    except ValueError as e:
+        truncated = str(e)
+    sizes = []
+    for e in manifest["sizes"]:
+        jpg = H.encode(read_png(fx / e["input"]), e["quality"])
+        back = D.decode(jpg).astype(int) - read_png(fx / e["pil_decoded"])
+        sizes.append({**e, "port_bytes": len(jpg), "round_trip_max_abs_err": int(np.abs(back).max())})
+
+    def rate(blobs, min_side, threads):
+        fn = (lambda b: D.decode_scaled(b, min_side))
+        fn(blobs[0])
+        t0 = time.perf_counter()
+        if threads == 1:
+            out = [fn(b) for b in blobs]
+        else:
+            with ThreadPoolExecutor(threads) as ex:
+                out = list(ex.map(fn, blobs))
+        dt = time.perf_counter() - t0
+        return {"images": len(blobs), "threads": threads, "out_shape": list(out[0].shape),
+                "ms_per_image": 1e3 * dt / len(blobs),
+                "source_mpx_per_s": len(blobs) * float(np.prod(D.sof_dims(blobs[0]))) / dt / 1e6}
+
+    small = [H.encode(_photo(i, 375, 500), 90) for i in range(8)]
+    large = [H.encode(_photo(i, 768, 1024), 90) for i in range(8)]
+    rates = {"500x375_full_1thread": rate(small * 5, 0, 1),
+             "500x375_full_8threads": rate(small * 40, 0, 8),
+             "1024x768_cover256_1thread": rate(large * 3, 256, 1),
+             "1024x768_cover256_8threads": rate(large * 24, 256, 8)}
+    tile = _photo(1, 224, 224)
+    H.encoded_size(tile, 95)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        H.encode(tile, 95)
+    encode_ms = 1e3 * (time.perf_counter() - t0) / 50
+    stats = {"fixture_max_abs_err": fixture_err, "refused": refused, "truncated": truncated,
+             "sizes": sizes, "sizes_byte_equal": sum(e["port_bytes"] == e["pil_bytes"]
+                                                      for e in sizes),
+             "decode": rates, "encode_224_q95_ms": encode_ms}
+    log(f"jpeg codec: {json.dumps(stats)}")
+    log("jpeg codec: decode " + ", ".join(
+        f"{k} {v['ms_per_image']:.3f} ms/image {v['source_mpx_per_s']:.1f} Mpx/s"
+        for k, v in rates.items()) + f"; encode 224x224 q95 {encode_ms:.3f} ms")
+    bad = [k for k, e in fixture_err.items() if e is None or e > 1]
+    bad_sizes = [e for e in sizes if abs(e["port_bytes"] - e["pil_bytes"]) > 0.005 * e["pil_bytes"]
+                 or e["round_trip_max_abs_err"] > 1]
+    if (bad or bad_sizes or any(v == "decoded" for v in refused.values())
+            or "truncated" not in truncated
+            or rates["1024x768_cover256_1thread"]["out_shape"] != [288, 384, 3]):
+        raise AssertionError(f"jpeg codec failed: fixtures {bad}, sizes or round trips "
+                             f"{bad_sizes}, refused {refused}, truncated {truncated!r}")
+    return stats
 
 
 def phase_kernels(reps: int) -> dict:
@@ -942,27 +1058,37 @@ def phase_small_train_reference() -> dict:
 def phase_train_main_path(out_dir: Path, steps: int) -> dict:
     """Trainer(TrainConfig()) at the JAX defaults (SD-2.1 widths, 256 px,
     batch 16, bf16, remat off, AdamW with constant_with_warmup) on a
-    class-folder of 48 random 256 px PNGs, HashTokenizer, seeded random
-    weights built on the card, ``steps`` optimizer steps, with dcr-train's
-    sample hook at save_steps=3 (grids at syncs 3 and 6; its launches and
-    seconds counted apart from the steps')."""
+    class-folder of 48 JPEGs at 500x375 (Imagenette's common size) that the
+    port's encoder writes, HashTokenizer, seeded random weights built on
+    the card, ``steps`` optimizer steps, with dcr-train's sample hook at
+    save_steps=3 (grids at syncs 3 and 6; its launches and seconds counted
+    apart from the steps'). The loader's JPEG decodes (at the 6/8 scale that
+    covers 256) are timed one by one on its worker threads."""
     import shutil
 
     import numpy as np
 
     from dcr_tpu_torch.core.config import TrainConfig
+    from dcr_tpu_torch.data import dataset as DS
     from dcr_tpu_torch.diffusion.sample_hook import make_sample_hook
     from dcr_tpu_torch.diffusion.trainer import Trainer
     from dcr_tpu_torch.eval.gallery import image_grid
+    from dcr_tpu_torch.native.jpeg_helper import encode
     from dcr_tpu_torch.sampling.pipeline import load_checkpoint_models
-    from dcr_tpu_torch.sampling.png import read_png, write_png
+    from dcr_tpu_torch.sampling.png import read_png
 
-    rng = np.random.default_rng(0)
     data = out_dir / "data"
     for i in range(48):
         (data / f"class{i % 2}").mkdir(parents=True, exist_ok=True)
-        write_png(data / f"class{i % 2}" / f"{i}.png",
-                  rng.integers(0, 256, (256, 256, 3), dtype=np.uint8))
+        (data / f"class{i % 2}" / f"{i}.jpg").write_bytes(encode(_photo(i, 375, 500), 90))
+    decode, decode_s = DS.decode_image, []
+
+    def timed_decode(path, size=0):
+        start = time.perf_counter()
+        img = decode(path, size)
+        decode_s.append((time.perf_counter() - start, img.shape))
+        return img
+
     free = shutil.disk_usage(out_dir).free
     cfg = TrainConfig(output_dir=str(out_dir / "run"), max_train_steps=steps, log_every=1,
                       modelsavesteps=10 ** 6, checkpoints_total_limit=1, save_steps=3)
@@ -1005,12 +1131,14 @@ def phase_train_main_path(out_dir: Path, steps: int) -> dict:
 
     trainer.step_fn = timed
     torch.cuda.reset_peak_memory_stats()
+    DS.decode_image = timed_decode
     reset_launches()
     t0 = time.perf_counter()
     try:
         last = trainer.train()
     finally:
         launches = tuple(a - b for a, b in zip(read_launches(), hook_launches))
+        DS.decode_image = decode
     total_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     run = out_dir / "run"
@@ -1025,9 +1153,24 @@ def phase_train_main_path(out_dir: Path, steps: int) -> dict:
              "save_and_export_s": total_s - sum(step_s) - sum(hook_s),
              "hook_s_per_grid": hook_s, "hook_launches_fwd_dq_dkv": tuple(hook_launches),
              "hook_prompts": hook.state["prompts"], "grid_shapes": grids,
+             "jpeg_decodes": len(decode_s),
+             "jpeg_decoded_shape": list(decode_s[0][1]) if decode_s else None,
+             "jpeg_decode_ms_per_image": 1e3 * statistics.mean(t for t, _ in decode_s),
+             "jpeg_decode_ms_per_batch": 1e3 * cfg.train_batch_size * statistics.mean(
+                 t for t, _ in decode_s),
              "last_metrics": last}
     log(f"train main path: {json.dumps(stats)}")
+    log(f"train main path on JPEG data: {len(decode_s)} decodes to "
+        f"{stats['jpeg_decoded_shape']}, {stats['jpeg_decode_ms_per_image']:.2f} ms each, "
+        f"{stats['jpeg_decode_ms_per_batch']:.1f} ms of decode per batch of "
+        f"{cfg.train_batch_size} (on the loader's threads) beside a step median of "
+        f"{1e3 * median_s:.1f} ms; peak {peak / 2**30:.2f} GiB")
     expected = (10 * steps,) * 3
+    if decode_s and decode_s[0][1] != (282, 375, 3):
+        raise AssertionError(f"the loader decoded to {decode_s[0][1]}, expected the 6/8 "
+                             "scale of 375x500 (282x375) that covers 256")
+    if len(decode_s) < steps * cfg.train_batch_size:
+        raise AssertionError(f"the loader decoded {len(decode_s)} JPEGs for {steps} steps")
     if launches != expected:
         raise AssertionError(f"train main path launched (fwd, dQ, dK/dV) {launches}, "
                              f"expected {expected}")
@@ -1138,17 +1281,21 @@ class StageLog:
         self.logger.setLevel(self.level)
 
 
-def _write_eval_folders(root: Path, n_gen: int, gen_px: int, n_train: int, train_px: int,
-                        n_copies: int, seed: int) -> tuple[Path, Path, Path, dict]:
+def _write_eval_folders(root: Path, n_gen: int, gen_px: int, n_train: int, train_px,
+                        n_copies: int, seed: int, train_jpeg: bool = False
+                        ) -> tuple[Path, Path, Path, dict]:
     """Generations (``n_gen`` PNGs, natural order, prompts.txt beside them)
-    and training images (two class folders, a caption json), random pixels;
-    ``n_copies`` training files copied byte for byte into the generations
-    (every ``n_gen // n_copies``-th name). Returns (generations, train,
-    caption json, {generation name: source training path})."""
+    and training images (two class folders, a caption json), random pixels
+    (train_jpeg: seeded photo-like JPEGs of ``train_px`` = (h, w) from the
+    port's encoder at quality 90); ``n_copies`` training files copied byte
+    for byte into the generations (every ``n_gen // n_copies``-th name, with
+    the source's suffix). Returns (generations, train, caption json,
+    {generation name: source training path})."""
     import shutil
 
     import numpy as np
 
+    from dcr_tpu_torch.native.jpeg_helper import encode
     from dcr_tpu_torch.sampling.png import write_png
 
     rng = np.random.default_rng(seed)
@@ -1158,8 +1305,12 @@ def _write_eval_folders(root: Path, n_gen: int, gen_px: int, n_train: int, train
     for i in range(n_train):
         d = train / f"class{i % 2}"
         d.mkdir(parents=True, exist_ok=True)
-        p = d / f"{i}.png"
-        write_png(p, rng.integers(0, 256, (train_px, train_px, 3), dtype=np.uint8))
+        if train_jpeg:
+            p = d / f"{i}.jpg"
+            p.write_bytes(encode(_photo(seed * 1000 + i, *train_px), 90))
+        else:
+            p = d / f"{i}.png"
+            write_png(p, rng.integers(0, 256, (train_px, train_px, 3), dtype=np.uint8))
         caps[str(p)] = [f"class{i % 2} image {i}"]
         train_paths.append(p)
     (root / "caps.json").write_text(json.dumps(caps))
@@ -1169,6 +1320,7 @@ def _write_eval_folders(root: Path, n_gen: int, gen_px: int, n_train: int, train
         name = f"{i}.png"
         if n_copies and i % every == 0 and len(copies) < n_copies:
             src = train_paths[(37 * len(copies) + 5) % n_train]
+            name = f"{i}{src.suffix}"
             shutil.copyfile(src, gen / name)
             copies[name] = src
         else:
@@ -1178,11 +1330,18 @@ def _write_eval_folders(root: Path, n_gen: int, gen_px: int, n_train: int, train
     return gen, train, root / "caps.json", copies
 
 
-# the JAX runner's scalar list (tests/test_eval_runner.py) less the
-# complexity correlations, which the port does not compute
+# the JAX runner's scalar list (tests/test_eval_runner.py)
 EVAL_SCALARS = ("sim_mean", "sim_std", "sim_75pc", "sim_90pc", "sim_95pc", "sim_gt_05pc",
                 "bg_mean", "bg_std", "FID_val", "precision", "recall", "gen_clipscore",
                 "train_clipscore")
+COMPLEXITY_SCALARS = ("corr_entropy_sim", "corr_jpegsize_sim", "corr_tv_sim",
+                      "corr_entropy_jpegsize", "mean_entropy", "mean_jpeg_bytes", "mean_tv")
+
+
+def _has_matplotlib() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
 
 
 def phase_small_eval_reference(root: Path) -> dict:
@@ -1199,12 +1358,14 @@ def phase_small_eval_reference(root: Path) -> dict:
 
     gen, train, caps, _ = _write_eval_folders(root, 8, 80, 10, 80, 0, seed=7)
     out, sims = {}, {}
+    reset_launches()
     for dev in ("cuda", "cpu"):
         cfg = EvalConfig(query_dir=str(gen), values_dir=str(train), image_size=64,
                          batch_size=4, compute_complexity=False, gallery_topk=3,
                          gallery_max_rank=8, output_dir=str(root / f"out_{dev}"))
         out[dev] = run_eval(cfg, device=dev, values_caption_json=str(caps))
         sims[dev] = np.load(root / f"out_{dev}" / "similarity.npy")
+    launches = read_launches()
     errs = {k: abs(out["cuda"][k] - out["cpu"][k]) for k in out["cpu"]}
     top2 = np.sort(sims["cpu"], axis=1)[:, -2:]
     decided = (top2[:, 1] - top2[:, 0]) > 1e-4
@@ -1212,25 +1373,26 @@ def phase_small_eval_reference(root: Path) -> dict:
                                     sims["cpu"].argmax(1)[decided]))
     stats = {"max_abs_err": max(errs.values()), "errs": errs, "scalars_cpu": out["cpu"],
              "decided_rows": int(decided.sum()), "same_top1": same_top1,
+             "launches_fwd_dq_dkv": launches,
              "sim_max_abs_err": float(np.abs(sims["cuda"] - sims["cpu"]).max())}
     log(f"small eval reference (8 gens, 10 train, sscd at 64 px, FID/IPR/CLIP/galleries on): "
         f"card vs cpu {json.dumps(stats)}")
     if (list(out["cuda"]) != list(out["cpu"]) or not all(e <= 1e-4 for e in errs.values())
-            or not same_top1):
+            or not same_top1 or launches != (0, 0, 0)):
         raise AssertionError(f"small eval reference failed: {stats}")
     return stats
 
 
 def phase_eval_main_path(root: Path) -> dict:
     """dcr_tpu_torch.eval.runner.run_eval(EvalConfig(...)) at the JAX
-    defaults but compute_complexity=False (SSCD ResNet-50 at 224 px, batch 64;
-    FID with Inception at 299; precision/recall with VGG16; CLIP score with
+    defaults (SSCD ResNet-50 at 224 px, batch 64; the complexity stage; FID
+    with Inception at 299; precision/recall with VGG16; CLIP score with
     ViT-B/16; galleries), seeded random weights, on 256 generations at 512 px
-    (16 of them training files copied byte for byte) and 512 training PNGs at
-    256 px in two class folders. Checks the scalars, the copies' top-1
-    matches and the artifacts; prints stage seconds, SSCD images/s, device ms
-    per SSCD batch of 64, host decode + transform ms per batch, the device's
-    busy share during eval/features and peak memory."""
+    (16 of them training files copied byte for byte) and 512 training JPEGs
+    at 256 px (the port's encoder) in two class folders. Checks the scalars,
+    the copies' top-1 matches and the artifacts; prints stage seconds, SSCD
+    images/s, device ms per SSCD batch of 64, host decode + transform ms per
+    batch, the device's busy share during eval/features and peak memory."""
     import numpy as np
 
     from dcr_tpu_torch.core.config import EvalConfig
@@ -1238,7 +1400,8 @@ def phase_eval_main_path(root: Path) -> dict:
     from dcr_tpu_torch.eval.features import EvalImageFolder
 
     t0 = time.perf_counter()
-    gen, train, caps, copies = _write_eval_folders(root, 256, 512, 512, 256, 16, seed=8)
+    gen, train, caps, copies = _write_eval_folders(root, 256, 512, 512, (256, 256), 16, seed=8,
+                                                   train_jpeg=True)
     write_s = time.perf_counter() - t0
     # per batch of each extraction: host ms to decode + transform it, device
     # ms from CUDA events around the extractor's call (the batch's upload
@@ -1271,8 +1434,7 @@ def phase_eval_main_path(root: Path) -> dict:
                             "host_ms": 1e3 * host_s, "device_ms": start.elapsed_time(end)})
         return np.concatenate(chunks, axis=0)
 
-    cfg = EvalConfig(query_dir=str(gen), values_dir=str(train), compute_complexity=False,
-                     output_dir=str(root / "out"))
+    cfg = EvalConfig(query_dir=str(gen), values_dir=str(train), output_dir=str(root / "out"))
     R.extract_features = timed_extract
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1339,19 +1501,154 @@ def phase_eval_main_path(root: Path) -> dict:
         f"{stats['features_device_ms_per_batch']:.1f} ms, device busy "
         f"{100 * stats['features_device_busy_share']:.1f} % of the stage; peak memory "
         f"{peak / 2**30:.2f} GiB")
-    missing = [k for k in EVAL_SCALARS if not (k in scalars and np.isfinite(scalars[k]))]
+    missing = [k for k in EVAL_SCALARS + COMPLEXITY_SCALARS
+               if not (k in scalars and np.isfinite(scalars[k]))]
+    absent_plots = [n for n in ("scatter_entropy", "scatter_jpegsize", "scatter_tv")
+                    if not (out / f"{n}.png").exists()]
     bad_copies = [r for r in copy_rows if r["top1"] != r["source"] or r["sim"] < 0.999]
     artifacts = [out / "similarity.npy", out / "logs" / "metrics.jsonl",
                  out / "fid_stats_values.npz", out / "provenance.json"]
     absent = [str(p) for p in artifacts if not p.exists()]
     if not list((out / "galleries").glob("gallery_rank*.png")):
         absent.append("galleries/gallery_rank*.png")
+    if _has_matplotlib():
+        absent += absent_plots
     if (missing or bad_copies or absent or sim.shape != (256, 512)
             or scalars["sim_gt_05pc"] < 16 / 256 or len(copy_rows) != 16
             or calls != list(passes)):
         raise AssertionError(f"eval main path failed: scalars missing or not finite "
                              f"{missing}, copies {bad_copies}, artifacts absent {absent}, "
                              f"sim {sim.shape}, sim_gt_05pc {scalars.get('sim_gt_05pc')}")
+    return stats
+
+
+def phase_small_dino_reference(root: Path) -> dict:
+    """The dino run_eval on the card and on the CPU over one tiny folder (8
+    generations, 10 training PNGs at 80 px) at image_size=64, beside phase
+    9's: the ViT-S/16 (CLS), its layer 2 with splitloss (every token), and
+    XCiT-S/16; the other stages off, TF32 off, the same seeded weights.
+    Held: every scalar within 1e-4, the top-1 indices equal where the CPU's
+    margin exceeds 1e-4, no flash launch."""
+    import numpy as np
+
+    from dcr_tpu_torch.core.config import EvalConfig
+    from dcr_tpu_torch.eval.runner import run_eval
+
+    gen, train, _, _ = _write_eval_folders(root, 8, 80, 10, 80, 0, seed=9)
+    runs = {"dino_vits16": {}, "dino_vits16_layer2_splitloss":
+            {"layer": 2, "similarity_metric": "splitloss"}, "dino_xcit_small_12_p16": {}}
+    stats, bad = {}, []
+    for name, extra in runs.items():
+        arch = name if name.startswith("dino_xcit") else "dino_vits16"
+        out, sims = {}, {}
+        reset_launches()
+        for dev in ("cuda", "cpu"):
+            cfg = EvalConfig(query_dir=str(gen), values_dir=str(train), pt_style="dino",
+                             arch=arch, image_size=64, batch_size=4, compute_fid=False,
+                             compute_clip_score=False, compute_complexity=False,
+                             galleries=False, output_dir=str(root / f"{name}_{dev}"), **extra)
+            out[dev] = run_eval(cfg, device=dev)
+            sims[dev] = np.load(root / f"{name}_{dev}" / "similarity.npy")
+        launches = read_launches()
+        errs = {k: abs(out["cuda"][k] - out["cpu"][k]) for k in out["cpu"]}
+        top2 = np.sort(sims["cpu"], axis=1)[:, -2:]
+        decided = (top2[:, 1] - top2[:, 0]) > 1e-4
+        same = bool(np.array_equal(sims["cuda"].argmax(1)[decided],
+                                   sims["cpu"].argmax(1)[decided]))
+        stats[name] = {"max_abs_err": max(errs.values()), "decided_rows": int(decided.sum()),
+                       "same_top1": same, "launches_fwd_dq_dkv": launches,
+                       "sim_max_abs_err": float(np.abs(sims["cuda"] - sims["cpu"]).max())}
+        if (list(out["cuda"]) != list(out["cpu"]) or stats[name]["max_abs_err"] > 1e-4
+                or not same or launches != (0, 0, 0)):
+            bad.append(name)
+    log(f"small dino eval reference (8 gens, 10 train, 64 px): card vs cpu {json.dumps(stats)}")
+    if bad:
+        raise AssertionError(f"small dino eval reference failed for {bad}: {stats}")
+    return stats
+
+
+# the retrieval backbones beyond SSCD, at full width: (pt_style, arch)
+BACKBONES = (("dino", "dino_vitb8"), ("dino", "dino_xcit_small_12_p16"),
+             ("dino", "dino_resnet50"), ("clip", "resnet50_disc"))
+
+
+def phase_backbones(root: Path) -> dict:
+    """One run_eval per backbone of BACKBONES at the published widths
+    (ViT-B/8 at 224 px: 785 tokens; XCiT-S/16; the DINO ResNet-50; the CLIP
+    ViT-B/16 image tower as the embedder), seeded random weights, batch 64,
+    over 64 generations at 256 px and 128 training JPEGs at 500x375 (the
+    port's encoder, 4 of them copied into the generations); the other
+    stages off. Held: finite similarities of the right shape, each copy's
+    source within 1e-5 of its row's best, no flash launch. Prints eval/features seconds, images/s, the
+    device ms of one batch of 64 at 224 px alone (CUDA events over 5 calls)
+    and peak memory."""
+    import numpy as np
+
+    from dcr_tpu_torch.core.config import EvalConfig
+    from dcr_tpu_torch.eval import runner as R
+    from dcr_tpu_torch.eval.features import EvalImageFolder
+
+    gen, train, _, copies = _write_eval_folders(root, 64, 256, 128, (375, 500), 4, seed=10,
+                                                train_jpeg=True)
+    qpaths = EvalImageFolder(gen, 224).paths
+    vpaths = [str(p) for p in EvalImageFolder(train, 224).paths]
+    stats, bad = {}, []
+    for pt_style, arch in BACKBONES:
+        name = arch if pt_style == "dino" else "clip"
+        cfg = EvalConfig(query_dir=str(gen), values_dir=str(train), pt_style=pt_style, arch=arch,
+                         compute_fid=False, compute_clip_score=False, compute_complexity=False,
+                         galleries=False, output_dir=str(root / name))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with StageLog() as stages:
+            scalars = R.run_eval(cfg, device="cuda")
+        total_s = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        sim = np.load(root / name / "similarity.npy")
+        # a copy's match: its source within float noise of the row's best
+        # (seeded random XCiT and DINO ResNet embed every image alike, so
+        # the rows are nearly flat; exact top-1s are reported)
+        rows = {g: next(i for i, p in enumerate(qpaths) if p.name == g) for g in copies}
+        top1 = [bool(sim[rows[g], vpaths.index(str(src))] >= sim[rows[g]].max() - 1e-5)
+                for g, src in copies.items()]
+        exact = sum(int(sim[rows[g]].argmax()) == vpaths.index(str(src))
+                    for g, src in copies.items())
+        backbone = R.build_backbone(pt_style, arch, "cuda", seed=0, image_size=224)
+        x = torch.randn((64, 3, 224, 224), generator=torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+        with torch.inference_mode():
+            dim = backbone(x[:2]).shape[-1]
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                backbone(x)
+            end.record()
+            end.synchronize()
+        del backbone, x
+        feat_s = stages.seconds["eval/features"]
+        stats[name] = {"total_s": total_s, "stage_s": stages.seconds, "feature_dim": dim,
+                       "images_per_s": (len(qpaths) + len(vpaths)) / feat_s,
+                       "batch64_device_ms": start.elapsed_time(end) / 5, "peak_bytes": peak,
+                       "launches_fwd_dq_dkv": launches, "copies_top1": top1,
+                       "copies_exact_top1": exact,
+                       "sim_row_spread_median": float(np.median(sim.max(1) - sim.min(1))),
+                       "sim_gt_05pc": scalars["sim_gt_05pc"]}
+        log(f"backbone {name}: eval/features {feat_s:.2f} s, "
+            f"{stats[name]['images_per_s']:.1f} images/s, "
+            f"{stats[name]['batch64_device_ms']:.2f} device ms per batch of 64 at 224 px, "
+            f"peak {peak / 2**30:.2f} GiB, features [{dim}], copies matched {sum(top1)}/4 "
+            f"({exact} exact top-1), median row spread "
+            f"{stats[name]['sim_row_spread_median']:.2e}")
+        if (sim.shape != (64, 128) or not np.isfinite(sim).all() or not all(top1)
+                or launches != (0, 0, 0)):
+            bad.append(name)
+    log(f"backbones: {json.dumps(stats)}")
+    if bad:
+        raise AssertionError(f"backbone eval failed for {bad}: {stats}")
     return stats
 
 
@@ -1407,6 +1704,7 @@ def main() -> int:
 
     phase_card()
     built = phase_build()
+    codec = phase_jpeg_codec()
     kern = phase_kernels(reps=10)
     bwd = phase_bwd_kernels(reps=10)
     limits = phase_kernel_limits()
@@ -1414,6 +1712,8 @@ def main() -> int:
     small_train = phase_small_train_reference()
     with tempfile.TemporaryDirectory() as tmp:
         small_eval = phase_small_eval_reference(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        small_dino = phase_small_dino_reference(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         main_stats, main = phase_main_path(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
@@ -1433,6 +1733,9 @@ def main() -> int:
     if eval_stats["launches_fwd_dq_dkv"] != (0, 0, 0):
         raise AssertionError(f"the eval path launched flash kernels: "
                              f"{eval_stats['launches_fwd_dq_dkv']}")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        backbone_stats = phase_backbones(Path(tmp))
 
     def fwd_row(case, dtype):
         return next(r for r in kern["rows"] if r["case"] == case and r["dtype"] == dtype)
@@ -1497,6 +1800,9 @@ def main() -> int:
     log(f"kernel limits: {json.dumps(limits)}")
     log(f"small eval reference: {json.dumps(small_eval)}")
     log(f"eval path stats: {json.dumps(eval_stats)}")
+    log(f"jpeg codec stats: {json.dumps(codec)}")
+    log(f"small dino eval reference: {json.dumps(small_dino)}")
+    log(f"backbone stats: {json.dumps(backbone_stats)}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,5 +2,6 @@
 
 A package beside the JAX one, with the same module names. It imports torch
 and never jax, flax or anything of dcr_tpu. Its kernels are written by hand
-for sm_90a under ``csrc/`` and built at first use (``ops/build.py``).
+for sm_90a under ``csrc/``, its JPEG codec in host C++ under ``native/``;
+both are built at first use (``ops/build.py``).
 """

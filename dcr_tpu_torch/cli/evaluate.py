@@ -1,14 +1,15 @@
 """Replication metrics (PyTorch port of ``dcr-eval``).
 
     python -m dcr_tpu_torch.cli.evaluate --query_dir=<generations> \\
-        --values_dir=<training images> --compute_complexity=false
+        --values_dir=<training images>
 
 Same flags and ``--config=<config.json>`` as the JAX package's ``dcr-eval``,
 plus its ``--query_caption_json=`` / ``--values_caption_json=`` caption
 tables. It runs on one CUDA device (``DCR_TPU_PLATFORM=cpu`` selects the
-CPU). The complexity stage is not ported, so a run needs
-``--compute_complexity=false``; a setting the port does not run is refused
-with ``NotPortedError``.
+CPU). The JAX defaults run as they are (the complexity stage included);
+the backbones are ``--pt_style=sscd``, ``dino`` (every ``--arch`` of
+``models/vit.DINO_ARCHS``, ``--layer`` > 1 on the ViTs) and ``clip``. A
+setting the port does not run is refused with ``NotPortedError``.
 """
 
 from __future__ import annotations

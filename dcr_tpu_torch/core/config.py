@@ -453,10 +453,10 @@ _EVAL_FAULT_HONOURED = ("io_retries", "retry_base_delay", "retry_max_delay")
 
 def validate_eval_config(cfg: EvalConfig) -> None:
     """ValueError for a setting no package runs, then NotPortedError for one
-    the port does not run yet: the dino and clip backbones (and ``layer``),
-    the complexity stage (its JPEG sizes need an encoder the card's machine
-    lacks), a mesh of more than one device, the warm cache, wandb, and any
-    fault setting other than the I/O retries at a non-default value."""
+    the port does not run yet: a mesh of more than one device, the warm
+    cache, wandb, and any fault setting other than the I/O retries at a
+    non-default value. Every backbone (sscd, dino, clip, ``layer`` > 1) and
+    every stage, the complexity stage included, runs."""
     if cfg.pt_style not in ("sscd", "dino", "clip"):
         raise ValueError(f"unknown pt_style {cfg.pt_style!r} (sscd | dino | clip)")
     if cfg.similarity_metric not in ("dotproduct", "splitloss"):
@@ -469,12 +469,6 @@ def validate_eval_config(cfg: EvalConfig) -> None:
              if f.name not in _EVAL_FAULT_HONOURED
              and getattr(cfg.fault, f.name) != getattr(default_fault, f.name)]
     checks = [
-        (cfg.pt_style != "sscd",
-         f"pt_style={cfg.pt_style} (only the sscd backbone is ported)"),
-        (cfg.layer > 1, f"layer={cfg.layer} (DINO intermediate layers)"),
-        (cfg.compute_complexity,
-         "compute_complexity=true (the complexity stage's JPEG byte sizes need a JPEG "
-         "encoder; pass --compute_complexity=false)"),
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port evaluates on one)"),
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
         (cfg.use_wandb, "use_wandb (the wandb sink)"),

@@ -7,13 +7,18 @@ assignment per regime, cached duplication weights, tokenization to fixed
 length. Every random decision draws from the same (seed, epoch, slot, index)
 host stream as the JAX package's.
 
-The port reads PNG itself (:mod:`dcr_tpu_torch.sampling.png`: 8-bit gray,
-gray + alpha, RGB or RGBA), because the machine with the card has no PIL.
+The port reads PNG and JPEG itself, because the machine with the card has no
+PIL: PNG with :mod:`dcr_tpu_torch.sampling.png` (8-bit gray, gray + alpha,
+RGB or RGBA), JPEG with :mod:`dcr_tpu_torch.native.jpeg_decoder` (baseline,
+extended and progressive Huffman, 1 or 3 components, pixels equal to
+libjpeg-turbo's). A training JPEG is decoded at the smallest DCT scale that
+still covers the resolution, as the JAX loader's libjpeg fast path does.
 The resize is ``F.interpolate(mode="bilinear", antialias=True)`` on uint8
 values, which rounds back to uint8 as PIL's BILINEAR does (within one level
-of it); an image already at the target size is not resampled. Any other
-image format raises :class:`NotPortedError` naming the file. The loader is
-fail-fast: a sample that does not decode ends the run.
+of it); an image already at the target size is not resampled. The other
+formats (``.bmp``, ``.webp``, ``.ppm``, ``.tif``) raise
+:class:`NotPortedError` naming the file. The loader is fail-fast: a sample
+that does not decode ends the run.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from dcr_tpu_torch.core.rng import host_python_rng
 from dcr_tpu_torch.data import captions as C
 from dcr_tpu_torch.data import duplication as D
 from dcr_tpu_torch.data.tokenizer import TokenizerBase
+from dcr_tpu_torch.native import jpeg_decoder
 from dcr_tpu_torch.sampling.png import read_png
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".ppm", ".tif", ".tiff")
@@ -56,13 +62,18 @@ def list_image_folder(root: str | Path) -> tuple[list[str], list[int], list[str]
     return paths, labels, classes
 
 
-def decode_image(path: str) -> np.ndarray:
-    """uint8 [H, W, 3] RGB from an image file (PNG only)."""
-    if Path(path).suffix.lower() != ".png":
-        raise NotPortedError(
-            f"{path}: only PNG images are read by dcr_tpu_torch yet (JPEG and the "
-            "other formats need a decoder the port does not have)")
-    return read_png(path)
+def decode_image(path: str, size: int = 0) -> np.ndarray:
+    """uint8 [H, W, 3] RGB from a PNG or JPEG file. size > 0: a JPEG is
+    decoded at the smallest DCT scale whose shorter side still covers
+    ``size`` (the JAX loader's ``_open_image``); 0 decodes at full scale."""
+    suffix = Path(path).suffix.lower()
+    if suffix == ".png":
+        return read_png(path)
+    if suffix in (".jpg", ".jpeg"):
+        return jpeg_decoder.decode_scaled(Path(path).read_bytes(), size, name=str(path))
+    raise NotPortedError(
+        f"{path}: dcr_tpu_torch reads PNG and JPEG images only ({suffix} needs a "
+        "decoder the port does not have)")
 
 
 def resize_shorter_side(img: np.ndarray, size: int) -> np.ndarray:
@@ -85,7 +96,7 @@ def load_and_transform(path: str, size: int, *, center_crop: bool,
                        random_flip: bool, rng: np.random.Generator) -> np.ndarray:
     """Decode + resize(shorter side) -> crop -> flip -> normalise to [-1, 1]
     NHWC f32 (reference transform stack, datasets.py:59-67)."""
-    img = resize_shorter_side(decode_image(path), size)
+    img = resize_shorter_side(decode_image(path, size), size)
     h, w = img.shape[:2]
     if center_crop:
         left, top = (w - size) // 2, (h - size) // 2

@@ -8,8 +8,10 @@ normalise; or, with ``crop=False``, the whole image squashed to a square as
 the FID loader does), ``make_extractor`` with the 3-scale ``multiscale``
 pooling, and ``extract_features``.
 
-Images are decoded by the port's PNG reader and resized by its bilinear
-resize (``dcr_tpu_torch/data/dataset.py``): within one uint8 level of PIL's
+Images are decoded by the port's PNG and JPEG readers, JPEG at full scale
+as the JAX eval loader's plain PIL decode (its pixels are libjpeg-turbo's,
+which PIL uses), and resized by the port's bilinear resize
+(``dcr_tpu_torch/data/dataset.py``): within one uint8 level of PIL's
 BILINEAR, and an image already at the target size is not resampled (PIL
 does not resample it either), so folders written at the transform's size
 give the JAX package's pixels exactly. Other formats raise NotPortedError.

@@ -4,27 +4,34 @@ Counterpart of ``dcr_tpu/eval/runner.py`` ``run_eval`` (the reference's
 diff_retrieval.py:main_worker) on one device. Stages, in the JAX order and
 under the same scalar names:
 
-1. ``eval/features``: the SSCD embedder over the generations (query) and
-   the training images (values), L2-normalised;
+1. ``eval/features``: the copy-detection embedder over the generations
+   (query) and the training images (values), L2-normalised. The embedder
+   is SSCD (``pt_style="sscd"``), a DINO backbone (``"dino"``: the ViTs,
+   XCiTs and ResNet-50 of ``models/vit.DINO_ARCHS``; ``layer`` > 1 takes
+   the layer-th-from-last ViT block, and splitloss all its tokens) or the
+   CLIP image tower (``"clip"``);
 2. ``eval/similarity``: the similarity matrix, the gen↔train statistics
    (``sim_gt_05pc`` ..) and the train↔train background;
 3. ``eval/clip_score``: mean CLIP cosine of each folder's images with their
    captions (``gen_clipscore``, ``train_clipscore``);
-4. the duplicated-vs-not split of top-1 similarity from the training
+4. ``eval/complexity``: entropy, JPEG size and total variation of each
+   top-1 match against its similarity (``corr_*``, ``mean_*``);
+5. the duplicated-vs-not split of top-1 similarity from the training
    weights pickle;
-5. ``eval/fid_ipr``: FID on Inception pool3 features of the uncropped
+6. ``eval/fid_ipr``: FID on Inception pool3 features of the uncropped
    images, precision and recall on VGG16 fc2 features;
-6. ``eval/galleries``: ranked [query | top-k matches] pages.
+7. ``eval/galleries``: ranked [query | top-k matches] pages.
 
 Artifacts in ``output_dir``: ``similarity.npy``, ``logs/metrics.jsonl``,
 ``provenance.json``, ``fid_stats_values.npz``, ``galleries/gallery_rank*.png``
-and ``histogram.png`` / ``dup_barplot.png`` when matplotlib imports. Each
-stage logs ``[stage] <name>: begin`` and ``done in <s>s`` (the record
-carries ``stage`` and ``seconds``). Weights are seeded random unless a
-checkpoint file or state dict is given; every backbone is built on the CPU
-from its seed (so the CPU and the card get the same weights), frozen, and
-run under ``torch.inference_mode()`` on ``device``. The complexity stage
-and the dino / clip retrieval backbones are not ported
+and ``histogram.png`` / ``scatter_{entropy,jpegsize,tv}.png`` /
+``dup_barplot.png`` when matplotlib imports. Each stage logs ``[stage]
+<name>: begin`` and ``done in <s>s`` (the record carries ``stage`` and
+``seconds``). Weights are seeded random unless a checkpoint file or state
+dict is given; every backbone is built on the CPU from its seed (so the CPU
+and the card get the same weights), frozen, and run under
+``torch.inference_mode()`` on ``device``. A mesh, the warm cache, wandb and
+the fault settings other than the I/O retries are not ported
 (:func:`~dcr_tpu_torch.core.config.validate_eval_config`).
 """
 
@@ -50,6 +57,7 @@ from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.core.metrics import MetricWriter
 from dcr_tpu_torch.core.rng import seeded_cpu_init
 from dcr_tpu_torch.data.tokenizer import TokenizerBase, load_tokenizer
+from dcr_tpu_torch.eval import complexity as CX
 from dcr_tpu_torch.eval import fid as FID
 from dcr_tpu_torch.eval import gallery as G
 from dcr_tpu_torch.eval import ipr as IPR
@@ -62,13 +70,16 @@ from dcr_tpu_torch.eval.features import (
     reference_resize_for,
 )
 from dcr_tpu_torch.models.clip_image import (
+    CLIPImageTower,
     CLIPScorer,
+    image_state_dict_from_openai,
     make_clip_scorer,
     scorer_state_dict_from_openai,
 )
 from dcr_tpu_torch.models.inception import InceptionV3FID
 from dcr_tpu_torch.models.resnet import SSCDModel
 from dcr_tpu_torch.models.vgg import VGG16Features
+from dcr_tpu_torch.models.vit import DINO_ARCHS, VisionTransformer
 from dcr_tpu_torch.utils.provenance import stamp
 
 log = logging.getLogger("dcr_tpu_torch")
@@ -125,13 +136,45 @@ def load_torch_weights(path: str) -> dict[str, torch.Tensor]:
     return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
 
 
+# the state-dict keys each DINO family's converter reads in the JAX package
+# (convert_dino_vit, convert_xcit, convert_resnet50); others are dropped
+_DINO_KEYS = {
+    "vit": ("cls_token", "pos_embed", "patch_embed.", "blocks.", "norm."),
+    "xcit": ("cls_token", "pos_embeder.", "patch_embed.", "blocks.", "cls_attn_blocks.",
+             "norm."),
+    "resnet50": ("conv1.", "bn1.", "layer1.", "layer2.", "layer3.", "layer4."),
+}
+
+
+def _dino_family(arch: str) -> str:
+    if arch == "dino_resnet50":
+        return "resnet50"
+    return "xcit" if arch.startswith("dino_xcit") else "vit"
+
+
 def load_backbone_params(pt_style: str, arch: str, path: str) -> dict[str, torch.Tensor]:
-    """The copy-detection backbone's checkpoint file -> the port's state dict
-    (SSCD: a TorchScript archive or a plain state dict, under the archive's
-    names, which are the port's)."""
-    if pt_style != "sscd":
-        raise ValueError(f"only the sscd backbone is ported, got pt_style={pt_style!r}")
-    return load_torch_weights(path)
+    """The copy-detection backbone's checkpoint file -> the port's state
+    dict, from the torch names the JAX package's converters read: SSCD (a
+    TorchScript archive or a plain state dict, whose names are the port's),
+    a DINO hub checkpoint (ViT and XCiT names are the port's; the ResNet-50
+    trunk goes under ``backbone.``), or an OpenAI CLIP archive (its
+    ``visual.*`` image tower)."""
+    sd = load_torch_weights(path)
+    if pt_style == "sscd":
+        return sd
+    if pt_style == "dino":
+        family = _dino_family(arch)
+        keep = {k: v for k, v in sd.items() if k.startswith(_DINO_KEYS[family])}
+        if family == "resnet50":
+            return {f"backbone.{k}": v for k, v in keep.items()}
+        if "cls_token" in keep:
+            keep["cls_token"] = keep["cls_token"].reshape(1, 1, -1)
+        return keep
+    if pt_style == "clip":
+        if not any(k.startswith("visual.") for k in sd):
+            raise KeyError(f"{path}: not an OpenAI CLIP archive (no visual.* keys)")
+        return image_state_dict_from_openai(sd)
+    raise ValueError(f"unknown pt_style {pt_style!r} (sscd | dino | clip)")
 
 
 def _frozen(module: torch.nn.Module, state_dict: Optional[StateDict], what: str,
@@ -156,18 +199,61 @@ def _frozen(module: torch.nn.Module, state_dict: Optional[StateDict], what: str,
     return module.to(device).eval().requires_grad_(False)
 
 
+class IntermediateLayerFeatures(torch.nn.Module):
+    """A DINO ViT's features from its layer-th-from-last block
+    (get_intermediate_layers(x, layer)[0], the reference's --layer,
+    utils_ret.py:726-745): the CLS token [B, D], or with ``flatten_tokens``
+    every token flattened [B, n_tokens * D] (the splitloss path, whose
+    similarity is chunked per token: ``n_tokens`` is the chunk count)."""
+
+    def __init__(self, vit: VisionTransformer, layer: int, flatten_tokens: bool,
+                 image_size: int):
+        super().__init__()
+        self.vit = vit
+        self.layer = layer
+        self.flatten_tokens = flatten_tokens
+        self.n_tokens = (image_size // vit.patch_size) ** 2 + 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        states = self.vit(x, return_layers=self.layer)[0]
+        return states.reshape(states.shape[0], -1) if self.flatten_tokens else states[:, 0]
+
+
 def build_backbone(pt_style: str, arch: str, device: str | torch.device = "cuda", *,
                    state_dict: Optional[StateDict] = None, seed: int = 0,
-                   layer: int = 1) -> torch.nn.Module:
-    """The copy-detection embedder, frozen on ``device``: SSCD (ResNet-50 ->
-    GeM -> 512). Seeded random weights unless ``state_dict`` is given, which
-    is checked against the architecture first."""
-    if pt_style != "sscd" or layer > 1:
-        raise ValueError(f"only the sscd backbone at layer 1 is ported, got "
-                         f"pt_style={pt_style!r} layer={layer}")
+                   layer: int = 1, flatten_tokens: bool = False,
+                   image_size: int = 224) -> torch.nn.Module:
+    """The copy-detection embedder, frozen on ``device`` (the reference's
+    model zoo, diff_retrieval.py:249-285): SSCD (ResNet-50 -> GeM -> 512),
+    a DINO arch of ``DINO_ARCHS``, or the CLIP image tower with its table
+    sized for ``image_size``. Seeded random weights unless ``state_dict``
+    is given, which is checked against the architecture first. ``layer`` >
+    1 (DINO ViTs only) and ``flatten_tokens``: see
+    :class:`IntermediateLayerFeatures`."""
     with seeded_cpu_init(seed):
-        model = SSCDModel(embed_dim=512)
-    return _frozen(model, state_dict, "backbone", resolve_device(device))
+        if pt_style == "sscd":
+            model = SSCDModel(embed_dim=512)
+        elif pt_style == "dino":
+            if arch not in DINO_ARCHS:
+                raise ValueError(f"unknown dino arch {arch!r} (have {sorted(DINO_ARCHS)})")
+            model = DINO_ARCHS[arch]()
+        elif pt_style == "clip":
+            model = CLIPImageTower(image_size=image_size)
+        else:
+            raise ValueError(f"unknown pt_style {pt_style!r} (sscd | dino | clip)")
+    if layer > 1:
+        if pt_style != "dino" or not isinstance(model, VisionTransformer):
+            raise ValueError(
+                f"layer={layer} needs a DINO ViT arch (the reference path, "
+                "utils_ret.py:731, is get_intermediate_layers on the ViT; "
+                f"{pt_style}/{arch} has no intermediate-layer surface)")
+    elif flatten_tokens:
+        raise ValueError("flatten_tokens needs a DINO ViT with layer > 1 "
+                         "(token-level features; reference utils_ret.py:729-737)")
+    model = _frozen(model, state_dict, "backbone", resolve_device(device))
+    if layer > 1:
+        return IntermediateLayerFeatures(model, layer, flatten_tokens, image_size)
+    return model
 
 
 def clip_alignment_score(folder: EvalImageFolder, tokenizer: TokenizerBase,
@@ -207,6 +293,14 @@ def run_eval(cfg: EvalConfig, *, device: str | torch.device = "cuda",
     across), else the files of ``cfg``, else seeded random weights (the
     CLIP scorer: ``cfg.clip_weights_path`` or seeded random weights)."""
     validate_eval_config(cfg)
+    # splitloss on a DINO ViT layer > 1: token-level features, the similarity
+    # chunked per token (the reference's numpatches -> num_loss_chunks
+    # aliasing, diff_retrieval.py:394-395, utils_ret.py:729-737)
+    flatten_tokens = (cfg.similarity_metric == "splitloss" and cfg.pt_style == "dino"
+                      and cfg.layer > 1)
+    if flatten_tokens and cfg.multiscale:
+        raise ValueError("multiscale pools per-scale embeddings and has no token surface; "
+                         "drop --multiscale for the splitloss+layer token path")
     device = resolve_device(device)
     out_dir = Path(cfg.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -232,7 +326,17 @@ def run_eval(cfg: EvalConfig, *, device: str | torch.device = "cuda",
             lambda: load_backbone_params(cfg.pt_style, cfg.arch, cfg.weights_path),
             cfg.fault, "backbone")
     backbone = build_backbone(cfg.pt_style, cfg.arch, device,
-                              state_dict=backbone_state_dict, seed=0, layer=cfg.layer)
+                              state_dict=backbone_state_dict, seed=0, layer=cfg.layer,
+                              flatten_tokens=flatten_tokens, image_size=cfg.image_size)
+    num_loss_chunks = cfg.num_loss_chunks
+    if flatten_tokens:
+        if cfg.num_loss_chunks not in (1, backbone.n_tokens):
+            raise ValueError(
+                f"splitloss with dino layer>1 chunks per token: num_loss_chunks is set by "
+                f"the {backbone.n_tokens}-token feature layout (diff_retrieval.py:394-395); "
+                f"drop --num_loss_chunks={cfg.num_loss_chunks} or set it to "
+                f"{backbone.n_tokens}")
+        num_loss_chunks = backbone.n_tokens
     extractor = make_extractor(backbone, device, multiscale=cfg.multiscale)
     with stage("eval/features"):
         query_feats = SIM.l2_normalize(extract_features(query, extractor,
@@ -242,7 +346,7 @@ def run_eval(cfg: EvalConfig, *, device: str | torch.device = "cuda",
 
     with stage("eval/similarity"):
         sim = SIM.similarity_matrix(values_feats, query_feats, metric=cfg.similarity_metric,
-                                    num_chunks=cfg.num_loss_chunks,
+                                    num_chunks=num_loss_chunks,
                                     chunk_style=cfg.chunk_style, device=device)
         stats = SIM.gen_train_stats(sim)
         scalars: dict = stats.scalars()
@@ -264,6 +368,18 @@ def run_eval(cfg: EvalConfig, *, device: str | torch.device = "cuda",
             scalars["train_clipscore"] = clip_alignment_score(values, tokenizer, scorer,
                                                               device)
             del scorer
+
+    if cfg.compute_complexity:
+        # each unique match is decoded once and reduced to its three scalars
+        # at once: bounded host memory at any scale
+        with stage("eval/complexity"):
+            series = CX.streamed_series(values.load, stats.top1_index)
+            scalars.update(CX.correlations_from_series(series, stats.top1))
+            for key, label, name in (("entropy", "match entropy", "entropy"),
+                                     ("jpeg_bytes", "match jpeg bytes", "jpegsize"),
+                                     ("tv", "match total variation", "tv")):
+                G.scatter_plot(np.asarray(series[key]), stats.top1, label, "top1 sim",
+                               out_dir / f"scatter_{name}.png")
 
     if cfg.dup_weights_pickle:
         # the training run's own sampling-weights file (a pickle it wrote)

@@ -20,7 +20,8 @@ the port's CLIPTextModel (eps 1e-5, as the JAX text tower).
 
 from __future__ import annotations
 
-from typing import Mapping
+import re
+from typing import Mapping, Optional
 
 import torch
 import torch.nn as nn
@@ -113,30 +114,44 @@ def make_clip_scorer(image_size: int = 224, seed: int = 7) -> CLIPScorer:
     return scorer.eval().requires_grad_(False)
 
 
+def image_state_dict_from_openai(sd: Mapping[str, torch.Tensor], *,
+                                 layers: Optional[int] = None) -> dict[str, torch.Tensor]:
+    """An OpenAI CLIP archive's image tower (``visual.*`` with fused
+    ``in_proj`` attention) -> the port's :class:`CLIPImageTower` state dict
+    (``layers`` blocks; by default as many as the archive has). Counterpart
+    of ``dcr_tpu/models/convert.py`` ``convert_clip_image``."""
+    out: dict[str, torch.Tensor] = {}
+    v = "visual."
+    if layers is None:
+        blocks = re.compile(r"visual\.transformer\.resblocks\.(\d+)\.")
+        layers = 1 + max(int(m.group(1)) for k in sd if (m := blocks.match(k)))
+    out["patch_embed.weight"] = sd[f"{v}conv1.weight"]
+    out["class_embedding"] = sd[f"{v}class_embedding"]
+    out["pos_embed"] = sd[f"{v}positional_embedding"][None]
+    for name in ("ln_pre", "ln_post"):
+        for leaf in ("weight", "bias"):
+            out[f"{name}.{leaf}"] = sd[f"{v}{name}.{leaf}"]
+    out["proj"] = sd[f"{v}proj"]
+    block_map = (("norm1", "ln_1"), ("norm2", "ln_2"), ("attn.proj", "attn.out_proj"),
+                 ("mlp.fc1", "mlp.c_fc"), ("mlp.fc2", "mlp.c_proj"))
+    for i in range(layers):
+        src, dst = f"{v}transformer.resblocks.{i}", f"blocks.{i}"
+        out[f"{dst}.attn.qkv.weight"] = sd[f"{src}.attn.in_proj_weight"]
+        out[f"{dst}.attn.qkv.bias"] = sd[f"{src}.attn.in_proj_bias"]
+        for ours, theirs in block_map:
+            for leaf in ("weight", "bias"):
+                out[f"{dst}.{ours}.{leaf}"] = sd[f"{src}.{theirs}.{leaf}"]
+    return {k: torch.as_tensor(val).float().contiguous() for k, val in out.items()}
+
+
 def scorer_state_dict_from_openai(sd: Mapping[str, torch.Tensor], *, image_layers: int = 12,
                                   text_layers: int = 12) -> dict[str, torch.Tensor]:
     """An OpenAI CLIP archive's state dict (``visual.*`` with fused
     ``in_proj`` attention, the text tower under ``transformer.resblocks.*``)
     -> the port's :class:`CLIPScorer` state dict. Counterpart of
     ``dcr_tpu/models/convert.py`` ``convert_openai_clip``."""
-    out: dict[str, torch.Tensor] = {}
-    v = "visual."
-    out["image.patch_embed.weight"] = sd[f"{v}conv1.weight"]
-    out["image.class_embedding"] = sd[f"{v}class_embedding"]
-    out["image.pos_embed"] = sd[f"{v}positional_embedding"][None]
-    for ours, theirs in (("ln_pre", "ln_pre"), ("ln_post", "ln_post")):
-        for leaf in ("weight", "bias"):
-            out[f"image.{ours}.{leaf}"] = sd[f"{v}{theirs}.{leaf}"]
-    out["image.proj"] = sd[f"{v}proj"]
-    block_map = (("norm1", "ln_1"), ("norm2", "ln_2"), ("attn.proj", "attn.out_proj"),
-                 ("mlp.fc1", "mlp.c_fc"), ("mlp.fc2", "mlp.c_proj"))
-    for i in range(image_layers):
-        src, dst = f"{v}transformer.resblocks.{i}", f"image.blocks.{i}"
-        out[f"{dst}.attn.qkv.weight"] = sd[f"{src}.attn.in_proj_weight"]
-        out[f"{dst}.attn.qkv.bias"] = sd[f"{src}.attn.in_proj_bias"]
-        for ours, theirs in block_map:
-            for leaf in ("weight", "bias"):
-                out[f"{dst}.{ours}.{leaf}"] = sd[f"{src}.{theirs}.{leaf}"]
+    out: dict[str, torch.Tensor] = {
+        f"image.{k}": v for k, v in image_state_dict_from_openai(sd, layers=image_layers).items()}
     t = "text.text_model."
     out[f"{t}embeddings.token_embedding.weight"] = sd["token_embedding.weight"]
     out[f"{t}embeddings.position_embedding.weight"] = sd["positional_embedding"]

@@ -5,10 +5,12 @@ each ``*_from_flax`` takes a Flax param tree (nested dicts of numpy arrays,
 as ``params.npz`` holds them) and returns a torch state dict under diffusers
 / transformers naming that the port's modules load with ``strict=True``.
 The eval backbones' (``sscd_from_flax``, ``inception_from_flax``,
-``vgg16_from_flax``, ``clip_image_from_flax``, ``clip_scorer_from_flax``)
+``vgg16_from_flax``, ``clip_image_from_flax``, ``clip_scorer_from_flax``,
+``vit_from_flax``, ``xcit_from_flax``, ``resnet50_classifier_from_flax``)
 are the inverses of ``dcr_tpu/models/convert.py``'s ``convert_sscd``,
-``convert_inception_fid``, ``convert_vgg16``, ``convert_clip_image`` and
-``convert_openai_clip``: frozen batch norm's ``scale``/``mean``/``var``
+``convert_inception_fid``, ``convert_vgg16``, ``convert_clip_image``,
+``convert_openai_clip``, ``convert_dino_vit``, ``convert_xcit`` and
+``convert_resnet50``: frozen batch norm's ``scale``/``mean``/``var``
 become ``weight``/``running_mean``/``running_var``.
 Dense kernels [in, out] become [out, in]; conv kernels HWIO become OIHW.
 Each ``*_to_flax`` is the inverse, for the port's own exports: a round trip
@@ -224,6 +226,39 @@ def clip_scorer_from_flax(params: Any) -> dict[str, torch.Tensor]:
     sd.update({f"text.{k}": v for k, v in text_from_flax(params["text"]).items()})
     sd.update(_to_torch({"text_projection": np.asarray(params["text_projection"])}))
     return sd
+
+
+def _vit_name_map(p: str) -> str:
+    return _clip_block_name_map(p) if p.startswith("blocks_") else p.replace("/", ".")
+
+
+def vit_from_flax(params: Any) -> dict[str, torch.Tensor]:
+    """VisionTransformer tree -> the port's VisionTransformer state dict
+    (the DINO hub names)."""
+    plain = {k: np.asarray(params[k]) for k in ("cls_token", "pos_embed")}
+    sd = dict(_to_torch(plain))
+    sd.update(_tree_to_sd({k: v for k, v in params.items() if k not in plain}, _vit_name_map))
+    return sd
+
+
+def xcit_name_map(p: str) -> str:
+    p = re.sub(r"^patch_embed/conv(\d+)", lambda m: f"patch_embed/proj/{2 * int(m.group(1))}/0", p)
+    p = re.sub(r"^patch_embed/bn(\d+)", lambda m: f"patch_embed/proj/{2 * int(m.group(1))}/1", p)
+    p = re.sub(r"^(blocks|cls_attn_blocks)_(\d+)", r"\1/\2", p)
+    return p.replace("/", ".")
+
+
+def xcit_from_flax(params: Any) -> dict[str, torch.Tensor]:
+    """XCiT tree -> the port's XCiT state dict (the facebookresearch/xcit
+    hub names: the patch tower's stage i is ``patch_embed.proj.{2i}``)."""
+    sd = dict(_to_torch({"cls_token": np.asarray(params["cls_token"])}))
+    sd.update(_bn_tree_to_sd({k: v for k, v in params.items() if k != "cls_token"},
+                             xcit_name_map))
+    return sd
+
+
+# ResNet50Classifier's tree is SSCD's ``backbone`` alone: the same names
+resnet50_classifier_from_flax = sscd_from_flax
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ torchvision ResNet-50's trunk therefore loads with ``strict=True``.
 
 The backbones are frozen feature extractors: batch norm runs in inference
 mode on its stored statistics, and the eval path calls them under
-``torch.inference_mode()``.
+``torch.inference_mode()``. ``ResNet50Classifier`` (the trunk + average
+pool, the ``dino_resnet50`` retrieval backbone) keeps the same names.
 """
 
 from __future__ import annotations
@@ -107,6 +108,18 @@ class ResNet50(nn.Module):
 def gem_pool(x: torch.Tensor, p: float = 3.0, eps: float = 1e-6) -> torch.Tensor:
     """Generalized-mean pooling over the spatial dims of [B, C, H, W]."""
     return x.clamp(min=eps).pow(p).mean(dim=(2, 3)).pow(1.0 / p)
+
+
+class ResNet50Classifier(nn.Module):
+    """ResNet-50 trunk + average pool: the ``dino_resnet50`` backbone.
+    [B, 3, H, W] -> [B, 2048]; the trunk sits under ``backbone.``."""
+
+    def __init__(self):
+        super().__init__()
+        self.backbone = ResNet50()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.backbone(x).mean(dim=(2, 3))
 
 
 class SSCDModel(nn.Module):

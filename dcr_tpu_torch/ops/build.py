@@ -1,11 +1,14 @@
-"""Build the port's CUDA kernels at first use and load them with ctypes.
+"""Build the port's native code at first use and load it with ctypes.
 
-Each source under ``dcr_tpu_torch/csrc/`` is compiled by ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface. The library lands
-in ``dcr_tpu_torch/_build/`` (gitignored) under a name keyed by a hash of
-the source, the headers it includes from its own directory and the flags, so
-an edited source or header rebuilds and an unchanged one loads the library
-already there. Nothing is built when a module is imported.
+Each CUDA source (``dcr_tpu_torch/csrc/*.cu``) is compiled by ``nvcc`` for
+``sm_90a``, and each host C++ source (``dcr_tpu_torch/native/*.cc``, the
+JPEG codec) by the host C++ compiler that ``nvcc`` itself needs (``$CXX``,
+else ``c++`` or ``g++`` on PATH), into a shared library with a plain C
+interface. The library lands in ``dcr_tpu_torch/_build/`` (gitignored) under
+a name keyed by a hash of the source, the headers it includes from its own
+directory and the flags, so an edited source or header rebuilds and an
+unchanged one loads the library already there. Nothing is built when a
+module is imported.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -45,6 +49,24 @@ def nvcc_path() -> Path:
         return Path(found)
     tried.append("nvcc on PATH")
     raise FileNotFoundError(f"nvcc not found (tried {', '.join(tried)})")
+
+
+def host_compiler() -> Path:
+    """The host C++ compiler: $CXX, then c++, then g++ on PATH."""
+    cxx = os.environ.get("CXX")
+    for name in ([cxx] if cxx else []) + ["c++", "g++"]:
+        found = shutil.which(name)
+        if found:
+            return Path(found)
+    raise FileNotFoundError("no host C++ compiler found (tried $CXX, c++, g++ on PATH)")
+
+
+def _is_cuda(source: Path) -> bool:
+    return Path(source).suffix == ".cu"
+
+
+def _flags(source: Path) -> tuple[str, ...]:
+    return NVCC_FLAGS if _is_cuda(source) else HOST_FLAGS
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
@@ -71,7 +93,7 @@ def library_path(source: Path) -> Path:
     digest = hashlib.sha256()
     for path in dependencies(source):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(source)).encode())
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -81,14 +103,15 @@ def _start(source: Path) -> tuple[Path, Path, subprocess.Popen | None]:
         return source, lib, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [str(nvcc_path()), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    compiler = nvcc_path() if _is_cuda(source) else host_compiler()
+    cmd = [str(compiler), *_flags(source), "-o", str(tmp), str(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return source, lib, proc
 
 
 def build(sources: Sequence[Path]) -> dict[str, str]:
-    """Compile every source not built yet, all nvcc processes at once.
+    """Compile every source not built yet, all compiler processes at once.
     Returns {source stem: compiler output} ("" for a library already built);
     raises with the compiler output if any build fails."""
     started = [_start(Path(s)) for s in sources]
@@ -108,7 +131,7 @@ def build(sources: Sequence[Path]) -> dict[str, str]:
         (BUILD_DIR / f"{source.stem}.log").write_text(out)
         logs[source.stem] = out
     if failures:
-        raise RuntimeError("nvcc failed for " + "\n".join(failures))
+        raise RuntimeError("the build failed for " + "\n".join(failures))
     return logs
 
 

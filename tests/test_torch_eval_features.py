@@ -105,7 +105,7 @@ def test_batches_pad_only_when_asked(tmp_path):
 
 def test_non_png_is_refused(tmp_path):
     _png(tmp_path / "a.png", (8, 8, 3), 0)
-    (tmp_path / "b.jpg").write_bytes(b"\xff\xd8\xff")
+    (tmp_path / "b.webp").write_bytes(b"RIFF")   # JPEG is read now (test_torch_jpeg.py)
     folder = F.EvalImageFolder(tmp_path, 8)
     with pytest.raises(NotPortedError, match="PNG"):
         folder.load(1)

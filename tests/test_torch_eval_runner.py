@@ -153,10 +153,10 @@ def test_port_alone_with_every_ported_stage(tmp_path):
 
 
 @pytest.mark.parametrize("override,what", [
-    ({}, "compute_complexity=false"),                      # the JAX default
-    ({"pt_style": "dino", "arch": "dino_vits16"}, "pt_style=dino"),
-    ({"pt_style": "clip"}, "pt_style=clip"),
-    ({"layer": 2}, "layer=2"),
+    ({"fault.barrier_timeout_s": 5.0}, "fault.barrier_timeout_s"),
+    ({"fault.hang_timeout_s": 5.0}, "fault.hang_timeout_s"),
+    ({"fault.decode_retries": 2}, "fault.decode_retries"),
+    ({"fault.max_bad_sample_frac": 0.1}, "fault.max_bad_sample_frac"),
     ({"mesh.data": 2}, "mesh of 2"),
     ({"warm.dir": "w"}, "warm.dir"),
     ({"use_wandb": True}, "use_wandb"),
@@ -165,8 +165,6 @@ def test_port_alone_with_every_ported_stage(tmp_path):
 ])
 def test_settings_not_ported_are_refused(tmp_path, override, what):
     args = [f"--{k}={v}" for k, v in override.items()]
-    if "compute_complexity" not in what:
-        args.append("--compute_complexity=false")
     cfg = TC.parse_cli(TC.EvalConfig, args)
     with pytest.raises(TC.NotPortedError, match=what):
         TC.validate_eval_config(cfg)
