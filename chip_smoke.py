@@ -42,6 +42,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 5c. fast sampling: phase 5 with fast.enabled (reuse 0.5, order 2): 15
    forward launches per UNet call of the plan, images finite in [0, 1];
    seconds per call beside phase 5's, max |diff| to its images (reported);
+5d. mitigation (inside 5b, on its genuine directory): dcr-mitigate
+   (cli.mitigate.main) at 512 px, 20 steps, rand_noise_lam 0.1,
+   rand_word_add: 12 prompts and 12 PNGs under
+   inferences/mitigation_aug_rand_word_add, finite images, 15 forward
+   launches per UNet call, every launch at a shape of phase 3's
+   mitigate_level rows (CFG batch 2); seconds per prompt;
 6. training main path: dcr_tpu_torch.diffusion.trainer.Trainer(TrainConfig())
    (SD-2.1 widths, 256 px, batch 16, bf16, AdamW with warmup) on a
    class-folder of 48 JPEGs at 500x375 written by the port's encoder
@@ -67,11 +73,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    training JPEGs at 256 px; scalars finite, the copies found, the
    artifacts written; stage seconds, SSCD images/s and ms per batch, host
    decode against device time, peak memory;
-11. backbones (last): one run_eval each with dino_vitb8, dino_xcit_small_12_p16,
+11. backbones: one run_eval each with dino_vitb8, dino_xcit_small_12_p16,
    dino_resnet50 and the CLIP image tower at full width over 500x375 JPEGs;
-   device ms per batch of 64, images/s, peak memory.
-No kernel lies on the eval paths (9-11: their attention is SDPA's, XCiT's
-is over channels): their launch counts must stay 0.
+   device ms per batch of 64, images/s, peak memory;
+12. small search reference: a store of 8,192 unit rows x 512 in 4 segments
+   of 2,048, 100 queries at top_k=5, resident and streamed: the card
+   against the CPU, and the store against search_folders on the card,
+   under the tie rule (scores within 1e-5 |q||x|, keys equal away from
+   near-ties) against a float64 reference;
+13. search main path (last), through dcr-search-torch: embed (SSCD at 224,
+   batch 128, over 2 tars of 512 JPEGs at 256 px and a corrupt member),
+   build from 2 reference-format pickle dumps of 1,048,576 unit rows x
+   512 (32 shards of 65,536, 4.3 GB), verify, query 4,096 rows (64 planted
+   copies) at top_k=1 and 10 (host-streamed) and on a resident one-chunk
+   store, and the brute force (num_chunks=20); every copy top-1, a float64
+   oracle over the whole store for 64 queries and the brute force against
+   the store under the tie rule; seconds, rows x queries per second and
+   the share of the bound (at the CUDA cores' f32 rate, where the engine's
+   matmul runs, and at split TF32's), upload GB/s, device busy share, peak
+   memory; the flash launch counts are read across the whole phase.
+No kernel lies on the eval and search paths (9-13: their attention is
+SDPA's, XCiT's is over channels; search is matmuls and torch.topk): their
+launch counts must stay 0.
 Each main path runs with every launch count set to 0 just before it and
 read just after (the hook's launches are read around each hook call). The last line is {"ok": true, "device": {...}}; the line
 before it holds the kernels' numbers as JSON, one record per kernel and
@@ -99,6 +122,8 @@ import torch
 # TFLOP/s), above the 67 TFLOP/s of the CUDA cores; one TF32 product alone
 # misses f32 accuracy
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+# f32 on the CUDA cores: the search engine's matmul runs there (TF32 off)
+PEAK_FLOPS_F32_CUDA_CORES = 67e12
 PEAK_BYTES = 3.35e12
 
 
@@ -390,6 +415,15 @@ def phase_jpeg_codec() -> dict:
     return stats
 
 
+# dcr-mitigate (phase 5d): one image per prompt with CFG at 512 px; phase 5d
+# holds every forward launch it makes to one of these shapes
+MITIGATE_CASES = [
+    ("mitigate_level0", 2, 4096, 4096, 5, 64, 1.0, True),
+    ("mitigate_level1", 2, 1024, 1024, 10, 64, 1.0, True),
+    ("mitigate_level2", 2, 256, 256, 20, 64, 1.0, True),
+]
+
+
 def phase_kernels(reps: int) -> dict:
     import torch.nn.functional as F
 
@@ -407,6 +441,7 @@ def phase_kernels(reps: int) -> dict:
         # dcr-train's sample hook: 1 prompt x 4 images with CFG at 256 px
         ("hook_level0", 8, 1024, 1024, 5, 64, 1.0, True),
         ("hook_level1", 8, 256, 256, 10, 64, 1.0, True),
+        *MITIGATE_CASES,
         ("d128", 2, 1024, 1024, 4, 128, 1.0, False),
         ("d256", 2, 512, 512, 4, 256, 1.0, False),
         ("rect", 2, 1024, 256, 4, 64, 1.0, False),
@@ -551,6 +586,8 @@ def phase_bwd_kernels(reps: int) -> dict:
         # dcr-train's sample hook: 1 prompt x 4 images with CFG at 256 px
         ("hook_level0", 8, 1024, 1024, 5, 64, 1.0, True),
         ("hook_level1", 8, 256, 256, 10, 64, 1.0, True),
+        # dcr-mitigate's forward shapes; it runs no backward
+        *(c[:-1] + (False,) for c in MITIGATE_CASES),
         ("d128", 2, 1024, 1024, 4, 128, 1.0, False),
         ("d256", 2, 512, 512, 4, 256, 1.0, False),
         ("sq_gt_sk", 2, 1024, 256, 4, 64, 1.0, False),
@@ -1652,6 +1689,567 @@ def phase_backbones(root: Path) -> dict:
     return stats
 
 
+def phase_mitigation(ckpt: Path, root: Path) -> dict:
+    """Phase 5d: dcr-mitigate (dcr_tpu_torch.cli.mitigate.main) on phase 5b's
+    genuine diffusers directory at 512 px, 20 DPM++ steps, one image per
+    prompt, rand_noise_lam 0.1 and rand_word_add, run from ``root`` so the
+    JAX savepath rule's relative directory lands there. Held: 12 prompts
+    and 12 PNGs under inferences/mitigation_aug_rand_word_add, finite
+    images in [0, 1], 15 B1 launches per UNet call, each at the shape of one
+    of phase 3's MITIGATE_CASES. Reports seconds per prompt (the
+    checkpoint's load included once)."""
+    import os
+
+    from dcr_tpu_torch.cli import mitigate
+    from dcr_tpu_torch.ops import flash_attention as fa
+    from dcr_tpu_torch.sampling import pipeline as P
+
+    # (B, Sq, Sk, H, D) of every forward launch: the kernel checks its
+    # inputs just before it launches
+    shapes, check_inputs = set(), fa._check_kernel_inputs
+
+    def recording_check(q, k, v):
+        shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3], q.dtype))
+        return check_inputs(q, k, v)
+
+    calls, images, unet_calls = [], [], []
+    make = P.make_sampler
+
+    def timed_make_sampler(*a, **kw):
+        fn = make(*a, **kw)
+        unet_calls.append(fn.unet_calls)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - start)
+            images.append(out.float().cpu())
+            return out
+        timed.unet_calls = fn.unet_calls
+        return timed
+
+    cwd = os.getcwd()
+    P.make_sampler, fa._check_kernel_inputs = timed_make_sampler, recording_check
+    torch.cuda.reset_peak_memory_stats()
+    os.chdir(root)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = mitigate.main([f"--model_path={ckpt}", "--resolution=512", "--num_batches=1",
+                             "--im_batch=1", "--num_inference_steps=20",
+                             "--rand_noise_lam=0.1", "--rand_augs=rand_word_add"])
+    finally:
+        launches = read_launches()
+        os.chdir(cwd)
+        P.make_sampler, fa._check_kernel_inputs = make, check_inputs
+    total_s = time.perf_counter() - t0
+    out = root / out
+    pngs = sorted((out / "generations").glob("*.png"))
+    prompts = (out / "prompts.txt").read_text().splitlines()
+    imgs = torch.cat(images)
+    expected = 15 * unet_calls[0] * len(calls) if unet_calls else -1
+    stats = {"savepath": str(out.relative_to(root)), "prompts": len(prompts),
+             "pngs": len(pngs), "sampler_calls": len(calls), "total_s": total_s,
+             "s_per_prompt": total_s / max(1, len(prompts)),
+             "sampler_call_s_median": statistics.median(calls) if calls else None,
+             "launches": launches[0], "expected_launches": expected,
+             "kernel_shapes": sorted(list(x[:5]) for x in shapes),
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "first_prompt": prompts[0] if prompts else None}
+    log(f"mitigation (dcr-mitigate on the genuine checkpoint, 512 px, 20 steps): "
+        f"{json.dumps(stats)}")
+    _check_images(imgs, "mitigation")
+    if (stats["savepath"] != "inferences/mitigation_aug_rand_word_add" or len(prompts) != 12
+            or len(pngs) != 12 or imgs.shape != (12, 512, 512, 3)
+            or launches != (expected, 0, 0) or expected != 15 * 20 * 12):
+        raise AssertionError(f"mitigation failed: {stats}")
+    held = {tuple(c[1:6]) + (torch.float32,) for c in MITIGATE_CASES}
+    if shapes != held:
+        raise AssertionError(f"mitigation launched B1 at {sorted(map(str, shapes))}, phase 3 "
+                             f"holds it at {sorted(map(str, held))}")
+    return stats
+
+
+def tie_rule(what: str, scores_a, keys_a, scores_b, keys_b, exact, *, bound: float = 1e-5,
+             gap: float = 2e-5) -> dict:
+    """Two top-k tables of unit queries over unit rows agree: scores within
+    ``bound`` (1e-5 * |q| * |x|), keys equal at every rank whose reference
+    score is more than ``gap`` away from the reference scores on either side
+    (``exact``: [n, >= k] descending reference scores, a (k+1)-th column
+    where the corpus has one). Near-ties may swap. Raises otherwise."""
+    import numpy as np
+
+    scores_a, scores_b = np.asarray(scores_a, np.float64), np.asarray(scores_b, np.float64)
+    n, k = scores_a.shape
+    ref = np.full((n, k + 2), -np.inf)
+    ref[:, 0] = np.inf
+    ref[:, 1:1 + min(k + 1, exact.shape[1])] = exact[:, :k + 1]
+    above = ref[:, :k] - ref[:, 1:k + 1]
+    below = ref[:, 1:k + 1] - ref[:, 2:k + 2]
+    decided = np.minimum(above, below) > gap
+    finite = np.isfinite(scores_a) & np.isfinite(scores_b)
+    err = float(np.abs(scores_a - scores_b)[finite].max()) if finite.any() else 0.0
+    mismatch = int(((np.asarray(keys_a) != np.asarray(keys_b)) & decided).sum())
+    out = {"max_abs_score_diff": err, "bound": bound, "decided_ranks": int(decided.sum()),
+           "ranks": n * k, "key_mismatches": mismatch,
+           "same_inf_pads": bool((np.isneginf(scores_a) == np.isneginf(scores_b)).all())}
+    if err > bound or mismatch or not out["same_inf_pads"]:
+        raise AssertionError(f"{what}: the tie rule fails: {out}")
+    return out
+
+
+def _unit_rows(n: int, dim: int, seed: int):
+    """float32 [n, dim] of L2-normalised seeded Gaussian rows, drawn on the
+    card (fast at the LAION-chunk scale) and returned on the host."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, dim), generator=g, device="cuda")
+    return torch.nn.functional.normalize(x, dim=1).cpu().numpy()
+
+
+def _exact_topk(q, chunks, k: int):
+    """float64 top-k scores and keys of ``q`` over the chunks [(feats, keys)],
+    on the host in blocks of 65536 rows."""
+    import numpy as np
+
+    q64 = np.asarray(q, np.float64)
+    best_s = np.full((len(q), 0), -np.inf)
+    best_k = np.zeros((len(q), 0), object)
+    for feats, keys in chunks:
+        keys = np.asarray(keys, object)
+        for start in range(0, len(feats), 65536):
+            s = q64 @ feats[start:start + 65536].astype(np.float64).T
+            top = np.argpartition(-s, min(k, s.shape[1]) - 1, axis=1)[:, :k]
+            all_s = np.concatenate([best_s, np.take_along_axis(s, top, 1)], 1)
+            all_k = np.concatenate([best_k, keys[start:start + 65536][top]], 1)
+            order = np.argsort(-all_s, axis=1, kind="stable")[:, :k]
+            best_s = np.take_along_axis(all_s, order, 1)
+            best_k = np.take_along_axis(all_k, order, 1)
+    return best_s, best_k
+
+
+def phase_small_search_reference(root: Path) -> dict:
+    """Phase 12: a store of 8,192 unit rows x 512 (two dumps, shards of 1,024
+    rows) queried in segments of 2,048 rows (4 segments) by 100 unit queries
+    (10 of them store rows) at top_k=5, resident and streamed
+    (max_resident_rows=1): the card against the CPU, and on the card the
+    store against search_folders over the same dumps, each under the tie
+    rule with a float64 reference; no flash launch."""
+    import numpy as np
+
+    from dcr_tpu_torch.search import embed as E
+    from dcr_tpu_torch.search import search as S
+    from dcr_tpu_torch.search import shardindex as SI
+    from dcr_tpu_torch.search import store as ST
+
+    feats = _unit_rows(8192, 512, seed=12)
+    keys = [f"small{i // 4096}/{i % 4096}" for i in range(8192)]
+    folders = []
+    for c in range(2):
+        folder = root / f"chunk{c}"
+        folder.mkdir()
+        E.save_embeddings(folder / "embedding.npz", feats[c * 4096:(c + 1) * 4096],
+                          keys[c * 4096:(c + 1) * 4096])
+        folders.append(folder)
+    store = root / "store"
+    ST.ingest_dumps(ST.EmbeddingStoreWriter.create(store, shard_rows=1024), folders)
+    q = _unit_rows(100, 512, seed=13)
+    q[::10] = feats[::820][:10]
+    exact, _ = _exact_topk(q, [(feats, keys)], 6)
+    reset_launches()
+    results, stats = {}, {}
+    for mode, limit in (("resident", SI.DEFAULT_MAX_RESIDENT_ROWS), ("streamed", 1)):
+        for dev in ("cuda", "cpu"):
+            eng = SI.ShardedTopK(ST.EmbeddingStoreReader(store), top_k=5, query_batch=64,
+                                 segment_rows=2048, max_resident_rows=limit, device=dev).build()
+            if eng.num_segments != 4 or eng.resident != (mode == "resident"):
+                raise AssertionError(f"small search: {mode} engine has {eng.num_segments} "
+                                     f"segments, resident={eng.resident}")
+            results[mode, dev] = eng.query(q)
+        stats[f"{mode}_card_vs_cpu"] = tie_rule(f"small search {mode}", *results[mode, "cuda"],
+                                                *results[mode, "cpu"], exact)
+    brute = S.search_folders(q, [f"g{i}" for i in range(100)], folders, top_k=5, num_chunks=3,
+                             device="cuda")
+    stats["store_vs_brute_on_card"] = tie_rule("small search store vs brute force",
+                                               *results["resident", "cuda"], brute["scores"],
+                                               brute["keys"], exact)
+    launches = read_launches()
+    top1 = results["resident", "cuda"][1][::10, 0].tolist()
+    stats.update({"copies_top1": top1 == keys[::820][:10], "launches_fwd_dq_dkv": launches})
+    log(f"small search reference (8,192 x 512, 4 segments, 100 queries, top_k=5): "
+        f"{json.dumps(stats)}")
+    if not stats["copies_top1"] or launches != (0, 0, 0):
+        raise AssertionError(f"small search reference failed: {stats}")
+    return stats
+
+
+SEARCH_DIM, SEARCH_CHUNK_ROWS, SEARCH_QUERIES, SEARCH_COPIES = 512, 1 << 20, 4096, 64
+
+
+def _write_laion_tars(root: Path, n_tars: int, per_tar: int) -> int:
+    """webdataset tars of ``per_tar`` 256x256 JPEGs each (img2dataset's
+    center_crop 256 output), written by the port's encoder at quality 90,
+    with a caption member beside each image, and one corrupt JPEG in the
+    first tar. Returns the JPEGs that decode."""
+    import io
+    import tarfile
+
+    from dcr_tpu_torch.native.jpeg_helper import encode
+
+    root.mkdir(parents=True)
+    for t in range(n_tars):
+        with tarfile.open(root / f"{t:05d}.tar", "w") as tf:
+            members = []
+            for i in range(per_tar):
+                key = f"{t:05d}{i:04d}"
+                members.append((f"{key}.jpg", encode(_photo(t * per_tar + i, 256, 256), 90)))
+                members.append((f"{key}.txt", f"a caption {key}".encode()))
+            if t == 0:
+                members.append(("corrupt.jpg", b"\xff\xd8\xff\xe0 not a jpeg"))
+            for name, data in members:
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    return n_tars * per_tar
+
+
+def _search_embed(root: Path) -> dict:
+    """The embed stage: SSCD ResNet-50 at 224, batch 128 (SearchConfig's
+    defaults), seeded weights, over 2 tars of 512 JPEGs + 1 corrupt member.
+    Host ms (decode, resize, crop, normalise, stack) against device ms
+    (CUDA events around the extractor's call: upload + forward) per batch."""
+    import numpy as np
+
+    from dcr_tpu_torch.core.config import SearchConfig
+    from dcr_tpu_torch.search import embed as E
+
+    t0 = time.perf_counter()
+    n_images = _write_laion_tars(root / "tars", 2, 512)
+    write_s = time.perf_counter() - t0
+    batches, make = [], E.make_extractor
+    last = [0.0]
+
+    def timed_make_extractor(forward, device, **kw):
+        fn = make(forward, device, **kw)
+        last[0] = time.perf_counter()      # the model is built: batches start
+
+        def timed(images):
+            host_ms = 1e3 * (time.perf_counter() - last[0])
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(images)
+            end.record()
+            end.synchronize()
+            batches.append({"n": len(images), "host_ms": host_ms,
+                            "device_ms": start.elapsed_time(end)})
+            last[0] = time.perf_counter()
+            return out
+        return timed
+
+    E.make_extractor = timed_make_extractor
+    (root / "gen_embed").mkdir()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = E.embed_images(SearchConfig(), source=root / "tars",
+                             out_path=root / "gen_embed" / "embedding.npz", device="cuda")
+    finally:
+        E.make_extractor = make
+    embed_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    feats, keys = E.load_embeddings(out)
+    # SSCD on one resident contiguous NCHW batch of 128 alone (phase 10's
+    # measure at 64), beside the batches above (NHWC host arrays uploaded
+    # and permuted)
+    from dcr_tpu_torch.eval.runner import build_backbone
+
+    model = build_backbone("sscd", "resnet50_disc", "cuda", seed=0)
+    x = torch.randn((128, 3, 224, 224), generator=torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    with torch.inference_mode():
+        for _ in range(2):
+            model(x)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            model(x)
+        end.record()
+        end.synchronize()
+    del model, x
+    stats = {"images": len(keys), "write_tars_s": write_s, "embed_s": embed_s,
+             "sscd_batch128_alone_device_ms": start.elapsed_time(end) / 5,
+             "images_per_s": len(keys) / embed_s, "batches": len(batches),
+             "host_ms_per_batch": statistics.mean(b["host_ms"] for b in batches),
+             "device_ms_per_batch": statistics.mean(b["device_ms"] for b in batches),
+             "host_ms_per_batch_median": statistics.median(b["host_ms"] for b in batches),
+             "device_ms_per_batch_median": statistics.median(b["device_ms"] for b in batches),
+             "device_busy_share": sum(b["device_ms"] for b in batches) / 1e3 / embed_s,
+             "peak_bytes": peak}
+    if (feats.shape != (n_images, SEARCH_DIM) or not np.isfinite(feats).all()
+            or len(set(keys)) != n_images or any(k.endswith("corrupt") for k in keys)
+            or [b["n"] for b in batches] != [128] * 8):
+        raise AssertionError(f"search embed failed: {feats.shape}, {len(set(keys))} keys, "
+                             f"{stats}")
+    return stats
+
+
+def _cli(argv: list[str]) -> tuple[float, list]:
+    """dcr-search-torch with ``argv``: its seconds and the JSON documents it
+    printed."""
+    import contextlib
+    import io
+
+    from dcr_tpu_torch.cli import search as cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    seconds = time.perf_counter() - t0
+    text, docs, dec = buf.getvalue(), [], json.JSONDecoder()
+    pos = 0
+    while text[pos:].strip():
+        if text[pos:].lstrip().startswith("{"):
+            doc, end = dec.raw_decode(text[pos:].lstrip())
+            pos = len(text) - len(text[pos:].lstrip()) + end
+            docs.append(doc)
+        else:
+            pos = text.index("\n", pos) + 1 if "\n" in text[pos:] else len(text)
+    return seconds, docs
+
+
+class EngineProbe:
+    """Times the top-k engine while installed: the query call (host clock,
+    synchronised), each segment upload and each topk call (CUDA events)."""
+
+    def __init__(self):
+        from dcr_tpu_torch.search import shardindex as SI
+
+        self.SI = SI
+        self.saved = (SI.ShardedTopK.query, SI.ShardedTopK._put_segment, SI.topk,
+                      SI.ShardedTopK.build)
+        self.query_s, self.build_s, self.uploads, self.topk_events = [], [], [], []
+
+    def __enter__(self) -> "EngineProbe":
+        SI = self.SI
+        query, put, topk, build = self.saved
+
+        def timed_build(eng):
+            t0 = time.perf_counter()
+            out = build(eng)
+            torch.cuda.synchronize()
+            self.build_s.append(time.perf_counter() - t0)
+            return out
+
+        def timed_query(eng, q):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = query(eng, q)
+            torch.cuda.synchronize()
+            self.query_s.append(time.perf_counter() - t0)
+            self.resident = eng.resident
+            return out
+
+        def timed_put(eng, seg):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = put(eng, seg)
+            end.record()
+            self.uploads.append((start, end, seg[0].numel() * 4 + seg[1].numel()))
+            return out
+
+        def timed_topk(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = topk(*a, **kw)
+            end.record()
+            self.topk_events.append((start, end))
+            return out
+
+        SI.ShardedTopK.query, SI.ShardedTopK._put_segment = timed_query, timed_put
+        SI.ShardedTopK.build, SI.topk = timed_build, timed_topk
+        return self
+
+    def __exit__(self, *exc) -> None:
+        SI = self.SI
+        (SI.ShardedTopK.query, SI.ShardedTopK._put_segment, SI.topk,
+         SI.ShardedTopK.build) = self.saved
+
+    def report(self, rows: int, queries: int, dim: int) -> dict:
+        torch.cuda.synchronize()
+        upload_ms = sum(s.elapsed_time(e) for s, e, _ in self.uploads)
+        upload_bytes = sum(b for _, _, b in self.uploads)
+        topk_ms = sum(s.elapsed_time(e) for s, e in self.topk_events)
+        q_s = sum(self.query_s)
+        flops = 2.0 * rows * queries * dim
+        t_bytes = 4.0 * (rows * dim + queries * dim) / PEAK_BYTES
+        # the bound at the rate the engine's f32 matmul runs at (CUDA cores,
+        # TF32 off), and at split TF32's (f32-accurate on the tensor cores)
+        bound_s = max(flops / PEAK_FLOPS_F32_CUDA_CORES, t_bytes)
+        bound_tf32x3_s = max(flops / PEAK_FLOPS[torch.float32], t_bytes)
+        return {"resident": self.resident, "engine_build_s": sum(self.build_s),
+                "query_call_s": q_s, "rows_x_queries_per_s": rows * queries / q_s,
+                "bound_s": bound_s, "bound_by": ("operations" if flops
+                                                 / PEAK_FLOPS_F32_CUDA_CORES >= t_bytes
+                                                 else "bytes"),
+                "share_of_bound": bound_s / q_s, "bound_split_tf32_s": bound_tf32x3_s,
+                "share_of_bound_split_tf32": bound_tf32x3_s / q_s,
+                "topk_calls": len(self.topk_events),
+                "topk_device_ms": topk_ms, "segment_uploads": len(self.uploads),
+                "upload_ms": upload_ms,
+                "upload_gb_per_s": upload_bytes / upload_ms / 1e6 if upload_ms else None,
+                "device_busy_share": (topk_ms + upload_ms) / 1e3 / q_s}
+
+
+def phase_search_main_path(root: Path) -> dict:
+    """Phase 13: the LAION search stage through dcr-search-torch at SSCD's
+    width (512) and a LAION-chunk scale: embed (SSCD over 2 tars of 512
+    JPEGs), build a store from 2 chunk folders of reference-format pickle
+    dumps of 1,048,576 unit rows each (2,097,152 rows, 4.3 GB, 32 shards of
+    65,536), verify it, query it with 4,096 generation rows (64 of them
+    planted copies, normalize(store row + 0.05 noise)) at top_k=1 and 10
+    (host-streamed: above DEFAULT_MAX_RESIDENT_ROWS), query a resident
+    one-chunk store, and run the brute force (num_chunks=20) over the same
+    folders. Held: every planted copy top-1 with its key, a float64 oracle
+    over the whole store for 64 queries, the brute force against the store,
+    the top-1 table against the top-10's first column, all under the tie
+    rule; 0 flash launches."""
+    import pickle
+
+    import numpy as np
+
+    from dcr_tpu_torch.search import embed as E
+    from dcr_tpu_torch.search import store as ST
+
+    reset_launches()
+    stats = {"embed": _search_embed(root / "embed")}
+    log(f"search main path, embed: {json.dumps(stats['embed'])}")
+
+    # the two LAION chunks: reference-format pickles of unit rows
+    t0 = time.perf_counter()
+    laion, chunks = root / "laion", []
+    for c in range(2):
+        folder = laion / f"chunk{c}"
+        folder.mkdir(parents=True)
+        feats = _unit_rows(SEARCH_CHUNK_ROWS, SEARCH_DIM, seed=100 + c)
+        keys = [f"{c:05d}{i:07d}" for i in range(SEARCH_CHUNK_ROWS)]
+        with open(folder / "embedding.pkl", "wb") as f:
+            pickle.dump({"features": feats, "indexes": keys}, f, protocol=4)
+        chunks.append((feats, keys))
+    dump_bytes = sum((laion / f"chunk{c}" / "embedding.pkl").stat().st_size for c in range(2))
+    stats["write_dumps_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(13)
+    q = _unit_rows(SEARCH_QUERIES, SEARCH_DIM, seed=200)
+    planted_rows = rng.choice(2 * SEARCH_CHUNK_ROWS, SEARCH_COPIES, replace=False)
+    planted_q = rng.choice(SEARCH_QUERIES, SEARCH_COPIES, replace=False)
+    planted_keys = []
+    for qi, row in zip(planted_q, planted_rows):
+        feats, keys = chunks[row // SEARCH_CHUNK_ROWS]
+        x = feats[row % SEARCH_CHUNK_ROWS] + 0.05 * rng.standard_normal(SEARCH_DIM)
+        q[qi] = (x / np.linalg.norm(x)).astype(np.float32)
+        planted_keys.append(keys[row % SEARCH_CHUNK_ROWS])
+    gens = root / "gens"
+    gens.mkdir()
+    E.save_embeddings(gens / "embedding.npz", q, [f"gen{i}" for i in range(SEARCH_QUERIES)])
+
+    store, store1 = root / "store", root / "store_one_chunk"
+    build_s, (report,) = _cli(["build", f"--store_dir={store}", f"--laion_folder={laion}",
+                               "--shard_rows=65536"])
+    store_bytes = sum(p.stat().st_size for p in store.glob("shard_*.npz"))
+    verify_s, (verify,) = _cli(["verify", f"--store_dir={store}"])
+    stats["build"] = {"report": report, "ingest_s": build_s, "store_bytes": store_bytes,
+                      "dump_bytes": dump_bytes, "ingest_gb_per_s": store_bytes / build_s / 1e9,
+                      "verify": verify, "verify_s": verify_s,
+                      "verify_gb_per_s": store_bytes / verify_s / 1e9}
+    log(f"search main path, build + verify: {json.dumps(stats['build'])}")
+    if (report["rows"] != 2 * SEARCH_CHUNK_ROWS or report["shards"] != 32
+            or verify != {"shards": 32, "ok": 32, "corrupt": 0,
+                          "rows_ok": 2 * SEARCH_CHUNK_ROWS, "total": 2 * SEARCH_CHUNK_ROWS}):
+        raise AssertionError(f"search build/verify failed: {report}, {verify}")
+
+    stats["build"]["one_chunk_ingest_s"], _ = _cli([
+        "build", f"--store_dir={store1}", f"--dumps={laion / 'chunk0' / 'embedding.pkl'}",
+        "--shard_rows=65536"])
+    tables = {}
+    for name, s, k in (("streamed_k1", store, 1), ("streamed_k10", store, 10),
+                       ("resident_one_chunk_k10", store1, 10)):
+        out = root / f"{name}.npz"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with EngineProbe() as probe:
+            cli_s, _ = _cli(["query", f"--store_dir={s}", f"--gen_folder={gens}",
+                             f"--out_path={out}", f"--top_k={k}"])
+        rows = SEARCH_CHUNK_ROWS * (1 if s == store1 else 2)
+        entry = {"cli_s": cli_s, "top_k": k, "rows": rows,
+                 "peak_bytes": torch.cuda.max_memory_allocated(),
+                 **probe.report(rows, SEARCH_QUERIES, SEARCH_DIM)}
+        with np.load(out) as z:
+            tables[name] = (z["scores"], z["keys"].astype(object))
+        stats[name] = entry
+        log(f"search main path, query {name}: {json.dumps(entry)}")
+    if stats["streamed_k10"]["resident"] or not stats["resident_one_chunk_k10"]["resident"]:
+        raise AssertionError("search: the 2M-row store must stream, the 1M-row one stay "
+                             "resident")
+
+    # planted copies: top-1 with their keys (in the one-chunk store, those of chunk 0)
+    s1, k1 = tables["streamed_k1"]
+    found = [k1[qi, 0] == key for qi, key in zip(planted_q, planted_keys)]
+    in_chunk0 = [row < SEARCH_CHUNK_ROWS for row in planted_rows]
+    kr = tables["resident_one_chunk_k10"][1]
+    found_resident = [kr[qi, 0] == key for qi, key, c0 in
+                      zip(planted_q, planted_keys, in_chunk0) if c0]
+    # the float64 oracle over the whole store: 32 planted and 32 other queries
+    others = np.setdiff1d(np.arange(SEARCH_QUERIES), planted_q)[:32]
+    oracle_q = np.concatenate([planted_q[:32], others])
+    t0 = time.perf_counter()
+    ex_s, ex_k = _exact_topk(q[oracle_q], chunks, 11)
+    oracle_s = time.perf_counter() - t0
+    s10, k10 = tables["streamed_k10"]
+    checks = {
+        "oracle_vs_store_k10": tie_rule("search oracle", s10[oracle_q], k10[oracle_q],
+                                        ex_s[:, :10], ex_k[:, :10], ex_s),
+        "oracle_vs_store_k1": tie_rule("search oracle top-1", s1[oracle_q], k1[oracle_q],
+                                       ex_s[:, :1], ex_k[:, :1], ex_s),
+        "store_k1_vs_k10": tie_rule("search top-1 vs top-10", s1, k1, s10[:, :1], k10[:, :1],
+                                    s10, gap=4e-5),
+    }
+    ex1_s, ex1_k = _exact_topk(q[oracle_q], chunks[:1], 11)
+    sr, kr = tables["resident_one_chunk_k10"]
+    checks["oracle_vs_resident_k10"] = tie_rule("search oracle, one chunk", sr[oracle_q],
+                                                kr[oracle_q], ex1_s[:, :10], ex1_k[:, :10],
+                                                ex1_s)
+
+    # the brute force over the same folders, top-11 so rank 10's gap is known
+    brute_out = root / "brute.npz"
+    torch.cuda.reset_peak_memory_stats()
+    brute_s, _ = _cli(["search", f"--gen_folder={gens}", f"--laion_folder={laion}",
+                       f"--out_path={brute_out}", "--num_chunks=20", "--top_k=11"])
+    with np.load(brute_out) as z:
+        bs, bk = z["scores"], z["keys"].astype(object)
+    checks["brute_vs_store_k10"] = tie_rule("search brute force vs store", bs[:, :10],
+                                            bk[:, :10], s10, k10, bs, gap=4e-5)
+    launches = read_launches()
+    stats["brute_force"] = {"cli_s": brute_s, "top_k": 11, "num_chunks": 20,
+                            "peak_bytes": torch.cuda.max_memory_allocated(),
+                            "rows_x_queries_per_s": 2 * SEARCH_CHUNK_ROWS * SEARCH_QUERIES
+                            / brute_s}
+    stats.update({"checks": checks, "oracle_s": oracle_s,
+                  "copies_found": sum(found), "copies": len(found),
+                  "copies_found_resident": sum(found_resident),
+                  "copies_in_chunk0": len(found_resident),
+                  "launches_fwd_dq_dkv": launches})
+    log(f"search main path, checks: {json.dumps(checks)}; planted copies top-1 "
+        f"{sum(found)}/{len(found)} (one-chunk store {sum(found_resident)}/"
+        f"{len(found_resident)}); brute force {brute_s:.2f} s; flash launches {launches}")
+    if not all(found) or not all(found_resident) or launches != (0, 0, 0):
+        raise AssertionError(f"search main path failed: copies {sum(found)}/{len(found)}, "
+                             f"one chunk {sum(found_resident)}/{len(found_resident)}, "
+                             f"launches {launches}")
+    return stats
+
+
 def kernel_entry(kind: str, dtype: str, rows: list[dict], cases: tuple[str, ...],
                  launches: dict, tensor_core_instructions: dict) -> dict:
     """One kernel's record for the JSON line, from its phase-3 rows at the
@@ -1718,6 +2316,8 @@ def main() -> int:
         main_stats, main = phase_main_path(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         interop_stats = phase_checkpoint_interop(Path(tmp), main)
+        torch.cuda.empty_cache()
+        mitigation_stats = phase_mitigation(Path(tmp) / "sd21", Path(tmp))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         fast_stats = phase_fast_sampling(Path(tmp), main, main_stats)
@@ -1736,6 +2336,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         backbone_stats = phase_backbones(Path(tmp))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        small_search = phase_small_search_reference(Path(tmp))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        search_stats = phase_search_main_path(Path(tmp))
 
     def fwd_row(case, dtype):
         return next(r for r in kern["rows"] if r["case"] == case and r["dtype"] == dtype)
@@ -1768,13 +2374,15 @@ def main() -> int:
     # bf16, the f32 training mode f32
     train = dict(zip(("fwd", "dq", "dkv"), train_stats["launches_fwd_dq_dkv"]))
     f32_train = dict(zip(("fwd", "dq", "dkv"), f32_train_stats["launches_fwd_dq_dkv"]))
-    sample_cases = ("level0", "level1", "level2", "hook_level0", "hook_level1")
+    sample_cases = ("level0", "level1", "level2", "hook_level0", "hook_level1",
+                    *(c[0] for c in MITIGATE_CASES))
     train_cases = ("train_level0", "train_level1")
     entries = [
         kernel_entry("fwd", "float32", kern["rows"], sample_cases,
                      {"sample": main_stats["launches"],
                       "sample_genuine": interop_stats["launches"],
                       "sample_fast": fast_stats["launches"],
+                      "mitigate": mitigation_stats["launches"],
                       "train_hook": train_stats["hook_launches_fwd_dq_dkv"][0],
                       "train_f32": f32_train["fwd"]},
                      tensor_cores("flash_fwd_tf32x3_kernel")),
@@ -1803,6 +2411,9 @@ def main() -> int:
     log(f"jpeg codec stats: {json.dumps(codec)}")
     log(f"small dino eval reference: {json.dumps(small_dino)}")
     log(f"backbone stats: {json.dumps(backbone_stats)}")
+    log(f"mitigation stats: {json.dumps(mitigation_stats)}")
+    log(f"small search reference: {json.dumps(small_search)}")
+    log(f"search path stats: {json.dumps(search_stats)}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,13 @@
 
     python -m dcr_tpu_torch.cli.sample --model_path=... --num_batches=...
     python -m dcr_tpu_torch.cli.train --output_dir=... --data.train_data_dir=...
-    python -m dcr_tpu_torch.cli.evaluate --query_dir=... --values_dir=... --compute_complexity=false
+    python -m dcr_tpu_torch.cli.evaluate --query_dir=... --values_dir=...
+    python -m dcr_tpu_torch.cli.search {download|embed|search|build|append|verify|query|stats} ...
+    python -m dcr_tpu_torch.cli.mitigate --model_path=... [--rand_augs=...] [--rand_noise_lam=...]
 
-They run on CUDA. ``DCR_TPU_PLATFORM=cpu`` (the JAX CLIs' own switch) selects
+Installed, they are ``dcr-sample-torch``, ``dcr-train-torch``,
+``dcr-eval-torch``, ``dcr-search-torch`` and ``dcr-mitigate-torch``. They
+run on CUDA. ``DCR_TPU_PLATFORM=cpu`` (the JAX CLIs' own switch) selects
 the CPU; nothing else does, and without a GPU the commands fail.
 """
 

@@ -1,15 +1,17 @@
 """Config dataclasses + dotted-key CLI overrides for the PyTorch port.
 
 Own copy of the fields of ``dcr_tpu/core/config.py`` that the sampling,
-training and eval paths read (``ModelConfig``, ``SampleConfig``,
+training, eval and search paths read (``ModelConfig``, ``SampleConfig``,
 ``FastSampleConfig``, ``DataConfig``, ``OptimConfig``, ``TrainConfig`` and
-its nested sections, ``EvalConfig``) and of its ``from_dict``/``parse_cli``/
-``save_config`` machinery, so a ``model_index.json`` or ``config.json``
-written by either package and a ``dcr-sample``, ``dcr-train`` or
-``dcr-eval`` command line parse the same way here. Sections the port does
-not run yet (mesh, fault-tolerance budgets, warm cache, copy risk,
-pipelined training) parse, and :func:`validate_train_config` and
-:func:`validate_eval_config` refuse a setting that would need them with
+its nested sections, ``EvalConfig``, ``SearchConfig``) and of its
+``from_dict``/``parse_cli``/``save_config`` machinery, so a
+``model_index.json`` or ``config.json`` written by either package and a
+``dcr-sample``, ``dcr-train``, ``dcr-eval``, ``dcr-search`` or
+``dcr-mitigate`` command line parse the same way here. Sections the port
+does not run yet (mesh, fault-tolerance budgets, warm cache, copy risk,
+pipelined training, the search's ANN and live tiers) parse, and
+:func:`validate_train_config`, :func:`validate_eval_config` and
+:func:`validate_search_config` refuse a setting that would need them with
 :class:`NotPortedError`. The mesh and warm-cache sections of
 ``SampleConfig`` are not ported yet.
 """
@@ -473,6 +475,69 @@ def validate_eval_config(cfg: EvalConfig) -> None:
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
         (cfg.use_wandb, "use_wandb (the wandb sink)"),
         (bool(fault), ", ".join(fault) + " (the port honours only the I/O retries)"),
+    ]
+    missing = [name for on, name in checks if on]
+    if missing:
+        raise NotPortedError(
+            "not ported to dcr_tpu_torch yet: " + "; ".join(missing)
+            + ". Run without them or use the JAX package.")
+
+
+@dataclass
+class SearchConfig:
+    """LAION-scale embedding search (reference embedding_search/): the JAX
+    package's fields and defaults. The store fields drive ``dcr-search
+    build/append/verify/query``: embeddings ingested once into a
+    manifest-keyed, sha256-verified shard store (``store_dir``), then queried
+    through the top-k engine instead of the per-folder brute force.
+    :func:`validate_search_config` says which settings the port runs."""
+
+    parquet_path: str = ""
+    laion_folder: str = ""
+    gen_folder: str = ""
+    embedding_out: str = ""      # default: <gen_folder>/embedding.npz
+    out_path: str = "similarity_result.npz"
+    num_chunks: int = 20
+    batch_size: int = 128
+    image_size: int = 224
+    delete_tars: bool = False
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    # the sharded embedding store and its top-k engine
+    store_dir: str = ""          # built store; "" = brute-force folder scan
+    dumps: tuple[str, ...] = ()  # extra dump files/dirs for build/append
+    shard_rows: int = 4096       # rows per store shard file (ingest unit)
+    store_normalize: bool = False  # L2-normalise rows at ingest (cosine)
+    top_k: int = 1               # nearest corpus keys kept per query
+    query_batch: int = 64        # query rows per engine call
+    segment_rows: int = 0        # rows per device segment; 0 = auto
+    live: bool = False           # the WAL live tail (not ported)
+    # the IVF + int8 approximate tier (not ported)
+    ann: bool = False
+    n_lists: int = 64
+    nprobe: int = 8
+    ivf_iters: int = 10
+    ivf_seed: int = 0
+    ivf_train_rows: int = 0
+    ivf_normalize: bool = False
+    shortlist_k: int = 32
+    json_out: bool = False       # machine-readable `stats` output
+    warm_dir: str = ""           # persistent executable cache (not ported)
+    logdir: str = ""             # trace.jsonl sink (not ported)
+
+
+def validate_search_config(cfg: SearchConfig) -> None:
+    """NotPortedError for a search setting the port does not run yet, naming
+    the ROADMAP Queue A item that ports it: the IVF tier and the WAL live
+    tail (item 14), the warm cache and the trace sink (item 15), a mesh of
+    more than one device (item 16)."""
+    mesh_devices = _mesh_devices(cfg.mesh)
+    checks = [
+        (cfg.ann, "ann (the IVF + int8 tier, ROADMAP Queue A item 14)"),
+        (cfg.live, "live (the WAL live tail, ROADMAP Queue A item 14)"),
+        (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port searches on "
+                           "one; ROADMAP Queue A item 16)"),
+        (bool(cfg.warm_dir), "warm_dir (the warm executable cache, ROADMAP Queue A item 15)"),
+        (bool(cfg.logdir), "logdir (the trace.jsonl sink, ROADMAP Queue A item 15)"),
     ]
     missing = [name for on, name in checks if on]
     if missing:

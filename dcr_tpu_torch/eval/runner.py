@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import logging
 import pickle
-import random
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -48,6 +47,7 @@ from typing import Callable, Iterator, Mapping, Optional, TypeVar
 import numpy as np
 import torch
 
+from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core.config import (
     EvalConfig,
     FaultToleranceConfig,
@@ -86,8 +86,6 @@ log = logging.getLogger("dcr_tpu_torch")
 
 T = TypeVar("T")
 StateDict = Mapping[str, torch.Tensor]
-# errors that retrying a read cannot cure
-_NONTRANSIENT_IO = (FileNotFoundError, IsADirectoryError, NotADirectoryError)
 
 
 @contextmanager
@@ -105,19 +103,11 @@ def stage(name: str) -> Iterator[None]:
 def read_with_retry(read: Callable[[], T], fault: FaultToleranceConfig, what: str) -> T:
     """``read()`` up to ``fault.io_retries`` times on OSError, backing off
     from ``retry_base_delay`` by doubling, capped at ``retry_max_delay``, with
-    up to 50 % jitter; a missing file fails at once."""
-    for attempt in range(1, fault.io_retries + 1):
-        try:
-            return read()
-        except OSError as e:
-            if isinstance(e, _NONTRANSIENT_IO) or attempt == fault.io_retries:
-                raise
-            delay = min(fault.retry_max_delay, fault.retry_base_delay * 2 ** (attempt - 1))
-            delay *= 1.0 + 0.5 * random.random()
-            log.warning("reading %s failed (%r); retry %d/%d in %.2fs", what, e, attempt,
-                        fault.io_retries - 1, delay)
-            time.sleep(delay)
-    raise AssertionError("unreachable")
+    up to 50 % jitter; a missing file fails at once. It is
+    :func:`~dcr_tpu_torch.core.resilience.retry_call` with the eval config's
+    settings, so the two retries cannot drift."""
+    return R.retry_call(read, attempts=fault.io_retries, base_delay=fault.retry_base_delay,
+                        max_delay=fault.retry_max_delay, name=what)
 
 
 def load_torch_weights(path: str) -> dict[str, torch.Tensor]:
