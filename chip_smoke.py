@@ -92,6 +92,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the share of the bound (at the CUDA cores' f32 rate, where the engine's
    matmul runs, and at split TF32's), upload GB/s, device busy share, peak
    memory; the flash launch counts are read across the whole phase.
+14. serving main path (inside 5b, on its genuine directory; after 5d):
+   ServeConfig()'s default bucket (256 px, 50 DPM++ steps, guidance 7.5,
+   max_batch 8, max_wait 50 ms). In-process through GenerationService: the
+   wave's 16 requests as two full batches, a request alone against mixed
+   bit for bit (dpm++ with rand_noise_lam 0.1, ddpm; 10 steps), 10 B1
+   launches per UNet call at phase 3's train_level0/1 shapes in f32; the
+   planted generation's SSCD embedding among 65,536 random unit rows (an
+   .npz dump). Then `python -m dcr_tpu_torch.cli.serve` as a subprocess
+   with that index: /healthz warming then ok, risk ok; 16 concurrent
+   requests answered with 256x256 PNGs, all scored, the planted one
+   flagged top-1 with the in-process pixels; cache hits, Prometheus text,
+   a bad sampler 400, /check; a fast_ratio 0.5 bucket, a third bucket 503
+   bucket_limit; SIGTERM with a batch queued, every request answered,
+   exit 83. Seconds per batch, images/s, p50/p99, UNet call ms, risk ms
+   per batch, /check ms, peak memory, load and warm seconds.
 No kernel lies on the eval and search paths (9-13: their attention is
 SDPA's, XCiT's is over channels; search is matmuls and torch.topk): their
 launch counts must stay 0.
@@ -207,11 +222,16 @@ def read_launches() -> tuple[int, int, int]:
             fa.flash_attention_bwd.dkv_launches)
 
 
+# the card's name and power limit as nvidia-smi gives them (phase 1)
+CARD = [""]
+
+
 def phase_card() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    CARD[0] = smi.stdout.strip().splitlines()[0]
+    log(CARD[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("tf32: off for matmuls (torch.backends.cuda.matmul.allow_tf32=False) and "
@@ -1772,6 +1792,381 @@ def phase_mitigation(ckpt: Path, root: Path) -> dict:
     return stats
 
 
+# the serving main path (phase 14): ServeConfig()'s default bucket at SD-2.1
+# widths, 256 px, 50 DPM++ steps, guidance 7.5, max_batch 8 with CFG; every
+# B1 launch at one of these shapes (phase 3's train_level0/1 rows in f32)
+SERVE_CASES = ("train_level0", "train_level1")
+SERVE_PROMPTS = ("a red square", "a photo of a church", "a garbage truck", "an old map")
+
+
+class ServeProcess:
+    """``python -m dcr_tpu_torch.cli.serve`` as a subprocess, its output in a
+    file; killed on exit unless it ended by itself."""
+
+    def __init__(self, argv: list[str], log_path: Path):
+        import os
+
+        self.log_path = log_path
+        self._log = open(log_path, "w")
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)
+                   + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.proc = subprocess.Popen([sys.executable, "-m", "dcr_tpu_torch.cli.serve", *argv],
+                                     stdout=self._log, stderr=subprocess.STDOUT, env=env,
+                                     cwd=str(Path(__file__).resolve().parent))
+
+    def text(self) -> str:
+        return self.log_path.read_text(errors="replace")
+
+    def wait_for_port(self, timeout: float) -> int:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            m = re.search(r"dcr-serve listening on http://[\d.]+:(\d+)", self.text())
+            if m:
+                return int(m.group(1))
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        raise AssertionError(f"dcr-serve did not listen (rc {self.proc.poll()}):\n"
+                             + self.text()[-4000:])
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self._log.close()
+
+
+def _http(port: int, path: str, body=None, timeout: float = 300.0) -> tuple[int, dict, bytes]:
+    """(status, headers, body bytes) of one request to localhost."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _concurrent_posts(port: int, bodies: list[dict]) -> tuple[list, list[float]]:
+    """POST /generate for every body at once (a barrier releases the
+    threads together); the responses and each request's seconds."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    barrier = threading.Barrier(len(bodies))
+
+    def one(body):
+        barrier.wait()
+        t0 = time.perf_counter()
+        code, _, raw = _http(port, "/generate", body)
+        return code, json.loads(raw), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(bodies)) as ex:
+        out = list(ex.map(one, bodies))
+    return [(c, d) for c, d, _ in out], [s for _, _, s in out]
+
+
+def _metrics(port: int) -> dict:
+    return json.loads(_http(port, "/metrics")[2])
+
+
+def _percentile(xs: list[float], q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def phase_serve(ckpt: Path, root: Path) -> dict:
+    """Phase 14: dcr-serve-torch's main path on phase 5b's genuine SD-2.1
+    checkpoint at ServeConfig()'s default bucket (256 px, 50 DPM++ steps,
+    guidance 7.5, max_batch 8, max_wait 50 ms).
+
+    In-process, through GenerationService on the card: the first wave's
+    16 requests as two full batches (the planted one first), and a
+    request alone against it in a mixed batch, bit for bit, for dpm++ with
+    rand_noise_lam 0.1 and for ddpm (10 steps each); every B1 launch counted
+    (10 per UNet call: S = 64 and 16 take SDPA) and at a shape phase 3
+    holds. The planted generation, written as PNG and embedded by the port's
+    SSCD (seeded init, embed_images), joins 65,536 random unit rows in an
+    .npz dump in the JAX format.
+
+    The threshold is set from the in-process similarities of the wave's 16
+    generations, which the server reproduces bit for bit. Over HTTP, a
+    subprocess with that index: /healthz reads warming then ok,
+    risk ok; 16 concurrent requests (4 prompts x 4 seeds) answer 200 with
+    256x256 PNGs, every one scored, the planted one flagged top-1 with
+    max_sim >= 0.99 and the same pixels as in-process; the cache hits and
+    counters on /metrics, Prometheus text that parses, a bad sampler 400,
+    /check finding the planted key; then 10 requests of a fast_ratio 0.5
+    bucket (8 run, 2 queued), a third bucket refused 503 bucket_limit, and
+    SIGTERM with every accepted request answered and exit code 83."""
+    import base64
+    import dataclasses
+    import signal
+
+    import numpy as np
+
+    from dcr_tpu_torch.core.config import SampleConfig, SearchConfig, ServeConfig
+    from dcr_tpu_torch.obs.copyrisk import CopyRiskIndex
+    from dcr_tpu_torch.ops import flash_attention as fa
+    from dcr_tpu_torch.sampling import fastsample
+    from dcr_tpu_torch.sampling.pipeline import load_generation_stack
+    from dcr_tpu_torch.sampling.png import decode_png, write_png
+    from dcr_tpu_torch.search.embed import embed_images, load_embeddings, save_embeddings
+    from dcr_tpu_torch.serve.queue import Request
+    from dcr_tpu_torch.serve.worker import GenerationService
+
+    cfg = ServeConfig(model_path=str(ckpt))
+    wave = [{"prompt": p, "seed": s} for s in (1, 2, 3, 4) for p in SERVE_PROMPTS]
+    planted = wave[0]
+    stats: dict = {"card": CARD[0]}
+
+    # -- in-process: the batch sampler on the card --------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stack = load_generation_stack(SampleConfig(model_path=str(ckpt)), device="cuda")
+    torch.cuda.synchronize()
+    stats["inprocess_load_s"] = time.perf_counter() - t0
+    svc = GenerationService(cfg, stack)
+    bucket = svc.default_bucket()
+    shapes, check_inputs = set(), fa._check_kernel_inputs
+
+    def recording_check(q, k, v):
+        shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3], q.dtype))
+        return check_inputs(q, k, v)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa._check_kernel_inputs = recording_check
+    reset_launches()
+    try:
+        # the wave's 16 requests as two full batches (the planted one first)
+        halves, batch_s = [], []
+        for half in (wave[:8], wave[8:]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            halves.append(svc.execute([Request(w["prompt"], w["seed"], bucket) for w in half]))
+            torch.cuda.synchronize()
+            batch_s.append(time.perf_counter() - t0)
+        stats["inprocess_full_batch_s"] = batch_s
+        unet_calls = fastsample.unet_calls(fastsample.fast_plan(bucket.steps, 0.0))
+        mixed_steps, mixed_checks = 10, {}
+        for sampler, lam in (("dpm++", 0.1), ("ddpm", 0.0)):
+            sub = GenerationService(dataclasses.replace(
+                cfg, sampler=sampler, rand_noise_lam=lam, num_inference_steps=mixed_steps),
+                stack)
+            b = sub.default_bucket()
+            alone = sub.execute([Request("a red square", 7, b)])
+            mixed = sub.execute([Request("a red square", 7, b), Request("a blue circle", 9, b),
+                                 Request("a red square", 8, b)])
+            mixed_checks[sampler] = {"alone_equals_mixed": bool(np.array_equal(alone[0],
+                                                                               mixed[0])),
+                                     "neighbours_differ": bool(
+                                         not np.array_equal(mixed[0], mixed[1])
+                                         and not np.array_equal(mixed[0], mixed[2]))}
+    finally:
+        launches = read_launches()
+        fa._check_kernel_inputs = check_inputs
+    # 10 per UNet call: the wave's 2 batches, then 2 samplers x 2 batches
+    expected = 10 * (2 * unet_calls + 2 * 2 * mixed_steps)
+    stats.update(launches=launches[0], expected_launches=expected,
+                 kernel_shapes=sorted(list(x[:5]) for x in shapes),
+                 alone_vs_mixed=mixed_checks,
+                 inprocess_peak_bytes=torch.cuda.max_memory_allocated())
+    # one CFG UNet call of the bucket alone: CUDA events around 5 calls
+    m = stack.models
+    x = torch.randn((16, 4, 32, 32), device="cuda")
+    ctx = torch.randn((16, 77, 1024), device="cuda")
+    tb = torch.full((16,), 500, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        stats["unet_call_ms"] = call_ms(lambda: m.unet(x, tb, ctx), reps=5)
+    del x, ctx
+
+    # -- the index: 65,536 random unit rows and the planted generation ------
+    gen_dir = root / "serve_planted"
+    gen_dir.mkdir()
+    planted_png = (halves[0][0] * 255).round().astype(np.uint8)
+    write_png(gen_dir / "planted.png", planted_png)
+    t0 = time.perf_counter()
+    emb = embed_images(SearchConfig(), source=gen_dir, out_path=root / "planted.npz",
+                       device="cuda")
+    planted_row, _ = load_embeddings(emb)
+    rng = np.random.default_rng(0)
+    rows = rng.standard_normal((65536, 512)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    planted_key = f"train/planted_{planted['seed']}.png"
+    keys = [f"train/{i:06d}.png" for i in range(len(rows))] + [planted_key]
+    index_path = save_embeddings(root / "serve_index.npz",
+                                 np.concatenate([rows, planted_row]), keys)
+    stats["index_write_s"] = time.perf_counter() - t0
+    stats["index_bytes"] = index_path.stat().st_size
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = CopyRiskIndex.load(dataclasses.replace(cfg.risk, index_path=str(index_path)),
+                               batch=cfg.max_batch, device="cuda")
+    torch.cuda.synchronize()
+    stats["inprocess_index_load_s"] = time.perf_counter() - t0
+    # the server scores the same rows with the same weights at the same
+    # batch shape, so its similarities are these: the threshold lies midway
+    # between the planted copy's and the largest of the 15 others'
+    sims = [s.max_sim for half in halves for s in index.score_batch(half)]
+    hit, miss = sims[0], max(sims[1:])
+    threshold = (hit + miss) / 2
+    score_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.score_batch(halves[0])
+        torch.cuda.synchronize()
+        score_s.append(time.perf_counter() - t0)
+    stats.update(planted_sim=hit, other_max_sim=miss, threshold=threshold,
+                 risk_score_ms_per_batch=1e3 * statistics.median(score_s))
+    del svc, sub, stack, index, m, halves
+    torch.cuda.empty_cache()
+    log(f"serve in-process ({CARD[0]}): {json.dumps(stats)}")
+    if (launches != (expected, 0, 0) or not shapes
+            or shapes != {(16, 1024, 1024, 5, 64, torch.float32),
+                          (16, 256, 256, 10, 64, torch.float32)}):
+        raise AssertionError(f"serve launched B1 {launches} (expected ({expected}, 0, 0)) "
+                             f"at {sorted(map(str, shapes))}")
+    if not all(v["alone_equals_mixed"] and v["neighbours_differ"]
+               for v in mixed_checks.values()):
+        raise AssertionError(f"alone against mixed on the card: {mixed_checks}")
+    if not (hit >= 0.99 and hit > miss):
+        raise AssertionError(f"the planted generation scores {hit} against {miss}")
+
+    # -- over HTTP: dcr-serve-torch as a subprocess -------------------------
+    server = ServeProcess([f"--model_path={ckpt}", "--port=0", "--max_compiled_buckets=2",
+                           f"--risk.index_path={index_path}", f"--risk.threshold={threshold}"],
+                          root / "serve.log")
+    try:
+        t_start = time.perf_counter()
+        port = server.wait_for_port(timeout=300)
+        health_seen, risk_seen = [], []
+        while True:
+            doc = json.loads(_http(port, "/healthz")[2])
+            if not health_seen or health_seen[-1] != doc["status"]:
+                health_seen.append(doc["status"])
+            if not risk_seen or risk_seen[-1] != doc["risk"]:
+                risk_seen.append(doc["risk"])
+            if doc["status"] == "ok" and doc["risk"] in ("ok", "failed"):
+                break
+            if time.perf_counter() - t_start > 300 or server.proc.poll() is not None:
+                raise AssertionError(f"dcr-serve never became ready: {doc}\n"
+                                     + server.text()[-4000:])
+            time.sleep(0.1)
+        stats["ready_s"] = time.perf_counter() - t_start
+        stats.update(health_seen=health_seen, risk_seen=risk_seen)
+        if health_seen[0] != "warming" or risk_seen[-1] != "ok":
+            raise AssertionError(f"/healthz went {health_seen}, risk {risk_seen}")
+        text = server.text()
+        for stage in ("serve_load", "serve_warm"):
+            m_stage = re.search(rf"\[stage\] {stage}: done in ([\d.]+)s", text)
+            stats[f"{stage}_s"] = float(m_stage.group(1)) if m_stage else None
+        # the throughput wave: two full batches
+        before = _metrics(port)
+        t0 = time.perf_counter()
+        results, latencies = _concurrent_posts(port, wave)
+        wave_s = time.perf_counter() - t0
+        after = _metrics(port)
+        batch_s = [float(s) for s in re.findall(r"serve: batch of 8/8 in ([\d.]+)s",
+                                                 server.text())]
+        stats.update(wave_s=wave_s, images_per_s=len(wave) / wave_s,
+                     wave_batches=after["batches_total"] - before["batches_total"],
+                     server_full_batch_s=batch_s,
+                     latency_p50_s=_percentile(latencies, 50),
+                     latency_p99_s=_percentile(latencies, 99),
+                     server_latency_ms=after["latency_ms"], cache=after["cache"],
+                     completed_total=after["completed_total"],
+                     batch_occupancy_max=after["batch_occupancy_max"])
+        codes = [c for c, _ in results]
+        docs = [d for _, d in results]
+        risk = [d.get("copy_risk") for d in docs]
+        images = [decode_png(base64.b64decode(d["image_png_b64"])) for d in docs
+                  if "image_png_b64" in d]
+        stats["planted_copy_risk"] = risk[0]
+        stats["others_max_sim"] = max(r["max_sim"] for r in risk[1:] if r)
+        if (codes != [200] * len(wave) or len(images) != len(wave)
+                or any(i.shape != (256, 256, 3) for i in images)):
+            raise AssertionError(f"the wave answered {codes}, images "
+                                 f"{[i.shape for i in images]}")
+        if any(r is None for r in risk):
+            raise AssertionError(f"unscored responses: {[r is None for r in risk]}")
+        if not (risk[0]["flagged"] and risk[0]["max_sim"] >= 0.99
+                and risk[0]["top_key"] == planted_key):
+            raise AssertionError(f"the planted copy was not flagged top-1: {risk[0]}")
+        if any(r["flagged"] for r in risk[1:]):
+            raise AssertionError(f"unrelated generations flagged: {risk}")
+        if not np.array_equal(images[0], planted_png):
+            raise AssertionError("the served planted image differs from the in-process one: "
+                                 f"max |diff| {np.abs(images[0].astype(int) - planted_png).max()}")
+        if (after["completed_total"] != len(wave) or after["cache"]["hits"] < 12
+                or after["batch_occupancy_max"] != 1.0):
+            raise AssertionError(f"metrics after the wave: {after}")
+        # Prometheus text parses; a bad sampler is a 400
+        code, _, raw = _http(port, "/metrics?format=prometheus")
+        samples = {}
+        for line in raw.decode().splitlines():
+            if line and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                samples[name] = float(value)
+        stats["prometheus_samples"] = len(samples)
+        if (code != 200 or samples.get("dcr_serve_completed_total") != len(wave)
+                or samples.get("dcr_copy_risk_flagged_total") != 1):
+            raise AssertionError(f"prometheus: {code}, {len(samples)} samples")
+        code, _, _ = _http(port, "/generate", {"prompt": "x", "sampler": "bogus"})
+        if code != 400:
+            raise AssertionError(f"a bad sampler answered {code}")
+        # /check with the planted PNG
+        check_s, check = [], None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            code, _, raw = _http(port, "/check", {"image_png_b64": docs[0]["image_png_b64"]})
+            check_s.append(time.perf_counter() - t0)
+            check = json.loads(raw)
+        stats.update(check_ms=[1e3 * s for s in check_s], check=check)
+        if code != 200 or check["top_key"] != planted_key or not check["flagged"]:
+            raise AssertionError(f"/check: {code} {check}")
+        # a fast_ratio 0.5 bucket: 8 run, 2 wait; a third bucket is refused;
+        # SIGTERM with the queued batch pending
+        from concurrent.futures import ThreadPoolExecutor
+
+        fast_wave = [{"prompt": SERVE_PROMPTS[i % 4], "seed": 100 + i, "fast_ratio": 0.5}
+                     for i in range(10)]
+        before = _metrics(port)
+        with ThreadPoolExecutor(max_workers=len(fast_wave)) as ex:
+            futs = [ex.submit(_http, port, "/generate", body) for body in fast_wave]
+            deadline = time.monotonic() + 120
+            while _metrics(port)["requests_total"] < before["requests_total"] + len(fast_wave):
+                if time.monotonic() > deadline:
+                    raise AssertionError("the fast wave was not admitted")
+                time.sleep(0.01)
+            code, _, raw = _http(port, "/generate", {"prompt": "x", "steps": 20})
+            stats["third_bucket"] = [code, json.loads(raw).get("error")]
+            queued = _metrics(port)["queue_depth"]
+            t0 = time.perf_counter()
+            server.proc.send_signal(signal.SIGTERM)
+            fast_codes = [f.result(timeout=300)[0] for f in futs]
+            rc = server.proc.wait(timeout=300)
+        stats.update(fast_codes=fast_codes, queued_at_sigterm=queued, exit_code=rc,
+                     drain_s=time.perf_counter() - t0)
+        if queued < 1:
+            raise AssertionError("no batch was queued when SIGTERM came")
+        if stats["third_bucket"] != [503, "bucket_limit"]:
+            raise AssertionError(f"a third bucket answered {stats['third_bucket']}")
+        if fast_codes != [200] * len(fast_wave) or rc != 83:
+            raise AssertionError(f"drain: codes {fast_codes}, exit {rc}\n"
+                                 + server.text()[-4000:])
+    finally:
+        server.close()
+    stats["server_log_tail"] = server.text()[-1500:].splitlines()[-8:]
+    log(f"serve ({CARD[0]}): {json.dumps({k: v for k, v in stats.items() if k != 'check'})}")
+    return stats
+
+
 def tie_rule(what: str, scores_a, keys_a, scores_b, keys_b, exact, *, bound: float = 1e-5,
              gap: float = 2e-5) -> dict:
     """Two top-k tables of unit queries over unit rows agree: scores within
@@ -2318,6 +2713,8 @@ def main() -> int:
         interop_stats = phase_checkpoint_interop(Path(tmp), main)
         torch.cuda.empty_cache()
         mitigation_stats = phase_mitigation(Path(tmp) / "sd21", Path(tmp))
+        torch.cuda.empty_cache()
+        serve_stats = phase_serve(Path(tmp) / "sd21", Path(tmp))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         fast_stats = phase_fast_sampling(Path(tmp), main, main_stats)
@@ -2375,7 +2772,7 @@ def main() -> int:
     train = dict(zip(("fwd", "dq", "dkv"), train_stats["launches_fwd_dq_dkv"]))
     f32_train = dict(zip(("fwd", "dq", "dkv"), f32_train_stats["launches_fwd_dq_dkv"]))
     sample_cases = ("level0", "level1", "level2", "hook_level0", "hook_level1",
-                    *(c[0] for c in MITIGATE_CASES))
+                    *(c[0] for c in MITIGATE_CASES), *SERVE_CASES)
     train_cases = ("train_level0", "train_level1")
     entries = [
         kernel_entry("fwd", "float32", kern["rows"], sample_cases,
@@ -2383,6 +2780,7 @@ def main() -> int:
                       "sample_genuine": interop_stats["launches"],
                       "sample_fast": fast_stats["launches"],
                       "mitigate": mitigation_stats["launches"],
+                      "serve": serve_stats["launches"],
                       "train_hook": train_stats["hook_launches_fwd_dq_dkv"][0],
                       "train_f32": f32_train["fwd"]},
                      tensor_cores("flash_fwd_tf32x3_kernel")),
@@ -2412,6 +2810,7 @@ def main() -> int:
     log(f"small dino eval reference: {json.dumps(small_dino)}")
     log(f"backbone stats: {json.dumps(backbone_stats)}")
     log(f"mitigation stats: {json.dumps(mitigation_stats)}")
+    log(f"serve stats: {json.dumps({k: v for k, v in serve_stats.items() if k != 'check'})}")
     log(f"small search reference: {json.dumps(small_search)}")
     log(f"search path stats: {json.dumps(search_stats)}")
     print(json.dumps({"kernels": entries}))

@@ -5,9 +5,11 @@
     python -m dcr_tpu_torch.cli.evaluate --query_dir=... --values_dir=...
     python -m dcr_tpu_torch.cli.search {download|embed|search|build|append|verify|query|stats} ...
     python -m dcr_tpu_torch.cli.mitigate --model_path=... [--rand_augs=...] [--rand_noise_lam=...]
+    python -m dcr_tpu_torch.cli.serve --model_path=... [--port=...] [--risk.index_path=...]
 
 Installed, they are ``dcr-sample-torch``, ``dcr-train-torch``,
-``dcr-eval-torch``, ``dcr-search-torch`` and ``dcr-mitigate-torch``. They
+``dcr-eval-torch``, ``dcr-search-torch``, ``dcr-mitigate-torch`` and
+``dcr-serve-torch``. They
 run on CUDA. ``DCR_TPU_PLATFORM=cpu`` (the JAX CLIs' own switch) selects
 the CPU; nothing else does, and without a GPU the commands fail.
 """

@@ -3,15 +3,17 @@
 Own copy of the fields of ``dcr_tpu/core/config.py`` that the sampling,
 training, eval and search paths read (``ModelConfig``, ``SampleConfig``,
 ``FastSampleConfig``, ``DataConfig``, ``OptimConfig``, ``TrainConfig`` and
-its nested sections, ``EvalConfig``, ``SearchConfig``) and of its
+its nested sections, ``EvalConfig``, ``SearchConfig``, ``ServeConfig`` and
+its fleet, ingest and SLO sections) and of its
 ``from_dict``/``parse_cli``/``save_config`` machinery, so a
 ``model_index.json`` or ``config.json`` written by either package and a
-``dcr-sample``, ``dcr-train``, ``dcr-eval``, ``dcr-search`` or
-``dcr-mitigate`` command line parse the same way here. Sections the port
-does not run yet (mesh, fault-tolerance budgets, warm cache, copy risk,
-pipelined training, the search's ANN and live tiers) parse, and
-:func:`validate_train_config`, :func:`validate_eval_config` and
-:func:`validate_search_config` refuse a setting that would need them with
+``dcr-sample``, ``dcr-train``, ``dcr-eval``, ``dcr-search``,
+``dcr-mitigate`` or ``dcr-serve`` command line parse the same way here.
+Sections the port does not run yet (mesh, fault-tolerance budgets, warm
+cache, the ANN tier, pipelined training, the search's live tier, the serving
+fleet and live ingest) parse, and :func:`validate_train_config`,
+:func:`validate_eval_config`, :func:`validate_search_config` and
+:func:`validate_serve_config` refuse a setting that would need them with
 :class:`NotPortedError`. The mesh and warm-cache sections of
 ``SampleConfig`` are not ported yet.
 """
@@ -223,7 +225,10 @@ class WarmCacheConfig:
 
 @dataclass
 class RiskConfig:
-    """Online copy-risk scoring (parsed; an index or store is not ported)."""
+    """Online copy-risk scoring (:mod:`dcr_tpu_torch.obs.copyrisk`): a
+    train-embedding dump (``index_path``) or store (``store_dir``), SSCD at
+    ``image_size``, a generation flagged at ``max_sim >= threshold``. The
+    ANN tier (``ann``) is not ported."""
 
     index_path: str = ""
     store_dir: str = ""
@@ -366,8 +371,7 @@ def _not_ported(cfg: TrainConfig) -> list[str]:
         (cfg.pipe.enabled, "pipe.enabled (pipelined training)"),
         (bool(cfg.pipe.latent_cache), "pipe.latent_cache (the latent cache)"),
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
-        (bool(cfg.risk.index_path), "risk.index_path (copy-risk scoring)"),
-        (bool(cfg.risk.store_dir), "risk.store_dir (copy-risk scoring)"),
+        (cfg.risk.ann, "risk.ann (the IVF + int8 tier, ROADMAP Queue A item 14)"),
         (cfg.fault.max_rollbacks > 0, "fault.max_rollbacks > 0 (NaN rollback)"),
         (cfg.fault.max_bad_sample_frac > 0,
          "fault.max_bad_sample_frac > 0 (bad-sample quarantine)"),
@@ -544,6 +548,220 @@ def validate_search_config(cfg: SearchConfig) -> None:
         raise NotPortedError(
             "not ported to dcr_tpu_torch yet: " + "; ".join(missing)
             + ". Run without them or use the JAX package.")
+
+
+@dataclass
+class IngestConfig:
+    """Streaming provenance ingest into ``risk.store_dir`` (parsed;
+    ``enabled`` is not ported)."""
+
+    enabled: bool = False
+    queue_max: int = 1024      # response-path queue bound (rows)
+    batch_rows: int = 16       # rows folded into one WAL record / fsync
+    seal_rows: int = 4096      # rows per WAL segment before it seals
+    compact_rows: int = 2048   # acked rows that trigger compaction; 0 = never
+    lease_s: float = 10.0      # writer-lease TTL
+
+
+@dataclass
+class SloConfig:
+    """Service-level objectives of the fleet supervisor (parsed; the fleet
+    is not ported)."""
+
+    enabled: bool = True
+    short_window_s: float = 60.0
+    long_window_s: float = 300.0
+    warn_burn: float = 1.0
+    breach_burn: float = 2.0
+    recover_burn: float = 0.5
+    budget: float = 0.1
+    dump_after_s: float = 120.0
+    availability_min: float = 0.75
+    shed_rate_max: float = 0.05
+    ingest_lag_s_max: float = 30.0
+    ann_staleness_rows_max: float = 50000.0
+    recall_min: float = 0.80
+    coverage_min: float = 0.95
+    recall_probe_every_n: int = 32
+    recall_probe_k: int = 10
+    recall_probe_window: int = 64
+
+
+@dataclass
+class FleetConfig:
+    """Multi-worker serving (parsed; ``workers > 0`` and ``worker_index >=
+    0`` are not ported)."""
+
+    workers: int = 0           # >0 runs dcr-serve as a fleet supervisor
+    worker_index: int = -1     # >=0 marks a fleet worker process
+    dir: str = ""              # control-plane dir: leases, journal, worker logs
+    heartbeat_s: float = 1.0
+    lease_s: float = 5.0
+    dispatch_timeout_s: float = 600.0
+    max_attempts: int = 3
+    respawn_max: int = 3
+    respawn_base_delay_s: float = 0.5
+    respawn_max_delay_s: float = 10.0
+    spawn_timeout_s: float = 600.0
+    slo_queue_wait_p99_s: float = 0.0
+    shed_retry_after_s: float = 5.0
+    scrape_period_s: float = 2.0
+    scrape_timeout_s: float = 2.0
+
+
+@dataclass
+class ServeConfig:
+    """Online generation service (:mod:`dcr_tpu_torch.serve`): a resident
+    sampler behind an HTTP front end with dynamic batching, an LRU
+    prompt-embedding cache, bounded-queue admission and SIGTERM drain. The
+    serving defaults (resolution/steps/guidance/sampler) define the default
+    request bucket; every batch is padded to exactly ``max_batch`` requests.
+    :func:`validate_serve_config` says which settings the port runs."""
+
+    model_path: str = ""
+    iternum: int = -1                      # select checkpoint_<step>; -1 = final
+    host: str = "127.0.0.1"
+    port: int = 8000                       # 0: any free port (logged)
+    # default generation bucket (per-request overrides allowed)
+    resolution: int = 256
+    num_inference_steps: int = 50
+    guidance_scale: float = 7.5
+    sampler: str = "dpm++"                 # "ddim" | "dpm++" | "ddpm"
+    rand_noise_lam: float = 0.0            # inference-time mitigation (Newpipe)
+    max_batch: int = 8                     # the fixed padded batch
+    max_wait_ms: float = 50.0              # a partial batch flushes after this
+    queue_depth: int = 64                  # admission bound (typed 503 beyond)
+    cache_entries: int = 1024              # LRU prompt-embedding cache capacity
+    max_compiled_buckets: int = 8          # resident bucket budget (typed 503 beyond)
+    request_timeout_s: float = 600.0       # per-request wait bound in the handler
+    hang_timeout_s: float = 0.0            # the hang watchdog (not ported)
+    logdir: str = ""                       # the trace / metrics sink (not ported)
+    seed: int = 42                         # root of the per-request draws
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
+    warm: WarmCacheConfig = field(default_factory=WarmCacheConfig)
+    risk: RiskConfig = field(default_factory=RiskConfig)
+    ingest: IngestConfig = field(default_factory=IngestConfig)
+    fast: FastSampleConfig = field(default_factory=FastSampleConfig)
+    slo: SloConfig = field(default_factory=SloConfig)
+
+
+def validate_serve_config(cfg: ServeConfig) -> None:
+    """The JAX package's checks (``ValueError``), then NotPortedError for a
+    serve setting the port does not run yet, naming the ROADMAP Queue A item
+    that ports it: the fleet and the hang watchdog (item 17), live ingest
+    and the ANN tier (item 14), the warm cache and the trace sink (item
+    15), a mesh of more than one device (item 16)."""
+    if cfg.sampler not in ("ddim", "dpm++", "ddpm"):
+        raise ValueError("serve sampler must be 'ddim', 'dpm++' or 'ddpm'")
+    if cfg.max_batch < 1:
+        raise ValueError("serve max_batch must be >= 1")
+    if cfg.queue_depth < 1:
+        raise ValueError("serve queue_depth must be >= 1")
+    if cfg.max_wait_ms < 0:
+        raise ValueError("serve max_wait_ms must be >= 0")
+    if cfg.cache_entries < 0:
+        raise ValueError("serve cache_entries must be >= 0")
+    if cfg.max_compiled_buckets < 1:
+        raise ValueError("serve max_compiled_buckets must be >= 1")
+    f = cfg.fleet
+    if f.workers < 0:
+        raise ValueError("fleet.workers must be >= 0")
+    if f.workers > 0 and f.worker_index >= 0:
+        raise ValueError("fleet.workers and fleet.worker_index are mutually "
+                         "exclusive (supervisor vs worker role)")
+    if f.workers > 0 or f.worker_index >= 0:
+        if f.heartbeat_s <= 0 or f.lease_s <= f.heartbeat_s:
+            raise ValueError("fleet.lease_s must exceed fleet.heartbeat_s > 0 "
+                             "(a lease shorter than its renewal period "
+                             "expires between heartbeats)")
+        if f.dispatch_timeout_s <= 0:
+            raise ValueError("fleet.dispatch_timeout_s must be > 0 (an "
+                             "unbounded dispatch turns a hung worker into a "
+                             "hung fleet)")
+        if f.max_attempts < 1:
+            raise ValueError("fleet.max_attempts must be >= 1")
+        if f.respawn_max < 0:
+            raise ValueError("fleet.respawn_max must be >= 0")
+        if f.scrape_period_s <= 0 or f.scrape_timeout_s <= 0:
+            raise ValueError("fleet.scrape_period_s and fleet.scrape_timeout_s"
+                             " must be > 0 (an unbounded scrape turns a dead "
+                             "worker into a hung /metrics)")
+    validate_risk_config(cfg.risk)
+    validate_ingest_config(cfg)
+    validate_fast_config(cfg.fast)
+    validate_slo_config(cfg.slo)
+    mesh_devices = _mesh_devices(cfg.mesh)
+    checks = [
+        (f.workers > 0, "fleet.workers > 0 (the fleet supervisor, ROADMAP Queue A item 17)"),
+        (f.worker_index >= 0, "fleet.worker_index >= 0 (a fleet worker, ROADMAP Queue A "
+                              "item 17)"),
+        (cfg.ingest.enabled, "ingest.enabled (live ingest, ROADMAP Queue A item 14)"),
+        (cfg.risk.ann, "risk.ann (the IVF + int8 tier, ROADMAP Queue A item 14)"),
+        (bool(cfg.warm.dir), "warm.dir (the warm executable cache, ROADMAP Queue A item 15)"),
+        (bool(cfg.logdir), "logdir (the trace and metrics sink, ROADMAP Queue A item 15)"),
+        (cfg.hang_timeout_s > 0, "hang_timeout_s > 0 (the hang watchdog, ROADMAP Queue A "
+                                 "item 17)"),
+        (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port serves on one; "
+                           "ROADMAP Queue A item 16)"),
+    ]
+    missing = [name for on, name in checks if on]
+    if missing:
+        raise NotPortedError(
+            "not ported to dcr_tpu_torch yet: " + "; ".join(missing)
+            + ". Run without them or use the JAX package.")
+
+
+def validate_slo_config(s: SloConfig) -> None:
+    if not s.enabled:
+        return
+    if s.short_window_s <= 0 or s.long_window_s <= 0:
+        raise ValueError("slo windows must be > 0 (a zero-width window has "
+                         "no samples to burn)")
+    if s.long_window_s < s.short_window_s:
+        raise ValueError("slo.long_window_s must be >= slo.short_window_s "
+                         "(the long window exists to veto short-window "
+                         "spikes; inverted windows would breach on noise)")
+    if s.budget <= 0 or s.budget > 1:
+        raise ValueError("slo.budget must be in (0, 1]: the allowed "
+                         "bad-sample fraction at burn rate 1.0")
+    if s.breach_burn < s.warn_burn:
+        raise ValueError("slo.breach_burn must be >= slo.warn_burn "
+                         "(breach is a worse state than warn)")
+    if s.recover_burn >= s.warn_burn:
+        raise ValueError("slo.recover_burn must be < slo.warn_burn: "
+                         "recovery needs hysteresis or the state flaps at "
+                         "the threshold")
+    if s.dump_after_s < 0:
+        raise ValueError("slo.dump_after_s must be >= 0")
+    if s.recall_probe_every_n < 1:
+        raise ValueError("slo.recall_probe_every_n must be >= 1")
+    if s.recall_probe_k < 1 or s.recall_probe_window < 1:
+        raise ValueError("slo.recall_probe_k and slo.recall_probe_window "
+                         "must be >= 1")
+
+
+def validate_ingest_config(cfg: ServeConfig) -> None:
+    i = cfg.ingest
+    if not i.enabled:
+        return
+    if not cfg.risk.store_dir:
+        raise ValueError(
+            "ingest.enabled requires risk.store_dir: live ingest appends to "
+            "the sharded embedding store the risk index scores against "
+            "(a dense risk.index_path dump has no append path)")
+    if i.queue_max < 1:
+        raise ValueError("ingest.queue_max must be >= 1")
+    if i.batch_rows < 1:
+        raise ValueError("ingest.batch_rows must be >= 1")
+    if i.seal_rows < 1:
+        raise ValueError("ingest.seal_rows must be >= 1")
+    if i.compact_rows < 0:
+        raise ValueError("ingest.compact_rows must be >= 0 (0 disables "
+                         "auto-compaction)")
+    if i.lease_s <= 0:
+        raise ValueError("ingest.lease_s must be > 0 (the stale-writer "
+                         "takeover horizon)")
 
 
 def run_name(cfg: TrainConfig) -> str:

@@ -7,10 +7,10 @@ EMA is on) with the port's DDIM sampler and writes
 ``<output_dir>/generations/step_<n>.png`` with the port's PNG writer.
 
 Noise comes from a ``torch.Generator`` seeded from ``generation_seed`` and
-the step (stream ``train_samples``), independent of the train seed. The JAX
-hook also scores each grid against a train-embedding index when
-``risk.index_path`` is set (``score_sample_grid``); the port refuses that
-setting (``core/config._not_ported``), so this hook never scores.
+the step (stream ``train_samples``), independent of the train seed. With
+``risk.index_path`` set, :func:`score_sample_grid` scores each grid against
+the train-embedding index and writes ``risk/*`` gauges, so the
+duplication -> copying effect shows on the loss curve's timeline.
 """
 
 from __future__ import annotations
@@ -97,6 +97,51 @@ def make_sample_hook(*, num_inference_steps: int = 20, images_per_prompt: int = 
         path = out / f"step_{step}.png"
         write_png(path, grid)
         log.info("sample grid -> %s", path)
+        score_sample_grid(trainer, state, step, images.float().cpu().numpy())
 
     hook.state = state
     return hook
+
+
+def score_sample_grid(trainer, state: dict, step: int, images: np.ndarray) -> None:
+    """Score one save interval's generations against the train-embedding
+    index of ``TrainConfig.risk.index_path`` and write the ``risk/max_sim``,
+    ``risk/mean_sim``, ``risk/flagged`` and ``risk/scored`` gauges through
+    ``trainer.writer``. The index is loaded once into ``state``; a bad dump
+    or a scoring error degrades to unscored grids with a ``copy_risk/*``
+    counter, never a failed step. ``trainer`` needs ``.cfg``, ``.writer``
+    and ``.device`` (the index's device)."""
+    rcfg = trainer.cfg.risk
+    if not rcfg.index_path:
+        return
+    from dcr_tpu_torch.core import resilience as R
+    from dcr_tpu_torch.obs import copyrisk
+
+    if "risk_index" not in state:
+        try:
+            state["risk_index"] = copyrisk.CopyRiskIndex.load(
+                rcfg, batch=len(images), device=trainer.device)
+        except Exception as e:
+            log.exception("risk: index load failed")
+            R.log_event("risk_index_load_failed", path=rcfg.index_path, error=repr(e))
+            R.bump_counter("copy_risk/index_load_failed")
+            state["risk_index"] = None
+    index = state["risk_index"]
+    if index is None:
+        return
+    try:
+        scores = index.score_batch(images)
+        agg = copyrisk.observe_scores(scores, rcfg.threshold)
+    except Exception as e:
+        log.exception("risk: scoring failed")
+        R.log_event("risk_score_failed", step=step, error=repr(e))
+        R.bump_counter("copy_risk/score_failed")
+        return
+    trainer.writer.scalars(step, {
+        "risk/max_sim": agg["max_sim"],
+        "risk/mean_sim": agg["mean_sim"],
+        "risk/flagged": agg["flagged"],
+        "risk/scored": agg["scored"],
+    })
+    log.info("risk: step %d — max_sim %.4f, %d/%d over threshold %.3f",
+             step, agg["max_sim"], agg["flagged"], agg["scored"], rcfg.threshold)

@@ -5,8 +5,9 @@ has none): images are uint8 [H, W, 3] numpy arrays, thumbnails come from the
 port's PNG reader and bilinear resize, and pages are written by its PNG
 writer. ``ranked_galleries`` pages rows of [query | its top-k train
 matches], queries in descending top-1 similarity (reference
-diff_retrieval.py:608-640). The plots need matplotlib and return None
-without it, as the JAX package's do.
+diff_retrieval.py:608-640); ``flagged_pair_gallery`` renders copy-risk
+evidence as such pages. The plots need matplotlib and return None without
+it, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -90,6 +91,25 @@ def ranked_galleries(query_paths: Sequence, train_paths: Sequence,
         write_png(path, concat_v(rows))
         pages.append(path)
     return pages
+
+
+def flagged_pair_gallery(flag_paths: Sequence, match_paths: Sequence,
+                         sims: Sequence[float], out_dir: str | Path, *,
+                         thumb: int = 128, rows_per_page: int = 10) -> list[Path]:
+    """Copy-risk evidence gallery: rows of [flagged generation | nearest
+    train match], by descending similarity; the top-1 case of
+    :func:`ranked_galleries` (identity match indices), so the pages are the
+    offline galleries' kind of artifact."""
+    if not (len(flag_paths) == len(match_paths) == len(sims)):
+        raise ValueError(
+            f"flagged-pair gallery needs aligned lists, got "
+            f"{len(flag_paths)}/{len(match_paths)}/{len(sims)}")
+    if not flag_paths:
+        raise ValueError("no flagged pairs to render")
+    return ranked_galleries(
+        flag_paths, match_paths, np.asarray(sims, dtype=float),
+        np.arange(len(flag_paths))[:, None], out_dir,
+        rows_per_page=rows_per_page, max_rank=len(flag_paths), thumb=thumb)
 
 
 def _pyplot():

@@ -15,7 +15,7 @@ from __future__ import annotations
 import json
 import logging
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -120,6 +120,33 @@ def resolve_checkpoint(cfg: SampleConfig) -> Path:
         raise FileNotFoundError(f"no exported checkpoint/ under {root} "
                                 "(export one or pass iternum)")
     return cand
+
+
+class GenerationStack(NamedTuple):
+    """What a generation path needs, loaded once: the modules (holding their
+    weights, on ``device``), the model config and the tokenizer the
+    checkpoint shipped with. The serving worker (:mod:`dcr_tpu_torch.serve.
+    worker`) loads through :func:`load_generation_stack`; unlike the JAX
+    package's stack it carries no params tree and no mesh (one device)."""
+
+    models: DiffusionModels
+    model_cfg: ModelConfig
+    tokenizer: TokenizerBase
+    device: torch.device
+
+
+def load_generation_stack(cfg: SampleConfig,
+                          device: str | torch.device = "cuda") -> GenerationStack:
+    """checkpoint dir -> :class:`GenerationStack` on ``device``: an export of
+    either package or a genuine diffusers checkpoint, through
+    :func:`load_checkpoint_models`, and the tokenizer it ships with."""
+    device = resolve_device(device)
+    models, _, model_cfg = load_checkpoint_models(resolve_checkpoint(cfg), device)
+    text_cfg = models.text_encoder.config
+    tokenizer = load_tokenizer(cfg.model_path or None, vocab_size=text_cfg.text_vocab_size,
+                               model_max_length=text_cfg.text_max_length)
+    return GenerationStack(models=models, model_cfg=model_cfg, tokenizer=tokenizer,
+                           device=device)
 
 
 def generate(cfg: SampleConfig, *, modelstyle: str,

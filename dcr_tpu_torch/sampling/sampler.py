@@ -56,6 +56,12 @@ def encode_prompts(models: DiffusionModels, input_ids: torch.Tensor,
     return cond, uncond
 
 
+def decode_images(models: DiffusionModels, x: torch.Tensor) -> torch.Tensor:
+    """x_0 latents [B, C, h, w] -> images [B, H, W, 3] in [0, 1]."""
+    images = models.vae.decode(x / models.vae.config.vae_scaling_factor)
+    return torch.clamp(images * 0.5 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)
+
+
 def sampler_grid(sampler: str, sched: S.NoiseSchedule,
                  num_inference_steps: int) -> tuple[np.ndarray, np.ndarray, bool]:
     """(ts, prev_ts, lower_order_final) for a sampler name: linspace spacing
@@ -74,19 +80,59 @@ def sampler_grid(sampler: str, sched: S.NoiseSchedule,
 def scheduler_step(sampler: str, sched: S.NoiseSchedule, pred: torch.Tensor,
                    x: torch.Tensor, t, prev_t, dpm_state: S.DPMState, *,
                    force_first_order: bool = False,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   noise: Optional[torch.Tensor] = None):
     """One denoising update ``x_t -> x_{prev_t}``; returns ``(x_new, dpm_state)``.
-    ``generator`` feeds the ancestral ``ddpm`` sampler's noise."""
+    The ancestral ``ddpm`` sampler takes its noise as given (``noise``) or
+    draws it from ``generator``."""
     if sampler == "ddim":
         return S.ddim_step(sched, pred, x, t, prev_t), dpm_state
     if sampler == "dpm++":
         return S.dpmpp_2m_step(sched, pred, x, t, prev_t, dpm_state,
                                force_first_order=force_first_order)
     if sampler == "ddpm":
-        if generator is None:
-            raise ValueError("ddpm needs a generator for its per-step noise")
-        return S.ddpm_step(sched, pred, x, t, prev_t, generator=generator), dpm_state
+        if generator is None and noise is None:
+            raise ValueError("ddpm needs a generator (or the noise) for its per-step noise")
+        return S.ddpm_step(sched, pred, x, t, prev_t, noise=noise,
+                           generator=generator), dpm_state
     raise ValueError(f"unknown sampler {sampler!r}")
+
+
+def denoise(models: DiffusionModels, x: torch.Tensor, ctx: torch.Tensor, *,
+            sampler: str, sched: S.NoiseSchedule, ts: np.ndarray, prev_ts: np.ndarray,
+            lower_order_final: bool, plan: tuple[bool, ...], fast_order: int,
+            guidance: float, generator: Optional[torch.Generator] = None,
+            step_noise: Optional[Callable[[int], torch.Tensor]] = None) -> torch.Tensor:
+    """The CFG denoising loop from x_T [B, C, h, w] with ``ctx`` = [uncond,
+    cond] [2B, L, D]; returns x_0. A step the plan marks full runs the UNet
+    (and banks its score when the plan reuses any); a reuse step takes
+    :func:`fastsample.reuse_score`. DDPM's noise for step i is
+    ``step_noise(i)`` when given, else drawn from ``generator``. The bulk
+    sampler and the serving batch sampler both run it."""
+    bsz = x.shape[0]
+    use_fast = not fastsample.is_dense(plan)
+
+    def predict(t: int) -> torch.Tensor:
+        tb = torch.full((2 * bsz,), t, dtype=torch.long, device=x.device)
+        pred = models.unet(torch.cat([x, x], dim=0), tb, ctx)
+        pred_uncond, pred_cond = pred.chunk(2, dim=0)
+        return pred_uncond + guidance * (pred_cond - pred_uncond)
+
+    dpm_state = S.dpm_init_state(tuple(x.shape), device=x.device)
+    bank = fastsample.bank_init(tuple(x.shape), x.device) if use_fast else None
+    for i, (t, prev_t) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
+        if plan[i]:
+            pred = predict(t)
+            if use_fast:
+                bank = fastsample.bank_update(bank, pred, t)
+        else:
+            pred = fastsample.reuse_score(bank, t, fast_order)
+        force1 = lower_order_final and i == len(ts) - 1
+        noise = step_noise(i) if step_noise is not None and sampler == "ddpm" else None
+        x, dpm_state = scheduler_step(sampler, sched, pred, x, t, prev_t, dpm_state,
+                                      force_first_order=force1, generator=generator,
+                                      noise=noise)
+    return x
 
 
 def make_sampler(cfg: SampleConfig, models: DiffusionModels,
@@ -103,13 +149,11 @@ def make_sampler(cfg: SampleConfig, models: DiffusionModels,
     vae_cfg = models.vae.config
     latent_size = cfg.resolution // vae_scale_factor(vae_cfg)
     latent_ch = vae_cfg.vae_latent_channels
-    scaling = vae_cfg.vae_scaling_factor
     guidance = cfg.guidance_scale
     ts, prev_ts, lower_order_final = sampler_grid(
         cfg.sampler, models.schedule, cfg.num_inference_steps)
     plan = fastsample.fast_plan(cfg.num_inference_steps,
                                 cfg.fast.reuse_ratio if cfg.fast.enabled else 0.0)
-    use_fast = not fastsample.is_dense(plan)
 
     @torch.no_grad()
     def sample_fn(modules: Optional[DiffusionModels], input_ids, uncond_ids,
@@ -132,29 +176,10 @@ def make_sampler(cfg: SampleConfig, models: DiffusionModels,
         cond, uncond = encode_prompts(m, ids, unc, rand_noise_lam=cfg.rand_noise_lam,
                                       generator=generator)
         ctx = torch.cat([uncond, cond], dim=0)             # [2B, L, D]
-
-        def predict(t: int) -> torch.Tensor:
-            tb = torch.full((2 * bsz,), t, dtype=torch.long, device=device)
-            pred = m.unet(torch.cat([x, x], dim=0), tb, ctx)
-            pred_uncond, pred_cond = pred.chunk(2, dim=0)
-            return pred_uncond + guidance * (pred_cond - pred_uncond)
-
-        dpm_state = S.dpm_init_state(tuple(x.shape), device=device)
-        bank = fastsample.bank_init(tuple(x.shape), device) if use_fast else None
-        for i, (t, prev_t) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
-            if plan[i]:
-                pred = predict(t)
-                if use_fast:
-                    bank = fastsample.bank_update(bank, pred, t)
-            else:
-                pred = fastsample.reuse_score(bank, t, cfg.fast.order)
-            force1 = lower_order_final and i == len(ts) - 1
-            x, dpm_state = scheduler_step(cfg.sampler, sched, pred, x, t, prev_t,
-                                          dpm_state, force_first_order=force1,
-                                          generator=generator)
-
-        images = m.vae.decode(x / scaling)
-        return torch.clamp(images * 0.5 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)
+        x = denoise(m, x, ctx, sampler=cfg.sampler, sched=sched, ts=ts, prev_ts=prev_ts,
+                    lower_order_final=lower_order_final, plan=plan,
+                    fast_order=cfg.fast.order, guidance=guidance, generator=generator)
+        return decode_images(m, x)
 
     sample_fn.unet_calls = fastsample.unet_calls(plan)
     return sample_fn

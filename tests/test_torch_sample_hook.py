@@ -10,11 +10,15 @@
 - the hook fires at the JAX trainer's syncs under gradient accumulation
   (``at_sync and sync % save_steps == 0``; tests/test_trainer_e2e.py);
 - ``dcr-train`` installs it and writes ``generations/step_<n>.png`` in
-  ``image_grid``'s layout.
+  ``image_grid``'s layout;
+- ``score_sample_grid`` writes the JAX hook's ``risk/*`` gauges for the same
+  grid and index (similarities within 1e-3: SSCD features at the f32 bar),
+  and a bad index becomes a counter, never a failed step.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from types import SimpleNamespace
 
@@ -198,3 +202,111 @@ def test_cli_installs_the_hook_and_writes_grids(tmp_path, monkeypatch):
     # classlevel over two classes: 2 prompts x 4 images at 16 px, 2 px apart
     layout = image_grid([np.zeros((16, 16, 3), np.float32)] * 8, cols=4)
     assert grid.shape == layout.shape == (34, 70, 3)
+
+
+# ---------------------------------------------------------------------------
+# copy-risk scoring of the grids (score_sample_grid)
+# ---------------------------------------------------------------------------
+
+def _risk_setup(tmp_path):
+    """Two grid images, a dump of the port's SSCD (He-scaled Flax weights
+    carried across, one torch file both packages read) over the first and
+    two unrelated images, and a threshold midway between the copy's
+    similarity and the other image's."""
+    from dcr_tpu_torch.core.config import SearchConfig
+    from dcr_tpu_torch.obs.copyrisk import CopyRiskIndex
+    from dcr_tpu_torch.search.embed import embed_images
+    from tests.test_torch_eval_runner import _he_scaled_sscd_params
+
+    state = EX.sscd_from_flax(_he_scaled_sscd_params())
+    torch.save(state, tmp_path / "sscd.pt")
+    rng = np.random.default_rng(4)
+    imgs = rng.random((2, 16, 16, 3)).astype(np.float32)
+    train = tmp_path / "train"
+    train.mkdir()
+    for i, img in enumerate([imgs[0], *rng.random((2, 16, 16, 3))]):
+        write_png(train / f"{i}.png", (img * 255).round().astype(np.uint8))
+    dump = embed_images(SearchConfig(image_size=32, batch_size=4), source=train,
+                        sscd_state=state, out_path=tmp_path / "train.npz", device="cpu")
+    risk = TC.RiskConfig(index_path=str(dump), image_size=32,
+                         weights_path=str(tmp_path / "sscd.pt"))
+    hit, miss = (s.max_sim for s in CopyRiskIndex.load(risk, batch=2, device="cpu")
+                 .score_batch(imgs))
+    assert hit > 0.9999 and hit > miss + 1e-2, (hit, miss)
+    risk.threshold = (hit + miss) / 2
+    return imgs, risk
+
+
+def test_score_sample_grid_writes_the_jax_hooks_gauges(tmp_path):
+    """The same risk/* gauges as the JAX hook on the same grid: scored and
+    flagged equal, similarities within 1e-3 (SSCD features at the f32 bar);
+    the index loads once per hook state; the gauges reach the registry."""
+    from dcr_tpu.core.metrics import MetricWriter as JWriter
+    from dcr_tpu_torch.core import tracing
+    from dcr_tpu_torch.core.metrics import MetricWriter as TWriter
+
+    imgs, risk = _risk_setup(tmp_path)
+    jcfg = JC.TrainConfig()
+    jcfg.risk = JC.RiskConfig(**dataclasses.asdict(risk))
+    tcfg = TC.TrainConfig()
+    tcfg.risk = risk
+    jtrainer = SimpleNamespace(cfg=jcfg, writer=JWriter(tmp_path / "jax", use_tensorboard=False))
+    ttrainer = SimpleNamespace(cfg=tcfg, writer=TWriter(tmp_path / "port"), device="cpu")
+    jstate, tstate = {}, {}
+    for step in (500, 1000):
+        JH.score_sample_grid(jtrainer, jstate, step, imgs)
+        TH.score_sample_grid(ttrainer, tstate, step, imgs)
+        if step == 500:
+            first = tstate["risk_index"]
+    assert tstate["risk_index"] is first is not None
+    jtrainer.writer.close()
+    ttrainer.writer.close()
+    rows = {}
+    for name in ("jax", "port"):
+        rows[name] = [json.loads(line) for line in
+                      (tmp_path / name / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows["port"]] == [r["step"] for r in rows["jax"]] == [500, 1000]
+    for mine, theirs in zip(rows["port"], rows["jax"]):
+        assert {k for k in mine if k.startswith("risk/")} == {
+            k for k in theirs if k.startswith("risk/")} == {
+            "risk/max_sim", "risk/mean_sim", "risk/flagged", "risk/scored"}
+        assert (mine["risk/scored"], mine["risk/flagged"]) == (theirs["risk/scored"],
+                                                               theirs["risk/flagged"]) == (2, 1)
+        for k in ("risk/max_sim", "risk/mean_sim"):
+            assert abs(mine[k] - theirs[k]) <= 1e-3, (k, mine[k], theirs[k])
+    assert tracing.registry().snapshot()["gauges"]["risk/max_sim"] == rows["port"][-1][
+        "risk/max_sim"]
+
+
+def test_score_sample_grid_degrades_to_a_counter(tmp_path):
+    from dcr_tpu_torch.core import resilience as R
+
+    bad = tmp_path / "embedding.npz"
+    bad.write_bytes(b"garbage")
+    cfg = TC.TrainConfig()
+    cfg.risk = TC.RiskConfig(index_path=str(bad), image_size=32)
+    written = []
+    trainer = SimpleNamespace(cfg=cfg, device="cpu",
+                              writer=SimpleNamespace(scalars=lambda *a: written.append(a)))
+    before = R.bump_counter("copy_risk/index_load_failed", 0)
+    state = {}
+    TH.score_sample_grid(trainer, state, 3, np.zeros((2, 16, 16, 3), np.float32))
+    assert state["risk_index"] is None and written == []
+    assert R.bump_counter("copy_risk/index_load_failed", 0) == before + 1
+
+
+def test_the_hook_scores_its_grids(tmp_path, monkeypatch):
+    """With risk.index_path set, dcr-train's hook scores each grid into the
+    trainer's metrics.jsonl."""
+    _data(tmp_path / "data")
+    _, risk = _risk_setup(tmp_path)
+    cfg = _cfg(tmp_path, "run")
+    cfg.risk = risk
+    trainer = Trainer(cfg, device="cpu")
+    monkeypatch.setattr(TH, "make_sampler", lambda *a, **kw: lambda m, ids, *r: torch.zeros(
+        len(ids), 16, 16, 3))
+    TH.make_sample_hook()(trainer, 3)
+    trainer.writer.close()
+    rows = [json.loads(line) for line in
+            (tmp_path / "run" / "logs" / "metrics.jsonl").read_text().splitlines()]
+    assert rows[-1]["step"] == 3 and rows[-1]["risk/scored"] == 8
