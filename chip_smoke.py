@@ -60,6 +60,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 7. the f32 training mode: 2 steps of the train step (make_train_step) at
    SD-2.1 widths with mixed_precision="no"; 10 launches of each kernel per
    step, all in f32, finite losses;
+15. training faults (after phase 7): Trainer(TrainConfig()) as in phase 6
+   on 48 JPEGs and one truncated JPEG with fault.max_bad_sample_frac 0.05,
+   max_rollbacks 1 and DCR_FAULTS's decode_error, nan_loss, sigterm and
+   ckpt_corrupt: bad samples retried, quarantined and replaced, a NaN rolled
+   back, a SIGTERM checkpointed, the torn checkpoint quarantined on resume,
+   the run trained to its end and exported; quarantine.jsonl and the
+   faults/* metrics held to the expected records, 10 launches of each
+   kernel per executed step at the train shapes in bf16; a straight run
+   beside the resumed one; dcr-train-torch subprocesses exiting 83 on
+   SIGTERM and 89 on a hang. Seconds per step and per save with and without
+   the manifest pass, restore seconds, the cost of a bad sample;
 8. kernel limits (after phase 3): B*H = 66560, above the grid's y limit,
    with a misaligned q, forward and backward through the dispatcher and the
    autograd Function in both dtypes, against the plain versions;
@@ -1306,6 +1317,343 @@ def phase_train_f32_step(steps: int) -> dict:
     if launches != (10 * steps,) * 3 or not all(np.isfinite(losses)):
         raise AssertionError(f"f32 train step: launches (fwd, dQ, dK/dV) {launches}, expected "
                              f"{(10 * steps,) * 3}; losses {losses}")
+    return stats
+
+
+# the training faults phase (15): the spec that fires every recovery once
+FAULT_SPEC = ("decode_error@step=0&slot=3,nan_loss@step=4,sigterm@step=5,"
+              "ckpt_corrupt@step=5")
+
+
+def _expected_bad_samples(dataset, seed: int, epochs: int, steps: int, batch: int,
+                          bad_index: int, injected: tuple) -> set:
+    """The (epoch, step, slot, index, replacement_slot, replacement_index) of
+    every quarantined occurrence the loader's rule gives: each slot of the
+    truncated file, and the injected (epoch, step, slot), replaced by the
+    next plan slot that decodes."""
+    from dcr_tpu_torch.data.loader import sampling_plan
+
+    out = set()
+    for epoch in range(epochs):
+        plan = sampling_plan(dataset, epoch=epoch, seed=seed)
+        index = lambda s: int(dataset.active_indices[int(plan[s])])
+        for slot in range(steps * batch):
+            if index(slot) != bad_index and (epoch, slot // batch, slot) != injected:
+                continue
+            cand = next(c for c in ((slot + k) % len(plan) for k in range(1, len(plan)))
+                        if index(c) != bad_index)
+            out.add((epoch, slot // batch, slot, index(slot), cand, index(cand)))
+    return out
+
+
+def _cli_fault_run(root: Path, name: str, dcr_faults: str, *extra: str,
+                   steps: int) -> dict:
+    """dcr-train-torch as a subprocess on the card at phase 4's kernel-shaped
+    tiny model (128 px, batch 2), with DCR_FAULTS set: (exit code, seconds,
+    the run directory, the tail of stderr)."""
+    import os
+
+    from dcr_tpu_torch.core.config import DataConfig, OptimConfig, TrainConfig, save_config
+
+    cfg = TrainConfig(output_dir=str(root / name), max_train_steps=steps, log_every=1,
+                      train_batch_size=2, mixed_precision="bf16", seed=0)
+    cfg.model = _tiny_kernel_cfg()
+    cfg.data = DataConfig(train_data_dir=str(root / "tiny_data"), resolution=128,
+                          class_prompt="nolevel", num_workers=2)
+    cfg.optim = OptimConfig(learning_rate=1e-4, lr_scheduler="constant", lr_warmup_steps=0)
+    save_config(cfg, root / f"{name}.json")
+    env = {k: v for k, v in os.environ.items() if k not in ("DCR_FAULTS",
+                                                             "DCR_HANG_TIMEOUT_S")}
+    env.update(DCR_FAULTS=dcr_faults, PYTHONPATH=str(Path(__file__).resolve().parent))
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dcr_tpu_torch.cli.train",
+                           f"--config={root / f'{name}.json'}", *extra], env=env,
+                          cwd=root, capture_output=True, text=True, timeout=300)
+    return {"rc": proc.returncode, "s": time.perf_counter() - start, "run": root / name,
+            "stderr": proc.stderr}
+
+
+def phase_train_faults(out_dir: Path) -> dict:
+    """Phase 15: training's fault tolerance at full width. Trainer(TrainConfig())
+    (SD-2.1 widths, 256 px, batch 16, bf16) on 48 photo-like JPEGs and one
+    truncated JPEG, with fault.max_bad_sample_frac 0.05, max_rollbacks 1,
+    a checkpoint every 3 steps (2 kept) and FAULT_SPEC installed:
+    - steps 1-3: the injected decode_error (epoch 0, step 0, slot 3) and
+      every occurrence of the truncated file are retried (the injected one
+      is not: it fails before the decode) and quarantined, each replaced by
+      the next plan slot that decodes; a checkpoint at step 3;
+    - step 4: nan_loss -> rollback to step 3, state.step = 4, on with the
+      next batch;
+    - step 5: sigterm -> the preemption's save of step 5, which ckpt_corrupt
+      then zero-fills; train() returns with preempted_exit;
+    - a second Trainer on the same output_dir quarantines step 5, restores
+      step 3, trains steps 4-6, saves and exports.
+    Held: the quarantine.jsonl records (bad_sample by the rule of
+    _expected_bad_samples, one nan_rollback, one bad_checkpoint), the
+    faults/* metrics, checkpoints/quarantined/5, finite losses, 10 launches
+    of each kernel per executed step, all at the two train shapes in bf16,
+    the export loading back. A straight run (the same spec's decode_error
+    only, no saves) gives the resumed run's reference: equal step counter,
+    optimizer count and loader index sequences; the params' max |diff| is
+    reported (cuDNN's backward may pick nondeterministic algorithms). Then
+    two dcr-train-torch subprocesses at the tiny kernel-shaped model:
+    sigterm@step=2 exits 83 with a checkpoint at step 2, and hang@step=1
+    with --fault.hang_timeout_s=5 exits 89 with a thread dump on stderr.
+    Reports s per step, s per save with the manifest pass (steps 3 and 6)
+    and without it (step 5, the save that is torn: a torn file fails its
+    load, so it needs no manifest to be caught),
+    restore s of the rollback and of the fallback, decode-retry and
+    quarantine ms per bad sample, wall time and peak memory."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from dcr_tpu_torch.core import checkpoint as CK
+    from dcr_tpu_torch.core import resilience as R
+    from dcr_tpu_torch.core.config import FaultToleranceConfig, TrainConfig
+    from dcr_tpu_torch.data import dataset as DS
+    from dcr_tpu_torch.diffusion.trainer import Trainer
+    from dcr_tpu_torch.native.jpeg_helper import encode
+    from dcr_tpu_torch.ops import flash_attention as fa
+    from dcr_tpu_torch.sampling.pipeline import load_checkpoint_models
+    from dcr_tpu_torch.sampling.png import write_png
+    from dcr_tpu_torch.utils import faults
+
+    wall0 = time.perf_counter()
+    data = out_dir / "data"
+    for i in range(48):
+        (data / f"class{i % 2}").mkdir(parents=True, exist_ok=True)
+        (data / f"class{i % 2}" / f"{i}.jpg").write_bytes(encode(_photo(i, 375, 500), 90))
+    whole = encode(_photo(99, 375, 500), 90)
+    truncated = data / "class1" / "truncated.jpg"
+    truncated.write_bytes(whole[: len(whole) * 3 // 5])
+    run = out_dir / "run"
+    cfg = TrainConfig(output_dir=str(run), max_train_steps=6, log_every=1, modelsavesteps=3,
+                      checkpoints_total_limit=2)
+    cfg.data.train_data_dir = str(data)
+    cfg.fault = FaultToleranceConfig(max_bad_sample_frac=0.05, max_rollbacks=1)
+
+    # timers around the checkpoint manager's saves, restores and manifest passes
+    times = {"save": [], "no_manifest_save": [], "manifest": [], "verify": [], "restore": []}
+    state_manifest, verify_manifest = CK.state_manifest, CK.verify_manifest
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            start = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                times[key].append(time.perf_counter() - start)
+        return call
+
+    shapes, check_inputs = set(), fa._check_kernel_inputs
+
+    def recording_check(q, k, v):
+        shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3], q.dtype))
+        return check_inputs(q, k, v)
+
+    def instrument(trainer, record):
+        mgr, save = trainer.ckpt, trainer.ckpt.save
+
+        def timed_save(step, state):
+            # the preemption's save of step 5, torn right after it commits,
+            # is the one written without the manifest pass
+            mgr.verify = step != 5
+            start = time.perf_counter()
+            try:
+                if save(step, state):  # an already-saved step writes nothing
+                    times["save" if mgr.verify else "no_manifest_save"].append(
+                        time.perf_counter() - start)
+            finally:
+                mgr.verify = True
+        trainer.ckpt.save = timed_save
+        trainer.ckpt.restore_latest_valid = timed("restore", trainer.ckpt.restore_latest_valid)
+        step_fn = trainer.step_fn
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            record["losses"].append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            record["step_s"].append(time.perf_counter() - start)
+            record["index"].append([int(i) for i in batch["index"]])
+            return state, metrics
+        trainer.step_fn = step
+
+    first = {"losses": [], "step_s": [], "index": []}
+    resumed = {"losses": [], "step_s": [], "index": []}
+    straight = {"losses": [], "step_s": [], "index": []}
+    CK.state_manifest = timed("manifest", state_manifest)
+    CK.verify_manifest = timed("verify", verify_manifest)
+    fa._check_kernel_inputs = recording_check
+    torch.cuda.reset_peak_memory_stats()
+    R.reset_counters()
+    reset_launches()
+    try:
+        faults.install(FAULT_SPEC)
+        a = Trainer(cfg, device="cuda")
+        instrument(a, first)
+        a.install_preemption_handler()
+        a.train()
+        if not a.preempted_exit:
+            raise AssertionError("the first trainer did not stop on the injected SIGTERM")
+        bad_index = a.dataset.paths.index(str(truncated))
+        expected_bad = _expected_bad_samples(
+            a.dataset, cfg.data.seed, 2, a.loader.steps_per_epoch(), cfg.train_batch_size,
+            bad_index, (0, 0, 3))
+        # the decode-retry and quarantine cost of one bad sample: the failed
+        # attempts (with the retry's backoff) and the replacement's decode
+        bad_pos = int(np.flatnonzero(a.dataset.active_indices == bad_index)[0])
+        overhead = []
+        for _ in range(3):
+            start = time.perf_counter()
+            try:
+                a.dataset.get(bad_pos, epoch=0, slot=0)
+                raise AssertionError(f"{truncated} decoded")
+            except DS.SampleDecodeError:
+                failed = time.perf_counter() - start
+            start = time.perf_counter()
+            a.dataset.get((bad_pos + 1) % len(a.dataset), epoch=0, slot=1)
+            overhead.append((failed, time.perf_counter() - start))
+        rollback_restore_s = list(times["restore"])
+        del a
+        gc.collect()
+        torch.cuda.empty_cache()
+        b = Trainer(cfg, device="cuda")
+        instrument(b, resumed)
+        b.train()
+        fallback_restore_s = times["restore"][len(rollback_restore_s):]
+        launches_ab = read_launches()
+        models, _, mcfg = load_checkpoint_models(run / "checkpoint", "cuda")
+        bad = [k for k, t in b.state.unet_params.items()
+               if not torch.equal(t.detach(), dict(models.unet.named_parameters())[k])]
+        if mcfg != cfg.model or bad:
+            raise AssertionError(f"the export does not load back: {bad[:3]}")
+        del models
+        resumed_unet = {k: t.detach().cpu() for k, t in b.state.unet_params.items()}
+        resumed_counts = (b.state.step, b.state.opt_state.count)
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the straight run: the same bad samples, no NaN, no stop, no saves
+        faults.install("decode_error@step=0&slot=3")
+        straight_cfg = dataclasses.replace(cfg, output_dir=str(out_dir / "straight"))
+        c = Trainer(straight_cfg, device="cuda")
+        instrument(c, straight)
+        c.save = lambda: None
+        c.export_checkpoint = lambda tag="checkpoint": None
+        c.train()
+        straight_counts = (c.state.step, c.state.opt_state.count)
+        max_diff = max((t.detach().cpu() - resumed_unet[k]).abs().max().item()
+                       for k, t in c.state.unet_params.items())
+        del c
+    finally:
+        faults.clear()
+        CK.state_manifest, CK.verify_manifest = state_manifest, verify_manifest
+        fa._check_kernel_inputs = check_inputs
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    records = [json.loads(x) for x in (run / "quarantine.jsonl").read_text().splitlines()]
+    kinds = [r["kind"] for r in records]
+    got_bad = {(r["epoch"], r["step"], r["slot"], r["index"], r["replacement_slot"],
+                r["replacement_index"]) for r in records if r["kind"] == "bad_sample"}
+    rows = [json.loads(x) for x in (run / "logs" / "metrics.jsonl").read_text().splitlines()]
+    steps_run = len(first["step_s"]) + len(resumed["step_s"]) + len(straight["step_s"])
+    stats = {
+        "card": CARD[0], "spec": FAULT_SPEC, "records": {k: kinds.count(k) for k in set(kinds)},
+        "expected_bad_samples": sorted(expected_bad),
+        "metric_steps": [r["step"] for r in rows],
+        "faults_metrics": [{k: r[k] for k in r if k.startswith("faults/")} for r in rows],
+        "steps_run": [len(first["step_s"]), len(resumed["step_s"]), len(straight["step_s"])],
+        "step_s": first["step_s"] + resumed["step_s"],
+        "median_step_s_after_first": statistics.median(
+            first["step_s"][1:] + resumed["step_s"][1:] + straight["step_s"][1:]),
+        "save_s": times["save"], "manifest_s": times["manifest"],
+        "no_manifest_save_s": times["no_manifest_save"], "verify_s": times["verify"],
+        "rollback_restore_s": rollback_restore_s, "fallback_restore_s": fallback_restore_s,
+        "bad_sample_failed_decode_ms": [1e3 * f for f, _ in overhead],
+        "bad_sample_replacement_decode_ms": [1e3 * g for _, g in overhead],
+        "launches_fwd_dq_dkv": launches, "launches_first_and_resumed": launches_ab,
+        "kernel_shapes": sorted(list(s[:5]) + [str(s[5])] for s in shapes),
+        "straight_vs_resumed_max_abs_diff": max_diff,
+        "straight_counts": straight_counts, "resumed_counts": resumed_counts,
+        "peak_bytes": peak, "losses": first["losses"] + resumed["losses"],
+    }
+    problems = []
+    if kinds.count("nan_rollback") != 1 or kinds.count("bad_checkpoint") != 1:
+        problems.append(f"records {stats['records']}")
+    roll = next((r for r in records if r["kind"] == "nan_rollback"), {})
+    if (roll.get("at_step"), roll.get("restored_step"), roll.get("skipped_steps"),
+            roll.get("rollback"), roll.get("max_rollbacks")) != (4, 3, 1, 1, 1):
+        problems.append(f"nan_rollback record {roll}")
+    ckpt_rec = next((r for r in records if r["kind"] == "bad_checkpoint"), {})
+    if ckpt_rec.get("step") != 5 or not (run / "checkpoints" / "quarantined" / "5").is_dir():
+        problems.append(f"bad_checkpoint record {ckpt_rec}")
+    if got_bad != expected_bad or (0, 0, 3) not in {b[:3] for b in got_bad}:
+        problems.append(f"bad_sample records {sorted(got_bad)}, expected {sorted(expected_bad)}")
+    if len(times["save"]) != 2 or len(times["no_manifest_save"]) != 1:
+        problems.append(f"saves {times['save']} with, {times['no_manifest_save']} without "
+                        "the manifest pass (expected steps 3 and 6, and 5)")
+    if stats["metric_steps"] != [1, 2, 3, 5, 4, 5, 6]:
+        problems.append(f"metrics rows {stats['metric_steps']}")
+    fm = stats["faults_metrics"]
+    if (any({"faults/bad_samples", "faults/rollbacks", "faults/ckpt_fallbacks"} - set(m)
+            for m in fm)
+            or [m["faults/rollbacks"] for m in fm] != [0, 0, 0, 1, 0, 0, 0]
+            or [m["faults/ckpt_fallbacks"] for m in fm] != [0, 0, 0, 0, 1, 1, 1]
+            or fm[0]["faults/bad_samples"] < 1
+            or fm[-1]["faults/bad_samples"] != sum(1 for b in expected_bad if b[0] == 1)):
+        problems.append(f"faults/* metrics {fm}")
+    if not all(np.isfinite(r["loss"]) for r in rows) or not np.isfinite(stats["losses"]).all():
+        problems.append(f"losses {stats['losses']}")
+    if stats["steps_run"] != [5, 3, 6] or launches != (10 * steps_run,) * 3:
+        problems.append(f"steps {stats['steps_run']}, launches {launches}")
+    held = {(16, 1024, 1024, 5, 64, torch.bfloat16), (16, 256, 256, 10, 64, torch.bfloat16)}
+    if shapes != held:
+        problems.append(f"kernel shapes {sorted(map(str, shapes))}")
+    if (straight_counts != resumed_counts != (6, 6)
+            or straight["index"][3:] != resumed["index"]
+            or straight["index"][:3] != first["index"][:3]):
+        problems.append(f"straight vs resumed: counts {straight_counts} / {resumed_counts}, "
+                        f"index {straight['index']} / {first['index']} + {resumed['index']}")
+
+    # dcr-train-torch on the card: exit 83 and exit 89
+    for i in range(8):
+        (out_dir / "tiny_data" / f"c{i % 2}").mkdir(parents=True, exist_ok=True)
+        write_png(out_dir / "tiny_data" / f"c{i % 2}" / f"{i}.png", _photo(i, 128, 128))
+    stop = _cli_fault_run(out_dir, "cli_sigterm", "sigterm@step=2", steps=3)
+    hang = _cli_fault_run(out_dir, "cli_hang", "hang@step=1", "--fault.hang_timeout_s=5",
+                          steps=3)
+    stats["cli_sigterm"] = {"rc": stop["rc"], "s": stop["s"],
+                            "checkpoints": sorted(p.name for p in (stop["run"] / "checkpoints")
+                                                  .iterdir()) if stop["rc"] == 83 else None}
+    stats["cli_hang"] = {"rc": hang["rc"], "s": hang["s"],
+                         "thread_dump": "Thread 0x" in hang["stderr"]
+                         and "simulate_hang" in hang["stderr"]}
+    if stop["rc"] != 83 or not (stop["run"] / "checkpoints" / "2" / "state.pt").exists():
+        problems.append(f"dcr-train-torch with sigterm@step=2: rc {stop['rc']}, "
+                        f"{stop['stderr'][-2000:]}")
+    if hang["rc"] != 89 or not stats["cli_hang"]["thread_dump"] or hang["s"] > 60:
+        problems.append(f"dcr-train-torch with hang@step=1: rc {hang['rc']} in "
+                        f"{hang['s']:.1f} s, {hang['stderr'][-2000:]}")
+    stats["wall_s"] = time.perf_counter() - wall0
+    log(f"training faults (phase 15, {CARD[0]}): {json.dumps(stats, default=str)}")
+    log(f"training faults ({CARD[0]}): s per step {stats['median_step_s_after_first']:.4f}; "
+        f"save "
+        f"{statistics.mean(times['save']):.2f} s with the manifest pass "
+        f"({statistics.mean(times['manifest']):.2f} s of it), "
+        f"{statistics.mean(times['no_manifest_save']):.2f} s without; restore {rollback_restore_s} s (rollback), {fallback_restore_s} s "
+        f"(fallback); a bad sample {statistics.mean(f for f, _ in overhead) * 1e3:.1f} ms "
+        f"failing + {statistics.mean(g for _, g in overhead) * 1e3:.1f} ms replacing; "
+        f"straight vs resumed max |diff| {max_diff:.3e}; exits {stop['rc']}, {hang['rc']} "
+        f"({hang['s']:.1f} s); peak {peak / 2**30:.2f} GiB; {stats['wall_s']:.1f} s")
+    if problems:
+        raise AssertionError("training faults: " + "; ".join(problems))
     return stats
 
 
@@ -2726,6 +3074,9 @@ def main() -> int:
     f32_train_stats = phase_train_f32_step(steps=2)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
+        fault_stats = phase_train_faults(Path(tmp))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
         eval_stats = phase_eval_main_path(Path(tmp))
     if eval_stats["launches_fwd_dq_dkv"] != (0, 0, 0):
         raise AssertionError(f"the eval path launched flash kernels: "
@@ -2770,6 +3121,7 @@ def main() -> int:
     # launches by main path: sampling is f32, the default training path
     # bf16, the f32 training mode f32
     train = dict(zip(("fwd", "dq", "dkv"), train_stats["launches_fwd_dq_dkv"]))
+    train_faults = dict(zip(("fwd", "dq", "dkv"), fault_stats["launches_fwd_dq_dkv"]))
     f32_train = dict(zip(("fwd", "dq", "dkv"), f32_train_stats["launches_fwd_dq_dkv"]))
     sample_cases = ("level0", "level1", "level2", "hook_level0", "hook_level1",
                     *(c[0] for c in MITIGATE_CASES), *SERVE_CASES)
@@ -2784,7 +3136,8 @@ def main() -> int:
                       "train_hook": train_stats["hook_launches_fwd_dq_dkv"][0],
                       "train_f32": f32_train["fwd"]},
                      tensor_cores("flash_fwd_tf32x3_kernel")),
-        kernel_entry("fwd", "bfloat16", kern["rows"], train_cases, {"train": train["fwd"]},
+        kernel_entry("fwd", "bfloat16", kern["rows"], train_cases,
+                     {"train": train["fwd"], "train_faults": train_faults["fwd"]},
                      tensor_cores("flash_fwd_bf16_kernel")),
     ]
     for kind in ("dq", "dkv"):
@@ -2792,7 +3145,8 @@ def main() -> int:
             kernel_entry(kind, "float32", bwd["rows"], train_cases,
                          {"train_f32": f32_train[kind]},
                          tensor_cores(f"flash_bwd_{kind}_tf32x3_kernel")),
-            kernel_entry(kind, "bfloat16", bwd["rows"], train_cases, {"train": train[kind]},
+            kernel_entry(kind, "bfloat16", bwd["rows"], train_cases,
+                         {"train": train[kind], "train_faults": train_faults[kind]},
                          tensor_cores(f"flash_bwd_{kind}_bf16_kernel")),
         ]
     entries[0]["per_shape"] = kern["rows"]
@@ -2802,6 +3156,7 @@ def main() -> int:
     log(f"fast sampling stats: {json.dumps(fast_stats)}")
     log(f"train path stats: {json.dumps(train_stats)}")
     log(f"f32 train step stats: {json.dumps(f32_train_stats)}")
+    log(f"training faults stats: {json.dumps(fault_stats, default=str)}")
     log(f"small train reference: {json.dumps(small_train)}")
     log(f"kernel limits: {json.dumps(limits)}")
     log(f"small eval reference: {json.dumps(small_eval)}")

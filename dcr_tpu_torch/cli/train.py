@@ -7,8 +7,16 @@ Same flags and ``--config=<config.json>`` as the JAX package's ``dcr-train``.
 It trains on one CUDA device (``DCR_TPU_PLATFORM=cpu`` selects the CPU), from
 seeded random weights, writes a sample grid every ``save_steps``
 (``<output_dir>/generations/step_<n>.png``), resumes from
-``<output_dir>/checkpoints`` and exports ``<output_dir>/checkpoint`` at the
-end. A setting the port does not run yet is refused with ``NotPortedError``.
+``<output_dir>/checkpoints`` (the newest valid step) and exports
+``<output_dir>/checkpoint`` at the end. A setting the port does not run yet
+is refused with ``NotPortedError``.
+
+Exit codes: 0 when training ends; 83 (``EXIT_PREEMPTED``) after a SIGTERM
+or SIGINT, once the final checkpoint is written (a second signal ends the
+process at once); 89 (``EXIT_HANG``) when ``--fault.hang_timeout_s`` (or
+``DCR_HANG_TIMEOUT_S``) passes without a finished step, with every thread's
+stack on stderr. ``DCR_FAULTS`` injects faults (``utils/faults.py``), e.g.
+``DCR_FAULTS=sigterm@step=2``.
 """
 
 from __future__ import annotations
@@ -17,8 +25,10 @@ import logging
 
 from dcr_tpu_torch.cli import device_from_env
 from dcr_tpu_torch.core.config import TrainConfig, parse_cli
+from dcr_tpu_torch.core.coordination import EXIT_PREEMPTED
 from dcr_tpu_torch.diffusion.sample_hook import make_sample_hook
 from dcr_tpu_torch.diffusion.trainer import Trainer
+from dcr_tpu_torch.utils import faults
 
 log = logging.getLogger("dcr_tpu_torch")
 
@@ -27,8 +37,18 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s",
                         force=True)
     cfg = parse_cli(TrainConfig, argv)
-    metrics = Trainer(cfg, sample_hook=make_sample_hook(),
-                      device=device_from_env()).train()
+    reg = faults.registry()
+    if reg:
+        log.warning("fault injection ACTIVE (DCR_FAULTS): %s", reg.pending())
+    trainer = Trainer(cfg, sample_hook=make_sample_hook(), device=device_from_env())
+    trainer.install_preemption_handler()
+    metrics = trainer.train()
+    if reg and reg.pending():
+        log.warning("fault entries never fired (check coordinates): %s", reg.pending())
+    if trainer.preempted_exit:
+        log.warning("preempted: final checkpoint written; exiting with code %d for the "
+                    "restart wrapper", EXIT_PREEMPTED)
+        raise SystemExit(EXIT_PREEMPTED)
     log.info("training done: %s", metrics)
 
 

@@ -3,8 +3,13 @@
 - :class:`CheckpointManager` keeps the full train state (params, optimizer,
   EMA, step) under ``<output_dir>/checkpoints/<step>/state.pt``, one
   ``torch.save`` file per step, written under a temporary name and renamed,
-  keeping the newest ``max_to_keep``. It is the port's own format; the JAX
-  package's orbax/npz checkpoints are not read.
+  keeping the newest ``max_to_keep``, with a content manifest per step
+  (``manifests/<step>.json``: crc32, shape and dtype of every leaf, the JAX
+  package's schema). A restore loads and verifies the whole step before it
+  copies anything into the live state; resume walks back past damaged steps
+  to the newest valid one and moves each damaged step to
+  ``quarantined/<step>``. It is the port's own format; the JAX package's
+  orbax/npz checkpoints are not read.
 - :func:`export_hf_layout` writes the directory-of-subfolders export of
   ``dcr_tpu/core/checkpoint.py``: per component ``params.npz`` (the Flax
   tree flattened to ``a/b/c`` keys) and the torch-layout weights under the
@@ -23,17 +28,25 @@
 from __future__ import annotations
 
 import json
+import logging
 import os
 import shutil
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from dcr_tpu_torch.core import fsio
+from dcr_tpu_torch.core import resilience as R
+from dcr_tpu_torch.core.resilience import QuarantineManifest
 from dcr_tpu_torch.core.safetensors import load_file, save_file
 from dcr_tpu_torch.models import convert as CV
 from dcr_tpu_torch.models import export as EX
+
+log = logging.getLogger("dcr_tpu_torch")
 
 STATE_FILE = "state.pt"
 
@@ -64,39 +77,156 @@ def flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
 # resume checkpoints
 # ---------------------------------------------------------------------------
 
+MANIFEST_FORMAT = 1
+
+
+class CheckpointCorrupt(RuntimeError):
+    """A checkpoint step does not load, or fails its content manifest."""
+
+
 def _state_dict(state) -> dict:
+    """The train state as nested dicts of CPU tensors and ints (what
+    ``state.pt`` holds)."""
     def plain(d: Optional[dict]) -> Optional[dict]:
-        return None if d is None else {k: t.detach() for k, t in d.items()}
+        return None if d is None else {k: t.detach().cpu() for k, t in d.items()}
 
     opt = state.opt_state
     return {"step": int(state.step),
             "params": {"unet": plain(state.unet_params), "text": plain(state.text_params),
                        "vae": plain(state.vae_params)},
-            "opt": {"count": opt.count, "mini_step": opt.mini_step, "mu": opt.mu,
-                    "nu": opt.nu, "acc_grads": opt.acc_grads},
-            "ema": state.ema_params}
+            "opt": {"count": int(opt.count), "mini_step": int(opt.mini_step),
+                    "mu": plain(opt.mu), "nu": plain(opt.nu),
+                    "acc_grads": plain(opt.acc_grads)},
+            "ema": plain(state.ema_params)}
 
 
-def _copy_into(dst: Optional[dict], src: Optional[dict], what: str) -> None:
-    if (dst is None) != (src is None):
-        raise ValueError(f"checkpoint {what} does not match the run's configuration "
-                         f"({'absent' if src is None else 'present'} in the checkpoint)")
-    if dst is None:
-        return
-    if set(dst) != set(src):
-        raise ValueError(f"checkpoint {what} keys differ from the run's: "
-                         f"{sorted(set(dst) ^ set(src))[:5]}")
+def _leaves(tree: Any, prefix: str = "") -> dict[str, Any]:
+    """Nested dicts -> ``a/b/c`` keys; None subtrees (absent EMA,
+    accumulators) have no leaves."""
+    if isinstance(tree, dict):
+        out: dict[str, Any] = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        return out
+    return {} if tree is None else {prefix[:-1]: tree}
+
+
+def _leaf_record(leaf: Any) -> dict:
+    """crc32 of a CPU tensor's raw bytes (any dtype: bf16 has no numpy type,
+    so the bytes are read as uint8) or of an int's decimal text, with its
+    shape and dtype."""
+    if isinstance(leaf, torch.Tensor):
+        raw = leaf.detach().contiguous().reshape(-1).view(torch.uint8).numpy()
+        return {"crc32": zlib.crc32(raw), "shape": list(leaf.shape), "dtype": str(leaf.dtype)}
+    return {"crc32": zlib.crc32(str(int(leaf)).encode()), "shape": [], "dtype": "int"}
+
+
+def _records(payload: dict) -> dict[str, dict]:
+    leaves = _leaves(payload)
+    # zlib releases the GIL on large buffers: the leaves hash in parallel
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        return dict(zip(leaves, pool.map(_leaf_record, leaves.values())))
+
+
+def state_manifest(payload: dict) -> dict:
+    """Content manifest of a saved state (the JAX package's schema without
+    the step): ``{"format", "leaves": {key: {"crc32", "shape", "dtype"}}}``.
+    crc32 is not cryptographic: the adversary is a torn write or bit rot."""
+    return {"format": MANIFEST_FORMAT, "leaves": _records(payload)}
+
+
+def verify_manifest(manifest: dict, payload: dict) -> list[str]:
+    """Mismatch descriptions ([] = valid) between a loaded state and the
+    manifest written when it was saved."""
+    expected = manifest.get("leaves", {})
+    got = _records(payload)
+    problems = [f"{key}: missing from the loaded state" for key in expected
+                if key not in got]
+    for key, rec in got.items():
+        want = expected.get(key)
+        if want is None:
+            problems.append(f"{key}: leaf not in manifest")
+        elif rec["shape"] != want["shape"] or rec["dtype"] != want["dtype"]:
+            problems.append(f"{key}: shape/dtype {rec['shape']}/{rec['dtype']} != "
+                            f"{want['shape']}/{want['dtype']}")
+        elif rec["crc32"] != want["crc32"]:
+            problems.append(f"{key}: checksum mismatch")
+    return problems
+
+
+def corrupt_step_dir(step_dir: Path) -> None:
+    """Fault injection: simulate a torn write by zero-filling every file of
+    a step directory (tests call it directly too)."""
+    for p in Path(step_dir).rglob("*"):
+        if p.is_file():
+            p.write_bytes(b"\x00" * p.stat().st_size)
+
+
+def _live_groups(state) -> dict[str, Optional[dict]]:
+    opt = state.opt_state
+    return {"unet params": state.unet_params, "text params": state.text_params,
+            "vae params": state.vae_params, "Adam first moments": opt.mu,
+            "Adam second moments": opt.nu, "accumulated gradients": opt.acc_grads,
+            "EMA params": state.ema_params}
+
+
+def _saved_groups(saved: dict) -> dict[str, Optional[dict]]:
+    try:
+        return {"unet params": saved["params"]["unet"], "text params": saved["params"]["text"],
+                "vae params": saved["params"]["vae"], "Adam first moments": saved["opt"]["mu"],
+                "Adam second moments": saved["opt"]["nu"],
+                "accumulated gradients": saved["opt"]["acc_grads"], "EMA params": saved["ema"]}
+    except (KeyError, TypeError) as e:
+        raise CheckpointCorrupt(f"not a train state: {e!r}") from e
+
+
+def _check_compatible(state, saved: dict) -> None:
+    """ValueError when a loaded state cannot go into the run's: a section
+    present in one and absent in the other, other keys or other shapes. A
+    checkpoint of another configuration, not a damaged one."""
+    for what, dst in _live_groups(state).items():
+        src = _saved_groups(saved)[what]
+        if (dst is None) != (src is None):
+            raise ValueError(f"checkpoint {what} does not match the run's configuration "
+                             f"({'absent' if src is None else 'present'} in the checkpoint)")
+        if dst is None:
+            continue
+        if set(dst) != set(src):
+            raise ValueError(f"checkpoint {what} keys differ from the run's: "
+                             f"{sorted(set(dst) ^ set(src))[:5]}")
+        bad = [k for k, t in dst.items() if tuple(src[k].shape) != tuple(t.shape)]
+        if bad:
+            raise ValueError(f"checkpoint {what} shapes differ from the run's: {bad[:5]}")
+
+
+def _copy_into(state, saved: dict) -> None:
     with torch.no_grad():
-        for k, t in dst.items():
-            t.copy_(src[k])
+        for what, dst in _live_groups(state).items():
+            src = _saved_groups(saved)[what]
+            for k, t in (dst or {}).items():
+                t.copy_(src[k])
+    opt = state.opt_state
+    opt.count, opt.mini_step = int(saved["opt"]["count"]), int(saved["opt"]["mini_step"])
+    state.step = int(saved["step"])
 
 
 class CheckpointManager:
-    """Step-numbered full-state checkpoints under one directory."""
+    """Step-numbered full-state checkpoints under one directory, with a
+    content manifest per step and quarantine-and-fall-back restore.
 
-    def __init__(self, directory: str | Path, max_to_keep: int = 3):
+    Layout: ``<step>/state.pt``, ``manifests/<step>.json`` (written after
+    the step directory is renamed into place) and ``quarantined/<step>/``
+    (damaged steps moved aside, never offered again). ``verify=False``
+    writes and checks no manifests. ``quarantine`` records each bad step
+    as a ``bad_checkpoint`` record."""
+
+    def __init__(self, directory: str | Path, max_to_keep: int = 3, *, verify: bool = True,
+                 quarantine: Optional[QuarantineManifest] = None):
         self.dir = Path(directory)
         self.max_to_keep = max_to_keep
+        self.verify = verify
+        self.quarantine = quarantine
+        self.manifest_dir = self.dir / "manifests"
 
     def all_steps(self) -> list[int]:
         if not self.dir.exists():
@@ -108,44 +238,126 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def _manifest_path(self, step: int) -> Path:
+        return self.manifest_dir / f"{step}.json"
+
     def save(self, step: int, state) -> bool:
         """Write ``state`` as step ``step``; returns False when that step is
         already saved."""
         final = self.dir / str(step)
         if (final / STATE_FILE).exists():
             return False
+        payload = _state_dict(state)
         tmp = self.dir / f".{step}.tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir(parents=True)
         with open(tmp / STATE_FILE, "wb") as f:
-            torch.save(_state_dict(state), f)
+            torch.save(payload, f)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, final)
+        fsio.fsync_dir(self.dir)
+        if self.verify:
+            self.manifest_dir.mkdir(exist_ok=True)
+            manifest = {"step": step, **state_manifest(payload)}
+            fsio.publish_durable(self._manifest_path(step).with_suffix(".tmp"),
+                                 self._manifest_path(step), json.dumps(manifest, sort_keys=True))
         for old in self.all_steps()[:-self.max_to_keep] if self.max_to_keep > 0 else []:
             shutil.rmtree(self.dir / str(old), ignore_errors=True)
+            self._manifest_path(old).unlink(missing_ok=True)
+        log.info("checkpoint saved at step %d -> %s", step, final)
+        from dcr_tpu_torch.utils import faults
+
+        if faults.fire("ckpt_corrupt", step=step):
+            corrupt_step_dir(final)
         return True
 
+    def _load_verified(self, step: int) -> dict:
+        """Step ``step``'s payload on the CPU, checked against its manifest;
+        :class:`CheckpointCorrupt` when it does not load or does not match.
+        A step without a manifest (saved with ``verify=False``) is accepted
+        unverified."""
+        path = self.dir / str(step) / STATE_FILE
+        try:
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+        except Exception as e:  # a torn file raises any of many types
+            raise CheckpointCorrupt(f"checkpoint step {step} does not load: {e!r}") from e
+        if not isinstance(saved, dict):
+            raise CheckpointCorrupt(f"checkpoint step {step} holds a {type(saved).__name__}")
+        if not self.verify:
+            return saved
+        mpath = self._manifest_path(step)
+        if not mpath.exists():
+            log.info("checkpoint step %d has no manifest: accepted unverified", step)
+            return saved
+        try:
+            manifest = json.loads(mpath.read_text())
+        except (OSError, ValueError) as e:
+            raise CheckpointCorrupt(f"checkpoint step {step}: manifest unreadable: {e!r}") from e
+        problems = verify_manifest(manifest, saved)
+        if problems:
+            raise CheckpointCorrupt(f"checkpoint step {step} failed verification "
+                                    f"({len(problems)} mismatches): {'; '.join(problems[:5])}")
+        return saved
+
     def restore(self, state, step: Optional[int] = None) -> int:
-        """Copy checkpoint ``step`` (default: the latest) into ``state``'s
-        tensors in place; returns the restored step."""
+        """Load checkpoint ``step`` (default: the latest), verify all of it,
+        and only then copy it into ``state``'s tensors; returns the restored
+        step. A damaged step raises :class:`CheckpointCorrupt` and leaves
+        ``state`` untouched; only :meth:`restore_latest_valid` walks back."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.dir}")
-        device = next(iter(state.unet_params.values())).device
-        saved = torch.load(self.dir / str(step) / STATE_FILE, map_location=device,
-                           weights_only=True)
-        for name, dst in (("unet", state.unet_params), ("text", state.text_params),
-                          ("vae", state.vae_params)):
-            _copy_into(dst, saved["params"][name], f"{name} params")
-        opt = state.opt_state
-        _copy_into(opt.mu, saved["opt"]["mu"], "Adam first moments")
-        _copy_into(opt.nu, saved["opt"]["nu"], "Adam second moments")
-        _copy_into(opt.acc_grads, saved["opt"]["acc_grads"], "accumulated gradients")
-        _copy_into(state.ema_params, saved["ema"], "EMA params")
-        opt.count, opt.mini_step = int(saved["opt"]["count"]), int(saved["opt"]["mini_step"])
-        state.step = int(saved["step"])
+        saved = self._load_verified(step)
+        _check_compatible(state, saved)
+        _copy_into(state, saved)
         return state.step
+
+    def restore_latest_valid(self, state) -> tuple[int, list[tuple[int, str]]]:
+        """(step, skipped): walk the steps newest first to the newest one
+        that loads and verifies, restore it into ``state``, and move every
+        damaged step on the way to ``quarantined/<step>`` (recorded, logged)
+        so it is never offered again. Raises FileNotFoundError only when no
+        valid step is left: a silent restart from scratch would hide the
+        loss of the run."""
+        skipped: list[tuple[int, str]] = []
+        while True:
+            steps = self.all_steps()
+            if not steps:
+                if skipped:
+                    raise FileNotFoundError(
+                        f"no valid checkpoint under {self.dir}: all {len(skipped)} steps "
+                        f"quarantined ({skipped})")
+                raise FileNotFoundError(f"no checkpoint under {self.dir}")
+            step = steps[-1]
+            try:
+                saved = self._load_verified(step)
+            except CheckpointCorrupt as e:
+                self.quarantine_step(step, str(e))
+                skipped.append((step, str(e)))
+                continue
+            _check_compatible(state, saved)
+            _copy_into(state, saved)
+            return step, skipped
+
+    def quarantine_step(self, step: int, reason: str) -> None:
+        """Move step ``step`` to ``quarantined/<step>`` (``<step>.<n>`` when
+        that step was quarantined before) and record it."""
+        src = self.dir / str(step)
+        dst = self.dir / "quarantined" / str(step)
+        n = 1
+        while dst.exists():
+            dst = dst.with_name(f"{step}.{n}")
+            n += 1
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        if src.exists():
+            shutil.move(str(src), str(dst))
+        self._manifest_path(step).unlink(missing_ok=True)
+        moved_to = str(dst.absolute())
+        R.log_event("ckpt_quarantined", step=step, reason=reason, moved_to=moved_to)
+        if self.quarantine is not None:
+            self.quarantine.record("bad_checkpoint", step=step, reason=reason,
+                                   moved_to=moved_to)
 
 
 # ---------------------------------------------------------------------------

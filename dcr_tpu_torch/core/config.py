@@ -9,9 +9,9 @@ its fleet, ingest and SLO sections) and of its
 ``model_index.json`` or ``config.json`` written by either package and a
 ``dcr-sample``, ``dcr-train``, ``dcr-eval``, ``dcr-search``,
 ``dcr-mitigate`` or ``dcr-serve`` command line parse the same way here.
-Sections the port does not run yet (mesh, fault-tolerance budgets, warm
-cache, the ANN tier, pipelined training, the search's live tier, the serving
-fleet and live ingest) parse, and :func:`validate_train_config`,
+Sections the port does not run yet (mesh, warm cache, the ANN tier,
+pipelined training, the search's live tier, the serving fleet and live
+ingest) parse, and :func:`validate_train_config`,
 :func:`validate_eval_config`, :func:`validate_search_config` and
 :func:`validate_serve_config` refuse a setting that would need them with
 :class:`NotPortedError`. The mesh and warm-cache sections of
@@ -201,7 +201,12 @@ class DataConfig:
 
 @dataclass
 class FaultToleranceConfig:
-    """Recovery knobs. The port is fail-fast: the budgets must stay 0."""
+    """Recovery knobs (the JAX package's defaults: fail-fast). Training
+    runs every one of them on one process: decode retries, the bad-sample
+    quarantine budget, NaN rollbacks, checkpoint manifests, I/O retries and
+    the hang watchdog; ``stage_deadline_secs`` and ``barrier_timeout_s``
+    bound eval stages and multi-host barriers, which single-process
+    training does not have."""
 
     decode_retries: int = 1
     max_bad_sample_frac: float = 0.0
@@ -372,9 +377,6 @@ def _not_ported(cfg: TrainConfig) -> list[str]:
         (bool(cfg.pipe.latent_cache), "pipe.latent_cache (the latent cache)"),
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
         (cfg.risk.ann, "risk.ann (the IVF + int8 tier, ROADMAP Queue A item 14)"),
-        (cfg.fault.max_rollbacks > 0, "fault.max_rollbacks > 0 (NaN rollback)"),
-        (cfg.fault.max_bad_sample_frac > 0,
-         "fault.max_bad_sample_frac > 0 (bad-sample quarantine)"),
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port trains on one)"),
         (cfg.use_wandb, "use_wandb (the wandb sink)"),
     ]
@@ -634,7 +636,7 @@ class ServeConfig:
     cache_entries: int = 1024              # LRU prompt-embedding cache capacity
     max_compiled_buckets: int = 8          # resident bucket budget (typed 503 beyond)
     request_timeout_s: float = 600.0       # per-request wait bound in the handler
-    hang_timeout_s: float = 0.0            # the hang watchdog (not ported)
+    hang_timeout_s: float = 0.0            # the batch watchdog (not ported: the fleet)
     logdir: str = ""                       # the trace / metrics sink (not ported)
     seed: int = 42                         # root of the per-request draws
     mesh: MeshConfig = field(default_factory=MeshConfig)

@@ -1,13 +1,17 @@
-"""Retry, fault logging and the graceful-drain signal hook (the parts of
-``dcr_tpu/core/resilience.py`` the search stage and the serving layer call).
+"""Retry, fault logging and counters, the quarantine manifest, and the
+graceful-drain signal hook (the parts of ``dcr_tpu/core/resilience.py`` the
+port's trainer, data loader, search stage and serving layer call).
 
 Every recovery action emits one ``[fault]`` WARNING line and bumps a
 ``faults/<name>`` counter, so a run's recovery history is greppable and
-scraped; :func:`retry_call` retries transient I/O with exponential backoff
-and jitter, and a missing file is never transient.
+scraped; :func:`retry_call` retries with exponential backoff and jitter, and
+by default only transient I/O (a missing file is never transient).
 ``eval/runner.read_with_retry`` is this retry with the eval config's
-settings. :func:`install_signal_drain` is the serving layer's SIGTERM hook;
-a drained service exits with :data:`EXIT_PREEMPTED`.
+settings, the dataset's decode retry is it with every error retried.
+:class:`QuarantineManifest` is the per-run ``quarantine.jsonl`` record of
+everything skipped or recovered (bad samples, bad checkpoints, NaN
+rollbacks). :func:`install_signal_drain` is the serving layer's SIGTERM
+hook; a drained service exits with :data:`EXIT_PREEMPTED`.
 """
 
 from __future__ import annotations
@@ -22,13 +26,10 @@ from pathlib import Path
 from typing import Any, Callable, Optional, Sequence
 
 from dcr_tpu_torch.core import tracing
+# re-exported: the serving layer's drain exits with the trainer's code
+from dcr_tpu_torch.core.coordination import EXIT_PREEMPTED  # noqa: F401
 
 log = logging.getLogger("dcr_tpu_torch")
-
-#: "clean, restart me": the exit code of a drained service, the JAX package's
-#: ``dcr_tpu.core.coordination.EXIT_PREEMPTED`` (one restart wrapper handles
-#: a preempted trainer and a drained server alike)
-EXIT_PREEMPTED = 83
 
 # structurally-wrong-path errors are never transient; everything else in
 # OSError space (EIO on NFS, ESTALE, connection resets) is worth a retry
@@ -43,35 +44,56 @@ def log_event(event: str, **fields: Any) -> None:
 
 def bump_counter(name: str, n: int = 1) -> int:
     """Increment the process-wide ``faults/<name>`` counter; returns the new
-    value."""
+    value. Thread-safe (loader workers bump concurrently)."""
     return tracing.registry().counter(f"faults/{name}").inc(n)
 
 
+def counters() -> dict[str, int]:
+    """Snapshot of the process-wide fault counters, by name without the
+    ``faults/`` prefix (the trainer re-prefixes them in its metrics)."""
+    prefixed = tracing.registry().counters("faults/")
+    return {k[len("faults/"):]: v for k, v in prefixed.items()}
+
+
+def reset_counters() -> None:
+    """Start a scenario from zero (tests)."""
+    tracing.registry().reset("faults/")
+
+
+class RetriesExhausted(RuntimeError):
+    """For callers whose re-raised last error would hide the retry count;
+    :func:`retry_call` itself re-raises the underlying exception."""
+
+
 def retry_call(fn: Callable[[], Any], *, attempts: int = 3, base_delay: float = 0.05,
-               max_delay: float = 2.0, name: str = "op") -> Any:
-    """Call ``fn`` up to ``attempts`` times while it raises a transient
-    OSError, backing off exponentially: the delay after failed attempt k is
-    ``min(max_delay, base_delay * 2**(k-1))`` scaled by a uniform factor in
-    ``[1, 1.5]``, so workers sharing a flaky filesystem do not retry in
-    lockstep. Other exceptions, and the :data:`NONTRANSIENT_IO` errors,
-    propagate at once; the last failure re-raises the underlying
-    exception."""
+               max_delay: float = 2.0, jitter: float = 0.5,
+               retry_on: tuple[type[BaseException], ...] = (OSError,),
+               give_up_on: tuple[type[BaseException], ...] = NONTRANSIENT_IO,
+               name: str = "op", sleep: Callable[[float], None] = time.sleep) -> Any:
+    """Call ``fn`` up to ``attempts`` times while it raises one of
+    ``retry_on``, backing off exponentially: the delay after failed attempt
+    k is ``min(max_delay, base_delay * 2**(k-1))`` scaled by a uniform
+    factor in ``[1, 1 + jitter]``, so workers sharing a flaky filesystem do
+    not retry in lockstep. Exceptions outside ``retry_on``, or inside
+    ``give_up_on`` (which wins where the two overlap; by default the
+    :data:`NONTRANSIENT_IO` errors), propagate at once; the last failure
+    re-raises the underlying exception."""
     if attempts < 1:
         raise ValueError(f"attempts must be >= 1, got {attempts}")
     for attempt in range(1, attempts + 1):
         try:
             return fn()
-        except OSError as e:
-            if isinstance(e, NONTRANSIENT_IO):
+        except retry_on as e:
+            if give_up_on and isinstance(e, give_up_on):
                 raise
             if attempt == attempts:
                 log_event("retries_exhausted", name=name, attempts=attempts, error=repr(e))
                 raise
             delay = min(max_delay, base_delay * (2 ** (attempt - 1)))
-            delay *= 1.0 + 0.5 * random.random()
+            delay *= 1.0 + jitter * random.random()
             log_event("retry", name=name, attempt=attempt, of=attempts,
                       delay_secs=round(delay, 3), error=repr(e))
-            time.sleep(delay)
+            sleep(delay)
     raise AssertionError("unreachable")
 
 
@@ -105,3 +127,39 @@ def install_signal_drain(callback: Callable[[int], None],
 
     for s in sigs:
         signal.signal(s, handler)
+
+
+class QuarantineManifest:
+    """Per-run append-only JSONL record of recovered-from failures (the JAX
+    package's ``quarantine.jsonl``: one ``{"kind", "time", **fields}``
+    object per line, keys sorted).
+
+    One record per quarantined item (bad sample, bad checkpoint, NaN
+    rollback), written under a lock so loader worker threads can record
+    concurrently. ``counts`` holds per-kind counters for the trainer's
+    metrics; they reset with the process, the file is the durable trail."""
+
+    def __init__(self, path: str | Path):
+        self.path = Path(path)
+        self.counts: dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def record(self, kind: str, **fields: Any) -> dict:
+        rec = {"kind": kind, "time": time.time(), **fields}
+        with self._lock:
+            self.counts[kind] = self.counts.get(kind, 0) + 1
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            with self.path.open("a") as f:
+                f.write(json.dumps(rec, sort_keys=True, default=str) + "\n")
+        log_event(f"quarantine_{kind}", **fields)
+        return rec
+
+    def count(self, kind: str) -> int:
+        with self._lock:
+            return self.counts.get(kind, 0)
+
+    def entries(self) -> list[dict]:
+        if not self.path.exists():
+            return []
+        return [json.loads(line) for line in self.path.read_text().splitlines()
+                if line.strip()]

@@ -17,8 +17,10 @@ The resize is ``F.interpolate(mode="bilinear", antialias=True)`` on uint8
 values, which rounds back to uint8 as PIL's BILINEAR does (within one level
 of it); an image already at the target size is not resampled. The other
 formats (``.bmp``, ``.webp``, ``.ppm``, ``.tif``) raise
-:class:`NotPortedError` naming the file. The loader is fail-fast: a sample
-that does not decode ends the run.
+:class:`NotPortedError` naming the file. A sample that does not decode is
+tried ``fault.decode_retries`` more times, each attempt from a fresh rng so a
+retry returns the example a first-try success would, then raises
+:class:`SampleDecodeError` for the loader's quarantine.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dcr_tpu_torch.core.config import DataConfig, NotPortedError
+from dcr_tpu_torch.core import resilience as R
+from dcr_tpu_torch.core.config import DataConfig, FaultToleranceConfig, NotPortedError
 from dcr_tpu_torch.core.rng import host_python_rng
 from dcr_tpu_torch.data import captions as C
 from dcr_tpu_torch.data import duplication as D
@@ -41,6 +44,17 @@ from dcr_tpu_torch.native import jpeg_decoder
 from dcr_tpu_torch.sampling.png import read_png
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".ppm", ".tif", ".tiff")
+
+
+class SampleDecodeError(RuntimeError):
+    """A sample failed to decode after all retry attempts; carries what the
+    loader's quarantine manifest records."""
+
+    def __init__(self, index: int, path: str, cause: BaseException):
+        super().__init__(f"sample {index} ({path}) failed to decode: {cause!r}")
+        self.index = index
+        self.path = path
+        self.cause = cause
 
 
 def list_image_folder(root: str | Path) -> tuple[list[str], list[int], list[str]]:
@@ -121,9 +135,11 @@ class ObjectAttributeDataset:
     """Deterministic map-style dataset over an image folder."""
 
     def __init__(self, cfg: DataConfig, tokenizer: TokenizerBase,
-                 caption_tables: Optional[dict] = None):
+                 caption_tables: Optional[dict] = None,
+                 fault: Optional[FaultToleranceConfig] = None):
         self.cfg = cfg
         self.tokenizer = tokenizer
+        self.fault = fault or FaultToleranceConfig()
         self.paths, self.labels, self.classes = list_image_folder(cfg.train_data_dir)
         # classnames: Imagenette convention when recognizable, else folder names
         if any(s in str(cfg.train_data_dir) for s in ("imagenette", "Imagenette")):
@@ -134,7 +150,8 @@ class ObjectAttributeDataset:
         if self.prompts is None and cfg.caption_jsons:
             self.prompts = {}
             for j in cfg.caption_jsons:
-                self.prompts.update(json.loads(Path(j).read_text()))
+                self.prompts.update(json.loads(R.read_bytes_with_retry(
+                    j, attempts=self.fault.io_retries, name=f"captions:{j}")))
         needs_prompts = cfg.class_prompt.startswith("instancelevel") or (
             cfg.trainspecial not in (None, "none"))
         if needs_prompts and not self.prompts:
@@ -167,18 +184,39 @@ class ObjectAttributeDataset:
         """position indexes the (possibly subset) dataset; (epoch, slot) feed
         the rng: slot is the occurrence's place in the epoch's sampling plan,
         so each occurrence of a duplicated image redraws crop, flip and
-        caption. Defaults to position for direct use."""
+        caption. Defaults to position for direct use. A failed decode is
+        retried ``fault.decode_retries`` times, then raises
+        :class:`SampleDecodeError`; a format the port does not read raises
+        :class:`NotPortedError` at once."""
         index = int(self.active_indices[position])
         slot = position if slot is None else slot
-        rng = host_python_rng(self.cfg.seed, f"sample_e{epoch}_s{slot}_i{index}")
-        pixels = load_and_transform(
-            self.paths[index], self.cfg.resolution,
-            center_crop=self.cfg.center_crop,
-            random_flip=self.cfg.random_flip, rng=rng)
-        caption = C.assign_caption(
-            self.spec, path=self.paths[index], label=self.labels[index],
-            classnames=self.classnames, prompts=self.prompts,
-            sampling_weight=float(self.sampling_weights[index]),
-            tokenizer=self.tokenizer, rng=rng)
-        ids = self.tokenizer(caption)[0]
-        return Example(pixel_values=pixels, input_ids=ids, index=index, caption=caption)
+
+        def build() -> Example:
+            # a fresh rng per attempt: a retried decode must produce the
+            # byte-identical example a first-try success would have
+            rng = host_python_rng(self.cfg.seed, f"sample_e{epoch}_s{slot}_i{index}")
+            pixels = load_and_transform(
+                self.paths[index], self.cfg.resolution,
+                center_crop=self.cfg.center_crop,
+                random_flip=self.cfg.random_flip, rng=rng)
+            caption = C.assign_caption(
+                self.spec, path=self.paths[index], label=self.labels[index],
+                classnames=self.classnames, prompts=self.prompts,
+                sampling_weight=float(self.sampling_weights[index]),
+                tokenizer=self.tokenizer, rng=rng)
+            ids = self.tokenizer(caption)[0]
+            return Example(pixel_values=pixels, input_ids=ids, index=index, caption=caption)
+
+        ft = self.fault
+        try:
+            # transient and deterministic decode errors alike: one spare
+            # attempt is cheap, and a truly corrupt file fails identically
+            return R.retry_call(build, attempts=1 + max(0, ft.decode_retries),
+                                base_delay=ft.retry_base_delay,
+                                max_delay=ft.retry_max_delay,
+                                retry_on=(Exception,), give_up_on=(NotPortedError,),
+                                name=f"decode:{Path(self.paths[index]).name}")
+        except NotPortedError:
+            raise
+        except Exception as e:
+            raise SampleDecodeError(index, self.paths[index], e) from e

@@ -7,10 +7,11 @@ Counterpart of ``dcr_tpu/data/loader.py`` on one device:
 - worker threads decode and augment into a bounded queue; batches are
   contiguous numpy arrays;
 - the order is reproducible given (seed, epoch), including a restart mid-epoch
-  through ``start_step``.
-
-It is fail-fast, the JAX package's default: the first sample that does not
-decode ends the epoch with its error (the quarantine budget is not ported).
+  through ``start_step``;
+- with ``fault.max_bad_sample_frac > 0`` a sample that does not decode is
+  quarantined and replaced by the next plan slot that decodes (see
+  :meth:`DataLoader.epoch`); with the default budget 0 the first bad sample
+  ends the epoch with its error.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from dcr_tpu_torch.core import resilience as R
+from dcr_tpu_torch.core.config import FaultToleranceConfig, NotPortedError
 from dcr_tpu_torch.data import duplication as D
 from dcr_tpu_torch.data.dataset import ObjectAttributeDataset
 
@@ -30,6 +33,10 @@ class Batch(dict):
     index [B]."""
 
     __getattr__ = dict.__getitem__
+
+
+class TooManyBadSamples(RuntimeError):
+    """The epoch's quarantine budget (fault.max_bad_sample_frac) is spent."""
 
 
 def sampling_plan(dataset: ObjectAttributeDataset, *, epoch: int,
@@ -47,7 +54,8 @@ def sampling_plan(dataset: ObjectAttributeDataset, *, epoch: int,
 class DataLoader:
     def __init__(self, dataset: ObjectAttributeDataset, *, batch_size: int,
                  num_workers: int = 8, seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 4):
+                 prefetch: int = 4, fault: Optional[FaultToleranceConfig] = None,
+                 quarantine: Optional[R.QuarantineManifest] = None):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.dataset = dataset
@@ -56,6 +64,13 @@ class DataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
+        # fault=None (or max_bad_sample_frac=0): the first bad sample ends
+        # the epoch
+        self.fault = fault
+        self.quarantine = quarantine
+        self.bad_samples = 0  # run total, reported as faults/bad_samples
+        self._bad_lock = threading.Lock()
+        self._epoch_bad = [0]  # rebound per epoch()
         if len(dataset) < batch_size and drop_last:
             raise ValueError(f"dataset of {len(dataset)} samples can't fill one batch "
                              f"of {batch_size}")
@@ -63,18 +78,63 @@ class DataLoader:
     def steps_per_epoch(self) -> int:
         return len(self.dataset) // self.batch_size
 
+    @property
+    def epoch_bad_count(self) -> int:
+        """Bad samples quarantined in the current epoch."""
+        return self._epoch_bad[0]
+
+    def epoch_bad_budget(self) -> int:
+        """The epoch's quarantine budget in samples."""
+        budget_frac = self.fault.max_bad_sample_frac if self.fault else 0.0
+        return int(budget_frac * self.steps_per_epoch() * self.batch_size)
+
     def epoch(self, epoch: int, start_step: int = 0) -> Iterator[Batch]:
-        """Yield the batches of one epoch from ``start_step`` on."""
+        """Yield the batches of one epoch from ``start_step`` on.
+
+        Bad samples (decode failures after the dataset's own retries, or
+        injected ``decode_error`` faults) are quarantined when
+        ``fault.max_bad_sample_frac > 0``: the occurrence is replaced by the
+        next plan slot ``(slot + k) % len(plan)`` that decodes (the example
+        another step would produce there, so the substitution is the same
+        across restarts), recorded in the quarantine manifest, and counted
+        against the epoch's budget. Past the budget, or with the default
+        budget of 0, the error reaches the consumer. A format the port does
+        not read (:class:`NotPortedError`) is never quarantined."""
+        from dcr_tpu_torch.utils import faults
+
         plan = sampling_plan(self.dataset, epoch=epoch, seed=self.seed)
         steps = self.steps_per_epoch()
         out_q: "queue.Queue[tuple[int, Optional[Batch], Optional[BaseException]]]" = (
             queue.Queue(maxsize=self.prefetch))
         stop = threading.Event()
+        budget_frac = self.fault.max_bad_sample_frac if self.fault else 0.0
+        epoch_budget = self.epoch_bad_budget()
+        epoch_bad = [0]  # shared across workers, guarded by _bad_lock
+        self._epoch_bad = epoch_bad
+
+        def fetch(step: int, slot: int):
+            position = int(plan[slot])
+            # the `index` coordinate is the dataset index, the value the
+            # quarantine record gives this occurrence
+            if faults.fire("decode_error", step=step, slot=slot,
+                           index=int(self.dataset.active_indices[position]), epoch=epoch):
+                raise faults.InjectedFault(
+                    f"decode_error at epoch={epoch} step={step} slot={slot}")
+            return self.dataset.get(position, epoch=epoch, slot=slot)
+
+        def fetch_or_replace(step: int, slot: int):
+            try:
+                return fetch(step, slot)
+            except NotPortedError:
+                raise
+            except Exception as err:
+                return self._replace(err, plan=plan, epoch=epoch, step=step, slot=slot,
+                                     fetch=fetch, epoch_bad=epoch_bad,
+                                     epoch_budget=epoch_budget, budget_frac=budget_frac)
 
         def make_batch(step: int) -> Batch:
             base = step * self.batch_size
-            examples = [self.dataset.get(int(plan[base + j]), epoch=epoch, slot=base + j)
-                        for j in range(self.batch_size)]
+            examples = [fetch_or_replace(step, base + j) for j in range(self.batch_size)]
             return Batch(
                 pixel_values=np.stack([e.pixel_values for e in examples]),
                 input_ids=np.stack([e.input_ids for e in examples]),
@@ -123,3 +183,47 @@ class DataLoader:
                         out_q.get_nowait()
                     except queue.Empty:
                         t.join(timeout=0.05)
+
+    def _replace(self, err: BaseException, *, plan: np.ndarray, epoch: int, step: int,
+                 slot: int, fetch, epoch_bad: list, epoch_budget: int, budget_frac: float):
+        """Quarantine a bad occurrence and return its replacement, or
+        re-raise when the budget is 0 or spent. Thread-safe: loader workers
+        call it concurrently."""
+        ds = self.dataset
+        bad_index = int(ds.active_indices[int(plan[slot])])
+        if budget_frac <= 0:
+            raise err  # no quarantine budget: fail fast
+        with self._bad_lock:
+            epoch_bad[0] += 1
+            self.bad_samples += 1
+            n_bad = epoch_bad[0]
+        if n_bad > epoch_budget:
+            raise TooManyBadSamples(
+                f"epoch {epoch}: {n_bad} bad samples exceed the quarantine budget of "
+                f"{epoch_budget} (max_bad_sample_frac={budget_frac} of {len(plan)} "
+                f"samples); last failure: {err!r}") from err
+        # walk the same epoch plan to the next slot that decodes: (epoch,
+        # slot) fix the example, so a restart substitutes identically
+        last: BaseException = err
+        for k in range(1, len(plan)):
+            cand = (slot + k) % len(plan)
+            try:
+                example = fetch(step, cand)
+            except NotPortedError:
+                raise
+            except Exception as cand_err:
+                last = cand_err
+                continue
+            if self.quarantine is not None:
+                self.quarantine.record(
+                    "bad_sample", epoch=epoch, step=step, slot=slot, index=bad_index,
+                    path=ds.paths[bad_index], replacement_slot=cand,
+                    replacement_index=int(ds.active_indices[int(plan[cand])]),
+                    error=repr(err))
+            else:
+                R.log_event("bad_sample_replaced", epoch=epoch, step=step, slot=slot,
+                            index=bad_index, replacement_slot=cand, error=repr(err))
+            return example
+        raise TooManyBadSamples(
+            f"epoch {epoch}: no decodable replacement found in the entire plan "
+            f"({len(plan)} slots); last failure: {last!r}") from err

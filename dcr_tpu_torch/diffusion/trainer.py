@@ -1,10 +1,10 @@
 """The Trainer: the loop around the train step, on one device.
 
-Counterpart of ``dcr_tpu/diffusion/trainer.py`` reduced to one device and
-fail-fast (the reference's diff_train.py:main, 328-733): it builds the models,
-the tokenizer, the dataset and loader and the optimizer from a TrainConfig,
-runs the epoch loop with metric logging and periodic checkpoints, resumes
-from the newest checkpoint, and exports the HF-layout checkpoint at the end.
+Counterpart of ``dcr_tpu/diffusion/trainer.py`` on one process (the
+reference's diff_train.py:main, 328-733): it builds the models, the
+tokenizer, the dataset and loader and the optimizer from a TrainConfig, runs
+the epoch loop with metric logging and periodic checkpoints, resumes from
+the newest valid checkpoint, and exports the HF-layout checkpoint at the end.
 
 - Weights: seeded random initialisation; finetuning weights come in through
   ``pretrained_params=`` as the JAX package's param trees (``{"unet",
@@ -13,9 +13,22 @@ from the newest checkpoint, and exports the HF-layout checkpoint at the end.
   JAX trainer.
 - Cadences count optimizer steps; the state, the checkpoints and the resume
   count micro-steps, so a run stopped inside an accumulation resumes there.
-- A non-finite loss at a log boundary raises ``FloatingPointError``; the
-  last periodic checkpoint is the recovery point (NaN rollback, the
-  bad-sample quarantine and multi-host are not ported).
+- Fault tolerance, as the JAX trainer's single-host branch: every recovery
+  is written to ``<output_dir>/quarantine.jsonl`` and counted in the
+  metrics (``faults/bad_samples``, ``faults/rollbacks``,
+  ``faults/ckpt_fallbacks``, ``faults/<counter>``). Resume walks back past
+  damaged checkpoints (``bad_checkpoint``); the loader replaces samples
+  that do not decode within ``fault.max_bad_sample_frac`` (``bad_sample``);
+  a non-finite loss at a log boundary rolls back to the newest valid
+  checkpoint and goes on past the bad window while ``fault.max_rollbacks``
+  allows (``nan_rollback``), else raises ``FloatingPointError``; after
+  :meth:`Trainer.install_preemption_handler` a SIGTERM or SIGINT
+  checkpoints at the next step boundary and returns with
+  ``preempted_exit`` set (``dcr-train`` exits 83); with
+  ``fault.hang_timeout_s`` (or ``DCR_HANG_TIMEOUT_S``) a step that does
+  not finish in time exits 89 (the watchdog is paused over the
+  synchronous saves, a rollback's restore and the sample hook). ``DCR_FAULTS`` injects each fault
+  (``utils/faults.py``). Multi-host is not ported.
 - ``sample_hook(trainer, sync)`` runs every ``save_steps`` optimizer steps,
   as in the JAX trainer; ``dcr-train`` installs
   :func:`dcr_tpu_torch.diffusion.sample_hook.make_sample_hook`, which
@@ -27,13 +40,17 @@ from __future__ import annotations
 import gzip
 import logging
 import math
+import os
 import shutil
+import signal
 import time
 from pathlib import Path
 from typing import Callable, Optional
 
 import torch
 
+from dcr_tpu_torch.core import coordination as C
+from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import rng as rngmod
 from dcr_tpu_torch.core.checkpoint import CheckpointManager, export_hf_layout
 from dcr_tpu_torch.core.config import TrainConfig, save_config, to_dict, validate_train_config
@@ -45,6 +62,7 @@ from dcr_tpu_torch.data.tokenizer import TokenizerBase, load_tokenizer
 from dcr_tpu_torch.diffusion import train as T
 from dcr_tpu_torch.models import export as EX
 from dcr_tpu_torch.sampling.pipeline import build_models
+from dcr_tpu_torch.utils import faults
 
 log = logging.getLogger("dcr_tpu_torch")
 
@@ -84,9 +102,13 @@ class Trainer:
             raise ValueError(f"tokenizer vocab ({self.tokenizer.vocab_size}) exceeds "
                              f"model.text_vocab_size ({cfg.model.text_vocab_size})")
         self._publish_tokenizer()
-        self.dataset = dataset or ObjectAttributeDataset(cfg.data, self.tokenizer)
+        # the durable record of every recovered failure of this run
+        self.quarantine = R.QuarantineManifest(self.out_dir / "quarantine.jsonl")
+        self.dataset = dataset or ObjectAttributeDataset(cfg.data, self.tokenizer,
+                                                         fault=cfg.fault)
         self.loader = DataLoader(self.dataset, batch_size=cfg.train_batch_size,
-                                 num_workers=cfg.data.num_workers, seed=cfg.data.seed)
+                                 num_workers=cfg.data.num_workers, seed=cfg.data.seed,
+                                 fault=cfg.fault, quarantine=self.quarantine)
         self.models = build_models(cfg.model, self.device,
                                    seed=rngmod.stream_seed(cfg.seed, "init"))
         modules = {"unet": self.models.unet, "vae": self.models.vae,
@@ -101,7 +123,20 @@ class Trainer:
         self.step_fn = T.make_train_step(cfg, self.models)
         self.writer = MetricWriter(self.out_dir / "logs")
         self.ckpt = CheckpointManager(self.out_dir / "checkpoints",
-                                      max_to_keep=cfg.checkpoints_total_limit)
+                                      max_to_keep=cfg.checkpoints_total_limit,
+                                      verify=cfg.fault.verify_checkpoints,
+                                      quarantine=self.quarantine)
+        self.watchdog = C.HangWatchdog(float(os.environ.get(
+            "DCR_HANG_TIMEOUT_S", cfg.fault.hang_timeout_s) or 0.0))
+        # recovery counters, reported at every log boundary
+        self._rollbacks = 0
+        self._ckpt_fallbacks = 0
+        self._nan_pending = False
+        self._preempted = False
+        self._previous_handlers: dict = {}
+        # set when a preemption wrote the final checkpoint; dcr-train turns
+        # it into coordination.EXIT_PREEMPTED for the restart wrapper
+        self.preempted_exit = False
 
     def _publish_tokenizer(self) -> None:
         """Copy BPE vocab/merges into <output_dir>/tokenizer so the sampler
@@ -128,11 +163,57 @@ class Trainer:
         self.ckpt.save(self.state.step, self.state)
 
     def maybe_resume(self) -> int:
+        """Restore the newest valid checkpoint (0 on a fresh run): damaged
+        steps on the way are quarantined and counted as fallbacks."""
         if self.ckpt.latest_step() is None:
             return 0
-        step = self.ckpt.restore(self.state)
+        step, skipped = self.ckpt.restore_latest_valid(self.state)
+        self._ckpt_fallbacks += len(skipped)
+        if skipped:
+            log.warning("resume fell back past %d corrupt checkpoint(s): %s",
+                        len(skipped), [s for s, _ in skipped])
         log.info("resumed from checkpoint step %d", step)
         return step
+
+    def _rollback_after_nan(self, step: int, loss: float) -> bool:
+        """NaN rollback (``fault.max_rollbacks``): restore the newest valid
+        checkpoint whose trainable params are finite and fast-forward
+        ``state.step`` to ``step``, so the loop goes on with the next batch
+        and the per-step draws move past the bad window while params,
+        optimizer and EMA come from the checkpoint. False when rollback is
+        off, used up or impossible: the caller then fails fast."""
+        ft = self.cfg.fault
+        if self._rollbacks >= ft.max_rollbacks:
+            return False
+        if self.ckpt.latest_step() is None:
+            R.log_event("nan_rollback_impossible", at_step=step,
+                        reason="no checkpoint to roll back to")
+            return False
+        skipped_total = 0
+        while True:
+            try:
+                ckpt_step, skipped = self.ckpt.restore_latest_valid(self.state)
+            except FileNotFoundError as e:
+                R.log_event("nan_rollback_impossible", at_step=step, reason=repr(e))
+                self._ckpt_fallbacks += skipped_total
+                return False
+            skipped_total += len(skipped)
+            # the checksums prove the bytes round-tripped, not that they were
+            # ever sane: a checkpoint with non-finite params would re-trip
+            trainable = T.trainable_of(self.state, self.cfg.train_text_encoder)
+            if bool(torch.stack([torch.isfinite(p).all() for group in trainable.values()
+                                 for p in group.values()]).all()):
+                break
+            self.ckpt.quarantine_step(ckpt_step,
+                                      f"non-finite params (rollback from step {step})")
+        self._ckpt_fallbacks += skipped_total
+        self._rollbacks += 1
+        self.state.step = step
+        self.quarantine.record(
+            "nan_rollback", at_step=step, restored_step=ckpt_step, loss=loss,
+            rollback=self._rollbacks, max_rollbacks=ft.max_rollbacks,
+            skipped_steps=step - ckpt_step)
+        return True
 
     def export_checkpoint(self, tag: str = "checkpoint") -> Path:
         """HF-layout export (params.npz and diffusers/transformers
@@ -154,9 +235,61 @@ class Trainer:
             model_config=to_dict(cfg.model))
         return out
 
+    # -- preemption ----------------------------------------------------------
+
+    def install_preemption_handler(self, signals=None) -> None:
+        """SIGTERM/SIGINT -> finish the current step, checkpoint, return with
+        ``preempted_exit`` set. The handler only sets a flag; the save
+        happens at the next step boundary. The first signal restores the
+        default disposition, so a second one ends the process at once.
+        ``train()`` puts the previous handlers back on every exit path.
+        Installed by ``dcr-train``; library users opt in."""
+        self._preempted = False
+        sigs = tuple(signals or (signal.SIGTERM, signal.SIGINT))
+        self._previous_handlers = {s: signal.getsignal(s) for s in sigs}
+
+        def handler(signum, frame):
+            log.warning("received signal %d: will checkpoint and stop at the next step "
+                        "boundary (send again to abort immediately)", signum)
+            self._preempted = True
+            signal.signal(signum, signal.SIG_DFL)
+
+        for s in sigs:
+            signal.signal(s, handler)
+
+    def _uninstall_preemption_handler(self) -> None:
+        for s, previous in self._previous_handlers.items():
+            signal.signal(s, previous)
+        self._previous_handlers = {}
+
     # -- the loop ------------------------------------------------------------
 
+    def _fire_step_faults(self, step: int) -> None:
+        """The loop's fault-injection hooks (free when DCR_FAULTS is unset)."""
+        if faults.fire("nan_loss", step=step):
+            self._nan_pending = True
+        if faults.fire("sigterm", step=step):
+            os.kill(os.getpid(), signal.SIGTERM)
+        if faults.fire("hang", step=step):
+            C.simulate_hang(f"injected hang at step {step}")
+
+    def _fault_metrics(self) -> dict:
+        out = {"faults/bad_samples": self.loader.bad_samples,
+               "faults/rollbacks": self._rollbacks,
+               "faults/ckpt_fallbacks": self._ckpt_fallbacks}
+        out.update({f"faults/{name}": n for name, n in R.counters().items()})
+        return out
+
     def train(self) -> dict:
+        try:
+            return self._train()
+        finally:
+            # a raise stops the heartbeats: a still-armed watchdog would exit
+            # 89 mid-unwind and hide the real failure
+            self.watchdog.stop()
+            self._uninstall_preemption_handler()
+
+    def _train(self) -> dict:
         cfg = self.cfg
         step = self.maybe_resume()
         steps_per_epoch = self.loader.steps_per_epoch()
@@ -170,6 +303,7 @@ class Trainer:
                  cfg.train_batch_size, self.device)
         t_last, imgs_last = time.time(), 0
         last_metrics: dict = {}
+        self.watchdog.start()
         while step < max_micro:
             epoch = step // steps_per_epoch
             batches = self.loader.epoch(epoch, start_step=step % steps_per_epoch)
@@ -178,28 +312,54 @@ class Trainer:
                     self.state, metrics = self.step_fn(self.state, batch)
                     step += 1
                     imgs_last += cfg.train_batch_size
+                    self.watchdog.beat(step)
+                    self._fire_step_faults(step)
                     at_sync = step % accum == 0
                     sync = step // accum
                     if (at_sync and sync % cfg.log_every == 0) or step == max_micro:
                         metrics = {k: float(v) for k, v in metrics.items()}
+                        if self._nan_pending:
+                            metrics["loss"], self._nan_pending = float("nan"), False
                         if not math.isfinite(metrics["loss"]):
-                            raise FloatingPointError(
-                                f"non-finite loss {metrics['loss']} at step {step}; resume "
-                                f"from the last good checkpoint (step "
-                                f"{self.ckpt.latest_step()}) under {self.out_dir}/checkpoints")
+                            with self.watchdog.paused(step):
+                                rolled_back = self._rollback_after_nan(step, metrics["loss"])
+                            if not rolled_back:
+                                raise FloatingPointError(
+                                    f"non-finite loss {metrics['loss']} at step {step}; "
+                                    f"resume from the last good checkpoint (step "
+                                    f"{self.ckpt.latest_step()}) under "
+                                    f"{self.out_dir}/checkpoints")
+                            # the restored state goes on with the next batch
+                            t_last, imgs_last = time.time(), 0
+                            if step >= max_micro:
+                                break
+                            continue
                         metrics["images_per_sec"] = imgs_last / max(time.time() - t_last, 1e-9)
+                        metrics.update(self._fault_metrics())
                         self.writer.scalars(sync, metrics)
                         last_metrics = metrics
                         t_last, imgs_last = time.time(), 0
                     if (self.sample_hook and cfg.save_steps > 0 and at_sync
                             and sync % cfg.save_steps == 0):
-                        self.sample_hook(self, sync)
-                    if at_sync and sync % cfg.modelsavesteps == 0:
+                        with self.watchdog.paused(step):
+                            self.sample_hook(self, sync)
+                    # before the periodic save, so no step is written twice
+                    if self._preempted:
+                        log.warning("preemption: checkpointing at step %d and stopping "
+                                    "(resume picks up here)", step)
+                        self.watchdog.stop()
                         self.save()
+                        self.writer.close()
+                        self.preempted_exit = True
+                        return last_metrics
+                    if at_sync and sync % cfg.modelsavesteps == 0:
+                        with self.watchdog.paused(step):
+                            self.save()
                     if step >= max_micro:
                         break
             finally:
                 batches.close()
+        self.watchdog.stop()  # the save and export below have no heartbeat
         self.save()
         self.export_checkpoint()
         self.writer.close()

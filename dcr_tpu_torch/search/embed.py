@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import hashlib
 import io
+import itertools
 import json
 import logging
 import os
@@ -52,6 +53,7 @@ from dcr_tpu_torch.eval.features import (
 )
 from dcr_tpu_torch.native import jpeg_decoder
 from dcr_tpu_torch.sampling.png import decode_png
+from dcr_tpu_torch.utils import faults
 
 log = logging.getLogger("dcr_tpu_torch")
 
@@ -126,6 +128,19 @@ class EmbeddingDumpError(RuntimeError):
     corrupt dump (quarantine)."""
 
 
+#: per-process verified-dump read index: the ``load`` coordinate of the
+#: ``search_dump_corrupt`` fault kind (utils/faults.py)
+_load_seq = itertools.count()
+
+
+def reset_dump_load_seq() -> None:
+    """Restart the ``load`` coordinate at 0 (a harness that installs a
+    ``search_dump_corrupt@load=N`` spec mid-process; a fresh process starts
+    at 0)."""
+    global _load_seq
+    _load_seq = itertools.count()
+
+
 def _sidecar_path(path: Path) -> Path:
     return path.with_name(path.name + ".sha256")
 
@@ -182,13 +197,18 @@ def load_embeddings(path: str | Path) -> tuple[np.ndarray, list[str]]:
     """(features float32 [N, D], keys) from a ``.npz`` dump or a reference
     pickle. With a sidecar, the payload's sha256 and row count are checked
     first and a mismatch raises :class:`EmbeddingDumpError`; a dump without
-    one (the reference toolchain's) loads unverified."""
+    one (the reference toolchain's) loads unverified. The
+    ``search_dump_corrupt@load=N`` fault damages the Nth verified read."""
     path = Path(path)
     sidecar = _read_sidecar(path)
     if sidecar is not None:
         # transient I/O surfaces as OSError only after backoff; callers treat
         # OSError as "skip, keep the dump", never as corruption
         blob = R.read_bytes_with_retry(path, name=f"embedding_dump:{path.name}")
+        if faults.fire("search_dump_corrupt", load=next(_load_seq)):
+            # damage the bytes in memory so the real verification path runs
+            mid = len(blob) // 2
+            blob = blob[:mid] + bytes([blob[mid] ^ 0xFF]) + blob[mid + 1:] if blob else b""
         if hashlib.sha256(blob).hexdigest() != sidecar["sha256"]:
             tracing.registry().counter("search/dump_corrupt").inc()
             raise EmbeddingDumpError(

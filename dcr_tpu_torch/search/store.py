@@ -54,6 +54,7 @@ from dcr_tpu_torch.core import fsio
 from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import tracing
 from dcr_tpu_torch.core.fsio import quarantine_rename
+from dcr_tpu_torch.utils import faults
 
 log = logging.getLogger("dcr_tpu_torch")
 
@@ -550,6 +551,8 @@ class EmbeddingStoreReader:
         self.total = int(self.manifest["total"])
         self.snapshot = int(self.manifest.get("snapshot", 0))
         self.wal_through = int(self.manifest.get("wal_through", 0))
+        # the shard read index: the `load` coordinate of store_shard_corrupt
+        self._load_seq = 0
 
     @property
     def shards(self) -> list[dict]:
@@ -565,6 +568,12 @@ class EmbeddingStoreReader:
             self._quarantine(path, "store_shard_missing", repr(e),
                              rename=False)
             return None
+        seq, self._load_seq = self._load_seq, self._load_seq + 1
+        if faults.fire("store_shard_corrupt", load=seq):
+            # damage the bytes in memory so the real verify, quarantine and
+            # degrade path runs
+            mid = len(blob) // 2
+            blob = blob[:mid] + bytes([blob[mid] ^ 0xFF]) + blob[mid + 1:] if blob else b""
         if _sha(blob) != shard.get("sha256"):
             self._quarantine(path, "store_shard_corrupt", "sha256 mismatch")
             return None

@@ -33,6 +33,7 @@ from __future__ import annotations
 import base64
 import json
 import logging
+import socket
 from concurrent.futures import TimeoutError as FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -251,12 +252,20 @@ class ServeHandler(BaseHTTPRequestHandler):
         self._reply(200, self._render(req, result))
 
 
+class _Server(ThreadingHTTPServer):
+    # socketserver's listen backlog of 5 resets the connections of a burst
+    # of clients that arrive while the accept loop waits for the GIL (the
+    # sampler thread holds it between launches); the kernel caps this
+    request_queue_size = socket.SOMAXCONN
+
+
 def make_server(cfg: ServeConfig, service: GenerationService) -> ThreadingHTTPServer:
     """ThreadingHTTPServer wired to the service. Handler threads are
     non-daemon and joined by ``server_close()`` (block_on_close), so the
-    drain sequence can guarantee every accepted request gets its response."""
+    drain sequence can guarantee every accepted request gets its response.
+    The listen backlog holds a burst of concurrent clients."""
     handler = type("BoundServeHandler", (ServeHandler,), {"service": service, "cfg": cfg})
-    httpd = ThreadingHTTPServer((cfg.host, cfg.port), handler)
+    httpd = _Server((cfg.host, cfg.port), handler)
     httpd.daemon_threads = False
     httpd.block_on_close = True
     return httpd

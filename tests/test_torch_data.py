@@ -223,5 +223,8 @@ def test_loader_fails_fast_on_a_bad_sample(tmp_path):
     _, tcfg = _cfgs(tmp_path / "data")
     loader = TL.DataLoader(TDS.ObjectAttributeDataset(tcfg, THash(100, 16)), batch_size=8,
                            num_workers=2, seed=0)
-    with pytest.raises(TPNG.PNGFormatError):
+    # the default budget 0: the error reaches the consumer after the
+    # dataset's retry, as the JAX loader's SampleDecodeError does
+    with pytest.raises(TDS.SampleDecodeError) as err:
         list(loader.epoch(0))
+    assert isinstance(err.value.cause, TPNG.PNGFormatError)

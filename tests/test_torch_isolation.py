@@ -36,6 +36,8 @@ def test_importing_every_module_loads_no_jax_or_dcr_tpu():
     doc = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "dcr_tpu_torch.sampling.pipeline" in doc["imported"]
     assert "dcr_tpu_torch.ops.flash_attention" in doc["imported"]
+    assert "dcr_tpu_torch.utils.faults" in doc["imported"]
+    assert "dcr_tpu_torch.core.coordination" in doc["imported"]
     assert doc["bad"] == []
 
 

@@ -585,6 +585,38 @@ def test_http_front_end_in_process(tiny, tmp_path):
         httpd.server_close()
 
 
+def test_http_front_end_holds_a_burst_of_clients(tiny):
+    """32 clients connect and send before the accept loop runs, as a burst
+    does while the sampler thread holds the GIL: every one is answered,
+    none reset past the listen backlog."""
+    import socket
+
+    svc = TW.GenerationService(_serve_cfg(), tiny.tstack)
+    httpd = TS.make_server(_serve_cfg(port=0), svc)
+    port = httpd.server_address[1]
+    clients, server = [], threading.Thread(target=httpd.serve_forever, daemon=True)
+    try:
+        for _ in range(32):
+            c = socket.create_connection(("127.0.0.1", port), timeout=10)
+            c.sendall(b"GET /healthz HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n")
+            clients.append(c)
+        server.start()
+        status = []
+        for c in clients:
+            try:
+                status.append(c.makefile("rb").readline().split(b" ")[1])
+            except OSError as e:      # reset, or never accepted (timed out)
+                status.append(type(e).__name__)
+                break
+        assert status == [b"200"] * 32, status
+    finally:
+        for c in clients:
+            c.close()
+        if server.is_alive():
+            httpd.shutdown()
+        httpd.server_close()
+
+
 def test_check_is_a_typed_503_without_an_index(tiny):
     from dcr_tpu_torch.obs.copyrisk import RiskUnavailableError
 

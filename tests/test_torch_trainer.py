@@ -2,7 +2,8 @@
 
 A straight run of N steps equals 2 steps + resume + N-2 (bit for bit: the
 loader order, the per-step draws and the optimizer state all resume); the
-run writes metrics.jsonl with the JAX trainer's scalar names; the HF-layout
+run writes metrics.jsonl with the JAX trainer's scalar names (the
+``faults/*`` counters included); the HF-layout
 export loads in the JAX package's load_checkpoint_models with the port's
 params; a JAX param tree goes in through ``pretrained_params=``; and the
 CLI runs on the CPU when asked.
@@ -19,6 +20,7 @@ import torch
 from dcr_tpu.sampling.pipeline import load_checkpoint_models as jax_load_checkpoint_models
 from dcr_tpu_torch.cli import train as train_cli
 from dcr_tpu_torch.core import config as TC
+from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.diffusion.trainer import Trainer
 from dcr_tpu_torch.models import export as EX
 from dcr_tpu_torch.sampling.pipeline import load_checkpoint_models
@@ -50,6 +52,7 @@ def _cfg(tmp_path, out="run", **kw) -> TC.TrainConfig:
 def straight(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("trainer")
     _data(tmp / "data")
+    R.reset_counters()  # the process's fault counters join every metrics row
     cfg = _cfg(tmp)
     trainer = Trainer(cfg, device="cpu")
     metrics = trainer.train()
@@ -84,7 +87,8 @@ def test_metrics_log_has_the_jax_keys(straight):
             .splitlines()]
     assert [r["step"] for r in rows] == [1, 2, 3, 4, 5]
     for r in rows:
-        assert set(r) == {"step", "time", "loss", "grad_norm", "lr", "images_per_sec"}
+        assert set(r) == {"step", "time", "loss", "grad_norm", "lr", "images_per_sec",
+                          "faults/bad_samples", "faults/rollbacks", "faults/ckpt_fallbacks"}
         assert np.isfinite([r["loss"], r["grad_norm"], r["lr"], r["images_per_sec"]]).all()
     assert metrics["loss"] == rows[-1]["loss"]
     saved = json.loads((tmp / "run" / "config.json").read_text())
@@ -169,7 +173,7 @@ def test_non_finite_loss_fails_fast(tmp_path):
 @pytest.mark.parametrize("override,what", [
     ("--optim.use_8bit_adam=true", "8-bit Adam"),
     ("--pipe.enabled=true", "pipelined"),
-    ("--fault.max_rollbacks=1", "rollback"),
+    ("--use_wandb=true", "wandb"),
     ("--mesh.data=2", "mesh of 2"),
     ("--warm.dir=w", "warm"),
 ])
