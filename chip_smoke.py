@@ -118,9 +118,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    bucket_limit; SIGTERM with a batch queued, every request answered,
    exit 83. Seconds per batch, images/s, p50/p99, UNet call ms, risk ms
    per batch, /check ms, peak memory, load and warm seconds.
-No kernel lies on the eval and search paths (9-13: their attention is
-SDPA's, XCiT's is over channels; search is matmuls and torch.topk): their
-launch counts must stay 0.
+16. ANN (after 13), through dcr-search-torch: a store of 1,048,576 rows x
+   512 clustered as tools/bench_ann.py builds its corpus (1,024 clusters),
+   `train-ivf` with 1,024 lists and 10 iterations, `query --ann=true` and
+   the exact `query` for 4,096 queries from 16 hot clusters at top_k 10,
+   and an nprobe sweep (1-32, 1,024) on one engine: train-ivf seconds and
+   their split, ms per k-means step against its bound, seconds per query
+   call, recall@10 against the exact answer, segments scanned and skipped,
+   the device's busy share, peak memory. Held: each query's top-1 at nprobe
+   8 is its float64 nearest row, recall@10 >= 0.95 at nprobe 8, scores are
+   exact dots (float64, 64 queries), nprobe 1,024 agrees with the exact
+   engine, k-means again from the same seed gives bit-identical centroids;
+   on 65,536 rows the card agrees with the CPU, ivf_list_corrupt@load=3
+   quarantines, counts and rebuilds one list with unchanged answers, and
+   kmeans_nan@iter=2 makes train-ivf restart once.
+No kernel lies on the eval, search and ANN paths (9-13 and 16: their
+attention is SDPA's, XCiT's is over channels; search and ANN are matmuls,
+sorts and torch.topk): their launch counts must stay 0.
 Each main path runs with every launch count set to 0 just before it and
 read just after (the hook's launches are read around each hook call). The last line is {"ok": true, "device": {...}}; the line
 before it holds the kernels' numbers as JSON, one record per kernel and
@@ -2993,6 +3007,369 @@ def phase_search_main_path(root: Path) -> dict:
     return stats
 
 
+# the ANN phase (16): one LAION chunk at SSCD's width, clustered as
+# tools/bench_ann.py builds its corpus (random isotropic rows, like phase 13's,
+# give an IVF quantizer nothing to learn)
+ANN_ROWS, ANN_CLUSTERS, ANN_QUERIES, ANN_HOT = 1 << 20, 1024, 4096, 16
+ANN_LISTS, ANN_ITERS, ANN_TOP_K = 1024, 10, 10
+ANN_NPROBES = (1, 2, 4, 8, 16, 32, 1024)
+# the JAX package's recall gate at the default nprobe (tools/bench_ann.py)
+ANN_MIN_RECALL = 0.95
+
+
+def _ann_corpus(rows: int, dim: int, clusters: int, queries: int, query_clusters: int,
+                seed: int = 0):
+    """tools/bench_ann.py's build_corpus, draw for draw: cluster centers x 4
+    plus N(0, 0.25^2) noise per row, and queries that are corpus rows of
+    ``query_clusters`` hot clusters plus N(0, 0.05^2) noise. Returns the
+    rows, the queries and each query's source row."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((clusters, dim)).astype(np.float32) * 4.0
+    assign = rng.integers(0, clusters, rows)
+    feats = centers[assign] + rng.standard_normal((rows, dim)).astype(np.float32) * 0.25
+    hot = rng.choice(clusters, min(query_clusters, clusters), replace=False)
+    pool = np.flatnonzero(np.isin(assign, hot))
+    picks = rng.choice(pool, queries, replace=len(pool) < queries)
+    q = feats[picks] + rng.standard_normal((queries, dim)).astype(np.float32) * 0.05
+    return feats.astype(np.float32), q.astype(np.float32), picks
+
+
+def _oracle_topk(q, feats, k: int):
+    """float64 top-k scores and row indices of ``q`` over ``feats``, on the
+    card (cuBLAS DGEMM) in chunks of 256 queries."""
+    x = torch.from_numpy(feats).to("cuda", torch.float64)
+    out_s, out_i = [], []
+    for start in range(0, len(q), 256):
+        qq = torch.from_numpy(q[start:start + 256]).to("cuda", torch.float64)
+        s, i = torch.topk(qq @ x.T, k, dim=1)
+        out_s.append(s.cpu())
+        out_i.append(i.cpu())
+    del x
+    return torch.cat(out_s).numpy(), torch.cat(out_i).numpy()
+
+
+def _union_reference(q, feats, row_of: dict, tables, k: int):
+    """[n, k+1] descending float64 scores of each query over the rows that
+    any of ``tables`` (key arrays) returned for it, -inf padded: the tie
+    rule's reference for answers that rank a candidate set."""
+    import numpy as np
+
+    ref = np.full((len(q), k + 1), -np.inf)
+    q64 = np.asarray(q, np.float64)
+    for i in range(len(q)):
+        rows = sorted({row_of[key] for t in tables for key in t[i] if key})
+        s = np.sort(feats[rows].astype(np.float64) @ q64[i])[::-1][:k + 1]
+        ref[i, :len(s)] = s
+    return ref
+
+
+class AnnProbe:
+    """Times the IVF path while installed: train_ivf's k-means loop,
+    assign_rows and list materialisation (host clock, synchronised), each
+    k-means step and each scan (CUDA events), the engine's build and each
+    query call (host clock, synchronised)."""
+
+    def __init__(self):
+        from dcr_tpu_torch.search import ann, annindex
+
+        self.ann, self.ai = ann, annindex
+        self.saved = (ann.kmeans, ann.make_kmeans_step, ann.assign_rows, ann._materialize_lists,
+                      annindex.ivf_scan, annindex.AnnEngine.build, annindex.AnnEngine.query)
+        self.host = {"kmeans": [], "assign_rows": [], "materialize": [], "engine_build": [],
+                     "query": []}
+        self.steps, self.scans = [], []
+
+    def _host_timed(self, name, fn):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.host[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    def _device_timed(self, events, fn):
+        def timed(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            events.append((start, end))
+            return out
+        return timed
+
+    def __enter__(self) -> "AnnProbe":
+        ann, ai = self.ann, self.ai
+        kmeans, make_step, assign, materialize, scan, build, query = self.saved
+
+        def timed_make_step(n_lists):
+            return self._device_timed(self.steps, make_step(n_lists))
+
+        ann.kmeans = self._host_timed("kmeans", kmeans)
+        ann.make_kmeans_step = timed_make_step
+        ann.assign_rows = self._host_timed("assign_rows", assign)
+        ann._materialize_lists = self._host_timed("materialize", materialize)
+        ai.ivf_scan = self._device_timed(self.scans, scan)
+        ai.AnnEngine.build = self._host_timed("engine_build", build)
+        ai.AnnEngine.query = self._host_timed("query", query)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        ann, ai = self.ann, self.ai
+        (ann.kmeans, ann.make_kmeans_step, ann.assign_rows, ann._materialize_lists, ai.ivf_scan,
+         ai.AnnEngine.build, ai.AnnEngine.query) = self.saved
+
+    def report(self) -> dict:
+        torch.cuda.synchronize()
+        step_ms = [s.elapsed_time(e) for s, e in self.steps]
+        scan_ms = [s.elapsed_time(e) for s, e in self.scans]
+        out = {k: sum(v) for k, v in self.host.items() if v}
+        out.update({"kmeans_steps": len(step_ms), "scans": len(scan_ms),
+                    "scan_device_ms": sum(scan_ms)})
+        if step_ms:
+            out["kmeans_step_ms_median"] = statistics.median(step_ms)
+            out["kmeans_step_ms_max"] = max(step_ms)
+        if self.host["query"]:
+            out["device_busy_share_of_query"] = sum(scan_ms) / 1e3 / sum(self.host["query"])
+        self.steps.clear()
+        self.scans.clear()
+        for v in self.host.values():
+            v.clear()
+        return out
+
+
+def _kmeans_step_bound_ms(rows: int, dim: int, lists: int) -> tuple[float, str]:
+    """Least time of one k-means step over a segment: scores (2 R D L flops)
+    and the one-hot sums (2 R L D) at the CUDA cores' f32 rate (TF32 off);
+    the segment and centroids read once, sums and counts written once."""
+    flops = 4.0 * rows * dim * lists
+    nbytes = 4.0 * (rows * dim + rows + lists * dim + lists * dim + lists)
+    t_ops, t_bytes = flops / PEAK_FLOPS_F32_CUDA_CORES, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _ann_small_store_drills(root: Path) -> dict:
+    """On a small store of 65,536 rows of the same corpus recipe (64
+    clusters, 64 lists): the card's answers against the port's CPU answers
+    under the tie rule; ivf_list_corrupt@load=3 at the engine's build (one
+    list quarantined, counted, rebuilt from the store, answers equal to the
+    unfaulted engine's); kmeans_nan@iter=2 through train-ivf (one restart)."""
+    import numpy as np
+
+    from dcr_tpu_torch.core import tracing
+    from dcr_tpu_torch.search import ann
+    from dcr_tpu_torch.search import annindex as AI
+    from dcr_tpu_torch.search import store as ST
+    from dcr_tpu_torch.utils import faults
+
+    feats, q, _ = _ann_corpus(65536, SEARCH_DIM, 64, 512, 8, seed=1)
+    keys = [f"small{i:05d}" for i in range(len(feats))]
+    store = root / "small_store"
+    with ST.EmbeddingStoreWriter.create(store, shard_rows=8192) as w:
+        w.add(feats, keys)
+        w.finalize()
+    report = ann.train_ivf(store, n_lists=64, iters=ANN_ITERS, device="cuda")
+    card = AI.open_ann_engine(store, top_k=ANN_TOP_K, device="cuda")
+    cpu = AI.open_ann_engine(store, top_k=ANN_TOP_K, device="cpu")
+    (cs, ck), (ps, pk) = card.query(q), cpu.query(q)
+    row_of = {k: i for i, k in enumerate(keys)}
+    bound = 1e-5 * float(np.linalg.norm(q, axis=1).max() * np.linalg.norm(feats, axis=1).max())
+    ref = _union_reference(q, feats, row_of, (ck, pk), ANN_TOP_K)
+    stats = {"rows": len(feats), "train": report,
+             "card_vs_cpu": tie_rule("ann small store, card vs CPU", cs, ck, ps, pk, ref,
+                                     bound=bound, gap=2 * bound)}
+
+    counters = tracing.registry().counters("ann/")
+    faults.install("ivf_list_corrupt@load=3")
+    try:
+        faulted = AI.open_ann_engine(store, top_k=ANN_TOP_K, device="cuda")
+    finally:
+        faults.clear()
+    after = tracing.registry().counters("ann/")
+    fs, fk = faulted.query(q)
+    stats["ivf_list_corrupt"] = {
+        "quarantined": after.get("ann/ivf_list_corrupt", 0)
+        - counters.get("ann/ivf_list_corrupt", 0),
+        "rebuilt": after.get("ann/list_rebuilt", 0) - counters.get("ann/list_rebuilt", 0),
+        "failed_lists": list(faulted.ann.failed_lists),
+        "snapshot_after": ann.ann_snapshot_version(store), "rows": faulted.total,
+        "vs_unfaulted": tie_rule("ann fault drill, faulted vs unfaulted", fs, fk, cs, ck,
+                                 _union_reference(q, feats, row_of, (fk, ck), ANN_TOP_K),
+                                 bound=0.0, gap=0.0)}
+    faults.install("kmeans_nan@iter=2")
+    try:
+        _, (nan_report,) = _cli(["train-ivf", f"--store_dir={store}", "--n_lists=64",
+                                 f"--ivf_iters={ANN_ITERS}"])
+    finally:
+        faults.clear()
+    stats["kmeans_nan"] = {"report": nan_report,
+                           "restart_counter": tracing.registry().counters("ann/").get(
+                               "ann/kmeans_restart", 0) - after.get("ann/kmeans_restart", 0)}
+    d = stats["ivf_list_corrupt"]
+    if (report["restarts"] != 0 or d["quarantined"] != 1 or d["rebuilt"] != 1
+            or len(d["failed_lists"]) != 1 or d["snapshot_after"] != 2
+            or d["rows"] != len(feats) or nan_report["restarts"] != 1
+            or stats["kmeans_nan"]["restart_counter"] != 1 or nan_report["snapshot"] != 3):
+        raise AssertionError(f"ann small store drills failed: {json.dumps(stats, default=str)}")
+    return stats
+
+
+def phase_ann(root: Path) -> dict:
+    """Phase 16: the IVF tier of dcr-search-torch at one LAION chunk: a
+    clustered corpus of 1,048,576 rows x 512 (1,024 clusters; tools/
+    bench_ann.py's recipe) built into a store, `train-ivf` with 1,024 lists
+    and 10 iterations, `query --ann=true` at the default nprobe 8 and an
+    in-process sweep over nprobe 1-32 and 1,024 against `query`'s exact
+    answer for 4,096 queries from 16 hot clusters; k-means again from the
+    same seed; the small-store drills. Held: each query's ANN top-1 at
+    nprobe 8 is its float64 nearest row under the tie rule, recall@10 >=
+    0.95 at nprobe 8, returned scores are exact dots (float64, 64 queries),
+    nprobe = n_lists agrees with the exact engine, bit-identical centroids,
+    the drills, 0 flash launches. The source row of a query is its float64
+    top-1 only where no row of its cluster has a larger dot product: the
+    share is reported, not held (the engines rank by dot product)."""
+    import pickle
+
+    import numpy as np
+
+    from dcr_tpu_torch.core import tracing
+    from dcr_tpu_torch.search import ann
+    from dcr_tpu_torch.search import annindex as AI
+    from dcr_tpu_torch.search import embed as E
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    stats: dict = {"card": CARD[0]}
+    t0 = time.perf_counter()
+    feats, q, picks = _ann_corpus(ANN_ROWS, SEARCH_DIM, ANN_CLUSTERS, ANN_QUERIES, ANN_HOT)
+    keys = np.asarray([f"ann{i:07d}" for i in range(ANN_ROWS)], dtype=object)
+    dump, gens, store = root / "chunk" / "embedding.pkl", root / "gens", root / "store"
+    dump.parent.mkdir()
+    gens.mkdir()
+    # a reference-format pickle, as phase 13 writes its chunks (an npz dump
+    # is zlib-compressed: tens of seconds for 2 GB of random floats)
+    with open(dump, "wb") as f:
+        pickle.dump({"features": feats, "indexes": keys.tolist()}, f, protocol=4)
+    E.save_embeddings(gens / "embedding.npz", q, [f"gen{i}" for i in range(ANN_QUERIES)])
+    stats["corpus_s"] = time.perf_counter() - t0
+    build_s, (build,) = _cli(["build", f"--store_dir={store}", f"--dumps={dump}",
+                              "--shard_rows=65536"])
+    stats["build"] = {"ingest_s": build_s, "rows": build["rows"], "shards": build["shards"]}
+
+    # train-ivf through the command line, then k-means again from the same seed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with AnnProbe() as probe:
+        train_s, (report,) = _cli(["train-ivf", f"--store_dir={store}",
+                                   f"--n_lists={ANN_LISTS}", f"--ivf_iters={ANN_ITERS}"])
+        train = {"cli_s": train_s, "report": report, **probe.report(),
+                 "peak_bytes": torch.cuda.max_memory_allocated()}
+    seg_rows = min(ANN_ROWS, ann.DEFAULT_TRAIN_SEGMENT_ROWS)
+    bound_ms, bound_by = _kmeans_step_bound_ms(seg_rows, SEARCH_DIM, ANN_LISTS)
+    train.update({"kmeans_step_bound_ms": bound_ms, "kmeans_step_bound_by": bound_by,
+                  "kmeans_step_share_of_bound": bound_ms / train["kmeans_step_ms_median"]})
+    committed = ann.AnnIndexReader(store).load_centroids()
+    t0 = time.perf_counter()
+    again, again_restarts = ann.kmeans(feats, ANN_LISTS, ANN_ITERS, 0, device="cuda")
+    train["kmeans_again_s"] = time.perf_counter() - t0
+    train["centroids_bit_identical"] = bool(np.array_equal(committed, again)
+                                            and again_restarts == 0)
+    stats["train"] = train
+    log(f"ann main path, train-ivf ({CARD[0]}): {json.dumps(train)}")
+    if (report["restarts"] != 0 or report["rows"] != ANN_ROWS or report["n_lists"] != ANN_LISTS
+            or not train["centroids_bit_identical"]
+            or train["kmeans_steps"] != -(-ANN_ROWS // seg_rows) * ANN_ITERS):
+        raise AssertionError(f"ann train-ivf failed: {json.dumps(train)}")
+
+    # the exact answer and the float64 oracle
+    def query_cli(name, *extra):
+        out = root / f"{name}.npz"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with AnnProbe() as aprobe, EngineProbe() as eprobe:
+            cli_s, _ = _cli(["query", f"--store_dir={store}", f"--gen_folder={gens}",
+                             f"--out_path={out}", f"--top_k={ANN_TOP_K}", *extra])
+            entry = {"cli_s": cli_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+                     **({"ann": aprobe.report()} if extra else
+                        {"exact": eprobe.report(ANN_ROWS, ANN_QUERIES, SEARCH_DIM)})}
+        with np.load(out) as z:
+            return entry, z["scores"], z["keys"].astype(object)
+
+    stats["exact_query"], ex_s, ex_k = query_cli("exact")
+    stats["ann_query_cli"], cli_s, cli_k = query_cli("ann", "--ann=true")
+    t0 = time.perf_counter()
+    or_s, or_i = _oracle_topk(q, feats, ANN_TOP_K + 1)
+    stats["oracle_s"] = time.perf_counter() - t0
+    or_k = keys[or_i]
+    bound = 1e-5 * float(np.linalg.norm(q, axis=1).max() * np.linalg.norm(feats, axis=1).max())
+    checks = {"exact_vs_oracle": tie_rule("ann exact engine vs float64", ex_s, ex_k,
+                                          or_s[:, :ANN_TOP_K], or_k[:, :ANN_TOP_K], or_s,
+                                          bound=bound, gap=2 * bound)}
+
+    # the nprobe sweep on one engine
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sweep, tables = {}, {}
+    with AnnProbe() as probe:
+        eng = AI.open_ann_engine(store, top_k=ANN_TOP_K, device="cuda")
+        build_report = probe.report()
+        for nprobe in ANN_NPROBES:
+            before = tracing.registry().counters("ann/")
+            s, k = eng.query(q, nprobe=nprobe)
+            after = tracing.registry().counters("ann/")
+            tables[nprobe] = (s, k)
+            hits = sum(len(set(a[:ANN_TOP_K]) & set(e[:ANN_TOP_K])) for a, e in zip(k, ex_k))
+            sweep[nprobe] = {
+                "recall_at_10": hits / (ANN_QUERIES * ANN_TOP_K),
+                "top1_is_source_row": float(np.mean(k[:, 0] == keys[picks])),
+                **{f"segments_{w}": after.get(f"ann/segments_{w}_total", 0)
+                   - before.get(f"ann/segments_{w}_total", 0) for w in ("scanned", "skipped")},
+                **probe.report()}
+        sweep_peak = torch.cuda.max_memory_allocated()
+    s8, k8 = tables[8]
+    row_of = {key: i for i, key in enumerate(keys)}
+    checks["ann_nprobe8_top1_vs_oracle"] = tie_rule(
+        "ann top-1 at nprobe 8 vs float64", s8[:, :1], k8[:, :1], or_s[:, :1], or_k[:, :1],
+        or_s, bound=bound, gap=2 * bound)
+    checks["ann_cli_vs_in_process_nprobe8"] = tie_rule(
+        "ann query command vs engine", cli_s, cli_k, s8, k8,
+        _union_reference(q, feats, row_of, (cli_k, k8), ANN_TOP_K), bound=bound, gap=2 * bound)
+    checks["ann_full_probe_vs_exact"] = tie_rule(
+        "ann at nprobe = n_lists vs exact engine", *tables[ANN_LISTS], ex_s, ex_k, or_s,
+        bound=bound, gap=2 * bound)
+    sample = np.random.default_rng(16).choice(ANN_QUERIES, 64, replace=False)
+    dots = np.einsum("qd,qkd->qk", q[sample].astype(np.float64),
+                     feats[[[row_of[x] for x in row] for row in k8[sample]]].astype(np.float64))
+    checks["exact_dots_max_abs_err"] = float(np.abs(s8[sample] - dots).max())
+    checks["exact_dots_bound"] = bound
+    checks["source_row_is_float64_top1"] = float(np.mean(or_i[:, 0] == picks))
+    launches = read_launches()
+    stats.update({"engine_build": build_report, "sweep": sweep, "sweep_peak_bytes": sweep_peak,
+                  "checks": checks, "launches_fwd_dq_dkv": launches})
+    log(f"ann main path, queries ({CARD[0]}): exact {json.dumps(stats['exact_query'])}; "
+        f"ann command {json.dumps(stats['ann_query_cli'])}; engine build "
+        f"{json.dumps(build_report)}")
+    for nprobe, row in sweep.items():
+        log(f"ann main path, nprobe {nprobe}: {json.dumps(row)}")
+    log(f"ann main path, checks: {json.dumps(checks)}; flash launches {launches}")
+    if (sweep[8]["recall_at_10"] < ANN_MIN_RECALL
+            or checks["exact_dots_max_abs_err"] > bound or launches != (0, 0, 0)):
+        raise AssertionError(f"ann main path failed: recall@10 at nprobe 8 "
+                             f"{sweep[8]['recall_at_10']}, dots "
+                             f"{checks['exact_dots_max_abs_err']} > {bound}, launches {launches}")
+    del eng, feats
+    stats["drills"] = _ann_small_store_drills(root)
+    log(f"ann small store drills ({CARD[0]}): {json.dumps(stats['drills'], default=str)}")
+    if read_launches() != (0, 0, 0):
+        raise AssertionError(f"the ann drills launched flash kernels: {read_launches()}")
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"ann phase 16: {stats['phase_s']:.1f} s")
+    return stats
+
+
 def kernel_entry(kind: str, dtype: str, rows: list[dict], cases: tuple[str, ...],
                  launches: dict, tensor_core_instructions: dict) -> dict:
     """One kernel's record for the JSON line, from its phase-3 rows at the
@@ -3090,6 +3467,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         search_stats = phase_search_main_path(Path(tmp))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ann_stats = phase_ann(Path(tmp))
 
     def fwd_row(case, dtype):
         return next(r for r in kern["rows"] if r["case"] == case and r["dtype"] == dtype)
@@ -3168,6 +3548,7 @@ def main() -> int:
     log(f"serve stats: {json.dumps({k: v for k, v in serve_stats.items() if k != 'check'})}")
     log(f"small search reference: {json.dumps(small_search)}")
     log(f"search path stats: {json.dumps(search_stats)}")
+    log(f"ann path stats: {json.dumps(ann_stats, default=str)}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
     python -m dcr_tpu_torch.cli.sample --model_path=... --num_batches=...
     python -m dcr_tpu_torch.cli.train --output_dir=... --data.train_data_dir=...
     python -m dcr_tpu_torch.cli.evaluate --query_dir=... --values_dir=...
-    python -m dcr_tpu_torch.cli.search {download|embed|search|build|append|verify|query|stats} ...
+    python -m dcr_tpu_torch.cli.search {download|embed|search|build|append|verify|query|
+                                         train-ivf|stats} ...
     python -m dcr_tpu_torch.cli.mitigate --model_path=... [--rand_augs=...] [--rand_noise_lam=...]
     python -m dcr_tpu_torch.cli.serve --model_path=... [--port=...] [--risk.index_path=...]
 

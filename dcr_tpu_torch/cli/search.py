@@ -13,13 +13,18 @@ embedding_search/ scripts plus the sharded embedding store.
     verify    --store_dir=...            # read-only; exit 1 on corrupt shards
     query     --store_dir=... --gen_folder=... --out_path=... [--top_k=K]
               [--query_batch=B] [--segment_rows=R]
+              [--ann=true --nprobe=N]    # IVF tier instead of the exact scan
+    train-ivf --store_dir=... [--n_lists=L] [--ivf_iters=I] [--ivf_seed=S]
+              [--ivf_train_rows=N] [--ivf_normalize=true]
+                                         # train the IVF quantizer and commit
+                                         # the int8 inverted lists
     stats     --store_dir=... [--json_out=true]
 
 Same flags and ``--config=<config.json>`` as the JAX package's
 ``dcr-search``. It runs on one CUDA device (``DCR_TPU_PLATFORM=cpu`` selects
-the CPU). ``recover``, ``compact`` and ``train-ivf``, the settings ``ann``,
-``live``, ``warm_dir``, ``logdir`` and a mesh, and a store that holds a WAL
-(``wal/``) or an IVF tier (``ann/``) raise ``NotPortedError``.
+the CPU). ``recover`` and ``compact``, the settings ``live``, ``warm_dir``,
+``logdir`` and a mesh, and a store that holds a WAL (``wal/``) raise
+``NotPortedError``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from dcr_tpu_torch.core.config import (
     parse_cli,
     validate_search_config,
 )
+from dcr_tpu_torch.search import ann
 from dcr_tpu_torch.search import embed as E
 from dcr_tpu_torch.search import search as S
 from dcr_tpu_torch.search.store import (
@@ -45,23 +51,22 @@ from dcr_tpu_torch.search.store import (
     read_store_manifest,
 )
 
-USAGE = ("usage: dcr-search {download|embed|search|build|append|verify|query|stats} "
-         "--key=value ...")
-# the JAX package's directories of the live and approximate tiers
-# (dcr_tpu/search/livestore.py WAL_DIR, dcr_tpu/search/ann.py ANN_DIRNAME)
-WAL_DIR, ANN_DIR = "wal", "ann"
-LIVE_AND_ANN = ("recover", "compact", "train-ivf")
+USAGE = ("usage: dcr-search {download|embed|search|build|append|verify|query|train-ivf|"
+         "stats} --key=value ...")
+# the JAX package's directory of the live tier (dcr_tpu/search/livestore.py
+# WAL_DIR)
+WAL_DIR = "wal"
+LIVE = ("recover", "compact")
 
 
 def refuse_unported_tiers(store_dir: str) -> None:
     """NotPortedError for a store that carries the JAX package's WAL live
-    tail or IVF tier: the port reads neither, so its answers and stats
-    would leave them out."""
-    for name, what in ((WAL_DIR, "a WAL live tail"), (ANN_DIR, "an IVF tier")):
-        if (Path(store_dir) / name).exists():
-            raise NotPortedError(
-                f"store {store_dir} holds {what} ({name}/), which dcr_tpu_torch does not "
-                "read yet (ROADMAP Queue A item 14); use the JAX package's dcr-search")
+    tail: the port does not read it, so its answers and stats would leave
+    the tail out."""
+    if (Path(store_dir) / WAL_DIR).exists():
+        raise NotPortedError(
+            f"store {store_dir} holds a WAL live tail ({WAL_DIR}/), which dcr_tpu_torch does "
+            "not read yet (ROADMAP Queue A item 3); use the JAX package's dcr-search")
 
 
 def _store_dir(cfg: SearchConfig, command: str) -> str:
@@ -98,9 +103,18 @@ def _cmd_verify(cfg: SearchConfig) -> None:
         raise SystemExit(1)
 
 
+def _cmd_train_ivf(cfg: SearchConfig, device: str) -> None:
+    store_dir = _store_dir(cfg, "train-ivf")
+    refuse_unported_tiers(store_dir)
+    report = ann.train_ivf(store_dir, n_lists=cfg.n_lists, iters=cfg.ivf_iters,
+                           seed=cfg.ivf_seed, train_rows=cfg.ivf_train_rows,
+                           normalize=cfg.ivf_normalize, device=device)
+    print(json.dumps(report, indent=1, sort_keys=True))
+
+
 def store_stats(store_dir: str) -> dict:
-    """The ``stats`` payload: the committed section, and the live and ann
-    sections as the JAX package reports them for a store that has neither."""
+    """The ``stats`` payload: the committed and ann sections, and the live
+    section as the JAX package reports it for a store without a WAL."""
     refuse_unported_tiers(store_dir)
     manifest = read_store_manifest(Path(store_dir), quarantine=False)
     return {"store_dir": str(store_dir), "committed": {
@@ -111,7 +125,8 @@ def store_stats(store_dir: str) -> dict:
         "embed_dim": int(manifest["embed_dim"]),
         "normalized": bool(manifest.get("normalized", False)),
         "wal_through": int(manifest.get("wal_through", 0)),
-    }, "live": {"tail_rows": 0, "records": 0, "torn_segments": 0}, "ann": None}
+    }, "live": {"tail_rows": 0, "records": 0, "torn_segments": 0},
+        "ann": ann.ann_stats(store_dir)}
 
 
 def _cmd_stats(cfg: SearchConfig) -> None:
@@ -127,7 +142,14 @@ def _cmd_stats(cfg: SearchConfig) -> None:
           f"wal_through={c['wal_through']})")
     print(f"live       {lv['tail_rows']} uncompacted WAL row(s) in "
           f"{lv['records']} record(s), {lv['torn_segments']} torn")
-    print("ann        (none — run `dcr-search train-ivf`)")
+    a = report["ann"]
+    if a is None:
+        print("ann        (none — run `dcr-search train-ivf`)")
+    else:
+        print(f"ann        {a['rows']} rows in {a['nonempty_lists']}/{a['n_lists']} lists "
+              f"(snapshot v{a['snapshot']}, {a['quantization']}, "
+              f"{'normalized' if a['normalized'] else 'raw'}, "
+              f"max list {a['max_list_rows']} rows, seed={a['seed']})")
 
 
 def main(argv=None) -> None:
@@ -137,10 +159,10 @@ def main(argv=None) -> None:
     if not argv or argv[0].startswith("--"):
         raise SystemExit(USAGE)
     command, rest = argv[0], argv[1:]
-    if command in LIVE_AND_ANN:
+    if command in LIVE:
         raise NotPortedError(
-            f"dcr-search {command} (the WAL live tier and the IVF tier) is not ported to "
-            "dcr_tpu_torch yet (ROADMAP Queue A item 14); use the JAX package's dcr-search")
+            f"dcr-search {command} (the WAL live tier) is not ported to dcr_tpu_torch yet "
+            "(ROADMAP Queue A item 3); use the JAX package's dcr-search")
     cfg = parse_cli(SearchConfig, rest)
     validate_search_config(cfg)
     device = device_from_env()
@@ -168,6 +190,8 @@ def main(argv=None) -> None:
     elif command == "query":
         refuse_unported_tiers(_store_dir(cfg, "query"))
         print(f"search results -> {S.run_search(cfg, device=device)}")
+    elif command == "train-ivf":
+        _cmd_train_ivf(cfg, device)
     elif command == "stats":
         _cmd_stats(cfg)
     else:

@@ -232,8 +232,8 @@ class WarmCacheConfig:
 class RiskConfig:
     """Online copy-risk scoring (:mod:`dcr_tpu_torch.obs.copyrisk`): a
     train-embedding dump (``index_path``) or store (``store_dir``), SSCD at
-    ``image_size``, a generation flagged at ``max_sim >= threshold``. The
-    ANN tier (``ann``) is not ported."""
+    ``image_size``, a generation flagged at ``max_sim >= threshold``.
+    Scoring through the ANN tier (``ann``) is not ported."""
 
     index_path: str = ""
     store_dir: str = ""
@@ -376,7 +376,8 @@ def _not_ported(cfg: TrainConfig) -> list[str]:
         (cfg.pipe.enabled, "pipe.enabled (pipelined training)"),
         (bool(cfg.pipe.latent_cache), "pipe.latent_cache (the latent cache)"),
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
-        (cfg.risk.ann, "risk.ann (the IVF + int8 tier, ROADMAP Queue A item 14)"),
+        (cfg.risk.ann, "risk.ann (the IVF + int8 tier in copy-risk scoring, ROADMAP Queue A "
+                       "item 1)"),
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port trains on one)"),
         (cfg.use_wandb, "use_wandb (the wandb sink)"),
     ]
@@ -517,7 +518,7 @@ class SearchConfig:
     query_batch: int = 64        # query rows per engine call
     segment_rows: int = 0        # rows per device segment; 0 = auto
     live: bool = False           # the WAL live tail (not ported)
-    # the IVF + int8 approximate tier (not ported)
+    # the IVF + int8 approximate tier
     ann: bool = False
     n_lists: int = 64
     nprobe: int = 8
@@ -533,17 +534,16 @@ class SearchConfig:
 
 def validate_search_config(cfg: SearchConfig) -> None:
     """NotPortedError for a search setting the port does not run yet, naming
-    the ROADMAP Queue A item that ports it: the IVF tier and the WAL live
-    tail (item 14), the warm cache and the trace sink (item 15), a mesh of
-    more than one device (item 16)."""
+    the ROADMAP Queue A item that ports it: the WAL live tail (item 3), the
+    warm cache and the trace sink (item 7), a mesh of more than one device
+    (item 9)."""
     mesh_devices = _mesh_devices(cfg.mesh)
     checks = [
-        (cfg.ann, "ann (the IVF + int8 tier, ROADMAP Queue A item 14)"),
-        (cfg.live, "live (the WAL live tail, ROADMAP Queue A item 14)"),
+        (cfg.live, "live (the WAL live tail, ROADMAP Queue A item 3)"),
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port searches on "
-                           "one; ROADMAP Queue A item 16)"),
-        (bool(cfg.warm_dir), "warm_dir (the warm executable cache, ROADMAP Queue A item 15)"),
-        (bool(cfg.logdir), "logdir (the trace.jsonl sink, ROADMAP Queue A item 15)"),
+                           "one; ROADMAP Queue A item 9)"),
+        (bool(cfg.warm_dir), "warm_dir (the warm executable cache, ROADMAP Queue A item 7)"),
+        (bool(cfg.logdir), "logdir (the trace.jsonl sink, ROADMAP Queue A item 7)"),
     ]
     missing = [name for on, name in checks if on]
     if missing:
@@ -651,9 +651,9 @@ class ServeConfig:
 def validate_serve_config(cfg: ServeConfig) -> None:
     """The JAX package's checks (``ValueError``), then NotPortedError for a
     serve setting the port does not run yet, naming the ROADMAP Queue A item
-    that ports it: the fleet and the hang watchdog (item 17), live ingest
-    and the ANN tier (item 14), the warm cache and the trace sink (item
-    15), a mesh of more than one device (item 16)."""
+    that ports it: the ANN tier in copy-risk scoring (item 1), live ingest
+    (item 3), the warm cache and the trace sink (item 7), the fleet and the
+    hang watchdog (item 8), a mesh of more than one device (item 9)."""
     if cfg.sampler not in ("ddim", "dpm++", "ddpm"):
         raise ValueError("serve sampler must be 'ddim', 'dpm++' or 'ddpm'")
     if cfg.max_batch < 1:
@@ -695,17 +695,18 @@ def validate_serve_config(cfg: ServeConfig) -> None:
     validate_slo_config(cfg.slo)
     mesh_devices = _mesh_devices(cfg.mesh)
     checks = [
-        (f.workers > 0, "fleet.workers > 0 (the fleet supervisor, ROADMAP Queue A item 17)"),
+        (f.workers > 0, "fleet.workers > 0 (the fleet supervisor, ROADMAP Queue A item 8)"),
         (f.worker_index >= 0, "fleet.worker_index >= 0 (a fleet worker, ROADMAP Queue A "
-                              "item 17)"),
-        (cfg.ingest.enabled, "ingest.enabled (live ingest, ROADMAP Queue A item 14)"),
-        (cfg.risk.ann, "risk.ann (the IVF + int8 tier, ROADMAP Queue A item 14)"),
-        (bool(cfg.warm.dir), "warm.dir (the warm executable cache, ROADMAP Queue A item 15)"),
-        (bool(cfg.logdir), "logdir (the trace and metrics sink, ROADMAP Queue A item 15)"),
+                              "item 8)"),
+        (cfg.ingest.enabled, "ingest.enabled (live ingest, ROADMAP Queue A item 3)"),
+        (cfg.risk.ann, "risk.ann (the IVF + int8 tier in copy-risk scoring, ROADMAP Queue A "
+                       "item 1)"),
+        (bool(cfg.warm.dir), "warm.dir (the warm executable cache, ROADMAP Queue A item 7)"),
+        (bool(cfg.logdir), "logdir (the trace and metrics sink, ROADMAP Queue A item 7)"),
         (cfg.hang_timeout_s > 0, "hang_timeout_s > 0 (the hang watchdog, ROADMAP Queue A "
-                                 "item 17)"),
+                                 "item 8)"),
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port serves on one; "
-                           "ROADMAP Queue A item 16)"),
+                           "ROADMAP Queue A item 9)"),
     ]
     missing = [name for on, name in checks if on]
     if missing:

@@ -5,7 +5,7 @@ Prometheus text exposition.
 Metrics carry the JAX package's names (``search/query_total``,
 ``copy_risk/sim``, ``serve/request_latency_s``, ...), so the two packages
 count the same events and a scrape reads the same series. Spans, events and
-the trace sink come with ROADMAP Queue A item 15; until then
+the trace sink come with ROADMAP Queue A item 7; until then
 ``SearchConfig.logdir`` and ``ServeConfig.logdir`` raise ``NotPortedError``.
 """
 

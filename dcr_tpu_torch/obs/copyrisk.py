@@ -244,8 +244,8 @@ class CopyRiskIndex:
                  cfg: RiskConfig, *, batch: int, store=None,
                  device: str | torch.device = "cuda"):
         if cfg.ann:
-            raise NotPortedError("risk.ann (the IVF + int8 tier) is not ported to "
-                                 "dcr_tpu_torch yet (ROADMAP Queue A item 14)")
+            raise NotPortedError("risk.ann (the IVF + int8 tier in copy-risk scoring) is not "
+                                 "ported to dcr_tpu_torch yet (ROADMAP Queue A item 1)")
         self._store = store
         if store is None:
             features = verify_risk_dump(features, keys)

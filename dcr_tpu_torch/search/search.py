@@ -8,8 +8,9 @@ top-k there with ``torch.topk``; only the [M, K] tables cross to the host,
 where they merge into a running answer (the JAX version ships each [M, N]
 similarity slab to the host and partitions it there; the answer is the same
 up to f32 rounding and the order of near-ties). :func:`search_store` asks
-the store's top-k engine instead. Results land in a ``.npz`` with named
-fields, as the JAX package writes them.
+the store's top-k engine instead, and :func:`search_store_ann` the IVF
+tier's approximate engine. Results land in a ``.npz`` with named fields, as
+the JAX package writes them.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from dcr_tpu_torch.core import tracing
 from dcr_tpu_torch.core.config import SearchConfig, validate_search_config
 from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.core.fsio import quarantine_rename
+from dcr_tpu_torch.search.annindex import DEFAULT_NPROBE, DEFAULT_SHORTLIST_K, open_ann_engine
 from dcr_tpu_torch.search.embed import find_embedding_file, load_embeddings, quarantine_sidecar
 from dcr_tpu_torch.search.shardindex import merge_topk, open_engine, topk
 
@@ -153,11 +155,35 @@ def search_store(gen_features: np.ndarray, gen_keys: Sequence[str],
             "gen_images": np.asarray(list(gen_keys), dtype=object)}
 
 
+def search_store_ann(gen_features: np.ndarray, gen_keys: Sequence[str],
+                     store_dir: str | Path, *, top_k: int = 1, nprobe: int = 0,
+                     shortlist_k: int = 0, query_batch: int = 64, segment_rows: int = 0,
+                     device: str | torch.device = "cuda") -> dict:
+    """The ann path of :func:`search_store`: an nprobe-bounded IVF scan over
+    the store's int8 inverted lists with exact f32 re-ranking
+    (:mod:`dcr_tpu_torch.search.annindex`), with the same result contract.
+    The WAL live tail it merges in the JAX package is not ported
+    (``validate_search_config`` refuses ``live``)."""
+    n = len(gen_features)
+    if n == 0:
+        return _empty_result(top_k)
+    engine = open_ann_engine(store_dir, top_k=top_k, nprobe=int(nprobe) or DEFAULT_NPROBE,
+                             shortlist_k=int(shortlist_k) or DEFAULT_SHORTLIST_K,
+                             query_batch=query_batch, segment_rows=segment_rows,
+                             device=device)
+    t0 = time.time()
+    scores, keys = engine.query(np.asarray(gen_features, np.float32))
+    log.info("ann search: %d queries x %d rows (nprobe=%d) in %.1fs", n, engine.total,
+             engine.nprobe, time.time() - t0)
+    return {"scores": scores, "keys": keys,
+            "gen_images": np.asarray(list(gen_keys), dtype=object)}
+
+
 def run_search(cfg: SearchConfig, *, laion_folders: Sequence[str | Path] = (),
                top_k: int = 1, device: str | torch.device = "cuda") -> Path:
-    """The whole stage: load the generations' embeddings, search
-    (store-backed when ``cfg.store_dir`` names a built store, else the
-    per-folder brute force) and write ``cfg.out_path``."""
+    """The whole stage: load the generations' embeddings, search (the IVF
+    tier when ``cfg.ann``, store-backed when ``cfg.store_dir`` names a built
+    store, else the per-folder brute force) and write ``cfg.out_path``."""
     validate_search_config(cfg)
     gen_emb = find_embedding_file(cfg.gen_folder)
     if gen_emb is None:
@@ -165,7 +191,14 @@ def run_search(cfg: SearchConfig, *, laion_folders: Sequence[str | Path] = (),
             f"no embedding dump under {cfg.gen_folder}; run search.embed first")
     gen_features, gen_keys = load_embeddings(gen_emb)
     top_k = max(top_k, cfg.top_k)
-    if cfg.store_dir:
+    if cfg.ann:
+        if not cfg.store_dir:
+            raise ValueError("--ann needs --store_dir (the IVF tier indexes a built store)")
+        result = search_store_ann(gen_features, gen_keys, cfg.store_dir, top_k=top_k,
+                                  nprobe=cfg.nprobe, shortlist_k=cfg.shortlist_k,
+                                  query_batch=cfg.query_batch, segment_rows=cfg.segment_rows,
+                                  device=device)
+    elif cfg.store_dir:
         result = search_store(gen_features, gen_keys, cfg.store_dir, top_k=top_k,
                               query_batch=cfg.query_batch, segment_rows=cfg.segment_rows,
                               device=device)

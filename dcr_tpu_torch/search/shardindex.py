@@ -104,10 +104,10 @@ class ShardedTopK:
                  device: str | torch.device = "cuda"):
         if mesh is not None:
             raise NotPortedError("a device mesh for the top-k engine is not ported to "
-                                 "dcr_tpu_torch yet (ROADMAP Queue A item 16)")
+                                 "dcr_tpu_torch yet (ROADMAP Queue A item 9)")
         if warm_dir:
             raise NotPortedError("warm_dir (the warm executable cache) is not ported to "
-                                 "dcr_tpu_torch yet (ROADMAP Queue A item 15)")
+                                 "dcr_tpu_torch yet (ROADMAP Queue A item 7)")
         self.reader = reader
         self.device = resolve_device(device)
         self.top_k = max(1, int(top_k))

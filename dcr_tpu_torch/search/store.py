@@ -129,10 +129,12 @@ class StoreWriterLease:
     and both sides of a real race are visible in the journal.
     """
 
-    def __init__(self, store_dir: str | Path):
+    def __init__(self, store_dir: str | Path, *, owner: str = ""):
         self.dir = Path(store_dir)
         self.path = self.dir / LEASE_NAME
-        self.owner = f"pid{os.getpid()}"
+        # the lease file names its writer (``train-ivf``, ``ann-rebuild``) as
+        # the JAX package's does
+        self.owner = owner or f"pid{os.getpid()}"
         self.lease_s = DEFAULT_LEASE_S
         self.heartbeat_s = self.lease_s / 3.0
         # token makes renew/release self-owned: a taken-over writer that
@@ -230,6 +232,12 @@ class StoreWriterLease:
                 self.path.unlink()
             except OSError:
                 pass
+
+    def __enter__(self) -> "StoreWriterLease":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
 
 
 # ---------------------------------------------------------------------------

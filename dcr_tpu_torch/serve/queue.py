@@ -2,7 +2,7 @@
 
 Counterpart of ``dcr_tpu/serve/queue.py``, operation for operation; the
 port's :class:`Request` has no span or trace id (spans come with ROADMAP
-Queue A item 15).
+Queue A item 7).
 
 The admission contract is the first line of overload defense: a request
 either enters the bounded queue or is rejected *immediately* with a typed
@@ -53,7 +53,7 @@ class MemoryBudgetError(AdmissionError):
     """Admitting this request's novel bucket would build a resident sampler
     whose estimated footprint exceeds remaining device memory (HTTP 503).
     The port raises it nowhere yet: the memory budget comes with ROADMAP
-    Queue A item 15; the type keeps the wire tags and counters whole."""
+    Queue A item 7; the type keeps the wire tags and counters whole."""
 
 
 class SloShedError(AdmissionError):

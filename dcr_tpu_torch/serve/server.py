@@ -21,7 +21,7 @@ Endpoints (JSON in and out):
   Prometheus text format.
 
 ``POST /generate_batch`` and ``GET /slo`` belong to the serving fleet, and
-``/debug/profile`` to profiling (ROADMAP Queue A items 17 and 15): they
+``/debug/profile`` to profiling (ROADMAP Queue A items 8 and 7): they
 answer 404 as the JAX handler does for a service without them. PNGs are
 written by the port's own encoder (``sampling/png``). ``block_on_close`` and
 non-daemon handler threads give the drain guarantee: ``server_close()``

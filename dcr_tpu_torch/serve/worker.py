@@ -24,7 +24,7 @@ eagerly. Device work runs on the worker thread, the risk loader's thread and
 the ``/check`` handler threads: every function that runs a model enters
 ``torch.inference_mode()`` itself (grad mode is thread-local). The warm
 cache, the fault hooks, the hang watchdog, the memory budget and profiling
-are not ported (ROADMAP Queue A items 15 and 17).
+are not ported (ROADMAP Queue A items 7 and 8).
 """
 
 from __future__ import annotations

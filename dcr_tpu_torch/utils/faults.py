@@ -33,6 +33,12 @@ The kinds the port fires, and their hook points:
 - ``store_shard_corrupt``: ``search/store.EmbeddingStoreReader``, coordinate
   ``load`` (the reader's shard read index): the same for a store shard,
   which is then quarantined while the store serves the surviving rows.
+- ``ivf_list_corrupt``: ``search/ann.AnnIndexReader.load_list``, coordinate
+  ``load`` (the reader's list read index): damages an inverted list's bytes
+  in memory, so the list is quarantined, counted and rebuilt from the store.
+- ``kmeans_nan``: ``search/ann.train_ivf``, coordinate ``iter`` (the Lloyd
+  iteration): poisons one centroid update, driving the bounded seed-shifted
+  restart (and the typed failure once the restarts run out).
 
 The JAX package's other kinds have no hook in the port yet, and a spec that
 names one raises :class:`NotPortedError` when it is parsed: a fault that
@@ -62,7 +68,8 @@ class InjectedFault(RuntimeError):
 
 #: kinds with a hook in the port
 PORTED_KINDS = ("decode_error", "ckpt_corrupt", "nan_loss", "sigterm", "hang",
-                "search_dump_corrupt", "store_shard_corrupt")
+                "search_dump_corrupt", "store_shard_corrupt", "ivf_list_corrupt",
+                "kmeans_nan")
 
 #: the JAX package's other kinds, each with the ROADMAP Queue A item that
 #: brings its hook point
@@ -77,8 +84,6 @@ NOT_PORTED_KINDS = {
     "ingest_crash": "item 3 (the live store)",
     "compact_crash": "item 3 (the live store)",
     "ingest_stall": "item 3 (serve-side ingest)",
-    "ivf_list_corrupt": "item 1 (the ANN tier)",
-    "kmeans_nan": "item 1 (the ANN tier)",
     "recall_degrade": "item 1 (the ANN tier's recall probe)",
 }
 

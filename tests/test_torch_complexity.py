@@ -22,6 +22,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -42,6 +43,17 @@ from dcr_tpu_torch.eval import runner as RUN  # noqa: E402
 from dcr_tpu_torch.models import clip_image as CLIP  # noqa: E402
 from dcr_tpu_torch.models import export as EX  # noqa: E402
 from dcr_tpu_torch.sampling.png import write_png  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # the tiny models run fastest on one intra-op thread, and the suite's
+    # parallel workers share the box's cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 COMPLEXITY = ("corr_entropy_sim", "corr_jpegsize_sim", "corr_tv_sim", "corr_entropy_jpegsize",
               "mean_entropy", "mean_jpeg_bytes", "mean_tv")

@@ -49,6 +49,17 @@ from dcr_tpu_torch.models import xcit as XCIT  # noqa: E402
 from dcr_tpu_torch.sampling.png import write_png  # noqa: E402
 from tests.fixtures.torch_backbones import TorchResNet50, TorchXCiT  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # the tiny models run fastest on one intra-op thread, and the suite's
+    # parallel workers share the box's cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GOLD = Path(__file__).parent / "goldens" / "dino_reference.npz"
 ATOL, RTOL = 2e-4, 1e-3
 

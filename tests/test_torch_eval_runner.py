@@ -39,6 +39,17 @@ from dcr_tpu_torch.eval.runner import run_eval  # noqa: E402
 from dcr_tpu_torch.models import export as EX  # noqa: E402
 from dcr_tpu_torch.sampling.png import write_png  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # the tiny models run fastest on one intra-op thread, and the suite's
+    # parallel workers share the box's cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SCALARS = ("sim_mean", "sim_std", "sim_75pc", "sim_90pc", "sim_95pc", "sim_gt_05pc",
            "bg_mean", "bg_std", "FID_val", "precision", "recall", "gen_clipscore",
            "train_clipscore")

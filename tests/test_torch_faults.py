@@ -54,6 +54,8 @@ def _clean_faults(monkeypatch):
     "sigterm@step=7, hang@step=1x3",
     "decode_error@step=1&slot=4&index=9&epoch=0x2",
     "search_dump_corrupt@load=0,store_shard_corrupt@load=12",
+    "ivf_list_corrupt@load=3",
+    "kmeans_nan@iter=2x4,ivf_list_corrupt@load=0&rank=0",
 ])
 def test_parse_faults_equals_jax(spec):
     def entries(mod):

@@ -38,6 +38,8 @@ def test_importing_every_module_loads_no_jax_or_dcr_tpu():
     assert "dcr_tpu_torch.ops.flash_attention" in doc["imported"]
     assert "dcr_tpu_torch.utils.faults" in doc["imported"]
     assert "dcr_tpu_torch.core.coordination" in doc["imported"]
+    assert "dcr_tpu_torch.search.ann" in doc["imported"]
+    assert "dcr_tpu_torch.search.annindex" in doc["imported"]
     assert doc["bad"] == []
 
 

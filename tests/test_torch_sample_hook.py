@@ -46,6 +46,17 @@ from dcr_tpu_torch.eval.gallery import image_grid
 from dcr_tpu_torch.models import export as EX
 from dcr_tpu_torch.sampling.png import read_png, write_png
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # the tiny models run fastest on one intra-op thread, and the suite's
+    # parallel workers share the box's cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL, RTOL = 2e-4, 1e-3
 
 

@@ -327,16 +327,43 @@ def test_cli_build_append_verify_query_stats(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["query", "--ann=true"], ["query", "--live=true"], ["query", "--mesh.data=2"],
-    ["query", "--warm_dir=w"], ["query", "--logdir=l"], ["recover"], ["compact"],
-    ["train-ivf"]], ids=lambda a: "_".join(a).replace("--", ""))
+    ["query", "--live=true"], ["query", "--mesh.data=2"],
+    ["query", "--warm_dir=w"], ["query", "--logdir=l"], ["recover"], ["compact"]],
+    ids=lambda a: "_".join(a).replace("--", ""))
 def test_unported_settings_and_subcommands_raise(tmp_path, monkeypatch, argv):
     monkeypatch.setenv("DCR_TPU_PLATFORM", "cpu")
-    with pytest.raises(NotPortedError, match="ROADMAP Queue A item 1[456]"):
+    with pytest.raises(NotPortedError, match="ROADMAP Queue A item [379]"):
         cli.main(argv + [f"--store_dir={tmp_path}"])
 
 
-@pytest.mark.parametrize("field,value", [("ann", True), ("live", True),
+@pytest.mark.parametrize("argv", [["query", "--ann=true", "--nprobe=4"], ["train-ivf"]],
+                         ids=lambda a: "_".join(a[:2]).replace("--", ""))
+def test_ann_settings_and_subcommands_run(corpus, tmp_path, monkeypatch, capsys, argv):
+    """The IVF tier's command line runs: ``train-ivf`` commits a tier the JAX
+    package verifies, and ``query --ann`` at nprobe = n_lists answers as the
+    exact query does."""
+    from dcr_tpu.search import ann as jann
+
+    monkeypatch.setenv("DCR_TPU_PLATFORM", "cpu")
+    _, store, feats, keys, q = corpus
+    gdir = tmp_path / "gens"
+    gdir.mkdir()
+    E.save_embeddings(gdir / "embedding.npz", q, [f"g{i}" for i in range(len(q))])
+    if argv[0] == "query":
+        cli.main(["train-ivf", f"--store_dir={store}", "--n_lists=4"])
+    cli.main(argv + [f"--store_dir={store}", f"--gen_folder={gdir}", "--n_lists=4",
+                     f"--out_path={tmp_path / 'ann.npz'}", "--top_k=3"])
+    assert jann.AnnIndexReader(store).verify()["corrupt"] == 0
+    if argv[0] == "train-ivf":
+        assert json.loads(capsys.readouterr().out)["rows"] == len(keys)
+        return
+    cli.main(["query", f"--store_dir={store}", f"--gen_folder={gdir}",
+              f"--out_path={tmp_path / 'exact.npz'}", "--top_k=3"])
+    with np.load(tmp_path / "ann.npz") as za, np.load(tmp_path / "exact.npz") as ze:
+        assert_topk_agree(za["scores"], za["keys"], ze["scores"], ze["keys"], q, feats, keys)
+
+
+@pytest.mark.parametrize("field,value", [("live", True),
                                          ("mesh", MeshConfig(data=4)),
                                          ("warm_dir", "w"), ("logdir", "l")])
 def test_run_search_refuses_unported_settings(corpus, tmp_path, field, value):
@@ -349,30 +376,84 @@ def test_run_search_refuses_unported_settings(corpus, tmp_path, field, value):
         S.run_search(cfg, device="cpu")
 
 
+def test_run_search_runs_ann_on_a_trained_store(corpus, tmp_path):
+    """``run_search`` with ``ann`` answers through the IVF tier: at nprobe =
+    n_lists as the exact engine does."""
+    from dcr_tpu_torch.search import ann
+
+    _, store, feats, keys, q = corpus
+    ann.train_ivf(store, n_lists=4, iters=3, device="cpu")
+    gdir = tmp_path / "gens"
+    gdir.mkdir()
+    E.save_embeddings(gdir / "embedding.npz", q, [f"g{i}" for i in range(len(q))])
+    outs = {}
+    for name, on in (("ann", True), ("exact", False)):
+        cfg = SearchConfig(gen_folder=str(gdir), store_dir=str(store), ann=on, nprobe=4,
+                           top_k=4, out_path=str(tmp_path / f"{name}.npz"))
+        with np.load(S.run_search(cfg, device="cpu")) as z:
+            outs[name] = z["scores"], z["keys"]
+    assert_topk_agree(*outs["ann"], *outs["exact"], q, feats, keys)
+    with pytest.raises(NotPortedError, match="item 3"):
+        S.run_search(SearchConfig(gen_folder=str(gdir), store_dir=str(store), ann=True,
+                                  live=True), device="cpu")
+
+
 def test_engine_refuses_mesh_and_warm_dir(corpus):
     _, store, *_ = corpus
     reader = ST.EmbeddingStoreReader(store)
-    with pytest.raises(NotPortedError, match="item 16"):
+    with pytest.raises(NotPortedError, match="item 9"):
         SI.ShardedTopK(reader, mesh=object(), device="cpu")
-    with pytest.raises(NotPortedError, match="item 15"):
+    with pytest.raises(NotPortedError, match="item 7"):
         SI.ShardedTopK(reader, warm_dir="w", device="cpu")
 
 
-@pytest.mark.parametrize("tier", ["wal", "ann"])
+@pytest.mark.parametrize("tier", ["wal"])
 def test_store_with_a_wal_or_ivf_tier_raises(corpus, tmp_path, tier, monkeypatch):
     monkeypatch.setenv("DCR_TPU_PLATFORM", "cpu")
     _, store, *_ = corpus
     (store / tier).mkdir()
-    for sub in ("stats", "query", "append"):
-        with pytest.raises(NotPortedError, match="item 14"):
+    for sub in ("stats", "query", "append", "train-ivf"):
+        with pytest.raises(NotPortedError, match="item 3"):
             cli.main([sub, f"--store_dir={store}", f"--gen_folder={tmp_path}",
                       f"--laion_folder={tmp_path}"])
 
 
-def test_jax_ivf_and_wal_directories_are_the_ones_refused():
-    from dcr_tpu.search import ann, livestore
+def test_store_with_an_ivf_tier_answers_as_without(corpus, tmp_path, monkeypatch, capsys):
+    """An exact query, ``stats`` and ``append`` on a store with an ``ann/``
+    tier run; the exact answer is bit-identical to the one before the tier."""
+    from dcr_tpu_torch.search import ann
 
-    assert (cli.WAL_DIR, cli.ANN_DIR) == (livestore.WAL_DIR, ann.ANN_DIRNAME)
+    monkeypatch.setenv("DCR_TPU_PLATFORM", "cpu")
+    folders, store, feats, keys, q = corpus
+    gdir = tmp_path / "gens"
+    gdir.mkdir()
+    E.save_embeddings(gdir / "embedding.npz", q, [f"g{i}" for i in range(len(q))])
+
+    def query(name):
+        cli.main(["query", f"--store_dir={store}", f"--gen_folder={gdir}",
+                  f"--out_path={tmp_path / name}", "--top_k=3"])
+        with np.load(tmp_path / name) as z:
+            return z["scores"], z["keys"]
+
+    before = query("before.npz")
+    ann.train_ivf(store, n_lists=4, iters=3, device="cpu")
+    after = query("after.npz")
+    np.testing.assert_array_equal(before[0], after[0])
+    assert (before[1] == after[1]).all()
+    capsys.readouterr()
+    cli.main(["stats", f"--store_dir={store}", "--json_out=true"])
+    assert json.loads(capsys.readouterr().out)["ann"]["rows"] == len(keys)
+    cli.main(["append", f"--store_dir={store}", f"--dumps={folders[0] / 'embedding.npz'}"])
+    assert ST.EmbeddingStoreReader(store).total == len(keys) + 10
+
+
+def test_jax_ivf_and_wal_directories_are_the_ones_refused():
+    """The port refuses the JAX package's WAL directory and reads its IVF
+    directory under the same name."""
+    from dcr_tpu.search import ann, livestore
+    from dcr_tpu_torch.search import ann as port_ann
+
+    assert (cli.WAL_DIR, port_ann.ANN_DIRNAME) == (livestore.WAL_DIR, ann.ANN_DIRNAME)
 
 
 def test_engine_defaults_equal_jax():

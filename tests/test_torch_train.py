@@ -41,6 +41,17 @@ from dcr_tpu_torch.models import export as EX
 from dcr_tpu_torch.sampling.pipeline import build_models as t_build_models
 from tests.test_torch_models import jax_params, tiny_cfg
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # the tiny models run fastest on one intra-op thread, and the suite's
+    # parallel workers share the box's cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LR = 1e-3
 BSZ = 4
 
