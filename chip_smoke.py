@@ -118,7 +118,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    bucket_limit; SIGTERM with a batch queued, every request answered,
    exit 83. Seconds per batch, images/s, p50/p99, UNet call ms, risk ms
    per batch, /check ms, peak memory, load and warm seconds.
-16. ANN (after 13), through dcr-search-torch: a store of 1,048,576 rows x
+16. ANN (inside 5b, after 14), through dcr-search-torch: a store of 1,048,576 rows x
    512 clustered as tools/bench_ann.py builds its corpus (1,024 clusters),
    `train-ivf` with 1,024 lists and 10 iterations, `query --ann=true` and
    the exact `query` for 4,096 queries from 16 hot clusters at top_k 10,
@@ -132,6 +132,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    on 65,536 rows the card agrees with the CPU, ivf_list_corrupt@load=3
    quarantines, counts and rebuilds one list with unchanged answers, and
    kmeans_nan@iter=2 makes train-ivf restart once.
+17. live provenance serving (inside 5b, after 16, on 5b's genuine SD-2.1
+   and phase 16's raw store): `train-ivf --ivf_normalize=true` (1,024
+   lists), then phase 14's bucket in-process behind the HTTP front end with
+   --risk.ann=true, --ingest.enabled=true, batch_rows 1, compact_rows 8, the
+   recall probe on every call, and ingest_stall before the 8th and 16th
+   rows; 16 concurrent requests. Held before any ingest, on 256 queries
+   made from corpus rows against a float64 oracle over the normalised
+   rows: the served risk engine's top-1 and its rows' scores, and every
+   rank through the same tier at nprobe 1,024 with a wide shortlist.
+   Held after: 16 rows acked, none dropped; two
+   compactions folding rows into exactly the lists they reach (every other
+   list's entry byte-identical); every /check (in the tail, then
+   committed) against a float64 oracle over the committed and acked rows
+   under the tie rule; the online recall within 0.05 of spot_check_recall;
+   1,500 B1 launches. Drills on phase 16's 65,536-row store (ingest_crash
+   and compact_crash in subprocesses, wal_torn, recall_degrade) and the
+   JAX-written WAL of tests/fixtures/jax_wal_store. Reported: ms per WAL
+   append, compaction, fold and refresh seconds, risk ms per batch through
+   ANN and through the exact store engine over the same snapshot, /check ms
+   with a tail, probe ms, p50/p99, peak memory.
 No kernel lies on the eval, search and ANN paths (9-13 and 16: their
 attention is SDPA's, XCiT's is over channels; search and ANN are matmuls,
 sorts and torch.topk): their launch counts must stay 0.
@@ -3370,6 +3390,670 @@ def phase_ann(root: Path) -> dict:
     return stats
 
 
+# the live provenance phase (17): phase 16's raw store of one LAION chunk with
+# its IVF tier retrained normalised, behind phase 14's serving bucket with
+# ingest and ANN copy-risk scoring on
+LIVE_TOP_K = 5
+LIVE_WIDE_SHORTLIST = 2048
+# the pump stalls (ingest_stall) before the 8th and the 16th row, so each
+# wave's first 7 rows sit acked in the live tail while /check reads them
+LIVE_STALL_S = 15.0
+LIVE_FAULTS = "ingest_stall@row=7,ingest_stall@row=15"
+# tests/fixtures/jax_wal_store: a live store the JAX package wrote, and the
+# recipe of its rows (tests/test_torch_livestore.fixture_rows)
+JAX_WAL_FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_wal_store"
+JAX_WAL_SEED, JAX_WAL_DIM = 2026, 32
+
+_CRASH_APPEND = """
+import sys
+import numpy as np
+from dcr_tpu_torch.search.livestore import LiveStore
+from dcr_tpu_torch.utils import faults
+
+faults.install("ingest_crash@append=3")
+rows = np.load(sys.argv[2])
+with LiveStore.open(sys.argv[1], lease_s=1.0, owner="crash-drill") as live:
+    for i in range(6):
+        live.append(rows[2 * i:2 * i + 2], ["crash%d_%d" % (i, j) for j in range(2)])
+sys.exit(7)
+"""
+
+_CRASH_COMPACT = """
+import sys
+import numpy as np
+from dcr_tpu_torch.search.livestore import LiveStore
+from dcr_tpu_torch.utils import faults
+
+faults.install("compact_crash@seal=0")
+rows = np.load(sys.argv[2])
+with LiveStore.open(sys.argv[1], lease_s=1.0, owner="crash-drill") as live:
+    live.append(rows[:4], ["compact%d" % j for j in range(4)])
+    live.compact()
+sys.exit(7)
+"""
+
+
+class LiveProbe:
+    """Times the live tier while installed (host clock, synchronised): each
+    compaction (with its report), each ann fold, each risk-engine refresh."""
+
+    def __init__(self):
+        from dcr_tpu_torch.obs.copyrisk import CopyRiskIndex
+        from dcr_tpu_torch.search import ann
+        from dcr_tpu_torch.search.livestore import LiveStore
+
+        self.targets = ((LiveStore, "compact"), (ann, "fold_rows"),
+                        (CopyRiskIndex, "refresh_store"))
+        self.saved = [getattr(obj, name) for obj, name in self.targets]
+        self.calls: dict[str, list] = {name: [] for _, name in self.targets}
+
+    def __enter__(self) -> "LiveProbe":
+        for (obj, name), fn in zip(self.targets, self.saved):
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.calls[_name].append((time.perf_counter() - t0, out))
+                return out
+            setattr(obj, name, timed)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for (obj, name), fn in zip(self.targets, self.saved):
+            setattr(obj, name, fn)
+
+
+def _retry_lease(fn, timeout: float = 60.0):
+    """``fn()`` once the writer lease of a SIGKILLed process has aged out."""
+    from dcr_tpu_torch.search.store import StoreLeaseHeldError
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            return fn()
+        except StoreLeaseHeldError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.2)
+
+
+def _crash_child(script: str, store: Path, rows_path: Path) -> int:
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)
+               + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("DCR_FAULTS", None)
+    proc = subprocess.run([sys.executable, "-c", script, str(store), str(rows_path)], env=env,
+                          cwd=str(Path(__file__).resolve().parent), capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != -9:
+        raise AssertionError(f"the crash drill's child exited {proc.returncode}, not by "
+                             f"SIGKILL:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return proc.returncode
+
+
+def _live_drills(small: Path, root: Path) -> dict:
+    """On phase 16's 65,536-row store (raw rows, its 64-list tier): ms per
+    WAL append and a compaction that folds into the lists; ingest_crash at
+    the 4th append in a subprocess, then `recover` and `query --live` equal
+    to a store rebuilt after the fact from the acked rows; wal_torn
+    in-process; compact_crash in a subprocess (the snapshot stays, the WAL
+    stays, `compact` then completes); recall_degrade (the probe reads 0,
+    the answers are unchanged)."""
+    import numpy as np
+
+    from dcr_tpu_torch.core import tracing
+    from dcr_tpu_torch.obs.recall_probe import RecallProbe
+    from dcr_tpu_torch.search import annindex as AI
+    from dcr_tpu_torch.search import embed as E
+    from dcr_tpu_torch.search import store as ST
+    from dcr_tpu_torch.search.annindex import spot_check_recall
+    from dcr_tpu_torch.search.livestore import LiveStore, load_wal_tail
+    from dcr_tpu_torch.search.shardindex import open_engine
+    from dcr_tpu_torch.utils import faults
+
+    feats, q, _ = _ann_corpus(65536, SEARCH_DIM, 64, 512, 8, seed=1)
+    rng = np.random.default_rng(17)
+    new = (feats[rng.choice(len(feats), 64, replace=False)]
+           + rng.standard_normal((64, SEARCH_DIM)).astype(np.float32) * 0.05)
+    stats: dict = {}
+    snap0 = ST.snapshot_version(small)
+
+    # ms per acked append (one 512-d row, fsynced), then a compaction
+    append_ms = []
+    with LiveStore.open(small, owner="append-drill") as live:
+        for i in range(32):
+            t0 = time.perf_counter()
+            live.append(new[i:i + 1], [f"append{i}"])
+            append_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        rep = live.compact()
+        stats["compaction_32_rows"] = {"s": time.perf_counter() - t0, **rep}
+    stats["append_ms_median"] = statistics.median(append_ms)
+    stats["append_ms_max"] = max(append_ms)
+
+    # ingest_crash@append=3: SIGKILL in the 4th append, 3 records acked
+    rows_path = root / "drill_rows.npy"
+    np.save(rows_path, new[32:])
+    torn_before = tracing.registry().counters("ingest/").get("ingest/torn_total", 0)
+    _crash_child(_CRASH_APPEND, small, rows_path)
+    _, (recovered,) = _retry_lease(lambda: _cli(["recover", f"--store_dir={small}"]))
+    stats["ingest_crash"] = {"recover": recovered, "torn_counter": tracing.registry().counters(
+        "ingest/").get("ingest/torn_total", 0) - torn_before}
+    base, base_keys = ST.EmbeddingStoreReader(small).load_all()
+    tail, tail_keys, _ = load_wal_tail(small)
+    rebuilt = root / "drill_rebuilt"
+    with ST.EmbeddingStoreWriter.create(rebuilt, shard_rows=8192) as w:
+        w.add(np.concatenate([base, tail]), list(base_keys) + [str(k) for k in tail_keys])
+        w.finalize()
+    gens = root / "drill_gens"
+    gens.mkdir()
+    dq = np.concatenate([q[:56], tail + 0.01]).astype(np.float32)   # the tail surfaces
+    E.save_embeddings(gens / "embedding.npz", dq, [f"dq{i}" for i in range(len(dq))])
+    tables = {}
+    for name, store, extra in (("live", small, ["--live=true"]), ("rebuilt", rebuilt, [])):
+        out = root / f"drill_{name}.npz"
+        _cli(["query", f"--store_dir={store}", f"--gen_folder={gens}", f"--out_path={out}",
+              "--top_k=10", *extra])
+        with np.load(out) as z:
+            tables[name] = z["scores"], z["keys"].astype(object)
+    allf = np.concatenate([base, tail])
+    allk = np.asarray(list(base_keys) + [str(k) for k in tail_keys], object)
+    or_s, or_i = _oracle_topk(dq, allf, 11)
+    bound = 1e-5 * float(np.linalg.norm(dq, axis=1).max() * np.linalg.norm(allf, axis=1).max())
+    stats["ingest_crash"].update(
+        acked_rows=int(len(tail)), tail_keys_in_answers=int(np.isin(
+            tables["live"][1], tail_keys).any(axis=1).sum()),
+        live_vs_rebuilt_bit_equal=bool(np.array_equal(tables["live"][0], tables["rebuilt"][0])
+                                       and np.array_equal(tables["live"][1],
+                                                          tables["rebuilt"][1])),
+        live_vs_rebuilt=tie_rule("query --live after ingest_crash vs rebuilt",
+                                 *tables["live"], *tables["rebuilt"], or_s, bound=bound,
+                                 gap=2 * bound),
+        live_vs_float64=tie_rule("query --live after ingest_crash vs float64",
+                                 *tables["live"], or_s[:, :10], allk[or_i[:, :10]], or_s,
+                                 bound=bound, gap=2 * bound))
+
+    # wal_torn@append=1: a torn frame, not acked; the later append survives
+    faults.install("wal_torn@append=1")
+    try:
+        with LiveStore.open(small, owner="torn-drill") as live:
+            live.append(new[48:49], ["torn_a"])
+            try:
+                live.append(new[49:50], ["torn_b"])
+                raise AssertionError("wal_torn did not fire")
+            except ST.StoreError as e:
+                torn_error = str(e)
+            live.append(new[50:51], ["torn_c"])
+    finally:
+        faults.clear()
+    with LiveStore.open(small, owner="torn-drill") as live:
+        torn_tail = [str(k) for k in live.tail()[1]]
+        stats["wal_torn"] = {"error": torn_error, "torn_segments": live.torn_segments,
+                             "tail_rows": len(torn_tail)}
+    if "torn_b" in torn_tail or not {"torn_a", "torn_c"} <= set(torn_tail):
+        raise AssertionError(f"wal_torn: the tail holds {torn_tail}")
+
+    # compact_crash@seal=0: SIGKILL before the CURRENT flip
+    snap = ST.snapshot_version(small)
+    wal_before = len(load_wal_tail(small)[0])
+    _crash_child(_CRASH_COMPACT, small, rows_path)
+    stats["compact_crash"] = {"snapshot_before": snap, "snapshot_after_kill":
+                              ST.snapshot_version(small),
+                              "wal_rows_before": wal_before,
+                              "wal_rows_after_kill": len(load_wal_tail(small)[0])}
+    _, (compacted,) = _retry_lease(lambda: _cli(["compact", f"--store_dir={small}"]))
+    stats["compact_crash"]["compact"] = compacted["compaction"]
+
+    # recall_degrade@probe=2: the second probe reads 0, answers unchanged
+    eng = AI.open_ann_engine(small, top_k=10, device="cuda")
+    exact = open_engine(small, top_k=10, device="cuda")
+    s1, k1 = eng.query(q)
+    probe = RecallProbe(every_n=1, k=10)
+    first = probe.observe(eng, q, k1)
+    faults.install("recall_degrade@probe=2")
+    try:
+        degraded = probe.observe(eng, q, k1)
+    finally:
+        faults.clear()
+    s2, k2 = eng.query(q)
+    stats["recall_degrade"] = {"first": first, "degraded": degraded,
+                               "offline": spot_check_recall(eng, exact, q, k=10),
+                               "answers_unchanged": bool(np.array_equal(s1, s2)
+                                                         and np.array_equal(k1, k2))}
+    d = stats
+    ic, cc, rd = d["ingest_crash"], d["compact_crash"], d["recall_degrade"]
+    if (d["compaction_32_rows"]["folded_rows"] != 32
+            or d["compaction_32_rows"]["ann_lists_folded"] < 1
+            or d["compaction_32_rows"]["snapshot"] != snap0 + 1
+            or ic["recover"]["recovered_rows"] != 6 or ic["recover"]["torn_segments"] != 1
+            or ic["torn_counter"] != 1 or ic["acked_rows"] != 6
+            or ic["tail_keys_in_answers"] < 1
+            or d["wal_torn"]["torn_segments"] != 1
+            or cc["snapshot_after_kill"] != cc["snapshot_before"]
+            or cc["wal_rows_after_kill"] != cc["wal_rows_before"] + 4
+            or cc["compact"]["snapshot"] != cc["snapshot_before"] + 1
+            or cc["compact"]["folded_rows"] != cc["wal_rows_before"] + 4
+            or cc["compact"]["ann_lists_folded"] < 1
+            or rd["degraded"] != 0.0 or not rd["answers_unchanged"]
+            or abs(rd["first"] - rd["offline"]) > 0.05):
+        raise AssertionError(f"live drills failed: {json.dumps(stats, default=str)}")
+    return stats
+
+
+def _jax_wal_fixture(root: Path) -> dict:
+    """tests/fixtures/jax_wal_store, a live store the JAX package wrote:
+    the port reads its WAL (3 acked records, a torn frame), recovers it,
+    answers live queries on the card against a float64 oracle, and compacts
+    it to rows bit-equal to the recipe's."""
+    import numpy as np
+
+    from dcr_tpu_torch.search import store as ST
+    from dcr_tpu_torch.search.livestore import LiveStore, load_wal_tail, query_live
+
+    rows = np.random.default_rng(JAX_WAL_SEED).standard_normal(
+        (26, JAX_WAL_DIM)).astype(np.float32)
+    keys = np.asarray([f"c{i:02d}" for i in range(12)] + [f"w{i:02d}" for i in range(6)]
+                      + [f"t{i:02d}" for i in range(6)], object)
+    store = root / "jax_wal_store"
+    shutil.copytree(JAX_WAL_FIXTURE, store)
+    tail, tail_keys, wal = load_wal_tail(store)
+    q = rows[[3, 14, 20]] + 0.01
+    scores, got = query_live(store, q, top_k=4, device="cuda")
+    or_s, or_i = _oracle_topk(q, rows[:24], 5)
+    bound = 1e-5 * float(np.linalg.norm(q, axis=1).max() * np.linalg.norm(rows, axis=1).max())
+    with LiveStore.open(store) as live:
+        opened = {"snapshot": live.snapshot, "committed": live.committed_total,
+                  "recovered_rows": live.recovered_rows, "torn_segments": live.torn_segments}
+        compaction = live.compact()
+    feats, final_keys = ST.EmbeddingStoreReader(store).load_all()
+    stats = {"wal": wal, "opened": opened, "compaction": compaction,
+             "query_live_vs_float64": tie_rule("JAX-written WAL, query_live vs float64",
+                                               scores, got, or_s[:, :4], keys[or_i[:, :4]],
+                                               or_s, bound=bound, gap=2 * bound)}
+    if (wal != {"records": 3, "rows": 6, "torn_segments": 1}
+            or not np.array_equal(tail, rows[18:24]) or list(tail_keys) != list(keys[18:24])
+            or opened != {"snapshot": 1, "committed": 18, "recovered_rows": 6,
+                          "torn_segments": 1}
+            or compaction["snapshot"] != 2 or not np.array_equal(feats, rows[:24])
+            or final_keys != list(keys)):
+        raise AssertionError(f"the JAX-written WAL: {json.dumps(stats, default=str)}")
+    return stats
+
+
+def _risk_engine_over_corpus(engine, store: Path, n: int = 256) -> dict:
+    """Before any ingest: the serving risk engine (the normalised IVF tier,
+    queries normalised, nprobe and shortlist as served) on ``n`` queries
+    made as phase 16 makes its own (a corpus row plus N(0, 0.05^2) noise),
+    against a float64 oracle over the normalised committed rows. A cluster's
+    rows lie within ~1e-3 of one another, finer than the int8 scan resolves,
+    so the served shortlist (32) may hold a rank's row or not: held are the
+    served top-1 and the served rows' scores and order (each rescored in
+    float64), under the tie rule; the served recall@k is reported. Every
+    rank over the corpus is held through the same tier and convention with a
+    shortlist of LIVE_WIDE_SHORTLIST (two clusters' rows) at nprobe =
+    n_lists."""
+    import numpy as np
+
+    from dcr_tpu_torch.search import store as ST
+    from dcr_tpu_torch.search.annindex import AnnEngine
+
+    feats, keys = ST.EmbeddingStoreReader(store).load_all()
+    keys = np.asarray(keys, object)
+    rng = np.random.default_rng(17)
+    picks = rng.choice(len(feats), n, replace=False)
+    q = feats[picks] + rng.standard_normal((n, feats.shape[1])).astype(np.float32) * 0.05
+    feats = ST.normalize_rows(feats)
+    qn = ST.normalize_rows(q)
+    k = engine.top_k
+    or_s, or_i = _oracle_topk(qn, feats, k + 1)
+    or_k = keys[or_i]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served_s, served_k = engine.query(q)
+    served_ms = 1e3 * (time.perf_counter() - t0) / -(-n // engine.query_batch)
+    t0 = time.perf_counter()
+    wide = AnnEngine(store, top_k=k, nprobe=engine.ann.n_lists, query_batch=engine.query_batch,
+                     shortlist_k=LIVE_WIDE_SHORTLIST, normalize_queries=True,
+                     require_normalized_rows=True, device="cuda").build()
+    wide_build_s = time.perf_counter() - t0
+    wide_s, wide_k = wide.query(q)
+    del wide
+    torch.cuda.empty_cache()
+    row_of = {key: i for i, key in enumerate(keys)}
+    out = {"queries": n, "rows": len(feats), "nprobe": engine.nprobe,
+           "shortlist_k": engine.shortlist_k, "served_ms_per_batch": served_ms,
+           "served_top1_vs_float64": tie_rule(
+               "risk engine top-1 as served vs float64 (normalised corpus)",
+               served_s[:, :1], served_k[:, :1], or_s[:, :1], or_k[:, :1], or_s),
+           "served_vs_its_rows": tie_rule(
+               "risk engine as served vs float64 over the rows it returned",
+               served_s, served_k, *_exact_rows(qn, feats, row_of, served_k),
+               _union_reference(qn, feats, row_of, (served_k,), k)),
+           "served_recall_at_k": sum(len(set(a) & set(b)) for a, b in
+                                     zip(served_k, or_k[:, :k])) / (n * k),
+           "wide_shortlist": LIVE_WIDE_SHORTLIST, "wide_build_s": wide_build_s,
+           "wide_full_probe_vs_float64": tie_rule(
+               "the normalised tier at nprobe = n_lists, wide shortlist, vs float64",
+               wide_s, wide_k, or_s[:, :k], or_k[:, :k], or_s)}
+    del feats
+    log(f"risk engine over the corpus before ingest (phase 17, {CARD[0]}): {json.dumps(out)}")
+    return out
+
+
+def _exact_rows(q, feats, row_of: dict, keys):
+    """float64 scores of each query over the rows ``keys`` names (in its
+    order), and those keys: the served answer's own rows, rescored."""
+    import numpy as np
+
+    scores = np.asarray([[float(feats[row_of[key]].astype(np.float64) @ q[i].astype(np.float64))
+                          for key in row] for i, row in enumerate(keys)])
+    return scores, np.asarray(keys, object)
+
+
+def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -> dict:
+    """Phase 17: live provenance in serving on phase 16's raw store of one
+    LAION chunk (1,048,576 rows x 512), its IVF tier retrained with
+    `train-ivf --ivf_normalize=true` (1,024 lists), behind phase 14's bucket
+    (5b's genuine SD-2.1, 256 px, 50 DPM++ steps, max_batch 8, f32): the
+    service and its HTTP front end in-process, parsed from dcr-serve's flags
+    --risk.store_dir, --risk.ann=true, --risk.top_k=5, --ingest.enabled=true,
+    --ingest.batch_rows=1, --ingest.compact_rows=8 and
+    --slo.recall_probe_every_n=1, with DCR_FAULTS' ingest_stall before the
+    8th and 16th rows (15 s each) so each wave's first 7 rows sit in the
+    live tail while /check reads them. Before any request, the risk engine
+    over the corpus against float64 (_risk_engine_over_corpus). 16
+    concurrent requests (two full batches). Held: 16 rows acked, none
+    dropped; two compactions, each
+    publishing a store snapshot and folding rows into the lists, with every
+    untouched list's manifest entry byte-identical; every /check (7 + 7 in
+    the tail, 16 after the compactions) agrees with a float64 oracle over
+    the committed rows plus the rows acked at the time, under the tie rule;
+    ann/recall_online_pct on /metrics with samples >= 1, within 0.05 of
+    spot_check_recall offline on the 16 generations; 1,500 B1 launches
+    (warm batch and two batches, 10 per UNet call). Then the drills
+    (_live_drills) and the JAX-written WAL (_jax_wal_fixture). Reported,
+    not held: each check's rank of its own gen/ key; risk ms per batch
+    through the ANN engine and through the exact engine the index builds
+    without risk.ann, over the same snapshot."""
+    import base64
+    import os
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from dcr_tpu_torch.core.config import (SampleConfig, ServeConfig, parse_cli,
+                                           validate_serve_config)
+    from dcr_tpu_torch.obs.recall_probe import RecallProbe
+    from dcr_tpu_torch.sampling.pipeline import load_generation_stack
+    from dcr_tpu_torch.sampling.png import decode_png
+    from dcr_tpu_torch.search import ann
+    from dcr_tpu_torch.search import store as ST
+    from dcr_tpu_torch.search.annindex import spot_check_recall
+    from dcr_tpu_torch.search.livestore import load_wal_tail
+    from dcr_tpu_torch.search.shardindex import ShardedTopK
+    from dcr_tpu_torch.serve.server import make_server
+    from dcr_tpu_torch.serve.worker import GenerationService
+    from dcr_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    stats: dict = {"card": CARD[0]}
+    torch.cuda.empty_cache()
+    train_s, (report,) = _cli(["train-ivf", f"--store_dir={store}", f"--n_lists={ANN_LISTS}",
+                               f"--ivf_iters={ANN_ITERS}", "--ivf_normalize=true"])
+    stats["train_ivf"] = {"cli_s": train_s, **report}
+    lists_before = {int(e["list"]): (e["file"], e["sha256"])
+                    for e in ann.read_ann_manifest(store)["lists"]}
+    ann_snap0, store_snap0 = ann.ann_snapshot_version(store), ST.snapshot_version(store)
+    committed0 = ST.EmbeddingStoreReader(store).total
+
+    argv = [f"--model_path={ckpt}", "--port=0", f"--risk.store_dir={store}", "--risk.ann=true",
+            f"--risk.top_k={LIVE_TOP_K}", "--ingest.enabled=true", "--ingest.batch_rows=1",
+            "--ingest.compact_rows=8", "--slo.recall_probe_every_n=1"]
+    cfg = parse_cli(ServeConfig, argv)
+    validate_serve_config(cfg)
+    stats["argv"] = argv[2:]
+    stack = load_generation_stack(SampleConfig(model_path=str(ckpt)), device="cuda")
+    os.environ["DCR_INGEST_STALL_S"] = str(LIVE_STALL_S)
+    faults.install(LIVE_FAULTS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    probe = LiveProbe().__enter__()
+    t0 = time.perf_counter()
+    svc = GenerationService(cfg, stack)
+    svc.begin_warm()
+    svc.start()
+    httpd = make_server(cfg, svc)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, name="live-http", daemon=True).start()
+    checks: list[dict] = []
+
+    def pump():
+        return svc._pump.stats() if svc._pump is not None else {}
+
+    def wait_for(what, cond, timeout=600.0):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase 17: timed out waiting for {what}: {pump()}")
+            time.sleep(0.02)
+
+    def check(doc, when, acked):
+        t = time.perf_counter()
+        code, _, raw = _http(port, "/check", {"image_png_b64": doc["image_png_b64"]})
+        ms = 1e3 * (time.perf_counter() - t)
+        body = json.loads(raw)
+        if code != 200:
+            raise AssertionError(f"/check answered {code}: {body}")
+        checks.append({"key": f"gen/{doc['id']}", "when": when, "ms": ms,
+                       "acked": sorted(acked), "scores": [s for _, s in body["topk"]],
+                       "keys": [k for k, _ in body["topk"]]})
+
+    try:
+        svc.warm_start()
+        stats["warm_s"] = time.perf_counter() - t0
+        if not svc.wait_risk_ready(600) or svc.risk_status() != "ok":
+            raise AssertionError(f"risk index: {svc.risk_status()}")
+        wait_for("the live store", lambda: pump().get("status") == "ok")
+        stats["ready_s"] = time.perf_counter() - t0
+        stats["corpus_hold"] = _risk_engine_over_corpus(svc._risk._engine, store)
+        wave = [{"prompt": p, "seed": s} for s in (1, 2, 3, 4) for p in SERVE_PROMPTS]
+        barrier = threading.Barrier(len(wave))
+
+        def one(body):
+            barrier.wait()
+            t = time.perf_counter()
+            code, _, raw = _http(port, "/generate", body)
+            return code, json.loads(raw), time.perf_counter() - t
+
+        docs, first_batch = {}, set()
+        with ThreadPoolExecutor(max_workers=len(wave)) as ex:
+            t_wave = time.perf_counter()
+            futs = [ex.submit(one, body) for body in wave]
+            for n_acked, n_seen in ((7, 8), (15, 16)):
+                wait_for(f"{n_seen} responses", lambda: sum(f.done() for f in futs) >= n_seen)
+                wait_for(f"the stall at row {n_acked}",
+                         lambda: pump().get("status") == "stalled"
+                         and pump().get("appended_rows") == n_acked)
+                for f in futs:
+                    if f.done():
+                        doc = f.result()[1]
+                        docs.setdefault(doc["id"], doc)
+                # acked: the tail, and the first batch once compaction 1 folded it
+                tail_keys = {str(k) for k in load_wal_tail(store)[1]}
+                for i, doc in docs.items():
+                    if f"gen/{i}" in tail_keys:
+                        check(doc, "tail", tail_keys | first_batch)
+                s = pump()
+                if s.get("appended_rows") != n_acked or s.get("status") != "stalled":
+                    raise AssertionError(f"the stall ended before the tail checks: {s}")
+                stats[f"tail_rows_at_row_{n_acked}"] = len(tail_keys)
+                first_batch = {f"gen/{i}" for i in docs}
+            results = [f.result() for f in futs]
+            stats["wave_s"] = time.perf_counter() - t_wave
+        wait_for("two compactions and refreshes",
+                 lambda: pump().get("compactions") == 2 and pump().get("appended_rows") == 16
+                 and len(probe.calls["refresh_store"]) == 2)
+        codes = [c for c, _, _ in results]
+        latencies = [s for _, _, s in results]
+        docs = {d["id"]: d for _, d, _ in results}
+        all_gen = {f"gen/{i}" for i in docs}
+        for doc in docs.values():
+            check(doc, "committed", all_gen)
+        metrics = json.loads(_http(port, "/metrics")[2])
+        health = json.loads(_http(port, "/healthz")[2])
+        prom = {}
+        for line in _http(port, "/metrics?format=prometheus")[2].decode().splitlines():
+            if line and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                prom[name] = float(value)
+    finally:
+        svc.begin_drain()
+        svc.join_drained(timeout=600)
+        svc.stop_ingest()
+        httpd.shutdown()
+        httpd.server_close()
+        probe.__exit__()
+        faults.clear()
+        os.environ.pop("DCR_INGEST_STALL_S", None)
+    launches = read_launches()
+    stats.update(launches=launches[0], expected_launches=10 * 50 * 3,
+                 peak_bytes=torch.cuda.max_memory_allocated(), codes=codes,
+                 latency_p50_s=_percentile(latencies, 50),
+                 latency_p99_s=_percentile(latencies, 99),
+                 phase14_latency_p50_s=serve_stats.get("latency_p50_s"),
+                 phase14_latency_p99_s=serve_stats.get("latency_p99_s"),
+                 ingest=metrics.get("ingest"), health_ingest=health.get("ingest"),
+                 recall_online_pct=prom.get("dcr_ann_recall_online_pct"),
+                 recall_online_samples=prom.get("dcr_ann_recall_online_samples"),
+                 recall_probe_total=prom.get("dcr_ann_recall_probe_total"),
+                 staleness_rows=prom.get("dcr_ann_staleness_rows"))
+    compactions = [(s, rep) for s, rep in probe.calls["compact"]]
+    stats["compactions"] = [{"s": s, **{k: rep[k] for k in ("folded_rows", "snapshot",
+                                                            "ann_lists_folded")}}
+                            for s, rep in compactions]
+    stats["fold_s"] = [s for s, _ in probe.calls["fold_rows"]]
+    stats["refresh_store_s"] = [s for s, _ in probe.calls["refresh_store"]]
+    tail_ms = [c["ms"] for c in checks if c["when"] == "tail"]
+    stats["check_ms_with_tail_median"] = statistics.median(tail_ms) if tail_ms else None
+    stats["check_ms_committed_median"] = statistics.median(
+        [c["ms"] for c in checks if c["when"] == "committed"])
+
+    # the float64 oracle over the committed rows plus the acked rows
+    t0 = time.perf_counter()
+    reader = ST.EmbeddingStoreReader(store)
+    feats, keys = reader.load_all()
+    keys = np.asarray(keys, object)
+    is_gen = np.asarray([str(k).startswith("gen/") for k in keys])
+    gen_rows = {str(k): r for k, r in zip(keys[is_gen], feats[is_gen])}
+    base = torch.nn.functional.normalize(torch.from_numpy(feats[~is_gen]).to(
+        "cuda", torch.float64), dim=1)
+    base_keys = keys[~is_gen]
+    qkeys = sorted(gen_rows)
+    qn = torch.nn.functional.normalize(torch.from_numpy(np.stack(
+        [gen_rows[k] for k in qkeys])).to("cuda", torch.float64), dim=1)
+    bs, bi = torch.topk(qn @ base.T, LIVE_TOP_K + 1, dim=1)
+    bs, bi = bs.cpu().numpy(), bi.cpu().numpy()
+    gs = (qn @ qn.T).cpu().numpy()
+    del base, qn
+    torch.cuda.empty_cache()
+    own_ranks, tie = [], []
+    for c in checks:
+        r = qkeys.index(c["key"])
+        acked = [j for j, k in enumerate(qkeys) if k in set(c["acked"])]
+        cand_s = np.concatenate([bs[r], gs[r, acked]])
+        cand_k = np.concatenate([base_keys[bi[r]], np.asarray(qkeys, object)[acked]])
+        order = np.argsort(-cand_s, kind="stable")[:LIVE_TOP_K + 1]
+        ref_s, ref_k = cand_s[order][None], cand_k[order][None]
+        tie.append(tie_rule(f"/check of {c['key']} ({c['when']}) vs float64",
+                            np.asarray([c["scores"]]), np.asarray([c["keys"]], object),
+                            ref_s[:, :LIVE_TOP_K], ref_k[:, :LIVE_TOP_K], ref_s))
+        own_ranks.append(c["keys"].index(c["key"]) if c["key"] in c["keys"] else -1)
+    stats["oracle_s"] = time.perf_counter() - t0
+    stats["checks"] = {"tail": len(tail_ms), "committed": len(checks) - len(tail_ms),
+                       "max_abs_score_diff": max(t["max_abs_score_diff"] for t in tie),
+                       "decided_ranks": sum(t["decided_ranks"] for t in tie),
+                       "own_key_ranks": own_ranks}
+
+    # the folds: changed lists are exactly those the 16 rows went to
+    lists_after = {int(e["list"]): (e["file"], e["sha256"])
+                   for e in ann.read_ann_manifest(store)["lists"]}
+    centroids = ann.AnnIndexReader(store).load_centroids()
+    target = set(ann.assign_rows(ST.normalize_rows(np.stack([gen_rows[k] for k in qkeys])),
+                                 centroids).tolist())
+    changed = {i for i in lists_before if lists_after[i] != lists_before[i]}
+    stats["folds"] = {"lists_changed": sorted(changed), "lists_targeted": sorted(target),
+                      "untouched_identical": changed == target,
+                      "ann_snapshot": [ann_snap0, ann.ann_snapshot_version(store)],
+                      "store_snapshot": [store_snap0, reader.snapshot],
+                      "rows": [committed0, reader.total]}
+
+    # in-process: risk ms per batch through ANN and through the exact engine
+    # that the index builds without risk.ann, over the same snapshot; the
+    # probe; offline recall
+    index = svc._risk
+    index.live_tail, index.recall_probe = None, None
+    engine = index._engine
+    t0 = time.perf_counter()
+    exact = ShardedTopK(reader, top_k=index.top_k, query_batch=index.batch,
+                        segment_rows=index.cfg.segment_rows, normalize_queries=True,
+                        normalize_rows=not reader.normalized, device="cuda").build()
+    torch.cuda.synchronize()
+    stats["exact_engine_build_s"] = time.perf_counter() - t0
+    images = np.stack([decode_png(base64.b64decode(d["image_png_b64"])) for d in
+                       list(docs.values())[:8]]).astype(np.float32) / 255.0
+    for name, eng in (("ann", engine), ("exact", exact)):
+        index._engine = eng
+        score_s = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index.score_batch(images)
+            torch.cuda.synchronize()
+            score_s.append(time.perf_counter() - t0)
+        stats[f"risk_score_ms_per_batch_{name}"] = 1e3 * statistics.median(score_s)
+    index._engine = engine
+    stats["risk_rows"] = [engine.reader.total, exact.total]
+    stats["phase14_risk_score_ms_per_batch_dense"] = serve_stats.get("risk_score_ms_per_batch")
+    q = np.stack([gen_rows[k] for k in qkeys])
+    _, served = engine.query(q[:8])
+    probe_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        RecallProbe(every_n=1, k=10).observe(engine, q[:8], served)
+        probe_s.append(time.perf_counter() - t0)
+    stats["probe_ms_per_batch"] = 1e3 * statistics.median(probe_s)
+    stats["offline_recall"] = spot_check_recall(engine, exact, q, k=10)
+    del exact, svc, index, engine, stack
+    torch.cuda.empty_cache()
+    log(f"live serving (phase 17, {CARD[0]}): {json.dumps(stats)}")
+    ing = stats["ingest"] or {}
+    if (codes != [200] * 16 or ing.get("appended_rows") != 16 or ing.get("dropped_rows") != 0
+            or launches != (stats["expected_launches"], 0, 0)
+            or len(compactions) != 2 or any(r["folded_rows"] != 8 for _, r in compactions)
+            or sum(r["ann_lists_folded"] for _, r in compactions) < 1
+            or stats["folds"]["ann_snapshot"][1] < ann_snap0 + 2
+            or stats["folds"]["store_snapshot"][1] != store_snap0 + 2
+            or stats["folds"]["rows"][1] != committed0 + 16
+            or not stats["folds"]["untouched_identical"]
+            or stats["checks"]["tail"] != 14 or stats["checks"]["committed"] != 16
+            or not stats["recall_online_samples"] or stats["recall_online_samples"] < 1
+            or stats["recall_online_pct"] is None
+            or abs(stats["recall_online_pct"] / 100 - stats["offline_recall"]) > 0.05):
+        raise AssertionError(f"phase 17 failed: {json.dumps(stats, default=str)}")
+
+    stats["drills"] = _live_drills(store.parent / "small_store", root)
+    log(f"live drills (phase 17, {CARD[0]}): {json.dumps(stats['drills'], default=str)}")
+    stats["jax_wal"] = _jax_wal_fixture(root)
+    log(f"JAX-written WAL (phase 17, {CARD[0]}): {json.dumps(stats['jax_wal'], default=str)}")
+    if read_launches() != launches:
+        raise AssertionError(f"the drills launched flash kernels: {read_launches()}")
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"live serving phase 17: {stats['phase_s']:.1f} s")
+    return stats
+
+
 def kernel_entry(kind: str, dtype: str, rows: list[dict], cases: tuple[str, ...],
                  launches: dict, tensor_core_instructions: dict) -> dict:
     """One kernel's record for the JSON line, from its phase-3 rows at the
@@ -3440,6 +4124,17 @@ def main() -> int:
         mitigation_stats = phase_mitigation(Path(tmp) / "sd21", Path(tmp))
         torch.cuda.empty_cache()
         serve_stats = phase_serve(Path(tmp) / "sd21", Path(tmp))
+        torch.cuda.empty_cache()
+        # phase 16 runs here so that phase 17 serves 5b's checkpoint over
+        # phase 16's store
+        ann_root = Path(tmp) / "ann"
+        ann_root.mkdir()
+        ann_stats = phase_ann(ann_root)
+        torch.cuda.empty_cache()
+        live_root = Path(tmp) / "live"
+        live_root.mkdir()
+        live_stats = phase_live_serving(Path(tmp) / "sd21", ann_root / "store", live_root,
+                                        serve_stats)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         fast_stats = phase_fast_sampling(Path(tmp), main, main_stats)
@@ -3467,9 +4162,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         search_stats = phase_search_main_path(Path(tmp))
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        ann_stats = phase_ann(Path(tmp))
 
     def fwd_row(case, dtype):
         return next(r for r in kern["rows"] if r["case"] == case and r["dtype"] == dtype)
@@ -3513,6 +4205,7 @@ def main() -> int:
                       "sample_fast": fast_stats["launches"],
                       "mitigate": mitigation_stats["launches"],
                       "serve": serve_stats["launches"],
+                      "live_serve": live_stats["launches"],
                       "train_hook": train_stats["hook_launches_fwd_dq_dkv"][0],
                       "train_f32": f32_train["fwd"]},
                      tensor_cores("flash_fwd_tf32x3_kernel")),
@@ -3549,6 +4242,7 @@ def main() -> int:
     log(f"small search reference: {json.dumps(small_search)}")
     log(f"search path stats: {json.dumps(search_stats)}")
     log(f"ann path stats: {json.dumps(ann_stats, default=str)}")
+    log(f"live serving stats: {json.dumps(live_stats, default=str)}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,18 +13,25 @@ embedding_search/ scripts plus the sharded embedding store.
     verify    --store_dir=...            # read-only; exit 1 on corrupt shards
     query     --store_dir=... --gen_folder=... --out_path=... [--top_k=K]
               [--query_batch=B] [--segment_rows=R]
+              [--live=true]              # include the WAL live tail
               [--ann=true --nprobe=N]    # IVF tier instead of the exact scan
+    recover   --store_dir=...            # replay the WAL: truncate torn
+                                         # tails, reload acked rows, print
+                                         # the recovery report
+    compact   --store_dir=...            # recover, then fold the WAL into
+                                         # committed shards and a new snapshot
+                                         # (and into the IVF lists)
     train-ivf --store_dir=... [--n_lists=L] [--ivf_iters=I] [--ivf_seed=S]
               [--ivf_train_rows=N] [--ivf_normalize=true]
                                          # train the IVF quantizer and commit
                                          # the int8 inverted lists
     stats     --store_dir=... [--json_out=true]
+                                         # committed, live and ann tiers
 
 Same flags and ``--config=<config.json>`` as the JAX package's
-``dcr-search``. It runs on one CUDA device (``DCR_TPU_PLATFORM=cpu`` selects
-the CPU). ``recover`` and ``compact``, the settings ``live``, ``warm_dir``,
-``logdir`` and a mesh, and a store that holds a WAL (``wal/``) raise
-``NotPortedError``.
+``dcr-search``, on stores either package wrote. It runs on one CUDA device
+(``DCR_TPU_PLATFORM=cpu`` selects the CPU). The settings ``warm_dir``,
+``logdir`` and a mesh raise ``NotPortedError``.
 """
 
 from __future__ import annotations
@@ -35,15 +42,11 @@ import sys
 from pathlib import Path
 
 from dcr_tpu_torch.cli import device_from_env
-from dcr_tpu_torch.core.config import (
-    NotPortedError,
-    SearchConfig,
-    parse_cli,
-    validate_search_config,
-)
+from dcr_tpu_torch.core.config import SearchConfig, parse_cli, validate_search_config
 from dcr_tpu_torch.search import ann
 from dcr_tpu_torch.search import embed as E
 from dcr_tpu_torch.search import search as S
+from dcr_tpu_torch.search.livestore import LiveStore, load_wal_tail
 from dcr_tpu_torch.search.store import (
     EmbeddingStoreReader,
     EmbeddingStoreWriter,
@@ -51,22 +54,8 @@ from dcr_tpu_torch.search.store import (
     read_store_manifest,
 )
 
-USAGE = ("usage: dcr-search {download|embed|search|build|append|verify|query|train-ivf|"
-         "stats} --key=value ...")
-# the JAX package's directory of the live tier (dcr_tpu/search/livestore.py
-# WAL_DIR)
-WAL_DIR = "wal"
-LIVE = ("recover", "compact")
-
-
-def refuse_unported_tiers(store_dir: str) -> None:
-    """NotPortedError for a store that carries the JAX package's WAL live
-    tail: the port does not read it, so its answers and stats would leave
-    the tail out."""
-    if (Path(store_dir) / WAL_DIR).exists():
-        raise NotPortedError(
-            f"store {store_dir} holds a WAL live tail ({WAL_DIR}/), which dcr_tpu_torch does "
-            "not read yet (ROADMAP Queue A item 3); use the JAX package's dcr-search")
+USAGE = ("usage: dcr-search {download|embed|search|build|append|verify|query|recover|"
+         "compact|train-ivf|stats} --key=value ...")
 
 
 def _store_dir(cfg: SearchConfig, command: str) -> str:
@@ -87,7 +76,6 @@ def _store_sources(cfg: SearchConfig) -> list:
 def _cmd_build(cfg: SearchConfig, append: bool) -> None:
     store_dir = _store_dir(cfg, "build/append")
     if append:
-        refuse_unported_tiers(store_dir)
         writer = EmbeddingStoreWriter.append(store_dir)
     else:
         writer = EmbeddingStoreWriter.create(store_dir, shard_rows=cfg.shard_rows,
@@ -103,9 +91,20 @@ def _cmd_verify(cfg: SearchConfig) -> None:
         raise SystemExit(1)
 
 
+def _cmd_recover(cfg: SearchConfig, compact: bool) -> None:
+    """Take the writer lease, replay the WAL (truncating torn tails) and,
+    with ``compact``, fold the recovered tail into committed shards and
+    publish the next snapshot: by hand, what a restarted ingesting worker
+    does when it opens the store."""
+    with LiveStore.open(_store_dir(cfg, "recover/compact")) as live:
+        report = live.report()
+        if compact:
+            report["compaction"] = live.compact()
+    print(json.dumps(report, indent=1, sort_keys=True))
+
+
 def _cmd_train_ivf(cfg: SearchConfig, device: str) -> None:
     store_dir = _store_dir(cfg, "train-ivf")
-    refuse_unported_tiers(store_dir)
     report = ann.train_ivf(store_dir, n_lists=cfg.n_lists, iters=cfg.ivf_iters,
                            seed=cfg.ivf_seed, train_rows=cfg.ivf_train_rows,
                            normalize=cfg.ivf_normalize, device=device)
@@ -113,10 +112,15 @@ def _cmd_train_ivf(cfg: SearchConfig, device: str) -> None:
 
 
 def store_stats(store_dir: str) -> dict:
-    """The ``stats`` payload: the committed and ann sections, and the live
-    section as the JAX package reports it for a store without a WAL."""
-    refuse_unported_tiers(store_dir)
+    """The ``stats`` payload: the committed, live (the WAL tail, read-only)
+    and ann sections, read-only (nothing is quarantined)."""
     manifest = read_store_manifest(Path(store_dir), quarantine=False)
+    try:
+        feats, _keys, wal = load_wal_tail(store_dir)
+        live = {"tail_rows": int(feats.shape[0]), "records": int(wal["records"]),
+                "torn_segments": int(wal["torn_segments"])}
+    except OSError:  # an unreadable WAL reports as empty, as the JAX stats do
+        live = {"tail_rows": 0, "records": 0, "torn_segments": 0}
     return {"store_dir": str(store_dir), "committed": {
         "snapshot": int(manifest.get("snapshot", 0)),
         "rows": int(manifest["total"]),
@@ -125,8 +129,7 @@ def store_stats(store_dir: str) -> dict:
         "embed_dim": int(manifest["embed_dim"]),
         "normalized": bool(manifest.get("normalized", False)),
         "wal_through": int(manifest.get("wal_through", 0)),
-    }, "live": {"tail_rows": 0, "records": 0, "torn_segments": 0},
-        "ann": ann.ann_stats(store_dir)}
+    }, "live": live, "ann": ann.ann_stats(store_dir)}
 
 
 def _cmd_stats(cfg: SearchConfig) -> None:
@@ -159,10 +162,6 @@ def main(argv=None) -> None:
     if not argv or argv[0].startswith("--"):
         raise SystemExit(USAGE)
     command, rest = argv[0], argv[1:]
-    if command in LIVE:
-        raise NotPortedError(
-            f"dcr-search {command} (the WAL live tier) is not ported to dcr_tpu_torch yet "
-            "(ROADMAP Queue A item 3); use the JAX package's dcr-search")
     cfg = parse_cli(SearchConfig, rest)
     validate_search_config(cfg)
     device = device_from_env()
@@ -176,9 +175,7 @@ def main(argv=None) -> None:
                        device=device)
     elif command == "search":
         folders = ()
-        if cfg.store_dir:
-            refuse_unported_tiers(cfg.store_dir)
-        else:
+        if not cfg.store_dir:
             folders = sorted(p for p in Path(cfg.laion_folder).iterdir() if p.is_dir())
         S.run_search(cfg, laion_folders=folders, device=device)
     elif command == "build":
@@ -188,8 +185,12 @@ def main(argv=None) -> None:
     elif command == "verify":
         _cmd_verify(cfg)
     elif command == "query":
-        refuse_unported_tiers(_store_dir(cfg, "query"))
+        _store_dir(cfg, "query")
         print(f"search results -> {S.run_search(cfg, device=device)}")
+    elif command == "recover":
+        _cmd_recover(cfg, compact=False)
+    elif command == "compact":
+        _cmd_recover(cfg, compact=True)
     elif command == "train-ivf":
         _cmd_train_ivf(cfg, device)
     elif command == "stats":

@@ -2,6 +2,7 @@
 
     python -m dcr_tpu_torch.cli.serve --model_path=<run or checkpoint dir> \\
         [--port=8000] [--risk.index_path=<embedding dump>]
+        [--risk.store_dir=<store> [--risk.ann=true] [--ingest.enabled=true]]
 
 Loads the generation stack once (the bulk pipeline's loader, so the two
 paths cannot drift), runs the default bucket once (``/healthz`` reads
@@ -13,7 +14,9 @@ and an embedding cache, ``POST /check``, ``GET /healthz`` and ``GET
    "draining");
 2. queued and in-flight batches finish, and every accepted request gets
    its response;
-3. the process exits with ``EXIT_PREEMPTED`` (83).
+3. with ``--ingest.enabled=true`` the ingest pump appends its queued rows
+   to the store's WAL and releases the writer lease;
+4. the process exits with ``EXIT_PREEMPTED`` (83).
 
 A second signal kills the process at once. It runs on CUDA;
 ``DCR_TPU_PLATFORM=cpu`` selects the CPU. The fleet roles
@@ -82,6 +85,7 @@ def _run_worker(cfg: ServeConfig) -> None:
     service.begin_drain()
     if not service.join_drained(timeout=cfg.request_timeout_s):
         R.log_event("serve_drain_incomplete", queued=service.queue.depth())
+    service.stop_ingest()      # the queued rows land in the WAL, the lease is released
     httpd.shutdown()
     httpd.server_close()       # joins handler threads: responses are on the wire
     server_thread.join(timeout=5.0)

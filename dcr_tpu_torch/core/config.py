@@ -9,9 +9,8 @@ its fleet, ingest and SLO sections) and of its
 ``model_index.json`` or ``config.json`` written by either package and a
 ``dcr-sample``, ``dcr-train``, ``dcr-eval``, ``dcr-search``,
 ``dcr-mitigate`` or ``dcr-serve`` command line parse the same way here.
-Sections the port does not run yet (mesh, warm cache, the ANN tier,
-pipelined training, the search's live tier, the serving fleet and live
-ingest) parse, and :func:`validate_train_config`,
+Sections the port does not run yet (mesh, warm cache, pipelined training,
+the serving fleet) parse, and :func:`validate_train_config`,
 :func:`validate_eval_config`, :func:`validate_search_config` and
 :func:`validate_serve_config` refuse a setting that would need them with
 :class:`NotPortedError`. The mesh and warm-cache sections of
@@ -232,8 +231,8 @@ class WarmCacheConfig:
 class RiskConfig:
     """Online copy-risk scoring (:mod:`dcr_tpu_torch.obs.copyrisk`): a
     train-embedding dump (``index_path``) or store (``store_dir``), SSCD at
-    ``image_size``, a generation flagged at ``max_sim >= threshold``.
-    Scoring through the ANN tier (``ann``) is not ported."""
+    ``image_size``, a generation flagged at ``max_sim >= threshold``;
+    ``ann`` scores through the store's IVF tier at ``nprobe``."""
 
     index_path: str = ""
     store_dir: str = ""
@@ -376,8 +375,6 @@ def _not_ported(cfg: TrainConfig) -> list[str]:
         (cfg.pipe.enabled, "pipe.enabled (pipelined training)"),
         (bool(cfg.pipe.latent_cache), "pipe.latent_cache (the latent cache)"),
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
-        (cfg.risk.ann, "risk.ann (the IVF + int8 tier in copy-risk scoring, ROADMAP Queue A "
-                       "item 1)"),
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port trains on one)"),
         (cfg.use_wandb, "use_wandb (the wandb sink)"),
     ]
@@ -517,7 +514,7 @@ class SearchConfig:
     top_k: int = 1               # nearest corpus keys kept per query
     query_batch: int = 64        # query rows per engine call
     segment_rows: int = 0        # rows per device segment; 0 = auto
-    live: bool = False           # the WAL live tail (not ported)
+    live: bool = False           # merge the WAL live tail into query answers
     # the IVF + int8 approximate tier
     ann: bool = False
     n_lists: int = 64
@@ -534,12 +531,10 @@ class SearchConfig:
 
 def validate_search_config(cfg: SearchConfig) -> None:
     """NotPortedError for a search setting the port does not run yet, naming
-    the ROADMAP Queue A item that ports it: the WAL live tail (item 3), the
-    warm cache and the trace sink (item 7), a mesh of more than one device
-    (item 9)."""
+    the ROADMAP Queue A item that ports it: the warm cache and the trace sink
+    (item 7), a mesh of more than one device (item 9)."""
     mesh_devices = _mesh_devices(cfg.mesh)
     checks = [
-        (cfg.live, "live (the WAL live tail, ROADMAP Queue A item 3)"),
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port searches on "
                            "one; ROADMAP Queue A item 9)"),
         (bool(cfg.warm_dir), "warm_dir (the warm executable cache, ROADMAP Queue A item 7)"),
@@ -554,8 +549,9 @@ def validate_search_config(cfg: SearchConfig) -> None:
 
 @dataclass
 class IngestConfig:
-    """Streaming provenance ingest into ``risk.store_dir`` (parsed;
-    ``enabled`` is not ported)."""
+    """Streaming provenance ingest into ``risk.store_dir``: the serve
+    worker appends each scored generation's SSCD row to the store's WAL
+    (:mod:`dcr_tpu_torch.serve.ingest`)."""
 
     enabled: bool = False
     queue_max: int = 1024      # response-path queue bound (rows)
@@ -567,8 +563,9 @@ class IngestConfig:
 
 @dataclass
 class SloConfig:
-    """Service-level objectives of the fleet supervisor (parsed; the fleet
-    is not ported)."""
+    """Service-level objectives. The fleet supervisor's SLO engine is not
+    ported; ``enabled`` and the ``recall_probe_*`` fields drive the online
+    recall probe of ANN copy-risk scoring."""
 
     enabled: bool = True
     short_window_s: float = 60.0
@@ -651,9 +648,8 @@ class ServeConfig:
 def validate_serve_config(cfg: ServeConfig) -> None:
     """The JAX package's checks (``ValueError``), then NotPortedError for a
     serve setting the port does not run yet, naming the ROADMAP Queue A item
-    that ports it: the ANN tier in copy-risk scoring (item 1), live ingest
-    (item 3), the warm cache and the trace sink (item 7), the fleet and the
-    hang watchdog (item 8), a mesh of more than one device (item 9)."""
+    that ports it: the warm cache and the trace sink (item 7), the fleet and
+    the hang watchdog (item 8), a mesh of more than one device (item 9)."""
     if cfg.sampler not in ("ddim", "dpm++", "ddpm"):
         raise ValueError("serve sampler must be 'ddim', 'dpm++' or 'ddpm'")
     if cfg.max_batch < 1:
@@ -698,9 +694,6 @@ def validate_serve_config(cfg: ServeConfig) -> None:
         (f.workers > 0, "fleet.workers > 0 (the fleet supervisor, ROADMAP Queue A item 8)"),
         (f.worker_index >= 0, "fleet.worker_index >= 0 (a fleet worker, ROADMAP Queue A "
                               "item 8)"),
-        (cfg.ingest.enabled, "ingest.enabled (live ingest, ROADMAP Queue A item 3)"),
-        (cfg.risk.ann, "risk.ann (the IVF + int8 tier in copy-risk scoring, ROADMAP Queue A "
-                       "item 1)"),
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache, ROADMAP Queue A item 7)"),
         (bool(cfg.logdir), "logdir (the trace and metrics sink, ROADMAP Queue A item 7)"),
         (cfg.hang_timeout_s > 0, "hang_timeout_s > 0 (the hang watchdog, ROADMAP Queue A "

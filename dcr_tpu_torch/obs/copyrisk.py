@@ -11,10 +11,16 @@ field and ``POST /check``, and the trainer's sample-grid ``risk/*`` gauges.
   dump that cannot be parsed is quarantined
   (``<name>.quarantined.<pid>.<ts>``) and counted, one that parses but fails
   verification stays in place; both raise :class:`RiskIndexError`.
-- Two backends, one API: a dense index (``risk.index_path``, the whole dump
-  on the device, one f32 matmul and ``torch.topk``) or a store
+- Three backends, one API: a dense index (``risk.index_path``, the whole
+  dump on the device, one f32 matmul and ``torch.topk``), a store
   (``risk.store_dir``, scored through ``search/shardindex.ShardedTopK``
-  with ``normalize_queries``). The ANN tier is not ported.
+  with ``normalize_queries``), or the store's IVF tier (``risk.ann``,
+  ``search/annindex.AnnEngine``, trained with ``--ivf_normalize=true``).
+- With a store, :meth:`CopyRiskIndex.refresh_store` swaps the engine onto
+  the store's newest snapshot (the ingest pump calls it after each
+  compaction), and ``live_tail`` merges the acked but uncompacted WAL rows
+  into every answer. ``recall_probe`` (:mod:`dcr_tpu_torch.obs.recall_probe`)
+  samples the ANN answers against the full-probe oracle.
 - The query embedder is SSCD from ``eval/runner.build_backbone``, with the
   weights of ``risk.weights_path`` or the seeded init (seed 0) the port's
   ``search/embed.embed_images`` uses, so an index embedded by the port
@@ -46,7 +52,7 @@ import torch
 from dcr_tpu_torch.core import fsio
 from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import tracing
-from dcr_tpu_torch.core.config import NotPortedError, RiskConfig
+from dcr_tpu_torch.core.config import RiskConfig
 from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.data.dataset import resize_shorter_side
 from dcr_tpu_torch.eval.features import IMAGENET_NORM, make_extractor, reference_resize_for
@@ -234,18 +240,17 @@ class CopyRiskIndex:
     """A train-set embedding index and its scoring pipeline on ``device``.
 
     ``score_batch`` is thread-safe after :meth:`build` (the serve worker
-    thread and /check handler threads share one index); ``build`` is
-    serialized by an internal lock and idempotent. Dense mode holds the
+    thread and /check handler threads share one index); ``build`` and
+    :meth:`refresh_store` are serialized by an internal lock, and each
+    scoring call keeps the engine it started with. Dense mode holds the
     whole dump on the device; store mode (``store``, an
     ``EmbeddingStoreReader``) scores through the search slice's
-    ``ShardedTopK``."""
+    ``ShardedTopK``, or with ``cfg.ann`` through the IVF tier's
+    ``AnnEngine``."""
 
     def __init__(self, features: Optional[np.ndarray], keys: Optional[Sequence[str]],
                  cfg: RiskConfig, *, batch: int, store=None,
                  device: str | torch.device = "cuda"):
-        if cfg.ann:
-            raise NotPortedError("risk.ann (the IVF + int8 tier in copy-risk scoring) is not "
-                                 "ported to dcr_tpu_torch yet (ROADMAP Queue A item 1)")
         self._store = store
         if store is None:
             features = verify_risk_dump(features, keys)
@@ -272,7 +277,14 @@ class CopyRiskIndex:
         self._feats_dev = None
         self._extract = None
         self._score = None
-        self._engine = None           # ShardedTopK (store mode)
+        self._engine = None           # ShardedTopK or AnnEngine (store mode)
+        # the live-tail provider: the serve worker sets it to the ingest
+        # pump's ``tail(after_seq)``, called with the engine snapshot's
+        # wal_through, so committed plus tail is one consistent corpus
+        self.live_tail: Optional[Callable[[int], tuple[np.ndarray, np.ndarray]]] = None
+        # the sampled shadow-exact recall probe (obs/recall_probe.RecallProbe),
+        # attached by the serve worker when the ANN tier scores
+        self.recall_probe = None
 
     def __len__(self) -> int:
         return self._store.total if self._store is not None else len(self.keys)
@@ -327,12 +339,7 @@ class CopyRiskIndex:
                                    state_dict=self._sscd_state(), seed=0)
             self._extract = make_extractor(model, self.device)
             if self._store is not None:
-                from dcr_tpu_torch.search.shardindex import ShardedTopK
-
-                self._engine = ShardedTopK(
-                    self._store, top_k=self.top_k, query_batch=self.batch,
-                    segment_rows=self.cfg.segment_rows, normalize_queries=True,
-                    normalize_rows=not self._store.normalized, device=self.device).build()
+                self._engine = self._store_engine(self._store, self.cfg.segment_rows)
             else:
                 self._feats_dev = torch.from_numpy(
                     np.ascontiguousarray(self._features_host)).to(self.device)
@@ -340,8 +347,60 @@ class CopyRiskIndex:
             self._built = True
             log.info("copyrisk: index ready — %d train embeddings, batch=%d, top_k=%d (%s)",
                      len(self), self.batch, self.top_k,
-                     "store" if self._store is not None else "dense")
+                     "dense" if self._store is None else "ann" if self.cfg.ann else "store")
         return self
+
+    def _store_engine(self, reader, segment_rows: int):
+        """The built engine over ``reader``'s store: the IVF tier with
+        ``cfg.ann`` (cosine: queries normalised, the tier must hold
+        normalised rows, else the engine refuses rather than mis-rank), else
+        the exact engine (queries normalised on the device, rows at segment
+        load unless the store was built normalised)."""
+        if self.cfg.ann:
+            from dcr_tpu_torch.search.annindex import AnnEngine
+
+            return AnnEngine(reader.dir, top_k=self.top_k, nprobe=self.cfg.nprobe,
+                             query_batch=self.batch, segment_rows=segment_rows,
+                             normalize_queries=True, require_normalized_rows=True,
+                             device=self.device).build()
+        from dcr_tpu_torch.search.shardindex import ShardedTopK
+
+        return ShardedTopK(reader, top_k=self.top_k, query_batch=self.batch,
+                           segment_rows=segment_rows, normalize_queries=True,
+                           normalize_rows=not reader.normalized, device=self.device).build()
+
+    def refresh_store(self) -> bool:
+        """Re-open the store at its newest snapshot and rebuild the engine
+        with the running one's kind and geometry, then swap it in under the
+        lock: a scoring call in flight keeps the engine, and so the
+        snapshot, it started with. True when a newer snapshot was picked up.
+        A compaction racing the rebuild raises the retryable
+        :class:`~dcr_tpu_torch.search.store.StoreSnapshotChangedError`; one
+        retry lands on the newer snapshot."""
+        from dcr_tpu_torch.search.store import EmbeddingStoreReader, StoreSnapshotChangedError
+
+        if self._store is None:
+            return False
+        with self._lock, torch.inference_mode():
+            if not self._built:
+                return False
+            old = self._engine
+            for attempt in (0, 1):
+                reader = EmbeddingStoreReader(self._store.dir)
+                if reader.snapshot == self._store.snapshot and reader.total == self._store.total:
+                    return False
+                try:
+                    engine = self._store_engine(reader, old.segment_rows)
+                    break
+                except StoreSnapshotChangedError as e:
+                    if attempt:
+                        raise
+                    log.info("copyrisk: %s — retrying against the newer snapshot", e)
+            self._engine = engine
+            self._store = reader
+            log.info("copyrisk: store refreshed — snapshot v%d, %d rows", reader.snapshot,
+                     reader.total)
+            return True
 
     # -- scoring -------------------------------------------------------------
 
@@ -370,8 +429,9 @@ class CopyRiskIndex:
         with torch.inference_mode():
             feats = self._extract(prep).float()
             feats_n = feats.cpu().numpy()[:n]
-            if self._engine is not None:
-                sims, key_rows = self._engine.query(feats_n)
+            engine = self._engine   # one engine per call: a refresh swaps it whole
+            if engine is not None:
+                sims, key_rows = self._query_store(engine, feats_n)
                 scores = [RiskScore(max_sim=float(row_sims[0]), top_key=str(row_keys[0]),
                                     topk=[(str(k), float(s))
                                           for s, k in zip(row_sims, row_keys)])
@@ -385,6 +445,37 @@ class CopyRiskIndex:
             topk = [(self.keys[int(i)], float(s)) for s, i in zip(row_sims, row_idx)]
             out.append(RiskScore(max_sim=topk[0][1], top_key=topk[0][0], topk=topk))
         return out, feats_n
+
+    def _query_store(self, engine, feats_n: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """The engine's top-k merged with the live tail's, the
+        ``ann/staleness_rows`` gauge and the recall probe (ANN only)."""
+        from dcr_tpu_torch.search.livestore import query_live
+
+        tail_feats = tail_keys = None
+        if self.live_tail is None:
+            sims, key_rows = engine.query(feats_n)
+        else:
+            tail_feats, tail_keys = self.live_tail(engine.reader.wal_through)
+            sims, key_rows = query_live(engine.reader.dir, feats_n, engine=engine,
+                                        tail=(tail_feats, tail_keys))
+        if hasattr(engine, "ann"):
+            # the rows the inverted lists do not cover yet (committed but
+            # unfolded, and the live tail): still served exactly, but rows
+            # the approximate candidate walk cannot return
+            stale = max(0, int(engine.reader.total) - int(engine.total))
+            if tail_feats is not None:
+                stale += int(len(tail_feats))
+            tracing.registry().gauge("ann/staleness_rows").set(stale)
+            probe = self.recall_probe
+            if probe is not None:
+                try:
+                    probe.observe(engine, feats_n, key_rows, tail_feats=tail_feats,
+                                  tail_keys=tail_keys)
+                except Exception:
+                    # the probe is observability, scoring is the product: a
+                    # probe failure is logged, never raised into a response
+                    log.exception("copyrisk: recall probe failed")
+        return sims, key_rows
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,7 @@
 """The IVF coarse quantizer and the int8 inverted lists over the store.
 
-Counterpart of ``dcr_tpu/search/ann.py`` (everything but ``fold_rows``, which
-comes with the live store), on the same on-disk format, so an ``ann/`` tier
-that either package writes loads in the other. The exact engine
+Counterpart of ``dcr_tpu/search/ann.py``, on the same on-disk format, so an
+``ann/`` tier that either package writes loads in the other. The exact engine
 (:mod:`dcr_tpu_torch.search.shardindex`) scans every committed row per query;
 this module trains a k-means coarse quantizer on the device over the
 committed store and materialises each centroid's rows as an int8-coded
@@ -16,7 +15,8 @@ counts come from a one-hot matmul, never a scatter (``index_add_`` on CUDA
 adds with atomics in no fixed order), so the same seed and the same shards
 give bit-identical centroids run to run on one device. List membership
 always comes from the one host-side :func:`assign_rows`, so training and
-rebuilds agree, and agree with the JAX package's lists. A non-finite centroid
+rebuilds and the live tier's incremental folds (:func:`fold_rows`) agree, and
+agree with the JAX package's lists. A non-finite centroid
 update (the ``kmeans_nan@iter=N`` fault kind drives this) restarts training
 with a shifted seed, counted and bounded, never committed.
 
@@ -54,7 +54,7 @@ import re
 import time
 from io import BytesIO
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -600,8 +600,69 @@ def train_ivf(store_dir: str | Path, *, n_lists: int = DEFAULT_N_LISTS,
 
 
 # ---------------------------------------------------------------------------
-# List rebuild (the store is the source of truth)
+# Incremental folds and list rebuild (the store is the source of truth)
 # ---------------------------------------------------------------------------
+
+def fold_rows(store_dir: str | Path, feats: np.ndarray, keys: Sequence[str]) -> dict:
+    """Fold new rows (the live tier's just-compacted WAL rows) into their
+    inverted lists: assign them against the committed centroids, rewrite only
+    the lists they touch under a new snapshot, and keep every other list's
+    manifest entry (file and sha256) byte-identical. A touched list that
+    fails verification is first rebuilt from the committed store, so a fold
+    never drops the rows a list held."""
+    feats = np.asarray(feats, np.float32)
+    keys_arr = np.asarray([str(k) for k in keys], dtype=object)
+    if feats.ndim != 2 or len(keys_arr) != feats.shape[0]:
+        raise AnnError(f"fold_rows: features {feats.shape} with {len(keys_arr)} keys — "
+                       "torn input")
+    reader = AnnIndexReader(store_dir)
+    if feats.shape[0] and feats.shape[1] != reader.embed_dim:
+        raise AnnError(f"fold_rows: width {feats.shape[1]} != ann width {reader.embed_dim}")
+    if feats.shape[0] == 0:
+        return {"rows": 0, "lists_rewritten": 0, "snapshot": reader.snapshot}
+    centroids = reader.load_centroids()
+    if reader.normalized:
+        feats = normalize_rows(feats)
+    assign = assign_rows(feats, centroids)
+    affected = sorted(set(int(a) for a in assign))
+    adir = reader.dir
+    with StoreWriterLease(adir, owner="ann-fold").acquire():
+        snapshot = reader.snapshot + 1
+        by_id = {int(e["list"]): dict(e) for e in reader.manifest["lists"]}
+        rebuilt = 0
+        for list_id in affected:
+            entry = by_id.get(list_id)
+            if entry is None:
+                raise AnnError(f"ann manifest has no list {list_id} (n_lists={reader.n_lists})")
+            loaded = reader.load_list(entry)
+            if loaded is None:
+                old_feats, old_keys = _derive_list_rows(store_dir, centroids, list_id,
+                                                        normalized=reader.normalized)
+                rebuilt += 1
+                tracing.registry().counter("ann/list_rebuilt").inc()
+            else:
+                _codes, old_feats, old_keys, _s, _z = loaded
+            mask = assign == list_id
+            new_feats = (np.concatenate([old_feats, feats[mask]]) if old_feats.size
+                         else feats[mask])
+            new_keys = (np.concatenate([old_keys, keys_arr[mask]]) if len(old_keys)
+                        else keys_arr[mask])
+            by_id[list_id] = _publish_list(adir, snapshot, list_id, new_feats, new_keys)
+        entries = [by_id[i] for i in sorted(by_id)]
+        doc = dict(reader.manifest)
+        doc.pop("snapshot", None)
+        doc.update(created_at=time.time(), total=sum(int(e["count"]) for e in entries),
+                   lists=entries)
+        _commit_manifest(adir, doc, snapshot)
+    reg = tracing.registry()
+    reg.counter("ann/fold_rows_total").inc(int(feats.shape[0]))
+    reg.counter("ann/lists_folded_total").inc(len(affected))
+    reg.gauge("ann/index_rows").set(int(doc["total"]))
+    log.info("fold_rows: %d row(s) into %d list(s) (%d rebuilt) — ann snapshot v%d",
+             feats.shape[0], len(affected), rebuilt, snapshot)
+    return {"rows": int(feats.shape[0]), "lists_rewritten": len(affected),
+            "lists_rebuilt": rebuilt, "snapshot": snapshot}
+
 
 def _derive_list_rows(store_dir: str | Path, centroids: np.ndarray, list_id: int, *,
                       normalized: bool) -> tuple[np.ndarray, np.ndarray]:

@@ -25,14 +25,15 @@ array. Segments stay on the device up to ``max_resident_rows`` int8 rows and
 are otherwise uploaded from pinned host memory per chunk. A list that fails
 verification at build is quarantined and counted by the reader and rebuilt
 from the committed store (``ann.rebuild_list``): the ``ivf_list_corrupt``
-fault kind drives that path. One process owns every list. A mesh, the warm
-cache and the live tail (``query_rows``) are not ported.
+fault kind drives that path. The live tier's WAL tail, whose rows are in no
+list, scans exactly through the same re-rank (:meth:`AnnEngine.query_rows`).
+One process owns every list. A mesh and the warm cache are not ported.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,7 +43,7 @@ from dcr_tpu_torch.core.config import NotPortedError
 from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.search import ann as annmod
 from dcr_tpu_torch.search.ann import AnnError, AnnIndexReader
-from dcr_tpu_torch.search.shardindex import full_f32_matmul, topk
+from dcr_tpu_torch.search.shardindex import full_f32_matmul, merge_topk, topk
 from dcr_tpu_torch.search.store import EmbeddingStoreReader, normalize_rows
 
 log = logging.getLogger("dcr_tpu_torch")
@@ -334,6 +335,60 @@ class AnnEngine:
         kr = s.shape[1]
         out_scores[:, :kr] = s
         out_keys[:, :kr] = np.where(np.isneginf(s), "", self._keys[cand[np.clip(idx, 0, nc - 1)]])
+        return out_scores, out_keys
+
+    def query_rows(self, q: np.ndarray, feats: np.ndarray,
+                   keys: Sequence[str]) -> tuple[np.ndarray, np.ndarray]:
+        """Exact top-k of ``q`` against ad-hoc rows (the live WAL tail)
+        through the f32 re-rank at its fixed ``rerank_rows`` shape: tail rows
+        are in no inverted list, so they are scanned whole, and their exact
+        scores merge with :meth:`query`'s (also exact) scores through
+        :func:`~dcr_tpu_torch.search.shardindex.merge_topk`. Rows follow the
+        tier's normalisation, queries the engine's."""
+        if not self._built:
+            self.build()
+        q = np.asarray(q, np.float32)
+        feats = np.asarray(feats, np.float32)
+        keys_arr = np.asarray(keys, dtype=object)
+        dim = self.ann.embed_dim
+        if q.ndim != 2 or q.shape[1] != dim:
+            raise ValueError(f"queries must be [n, {dim}], got {q.shape}")
+        if feats.ndim != 2 or feats.shape[1] != dim:
+            raise ValueError(f"tail rows must be [n, {dim}], got {feats.shape}")
+        if len(keys_arr) != feats.shape[0]:
+            raise ValueError(f"{feats.shape[0]} tail rows but {len(keys_arr)} keys")
+        n = q.shape[0]
+        out_scores = np.full((n, self.top_k), -np.inf, np.float32)
+        out_keys = np.full((n, self.top_k), "", dtype=object)
+        if n == 0 or feats.shape[0] == 0:
+            return out_scores, out_keys
+        if self.ann.normalized:
+            feats = normalize_rows(feats)
+        qn = normalize_rows(q) if self.normalize_queries else q
+        b, r = self.query_batch, self.rerank_rows
+        k = min(self.top_k, r)
+        for qs in range(0, n, b):
+            chunk = qn[qs:qs + b]
+            m = chunk.shape[0]
+            if m < b:
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], b - m, axis=0)])
+            q_dev = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+            for rs in range(0, feats.shape[0], r):
+                part, pk = feats[rs:rs + r], keys_arr[rs:rs + r]
+                nc = part.shape[0]
+                pad = torch.zeros((r, dim), dtype=torch.float32)
+                pad[:nc] = torch.from_numpy(np.ascontiguousarray(part))
+                valid = torch.zeros((r,), dtype=torch.bool)
+                valid[:nc] = True
+                s, idx = topk(pad.to(self.device), valid.to(self.device), q_dev, k)
+                s, idx = s[:m].cpu().numpy(), idx[:m].cpu().numpy()
+                seg_keys = np.full((m, self.top_k), "", dtype=object)
+                seg_scores = np.full((m, self.top_k), -np.inf, np.float32)
+                seg_scores[:, :k] = s
+                seg_keys[:, :k] = np.where(np.isneginf(s), "", pk[np.clip(idx, 0, nc - 1)])
+                sl = slice(qs, qs + m)
+                out_scores[sl], out_keys[sl] = merge_topk(out_scores[sl], out_keys[sl],
+                                                          seg_scores, seg_keys)
         return out_scores, out_keys
 
 

@@ -9,8 +9,9 @@ where they merge into a running answer (the JAX version ships each [M, N]
 similarity slab to the host and partitions it there; the answer is the same
 up to f32 rounding and the order of near-ties). :func:`search_store` asks
 the store's top-k engine instead, and :func:`search_store_ann` the IVF
-tier's approximate engine. Results land in a ``.npz`` with named fields, as
-the JAX package writes them.
+tier's approximate engine; with ``live`` both merge in the store's WAL tail
+(:mod:`dcr_tpu_torch.search.livestore`). Results land in a ``.npz`` with
+named fields, as the JAX package writes them.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.core.fsio import quarantine_rename
 from dcr_tpu_torch.search.annindex import DEFAULT_NPROBE, DEFAULT_SHORTLIST_K, open_ann_engine
 from dcr_tpu_torch.search.embed import find_embedding_file, load_embeddings, quarantine_sidecar
+from dcr_tpu_torch.search.livestore import query_live
 from dcr_tpu_torch.search.shardindex import merge_topk, open_engine, topk
 
 log = logging.getLogger("dcr_tpu_torch")
@@ -158,12 +160,12 @@ def search_store(gen_features: np.ndarray, gen_keys: Sequence[str],
 def search_store_ann(gen_features: np.ndarray, gen_keys: Sequence[str],
                      store_dir: str | Path, *, top_k: int = 1, nprobe: int = 0,
                      shortlist_k: int = 0, query_batch: int = 64, segment_rows: int = 0,
-                     device: str | torch.device = "cuda") -> dict:
+                     live: bool = False, device: str | torch.device = "cuda") -> dict:
     """The ann path of :func:`search_store`: an nprobe-bounded IVF scan over
     the store's int8 inverted lists with exact f32 re-ranking
     (:mod:`dcr_tpu_torch.search.annindex`), with the same result contract.
-    The WAL live tail it merges in the JAX package is not ported
-    (``validate_search_config`` refuses ``live``)."""
+    ``live`` also scans the WAL tail exactly (its rows are in no list) and
+    merges it in."""
     n = len(gen_features)
     if n == 0:
         return _empty_result(top_k)
@@ -171,8 +173,12 @@ def search_store_ann(gen_features: np.ndarray, gen_keys: Sequence[str],
                              shortlist_k=int(shortlist_k) or DEFAULT_SHORTLIST_K,
                              query_batch=query_batch, segment_rows=segment_rows,
                              device=device)
+    q = np.asarray(gen_features, np.float32)
     t0 = time.time()
-    scores, keys = engine.query(np.asarray(gen_features, np.float32))
+    if live:
+        scores, keys = query_live(store_dir, q, engine=engine)
+    else:
+        scores, keys = engine.query(q)
     log.info("ann search: %d queries x %d rows (nprobe=%d) in %.1fs", n, engine.total,
              engine.nprobe, time.time() - t0)
     return {"scores": scores, "keys": keys,
@@ -182,8 +188,9 @@ def search_store_ann(gen_features: np.ndarray, gen_keys: Sequence[str],
 def run_search(cfg: SearchConfig, *, laion_folders: Sequence[str | Path] = (),
                top_k: int = 1, device: str | torch.device = "cuda") -> Path:
     """The whole stage: load the generations' embeddings, search (the IVF
-    tier when ``cfg.ann``, store-backed when ``cfg.store_dir`` names a built
-    store, else the per-folder brute force) and write ``cfg.out_path``."""
+    tier when ``cfg.ann``, the committed store plus its WAL tail when
+    ``cfg.live``, store-backed when ``cfg.store_dir`` names a built store,
+    else the per-folder brute force) and write ``cfg.out_path``."""
     validate_search_config(cfg)
     gen_emb = find_embedding_file(cfg.gen_folder)
     if gen_emb is None:
@@ -197,7 +204,13 @@ def run_search(cfg: SearchConfig, *, laion_folders: Sequence[str | Path] = (),
         result = search_store_ann(gen_features, gen_keys, cfg.store_dir, top_k=top_k,
                                   nprobe=cfg.nprobe, shortlist_k=cfg.shortlist_k,
                                   query_batch=cfg.query_batch, segment_rows=cfg.segment_rows,
-                                  device=device)
+                                  live=cfg.live, device=device)
+    elif cfg.store_dir and cfg.live:
+        scores, keys = query_live(cfg.store_dir, np.asarray(gen_features, np.float32),
+                                  top_k=top_k, query_batch=cfg.query_batch,
+                                  segment_rows=cfg.segment_rows, device=device)
+        result = {"scores": scores, "keys": keys,
+                  "gen_images": np.asarray(list(gen_keys), dtype=object)}
     elif cfg.store_dir:
         result = search_store(gen_features, gen_keys, cfg.store_dir, top_k=top_k,
                               query_batch=cfg.query_batch, segment_rows=cfg.segment_rows,

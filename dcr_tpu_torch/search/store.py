@@ -46,7 +46,7 @@ import threading
 import time
 from io import BytesIO
 from pathlib import Path
-from typing import Iterator, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -129,14 +129,16 @@ class StoreWriterLease:
     and both sides of a real race are visible in the journal.
     """
 
-    def __init__(self, store_dir: str | Path, *, owner: str = ""):
+    def __init__(self, store_dir: str | Path, *, owner: str = "",
+                 lease_s: float = DEFAULT_LEASE_S, heartbeat_s: float = 0.0):
         self.dir = Path(store_dir)
         self.path = self.dir / LEASE_NAME
-        # the lease file names its writer (``train-ivf``, ``ann-rebuild``) as
-        # the JAX package's does
+        # the lease file names its writer (``train-ivf``, ``serve-worker.<pid>``)
+        # as the JAX package's does
         self.owner = owner or f"pid{os.getpid()}"
-        self.lease_s = DEFAULT_LEASE_S
-        self.heartbeat_s = self.lease_s / 3.0
+        self.lease_s = float(lease_s)
+        self.heartbeat_s = (float(heartbeat_s) if heartbeat_s > 0
+                            else max(0.2, self.lease_s / 3.0))
         # token makes renew/release self-owned: a taken-over writer that
         # limps back can never delete or renew the usurper's lease
         self.token = (f"{os.getpid()}.{threading.get_ident()}."
@@ -257,7 +259,8 @@ class EmbeddingStoreWriter:
 
     def __init__(self, store_dir: str | Path, *, embed_dim: Optional[int] = None,
                  shard_rows: Optional[int] = None, normalize: bool = False,
-                 _resume: Optional[dict] = None):
+                 _resume: Optional[dict] = None,
+                 lease: Optional[StoreWriterLease] = None):
         self.dir = Path(store_dir)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.embed_dim = embed_dim
@@ -272,15 +275,18 @@ class EmbeddingStoreWriter:
         self._wal_through = int((_resume or {}).get("wal_through", 0))
         self._live = False
         # single-writer discipline: hold the store's writer lease for the
-        # writer's whole life
-        self._lease: Optional[StoreWriterLease] = StoreWriterLease(self.dir).acquire()
+        # writer's whole life (a borrowed lease, the live tier's compaction,
+        # stays owned by the borrower)
+        self._owns_lease = lease is None
+        self._lease: Optional[StoreWriterLease] = (
+            StoreWriterLease(self.dir).acquire() if lease is None else lease)
 
     # -- construction --------------------------------------------------------
 
     @classmethod
     def create(cls, store_dir: str | Path, *, embed_dim: Optional[int] = None,
-               shard_rows: Optional[int] = None,
-               normalize: bool = False) -> "EmbeddingStoreWriter":
+               shard_rows: Optional[int] = None, normalize: bool = False,
+               lease: Optional[StoreWriterLease] = None) -> "EmbeddingStoreWriter":
         """Start a NEW store; refuses to clobber a committed one (build over
         an existing manifest would orphan its shards — use append)."""
         if ((Path(store_dir) / MANIFEST_NAME).exists()
@@ -290,10 +296,11 @@ class EmbeddingStoreWriter:
                 f"({MANIFEST_NAME} exists) — use append, or point build at "
                 "a fresh directory")
         return cls(store_dir, embed_dim=embed_dim, shard_rows=shard_rows,
-                   normalize=normalize)
+                   normalize=normalize, lease=lease)
 
     @classmethod
-    def append(cls, store_dir: str | Path) -> "EmbeddingStoreWriter":
+    def append(cls, store_dir: str | Path, *,
+               lease: Optional[StoreWriterLease] = None) -> "EmbeddingStoreWriter":
         """Extend a committed store: new rows land in NEW shards (committed
         shards are immutable), and the manifest re-commits atomically at
         finalize — a crash mid-append leaves the previous store intact."""
@@ -301,12 +308,13 @@ class EmbeddingStoreWriter:
         return cls(store_dir, embed_dim=int(manifest["embed_dim"]),
                    shard_rows=int(manifest["shard_rows"]),
                    normalize=bool(manifest["normalized"]),
-                   _resume=manifest)
+                   _resume=manifest, lease=lease)
 
     def close(self) -> None:
         """Release the writer lease without committing (the abort path;
-        :meth:`finalize` calls this after the manifest lands). Idempotent."""
-        if self._lease is not None:
+        :meth:`finalize` calls this after the manifest lands); a borrowed
+        lease stays with its owner. Idempotent."""
+        if self._owns_lease and self._lease is not None:
             self._lease.release()
         self._lease = None
 
@@ -408,14 +416,16 @@ class EmbeddingStoreWriter:
         tracing.registry().counter("search/ingest_rows_total").inc(take)
         self._pending -= take
 
-    def finalize(self) -> Path:
+    def finalize(self, *, _pre_current: Optional[Callable[[], None]] = None) -> Path:
         """Flush the tail shard and commit the manifest (atomically, last).
 
         Legacy stores re-commit the single ``store_manifest.json``. A live
         store (``CURRENT`` exists, resumed from a versioned snapshot, or
         :meth:`mark_live`) commits ``store_manifest.v<N+1>.json`` first and
         then flips ``CURRENT`` — the flip IS the commit point, so a crash
-        between the two leaves the previous snapshot serving."""
+        between the two leaves the previous snapshot serving.
+        ``_pre_current`` runs between the two writes (the live tier's
+        ``compact_crash`` injection point)."""
         while self._pending:
             self._flush_shard(self.shard_rows)
         live = (self._live or self._snapshot > 0
@@ -444,6 +454,8 @@ class EmbeddingStoreWriter:
                              json.dumps(doc, indent=1, sort_keys=True) + "\n",
                              sync_dir=True)
         if live:
+            if _pre_current is not None:
+                _pre_current()
             cur = self.dir / CURRENT_NAME
             ctmp = cur.with_name(f"{CURRENT_NAME}.tmp.{os.getpid()}")
             fsio.publish_durable(ctmp, cur, name + "\n", sync_dir=True)

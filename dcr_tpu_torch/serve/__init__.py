@@ -9,6 +9,8 @@ Layer map (``dcr_tpu/serve/``):
   (tokenizer fingerprint, prompt, mitigation parameters);
 - :mod:`dcr_tpu_torch.serve.worker`: the resident core (per-bucket batch
   samplers at a fixed padded shape, per-request draws, copy-risk scoring);
+- :mod:`dcr_tpu_torch.serve.ingest`: live provenance, each scored
+  generation's SSCD row streamed into the store's WAL;
 - :mod:`dcr_tpu_torch.serve.server`: stdlib HTTP front end.
 
 Entry point: ``dcr-serve-torch`` (:mod:`dcr_tpu_torch.cli.serve`). SIGTERM

@@ -15,21 +15,29 @@ benches and tests drive it in-process:
 - the prompt-embedding LRU (:mod:`dcr_tpu_torch.serve.cache`) skips the CLIP
   text tower for repeated prompts;
 - copy-risk scoring of every finished batch against a train-embedding index
-  that loads in the background (:mod:`dcr_tpu_torch.obs.copyrisk`); a failed
+  that loads in the background (:mod:`dcr_tpu_torch.obs.copyrisk`), exact or
+  through the store's IVF tier (``risk.ann``, with the sampled recall probe
+  of :mod:`dcr_tpu_torch.obs.recall_probe` while ``slo.enabled``); a failed
   load or score leaves the responses unscored and bumps a counter, never a
-  failed batch.
+  failed batch;
+- live provenance (``ingest.enabled``): every scored generation's SSCD row
+  goes to the store's WAL through :class:`~dcr_tpu_torch.serve.ingest.
+  IngestPump`, keyed ``gen/<request id>``; ``/check`` sees it through the
+  live tail once it is acked, and each compaction swaps the risk engine onto
+  the new snapshot (:meth:`CopyRiskIndex.refresh_store`) without a restart.
 
 The JAX worker traces one jitted scan per bucket; here each step runs
 eagerly. Device work runs on the worker thread, the risk loader's thread and
 the ``/check`` handler threads: every function that runs a model enters
 ``torch.inference_mode()`` itself (grad mode is thread-local). The warm
-cache, the fault hooks, the hang watchdog, the memory budget and profiling
-are not ported (ROADMAP Queue A items 7 and 8).
+cache, the serving fleet's fault hooks, the hang watchdog, the memory budget
+and profiling are not ported (ROADMAP Queue A items 7 and 8).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from typing import NamedTuple, Optional
@@ -324,6 +332,7 @@ class GenerationService:
         self._risk_status = "absent"
         self._risk_done = threading.Event()
         self._evidence = None
+        self._pump = None             # IngestPump, with risk.store_dir and ingest on
         if cfg.risk.index_path or cfg.risk.store_dir:
             self._risk_status = "loading"
             threading.Thread(target=self._load_risk_index, daemon=True,
@@ -406,7 +415,16 @@ class GenerationService:
 
     def stop(self, timeout: Optional[float] = None) -> bool:
         self.begin_drain()
-        return self.join_drained(timeout)
+        drained = self.join_drained(timeout)
+        self.stop_ingest()
+        return drained
+
+    def stop_ingest(self) -> None:
+        """After the worker drained: the ingest pump appends its queued
+        backlog (durable in the WAL) and releases the store's writer lease."""
+        pump = self._pump
+        if pump is not None:
+            pump.stop()
 
     @property
     def draining(self) -> bool:
@@ -482,8 +500,11 @@ class GenerationService:
         with self._samplers_lock:
             warm = len(self._samplers)
         total = max(len(self._warm_plan or ()), warm)
-        return {"status": self.health(), "buckets_warm": warm,
-                "buckets_total": total, "risk": self._risk_status}
+        doc = {"status": self.health(), "buckets_warm": warm,
+               "buckets_total": total, "risk": self._risk_status}
+        if self._pump is not None:
+            doc["ingest"] = self._pump.stats()
+        return doc
 
     def _uncond_embedding(self) -> np.ndarray:
         if self._uncond is None:
@@ -522,12 +543,40 @@ class GenerationService:
             self._risk_done.set()
             return
         self._evidence = EvidenceRecorder(cfg.risk.evidence_dir or None, cfg.risk.max_evidence)
+        if cfg.risk.ann and cfg.slo.enabled:
+            # the sampled shadow-exact recall probe rides the ANN scoring
+            # path: the full-probe query is its own exact oracle
+            from dcr_tpu_torch.obs.recall_probe import RecallProbe
+
+            index.recall_probe = RecallProbe(every_n=cfg.slo.recall_probe_every_n,
+                                             k=cfg.slo.recall_probe_k,
+                                             window=cfg.slo.recall_probe_window)
         self._risk = index
         self._risk_status = "ok"
         self._risk_done.set()
         log.info("serve: copy-risk index ok — %d train embeddings from %s (threshold %.3f%s)",
                  len(index), source, cfg.risk.threshold,
                  f", evidence -> {cfg.risk.evidence_dir}" if cfg.risk.evidence_dir else "")
+        if cfg.ingest.enabled and cfg.risk.store_dir:
+            self._start_ingest(index)
+
+    def _start_ingest(self, index) -> None:
+        """Stream every scored generation's SSCD embedding into the store.
+        The pump owns the writer lease and the compaction loop; the index's
+        live-tail hook makes acked but uncompacted rows visible to ``/check``
+        and to per-response scoring at once."""
+        from dcr_tpu_torch.serve.ingest import IngestPump
+
+        icfg = self.cfg.ingest
+        pump = IngestPump(self.cfg.risk.store_dir, embed_dim=index._store.embed_dim,
+                          queue_max=icfg.queue_max, batch_rows=icfg.batch_rows,
+                          seal_rows=icfg.seal_rows, compact_rows=icfg.compact_rows,
+                          lease_s=icfg.lease_s, owner=f"serve-worker.{os.getpid()}",
+                          on_snapshot=lambda v: index.refresh_store())
+        index.live_tail = pump.tail
+        self._pump = pump.start()
+        log.info("serve: live ingest on — store %s (queue %d, compact every %d rows)",
+                 self.cfg.risk.store_dir, icfg.queue_max, icfg.compact_rows)
 
     def risk_status(self) -> str:
         """absent | loading | ok | failed."""
@@ -549,7 +598,7 @@ class GenerationService:
             return
         rcfg = self.cfg.risk
         try:
-            scores = index.score_batch(images)
+            scores, feats = index.score_batch_with_features(images)
             copyrisk.observe_scores(scores, rcfg.threshold)
         except Exception as e:
             log.exception("serve: copy-risk scoring failed")
@@ -562,6 +611,14 @@ class GenerationService:
                 self._evidence.record(img, score, rcfg.threshold, request_id=req.id,
                                       prompt=req.prompt, seed=req.seed,
                                       bucket=list(tuple(req.bucket)))
+        pump = self._pump
+        if pump is not None:
+            # offer() never blocks: a full queue drops the row and bumps
+            # ingest/dropped_total, generation latency is untouched. The key
+            # is the JAX worker's, whose requests without a trace id use
+            # their id
+            for req, row in zip(requests, feats):
+                pump.offer(row, f"gen/{req.id}")
 
     def check(self, body: dict) -> dict:
         """``POST /check``: score ONE submitted image against the train
@@ -664,6 +721,8 @@ class GenerationService:
         risk = self._risk
         d["risk"] = {"status": self._risk_status,
                      "index_size": len(risk) if risk is not None else 0}
+        if self._pump is not None:
+            d["ingest"] = self._pump.stats()
         with self._samplers_lock:     # the worker thread mutates concurrently
             d["compiled_buckets"] = [tuple(b) for b in self._samplers]
         return d

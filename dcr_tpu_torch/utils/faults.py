@@ -39,6 +39,25 @@ The kinds the port fires, and their hook points:
 - ``kmeans_nan``: ``search/ann.train_ivf``, coordinate ``iter`` (the Lloyd
   iteration): poisons one centroid update, driving the bounded seed-shifted
   restart (and the typed failure once the restarts run out).
+- ``wal_torn``: ``search/livestore.LiveStore.append``, coordinate ``append``
+  (the store's append index): writes half a frame and no commit marker,
+  rolls the segment and raises without an ack; recovery truncates the torn
+  frame, counts it and keeps the later appends. ``wal_torn@append=3`` tears
+  the fourth append.
+- ``ingest_crash``: ``LiveStore.append``, coordinate ``append``: writes half
+  a frame, then SIGKILLs the process; recovery serves exactly the acked rows,
+  query-equal to a store rebuilt over them.
+- ``compact_crash``: ``LiveStore.compact``, coordinate ``seal`` (the
+  compaction index): SIGKILLs the process after the new manifest is written
+  and before the ``CURRENT`` flip, so the previous snapshot keeps serving and
+  the WAL stays intact.
+- ``ingest_stall``: ``serve/ingest.IngestPump``, coordinate ``row`` (rows
+  appended so far): stalls the appender for ``DCR_INGEST_STALL_S`` seconds
+  (default 30) while the lag gauges keep reporting; rows are delayed, never
+  dropped.
+- ``recall_degrade``: ``obs/recall_probe.RecallProbe.observe``, coordinate
+  ``probe`` (1-based probe index): corrupts the shortlist the probe judges,
+  so that probe reads recall 0 while the served answers stay unchanged.
 
 The JAX package's other kinds have no hook in the port yet, and a spec that
 names one raises :class:`NotPortedError` when it is parsed: a fault that
@@ -69,7 +88,8 @@ class InjectedFault(RuntimeError):
 #: kinds with a hook in the port
 PORTED_KINDS = ("decode_error", "ckpt_corrupt", "nan_loss", "sigterm", "hang",
                 "search_dump_corrupt", "store_shard_corrupt", "ivf_list_corrupt",
-                "kmeans_nan")
+                "kmeans_nan", "wal_torn", "ingest_crash", "compact_crash", "ingest_stall",
+                "recall_degrade")
 
 #: the JAX package's other kinds, each with the ROADMAP Queue A item that
 #: brings its hook point
@@ -80,11 +100,6 @@ NOT_PORTED_KINDS = {
     "worker_hang": "item 8 (the serving fleet)",
     "slow_step": "item 8 (the serving fleet)",
     "latent_cache_corrupt": "item 6 (the latent cache)",
-    "wal_torn": "item 3 (the live store)",
-    "ingest_crash": "item 3 (the live store)",
-    "compact_crash": "item 3 (the live store)",
-    "ingest_stall": "item 3 (serve-side ingest)",
-    "recall_degrade": "item 1 (the ANN tier's recall probe)",
 }
 
 _ENTRY_RE = re.compile(r"^(?P<kind>[a-z_]+)@(?P<coords>[a-z_]+=\d+(?:[&@][a-z_]+=\d+)*)"

@@ -38,6 +38,7 @@ from dcr_tpu_torch.search import annindex as AI  # noqa: E402
 from dcr_tpu_torch.search import embed as E  # noqa: E402
 from dcr_tpu_torch.search import shardindex as SI  # noqa: E402
 from dcr_tpu_torch.search import store as ST  # noqa: E402
+from dcr_tpu_torch.search.store import normalize_rows  # noqa: E402
 from dcr_tpu_torch.utils import faults  # noqa: E402
 from tests.test_torch_search import assert_topk_agree  # noqa: E402
 
@@ -467,3 +468,120 @@ def test_cli_train_ivf_stats_and_query_ann(tmp_path, monkeypatch, capsys):
         assert_topk_agree(za["scores"], za["keys"], zj["scores"], zj["keys"], q, feats,
                           _keys(120))
         assert list(za["gen_images"]) == [f"g{i}" for i in range(6)]
+
+
+# ---------------------------------------------------------------------------
+# the live tier: incremental folds and the tail scan
+# ---------------------------------------------------------------------------
+
+def _entries(store, reader_mod) -> dict:
+    return {int(e["list"]): (e["file"], e["sha256"])
+            for e in reader_mod.read_ann_manifest(store)["lists"]}
+
+
+@pytest.mark.parametrize("normalize", [False, True], ids=["raw", "normalized"])
+def test_fold_rows_equals_jax_and_rewrites_only_the_lists_it_reaches(tmp_path, normalize):
+    """Two copies of one tier: the same rows folded by each package give
+    bit-equal lists; only the lists the rows reach get new entries (under
+    the next snapshot), the others keep file and sha256."""
+    rng = np.random.default_rng(21)
+    port = _store(tmp_path / "port", _clustered(rng, 160))
+    ann.train_ivf(port, n_lists=8, iters=4, seed=1, normalize=normalize, device="cpu")
+    ref = shutil.copytree(port, tmp_path / "jax")
+    before = _entries(port, ann)
+    centroids = ann.AnnIndexReader(port).load_centroids()
+    new = (centroids[[3, 3, 5]] * 2.0
+           + rng.standard_normal((3, DIM)).astype(np.float32) * 1e-3).astype(np.float32)
+    target = set(ann.assign_rows(normalize_rows(new) if normalize else new, centroids).tolist())
+    rp = ann.fold_rows(port, new, ["n0", "n1", "n2"])
+    rj = JANN.fold_rows(ref, new, ["n0", "n1", "n2"])
+    assert rp == rj == {"rows": 3, "lists_rewritten": len(target), "lists_rebuilt": 0,
+                        "snapshot": 2}
+    after = _entries(port, ann)
+    assert {i for i in before if after[i] != before[i]} == target
+    assert all(after[i][0].endswith("_v2.npz") for i in target)
+    lp, lj = _lists(port, ann.AnnIndexReader), _lists(ref, JANN.AnnIndexReader)
+    for lid in lp:
+        assert lp[lid][0] == lj[lid][0], lid
+        np.testing.assert_array_equal(lp[lid][1], lj[lid][1])
+        assert lp[lid][2:] == lj[lid][2:]
+    assert ann.AnnIndexReader(port).total == JANN.AnnIndexReader(port).total == 163
+    assert ann.fold_rows(port, np.zeros((0, DIM), np.float32), []) == {
+        "rows": 0, "lists_rewritten": 0, "snapshot": 2}
+    with pytest.raises(ann.AnnError, match="torn"):
+        ann.fold_rows(port, new, ["n0"])
+
+
+def test_fold_rebuilds_a_damaged_list_from_the_store_first(tmp_path):
+    """The list the rows reach is damaged on disk: it is rebuilt from the
+    committed store before the fold, so no row it held is lost."""
+    rng = np.random.default_rng(22)
+    feats = _clustered(rng, 120)
+    store = _store(tmp_path / "s", feats)
+    ann.train_ivf(store, n_lists=4, iters=3, seed=0, device="cpu")
+    centroids = ann.AnnIndexReader(store).load_centroids()
+    new = centroids[[2]] + 1e-3
+    target = int(ann.assign_rows(new, centroids)[0])
+    entry = next(e for e in ann.read_ann_manifest(store)["lists"] if e["list"] == target)
+    (store / "ann" / entry["file"]).write_bytes(b"damaged")
+    rebuilt = _counter("ann/list_rebuilt")
+    rep = ann.fold_rows(store, new, ["n0"])
+    assert rep["lists_rebuilt"] == 1 and _counter("ann/list_rebuilt") == rebuilt + 1
+    reader = JANN.AnnIndexReader(store)
+    assert reader.verify()["corrupt"] == 0 and reader.total == 121
+    assert _lists(store, ann.AnnIndexReader)[target][0][-1] == "n0"
+
+
+def test_query_rows_scans_the_tail_exactly_as_the_jax_engine(two_tiers):
+    stores, feats, q = two_tiers
+    rng = np.random.default_rng(23)
+    tail = rng.standard_normal((70, DIM)).astype(np.float32)      # > rerank_rows below
+    keys = [f"t{i}" for i in range(70)]
+    eng = AI.open_ann_engine(stores["port"], top_k=3, nprobe=2, query_batch=4,
+                             shortlist_k=8, device="cpu")
+    assert eng.rerank_rows == 32
+    s, k = eng.query_rows(q, tail, keys)
+    exact = q.astype(np.float64) @ tail.T.astype(np.float64)
+    np.testing.assert_array_equal(k[:, 0], np.asarray(keys, object)[exact.argmax(1)])
+    np.testing.assert_allclose(s[:, 0], exact.max(1), rtol=1e-5)
+    js, jk = JAI.open_ann_engine(stores["port"], top_k=3, nprobe=2, query_batch=4,
+                                 shortlist_k=8).query_rows(q, tail, keys)
+    assert_topk_agree(s, k, js, jk, q, tail, keys)
+    empty = eng.query_rows(q, np.zeros((0, DIM), np.float32), [])
+    assert np.isneginf(empty[0]).all() and (empty[1] == "").all()
+    with pytest.raises(ValueError, match="tail rows"):
+        eng.query_rows(q, tail[:, :4], keys)
+    with pytest.raises(ValueError, match="keys"):
+        eng.query_rows(q, tail, keys[:3])
+
+
+def test_compaction_folds_wal_rows_into_the_lists(tmp_path):
+    from dcr_tpu.search.livestore import LiveStore as JLiveStore
+    from dcr_tpu_torch.search.livestore import LiveStore, query_live
+
+    rng = np.random.default_rng(24)
+    feats = _clustered(rng, 100)
+    store = _store(tmp_path / "s", feats, shard_rows=32)
+    ann.train_ivf(store, n_lists=4, iters=3, seed=0, device="cpu")
+    before = _entries(store, ann)
+    centroids = ann.AnnIndexReader(store).load_centroids()
+    new = (centroids[[1, 1]] + rng.standard_normal((2, DIM)).astype(np.float32) * 1e-3)
+    with LiveStore.open(store) as live:
+        live.append(new.astype(np.float32), ["w0", "w1"])
+        live_q = query_live(store, new, top_k=1, device="cpu")
+        rep = live.compact()
+    assert rep["ann_lists_folded"] == 1
+    assert sum(1 for i in before if _entries(store, ann)[i] != before[i]) == 1
+    assert JANN.AnnIndexReader(store).total == 102
+    allf = np.concatenate([feats, new]).astype(np.float32)
+    allk = _keys(100) + ["w0", "w1"]
+    got = AI.open_ann_engine(store, top_k=1, nprobe=4, query_batch=4, device="cpu").query(new)
+    assert_topk_agree(*got, *live_q, new, allf, allk)
+    want = np.asarray(allk, object)[(new.astype(np.float64) @ allf.T.astype(np.float64))
+                                    .argmax(1)]
+    np.testing.assert_array_equal(got[1][:, 0], want)
+    # a store without a tier folds nothing, in either package
+    for mod in (LiveStore, JLiveStore):
+        with mod.open(tmp_path / f"plain_{mod.__module__.split('.')[0]}", embed_dim=DIM) as live:
+            live.append(new.astype(np.float32), ["a", "b"])
+            assert live.compact()["ann_lists_folded"] == 0

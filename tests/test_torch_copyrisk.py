@@ -280,16 +280,137 @@ def test_index_scores_match_the_jax_index(tmp_path, sscd_file):
         dense.score_batch(np.stack([images[0]] * 5))
 
 
-def test_ann_scoring_is_not_ported(tmp_path):
-    with pytest.raises(TC.NotPortedError, match="item 1\\)"):
-        TCR.CopyRiskIndex(_features(3), _keys(3), TC.RiskConfig(ann=True, store_dir="s"),
-                          batch=2, device="cpu")
-    cfg = TC.TrainConfig()
-    cfg.risk = TC.RiskConfig(ann=True, store_dir="s")
-    with pytest.raises(TC.NotPortedError, match="item 1\\)"):
-        TC.validate_train_config(cfg)
-    cfg.risk = TC.RiskConfig(index_path="train.npz")   # scored since the serving slice
-    TC.validate_train_config(cfg)
+def test_ann_scoring_validates_in_training_and_serving():
+    """``risk.ann`` runs since the live provenance slice: training's and
+    serving's validation accept it as the JAX package's do, and refuse it
+    without a store."""
+    from dcr_tpu.core import config as JC
+
+    for mod in (TC, JC):
+        cfg = mod.TrainConfig()
+        cfg.risk = mod.RiskConfig(ann=True, store_dir="s")
+        mod.validate_train_config(cfg)
+        cfg.risk = mod.RiskConfig(ann=True)
+        with pytest.raises(ValueError, match="store_dir"):
+            mod.validate_train_config(cfg)
+        mod.validate_serve_config(mod.parse_cli(mod.ServeConfig, [
+            "--risk.ann=true", "--risk.store_dir=s", "--risk.nprobe=4"]))
+
+
+def test_ann_index_scores_as_the_exact_index_and_the_jax_index(tmp_path, sscd_file):
+    """With the store's tier trained normalised, ``risk.ann`` at nprobe =
+    n_lists scores as the exact store index under the tie rule, and as the
+    JAX ``CopyRiskIndex(ann=True)`` with the same SSCD weights on the same
+    store; a tier over raw rows is refused."""
+    from dcr_tpu_torch.search import ann
+
+    images = np.stack([_grad_image(i) for i in range(3)])
+    _, store, feats, keys = _corpus(tmp_path, sscd_file, images[:2])
+    common = dict(store_dir=str(store), image_size=32, top_k=3, weights_path=str(sscd_file))
+    ann.train_ivf(store, n_lists=4, iters=3, device="cpu")
+    with pytest.raises(ann.AnnError, match="ivf_normalize"):
+        TCR.CopyRiskIndex.load(TC.RiskConfig(ann=True, nprobe=4, **common), batch=4,
+                               device="cpu")
+    ann.train_ivf(store, n_lists=4, iters=3, normalize=True, device="cpu")
+    queries = np.concatenate([images, _grad_image(7)[None]])
+    by_ann = TCR.CopyRiskIndex.load(TC.RiskConfig(ann=True, nprobe=4, **common), batch=4,
+                                    device="cpu")
+    exact = TCR.CopyRiskIndex.load(TC.RiskConfig(**common), batch=4, device="cpu")
+    mine, t_feats = by_ann.score_batch_with_features(queries)
+    theirs = JCR.CopyRiskIndex.load(JRiskConfig(ann=True, nprobe=4, **common),
+                                    batch=4).score_batch(queries)
+    ex = exact.score_batch(queries)
+    unit = feats / np.linalg.norm(feats, axis=-1, keepdims=True)
+    qn = t_feats / np.linalg.norm(t_feats, axis=-1, keepdims=True)
+
+    def table(scores):
+        return (np.asarray([[s for _, s in r.topk] for r in scores]),
+                np.asarray([[k for k, _ in r.topk] for r in scores], object))
+
+    assert_topk_agree(*table(mine), *table(ex), qn, unit, keys)
+    exact64 = np.sort(qn.astype(np.float64) @ unit.T.astype(np.float64), axis=1)[:, ::-1]
+    for i, (m, t) in enumerate(zip(mine, theirs)):
+        np.testing.assert_allclose([s for _, s in m.topk], [s for _, s in t.topk],
+                                   atol=SCORE_ATOL, rtol=0)
+        for r in range(3):
+            gap = min(exact64[i, r - 1] - exact64[i, r] if r else np.inf,
+                      exact64[i, r] - exact64[i, r + 1])
+            if gap > 2 * SCORE_ATOL:
+                assert m.topk[r][0] == t.topk[r][0], (i, r)
+    assert [s.top_key for s in mine[:2]] == ["planted/0", "planted/1"]
+
+
+def test_training_hook_scores_through_the_ann_tier(tmp_path, sscd_file):
+    """Training's sample-grid scoring (``diffusion/sample_hook``) with
+    ``risk.ann``: the index it loads scores through the store's IVF tier and
+    the ``risk/*`` scalars are written."""
+    from types import SimpleNamespace
+
+    from dcr_tpu_torch.diffusion.sample_hook import score_sample_grid
+    from dcr_tpu_torch.search import ann
+
+    images = np.stack([_grad_image(i) for i in range(3)])
+    dump, store, _, _ = _corpus(tmp_path, sscd_file, images[:1])
+    ann.train_ivf(store, n_lists=4, iters=3, normalize=True, device="cpu")
+    rows = []
+    trainer = SimpleNamespace(
+        cfg=SimpleNamespace(risk=TC.RiskConfig(index_path=str(dump), store_dir=str(store),
+                                               ann=True, nprobe=4, image_size=32,
+                                               weights_path=str(sscd_file), threshold=0.99)),
+        writer=SimpleNamespace(scalars=lambda step, d: rows.append((step, d))), device="cpu")
+    state: dict = {}
+    score_sample_grid(trainer, state, 3, images)
+    assert hasattr(state["risk_index"]._engine, "ann")
+    (step, doc), = rows
+    assert step == 3 and doc["risk/scored"] == 3 and doc["risk/flagged"] >= 1
+    assert doc["risk/max_sim"] > 0.9999
+
+
+@pytest.mark.parametrize("use_ann", [False, True], ids=["exact", "ann"])
+def test_live_tail_refresh_and_probe(tmp_path, sscd_file, use_ann):
+    """The live tail merges into every answer at once; after a compaction
+    ``refresh_store`` swaps the engine onto the new snapshot (False when
+    nothing moved) and the answer stands; the ANN path sets the staleness
+    gauge, and a failing probe is logged, never raised."""
+    from dcr_tpu_torch.search import ann
+    from dcr_tpu_torch.search.livestore import LiveStore
+
+    images = np.stack([_grad_image(i) for i in range(3)])
+    _, store, _, _ = _corpus(tmp_path, sscd_file, images[:1])
+    if use_ann:
+        ann.train_ivf(store, n_lists=4, iters=3, normalize=True, device="cpu")
+    index = TCR.CopyRiskIndex.load(
+        TC.RiskConfig(store_dir=str(store), image_size=32, top_k=2, ann=use_ann, nprobe=4,
+                      weights_path=str(sscd_file)), batch=4, device="cpu")
+    before, feats = index.score_batch_with_features(images[2:3])
+    assert before[0].top_key != "gen/new"
+    live = LiveStore.open(store)
+    try:
+        index.live_tail = live.tail
+        live.append(feats, ["gen/new"])
+        hit = index.score_batch(images[2:3])[0]
+        assert hit.top_key == "gen/new" and hit.max_sim > 0.9999
+        if use_ann:
+            gauges = tracing.registry().snapshot()["gauges"]
+            assert gauges["ann/staleness_rows"] == 1
+
+            class Broken:
+                def observe(self, *a, **kw):
+                    raise RuntimeError("probe down")
+
+            index.recall_probe = Broken()
+            assert index.score_batch(images[2:3])[0].top_key == "gen/new"
+            index.recall_probe = None
+        assert index.refresh_store() is False
+        live.compact(prune=False)
+        assert index.refresh_store() is True
+        live.prune()
+        assert len(index) == 302 and index._store.snapshot == 1
+        after = index.score_batch(images[2:3])[0]
+        assert after.top_key == "gen/new"
+        np.testing.assert_allclose(after.max_sim, hit.max_sim, atol=1e-5)
+    finally:
+        live.close()
 
 
 # ---------------------------------------------------------------------------

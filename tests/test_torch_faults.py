@@ -82,6 +82,26 @@ def test_kinds_without_a_port_hook_are_refused(kind):
         faults.install(spec)
 
 
+@pytest.mark.parametrize("spec", ["wal_torn@append=3", "ingest_crash@append=5",
+                                  "compact_crash@seal=0", "ingest_stall@row=7x2",
+                                  "recall_degrade@probe=2&rank=0"],
+                         ids=lambda s: s.split("@")[0])
+def test_live_tier_kinds_parse_and_fire_as_in_jax(spec):
+    """The live tier's kinds have hooks since the live provenance slice:
+    they parse as the JAX package parses them and fire at their
+    coordinate."""
+    def entries(mod):
+        return [(s.kind, s.where, s.times) for s in mod.parse_faults(spec)]
+
+    assert entries(faults) == entries(jfaults)
+    (kind, where, _), = entries(faults)
+    assert kind in faults.PORTED_KINDS and kind not in faults.NOT_PORTED_KINDS
+    reg = faults.install(spec)
+    coord = {k: v for k, v in where.items() if k != "rank"}
+    assert not reg.fire(kind, **{k: v + 1 for k, v in coord.items()})
+    assert reg.fire(kind, **coord)
+
+
 def test_unknown_kind_is_refused():
     with pytest.raises(ValueError, match="unknown fault kind"):
         faults.parse_faults("decode_errr@step=1")

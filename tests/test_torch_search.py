@@ -327,13 +327,48 @@ def test_cli_build_append_verify_query_stats(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["query", "--live=true"], ["query", "--mesh.data=2"],
-    ["query", "--warm_dir=w"], ["query", "--logdir=l"], ["recover"], ["compact"]],
+    ["query", "--mesh.data=2"], ["query", "--warm_dir=w"], ["query", "--logdir=l"]],
     ids=lambda a: "_".join(a).replace("--", ""))
 def test_unported_settings_and_subcommands_raise(tmp_path, monkeypatch, argv):
     monkeypatch.setenv("DCR_TPU_PLATFORM", "cpu")
-    with pytest.raises(NotPortedError, match="ROADMAP Queue A item [379]"):
+    with pytest.raises(NotPortedError, match="ROADMAP Queue A item [79]"):
         cli.main(argv + [f"--store_dir={tmp_path}"])
+
+
+@pytest.mark.parametrize("argv", [["query", "--live=true"], ["recover"], ["compact"]],
+                         ids=lambda a: "_".join(a).replace("--", ""))
+def test_live_settings_and_subcommands_run(corpus, tmp_path, monkeypatch, capsys, argv):
+    """The live tier's command line runs on a store whose WAL the JAX
+    package wrote: ``query --live`` answers over the committed rows and the
+    tail as the JAX query does, ``recover`` reports the tail, ``compact``
+    folds it into snapshot v1."""
+    from dcr_tpu.search.livestore import LiveStore as JLiveStore
+
+    monkeypatch.setenv("DCR_TPU_PLATFORM", "cpu")
+    _, store, feats, keys, q = corpus
+    tail = (2.0 * q[:3]).astype(np.float32)
+    with JLiveStore.open(store) as live:
+        live.append(tail, ["w0", "w1", "w2"])
+    gdir = tmp_path / "gens"
+    gdir.mkdir()
+    E.save_embeddings(gdir / "embedding.npz", q, [f"g{i}" for i in range(len(q))])
+    args = argv + [f"--store_dir={store}", f"--gen_folder={gdir}", "--top_k=3",
+                   f"--out_path={tmp_path / 'live.npz'}"]
+    capsys.readouterr()
+    cli.main(args)
+    out = capsys.readouterr().out
+    if argv[0] == "query":
+        jax_cli.main(args[:-1] + [f"--out_path={tmp_path / 'jlive.npz'}"])
+        with np.load(tmp_path / "live.npz") as z, np.load(tmp_path / "jlive.npz") as jz:
+            assert list(z["keys"][:3, 0]) == ["w0", "w1", "w2"]
+            assert_topk_agree(z["scores"], z["keys"], jz["scores"], jz["keys"], q,
+                              np.concatenate([feats, tail]), keys + ["w0", "w1", "w2"])
+        return
+    rep = json.loads(out)
+    assert rep["tail_rows"] == 3 and rep["committed_rows"] == len(keys)
+    if argv[0] == "compact":
+        assert rep["compaction"]["snapshot"] == 1 and rep["compaction"]["folded_rows"] == 3
+        assert JST.EmbeddingStoreReader(store).total == len(keys) + 3
 
 
 @pytest.mark.parametrize("argv", [["query", "--ann=true", "--nprobe=4"], ["train-ivf"]],
@@ -363,8 +398,7 @@ def test_ann_settings_and_subcommands_run(corpus, tmp_path, monkeypatch, capsys,
         assert_topk_agree(za["scores"], za["keys"], ze["scores"], ze["keys"], q, feats, keys)
 
 
-@pytest.mark.parametrize("field,value", [("live", True),
-                                         ("mesh", MeshConfig(data=4)),
+@pytest.mark.parametrize("field,value", [("mesh", MeshConfig(data=4)),
                                          ("warm_dir", "w"), ("logdir", "l")])
 def test_run_search_refuses_unported_settings(corpus, tmp_path, field, value):
     folders, store, _, _, q = corpus
@@ -393,9 +427,43 @@ def test_run_search_runs_ann_on_a_trained_store(corpus, tmp_path):
         with np.load(S.run_search(cfg, device="cpu")) as z:
             outs[name] = z["scores"], z["keys"]
     assert_topk_agree(*outs["ann"], *outs["exact"], q, feats, keys)
-    with pytest.raises(NotPortedError, match="item 3"):
-        S.run_search(SearchConfig(gen_folder=str(gdir), store_dir=str(store), ann=True,
-                                  live=True), device="cpu")
+    # with the live tail: its rows, in no list, are scanned exactly and merge
+    from dcr_tpu_torch.search.livestore import LiveStore
+
+    tail = (2.0 * q[:2]).astype(np.float32)
+    with LiveStore.open(store) as live:
+        live.append(tail, ["w0", "w1"])
+    for name, on in (("ann_live", True), ("exact_live", False)):
+        cfg = SearchConfig(gen_folder=str(gdir), store_dir=str(store), ann=on, live=True,
+                           nprobe=4, top_k=4, out_path=str(tmp_path / f"{name}.npz"))
+        with np.load(S.run_search(cfg, device="cpu")) as z:
+            outs[name] = z["scores"], z["keys"]
+    assert list(outs["ann_live"][1][:2, 0]) == ["w0", "w1"]
+    assert_topk_agree(*outs["ann_live"], *outs["exact_live"], q,
+                      np.concatenate([feats, tail]), keys + ["w0", "w1"])
+
+
+def test_run_search_runs_live_as_the_jax_package(corpus, tmp_path):
+    """``run_search`` with ``live`` answers over the committed snapshot and
+    the WAL tail, as the JAX package's does."""
+    from dcr_tpu.search.livestore import LiveStore as JLiveStore
+
+    _, store, feats, keys, q = corpus
+    tail = (2.0 * q[4:6]).astype(np.float32)
+    with JLiveStore.open(store) as live:
+        live.append(tail, ["w0", "w1"])
+    gdir = tmp_path / "gens"
+    gdir.mkdir()
+    E.save_embeddings(gdir / "embedding.npz", q, [f"g{i}" for i in range(len(q))])
+    mine = S.run_search(SearchConfig(gen_folder=str(gdir), store_dir=str(store), live=True,
+                                     top_k=3, out_path=str(tmp_path / "m.npz")), device="cpu")
+    theirs = JS.run_search(JaxSearchConfig(gen_folder=str(gdir), store_dir=str(store),
+                                           live=True, top_k=3,
+                                           out_path=str(tmp_path / "j.npz")))
+    with np.load(mine) as z, np.load(theirs) as jz:
+        assert list(z["keys"][4:6, 0]) == ["w0", "w1"]
+        assert_topk_agree(z["scores"], z["keys"], jz["scores"], jz["keys"], q,
+                          np.concatenate([feats, tail]), keys + ["w0", "w1"])
 
 
 def test_engine_refuses_mesh_and_warm_dir(corpus):
@@ -408,14 +476,39 @@ def test_engine_refuses_mesh_and_warm_dir(corpus):
 
 
 @pytest.mark.parametrize("tier", ["wal"])
-def test_store_with_a_wal_or_ivf_tier_raises(corpus, tmp_path, tier, monkeypatch):
+def test_store_with_a_wal_tier_runs_every_subcommand(corpus, tmp_path, tier, monkeypatch,
+                                                     capsys):
+    """A store whose WAL tail the JAX package wrote: ``stats`` reports the
+    tail as the JAX ``stats`` does, the exact ``query`` answers the committed
+    rows, ``train-ivf`` and ``append`` run and the tail stays."""
+    from dcr_tpu.search.livestore import LiveStore as JLiveStore
+
     monkeypatch.setenv("DCR_TPU_PLATFORM", "cpu")
-    _, store, *_ = corpus
-    (store / tier).mkdir()
-    for sub in ("stats", "query", "append", "train-ivf"):
-        with pytest.raises(NotPortedError, match="item 3"):
-            cli.main([sub, f"--store_dir={store}", f"--gen_folder={tmp_path}",
-                      f"--laion_folder={tmp_path}"])
+    folders, store, feats, keys, q = corpus
+    with JLiveStore.open(store) as live:
+        live.append((2.0 * q[:2]).astype(np.float32), ["w0", "w1"])
+    assert (store / tier).is_dir()
+    gdir = tmp_path / "gens"
+    gdir.mkdir()
+    E.save_embeddings(gdir / "embedding.npz", q, [f"g{i}" for i in range(len(q))])
+    capsys.readouterr()
+    cli.main(["stats", f"--store_dir={store}", "--json_out=true"])
+    stats = json.loads(capsys.readouterr().out)
+    assert stats == jax_cli.store_stats(str(store))
+    assert stats["live"] == {"tail_rows": 2, "records": 1, "torn_segments": 0}
+    cli.main(["query", f"--store_dir={store}", f"--gen_folder={gdir}", "--top_k=3",
+              f"--out_path={tmp_path / 'q.npz'}"])
+    exact = SI.open_engine(store, top_k=3, device="cpu").query(q)
+    with np.load(tmp_path / "q.npz") as z:
+        assert_topk_agree(z["scores"], z["keys"], *exact, q, feats, keys)
+    cli.main(["train-ivf", f"--store_dir={store}", "--n_lists=4", "--ivf_iters=2"])
+    cli.main(["append", f"--store_dir={store}",
+              f"--dumps={E.find_embedding_file(folders[0])}"])
+    assert ST.EmbeddingStoreReader(store).total == len(keys) + 10
+    assert len(ST.EmbeddingStoreReader(store).load_all()[1]) == len(keys) + 10
+    from dcr_tpu_torch.search.livestore import load_wal_tail
+
+    assert list(load_wal_tail(store)[1]) == ["w0", "w1"]
 
 
 def test_store_with_an_ivf_tier_answers_as_without(corpus, tmp_path, monkeypatch, capsys):
@@ -448,12 +541,15 @@ def test_store_with_an_ivf_tier_answers_as_without(corpus, tmp_path, monkeypatch
 
 
 def test_jax_ivf_and_wal_directories_are_the_ones_refused():
-    """The port refuses the JAX package's WAL directory and reads its IVF
-    directory under the same name."""
+    """The port reads the JAX package's WAL and IVF directories under the
+    same names, and frames WAL records with the same magic and defaults."""
     from dcr_tpu.search import ann, livestore
     from dcr_tpu_torch.search import ann as port_ann
+    from dcr_tpu_torch.search import livestore as port_live
 
-    assert (cli.WAL_DIR, port_ann.ANN_DIRNAME) == (livestore.WAL_DIR, ann.ANN_DIRNAME)
+    assert (port_live.WAL_DIR, port_ann.ANN_DIRNAME) == (livestore.WAL_DIR, ann.ANN_DIRNAME)
+    assert (port_live.RECORD_MAGIC, port_live.COMMIT_MAGIC, port_live.DEFAULT_SEAL_ROWS) == \
+        (livestore.RECORD_MAGIC, livestore.COMMIT_MAGIC, livestore.DEFAULT_SEAL_ROWS)
 
 
 def test_engine_defaults_equal_jax():

@@ -712,8 +712,6 @@ def test_cli_refuses_to_run_without_a_gpu_unless_asked(tmp_path, monkeypatch):
 @pytest.mark.parametrize("overrides,item", [
     (["--fleet.workers=2"], "item 8"),
     (["--fleet.worker_index=0"], "item 8"),
-    (["--ingest.enabled=true", "--risk.store_dir=s"], "item 3"),
-    (["--risk.ann=true", "--risk.store_dir=s"], "item 1"),
     (["--warm.dir=w"], "item 7"),
     (["--logdir=l"], "item 7"),
     (["--hang_timeout_s=30"], "item 8"),
