@@ -61,12 +61,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    SD-2.1 widths with mixed_precision="no"; 10 launches of each kernel per
    step, all in f32, finite losses;
 15. training faults (after phase 7): Trainer(TrainConfig()) as in phase 6
-   on 48 JPEGs and one truncated JPEG with fault.max_bad_sample_frac 0.05,
+   but with its UNet cut in depth to FAULTS_LAYERS_PER_BLOCK (SD-2.1's
+   widths, so the kernels' shapes are phase 6's; 6 kernel attentions per
+   step), on 48 JPEGs and one truncated JPEG with fault.max_bad_sample_frac 0.05,
    max_rollbacks 1 and DCR_FAULTS's decode_error, nan_loss, sigterm and
    ckpt_corrupt: bad samples retried, quarantined and replaced, a NaN rolled
    back, a SIGTERM checkpointed, the torn checkpoint quarantined on resume,
    the run trained to its end and exported; quarantine.jsonl and the
-   faults/* metrics held to the expected records, 10 launches of each
+   faults/* metrics held to the expected records, 6 launches of each
    kernel per executed step at the train shapes in bf16; a straight run
    beside the resumed one; dcr-train-torch subprocesses exiting 83 on
    SIGTERM and 89 on a hang. Seconds per step and per save with and without
@@ -152,6 +154,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    append, compaction, fold and refresh seconds, risk ms per batch through
    ANN and through the exact store engine over the same snapshot, /check ms
    with a tail, probe ms, p50/p99, peak memory.
+18. pipelined training (after 15): phase 6's configuration with
+   data.random_flip=false on its 48 JPEGs: (a) 3 steps of the fused step
+   against the encode stage + denoiser step from copies of one state, bit
+   for bit; (b) dcr-precompute-latents-torch (its main) into shards of 16
+   rows, no flash launch; (c) a Trainer fed by that latent cache and (d) a
+   live-pipelined Trainer (pipe.enabled, depth 2), 6 steps each: 10
+   launches of each kernel per step in bf16 at phase 6's shapes, the VAE
+   encoder never called in (c), the two runs' losses within 2e-2 of each
+   other; s per step beside phase 6's, the ring wait per step, the
+   precompute's seconds, images/s, fingerprint seconds and bytes, peaks.
+   Both Trainers skip the final save and export (phase 6 holds them).
+Every phase prints its wall seconds (`phase <name>: N s`).
 No kernel lies on the eval, search and ANN paths (9-13 and 16: their
 attention is SDPA's, XCiT's is over channels; search and ANN are matmuls,
 sorts and torch.topk): their launch counts must stay 0.
@@ -164,6 +178,7 @@ dtype.
 from __future__ import annotations
 
 import json
+import math
 import re
 import shutil
 import statistics
@@ -1157,6 +1172,16 @@ def phase_small_train_reference() -> dict:
     return out
 
 
+def _write_train_jpegs(data: Path) -> None:
+    """The training phases' class folder: 48 photo-like JPEGs at 500x375
+    (Imagenette's common size), written by the port's encoder."""
+    from dcr_tpu_torch.native.jpeg_helper import encode
+
+    for i in range(48):
+        (data / f"class{i % 2}").mkdir(parents=True, exist_ok=True)
+        (data / f"class{i % 2}" / f"{i}.jpg").write_bytes(encode(_photo(i, 375, 500), 90))
+
+
 def phase_train_main_path(out_dir: Path, steps: int) -> dict:
     """Trainer(TrainConfig()) at the JAX defaults (SD-2.1 widths, 256 px,
     batch 16, bf16, remat off, AdamW with constant_with_warmup) on a
@@ -1175,14 +1200,11 @@ def phase_train_main_path(out_dir: Path, steps: int) -> dict:
     from dcr_tpu_torch.diffusion.sample_hook import make_sample_hook
     from dcr_tpu_torch.diffusion.trainer import Trainer
     from dcr_tpu_torch.eval.gallery import image_grid
-    from dcr_tpu_torch.native.jpeg_helper import encode
     from dcr_tpu_torch.sampling.pipeline import load_checkpoint_models
     from dcr_tpu_torch.sampling.png import read_png
 
     data = out_dir / "data"
-    for i in range(48):
-        (data / f"class{i % 2}").mkdir(parents=True, exist_ok=True)
-        (data / f"class{i % 2}" / f"{i}.jpg").write_bytes(encode(_photo(i, 375, 500), 90))
+    _write_train_jpegs(data)
     decode, decode_s = DS.decode_image, []
 
     def timed_decode(path, size=0):
@@ -1407,9 +1429,23 @@ def _cli_fault_run(root: Path, name: str, dcr_faults: str, *extra: str,
             "stderr": proc.stderr}
 
 
+# phase 15's UNet depth: SD-2.1 has 2 layers per block (865.9 M UNet
+# params); 1 keeps every width (583.5 M), cutting each checkpoint from ~12.1
+# to ~8.7 GB; the fault drills do not depend on depth
+FAULTS_LAYERS_PER_BLOCK = 1
+
+
+def kernel_attentions_per_step(layers_per_block: int) -> int:
+    """Kernel-shaped self-attentions per SD-2.1 UNet call at 256 px: levels 0
+    and 1 (S = 1024, 256) each hold layers_per_block down and
+    layers_per_block + 1 up; level 2 (S = 64) and the mid block go to SDPA."""
+    return 2 * (2 * layers_per_block + 1)
+
+
 def phase_train_faults(out_dir: Path) -> dict:
-    """Phase 15: training's fault tolerance at full width. Trainer(TrainConfig())
-    (SD-2.1 widths, 256 px, batch 16, bf16) on 48 photo-like JPEGs and one
+    """Phase 15: training's fault tolerance at SD-2.1's widths, its UNet cut to
+    FAULTS_LAYERS_PER_BLOCK. Trainer(TrainConfig())
+    (256 px, batch 16, bf16) on 48 photo-like JPEGs and one
     truncated JPEG, with fault.max_bad_sample_frac 0.05, max_rollbacks 1,
     a checkpoint every 3 steps (2 kept) and FAULT_SPEC installed:
     - steps 1-3: the injected decode_error (epoch 0, step 0, slot 3) and
@@ -1424,8 +1460,9 @@ def phase_train_faults(out_dir: Path) -> dict:
       step 3, trains steps 4-6, saves and exports.
     Held: the quarantine.jsonl records (bad_sample by the rule of
     _expected_bad_samples, one nan_rollback, one bad_checkpoint), the
-    faults/* metrics, checkpoints/quarantined/5, finite losses, 10 launches
-    of each kernel per executed step, all at the two train shapes in bf16,
+    faults/* metrics, checkpoints/quarantined/5, finite losses,
+    kernel_attentions_per_step launches of each kernel per executed step,
+    all at the two train shapes in bf16,
     the export loading back. A straight run (the same spec's decode_error
     only, no saves) gives the resumed run's reference: equal step counter,
     optimizer count and loader index sequences; the params' max |diff| is
@@ -1456,15 +1493,14 @@ def phase_train_faults(out_dir: Path) -> dict:
 
     wall0 = time.perf_counter()
     data = out_dir / "data"
-    for i in range(48):
-        (data / f"class{i % 2}").mkdir(parents=True, exist_ok=True)
-        (data / f"class{i % 2}" / f"{i}.jpg").write_bytes(encode(_photo(i, 375, 500), 90))
+    _write_train_jpegs(data)
     whole = encode(_photo(99, 375, 500), 90)
     truncated = data / "class1" / "truncated.jpg"
     truncated.write_bytes(whole[: len(whole) * 3 // 5])
     run = out_dir / "run"
     cfg = TrainConfig(output_dir=str(run), max_train_steps=6, log_every=1, modelsavesteps=3,
                       checkpoints_total_limit=2)
+    cfg.model = dataclasses.replace(cfg.model, layers_per_block=FAULTS_LAYERS_PER_BLOCK)
     cfg.data.train_data_dir = str(data)
     cfg.fault = FaultToleranceConfig(max_bad_sample_frac=0.05, max_rollbacks=1)
 
@@ -1599,7 +1635,8 @@ def phase_train_faults(out_dir: Path) -> dict:
     rows = [json.loads(x) for x in (run / "logs" / "metrics.jsonl").read_text().splitlines()]
     steps_run = len(first["step_s"]) + len(resumed["step_s"]) + len(straight["step_s"])
     stats = {
-        "card": CARD[0], "spec": FAULT_SPEC, "records": {k: kinds.count(k) for k in set(kinds)},
+        "card": CARD[0], "spec": FAULT_SPEC, "layers_per_block": FAULTS_LAYERS_PER_BLOCK,
+        "records": {k: kinds.count(k) for k in set(kinds)},
         "expected_bad_samples": sorted(expected_bad),
         "metric_steps": [r["step"] for r in rows],
         "faults_metrics": [{k: r[k] for k in r if k.startswith("faults/")} for r in rows],
@@ -1645,7 +1682,8 @@ def phase_train_faults(out_dir: Path) -> dict:
         problems.append(f"faults/* metrics {fm}")
     if not all(np.isfinite(r["loss"]) for r in rows) or not np.isfinite(stats["losses"]).all():
         problems.append(f"losses {stats['losses']}")
-    if stats["steps_run"] != [5, 3, 6] or launches != (10 * steps_run,) * 3:
+    per_step = kernel_attentions_per_step(FAULTS_LAYERS_PER_BLOCK)
+    if stats["steps_run"] != [5, 3, 6] or launches != (per_step * steps_run,) * 3:
         problems.append(f"steps {stats['steps_run']}, launches {launches}")
     held = {(16, 1024, 1024, 5, 64, torch.bfloat16), (16, 256, 256, 10, 64, torch.bfloat16)}
     if shapes != held:
@@ -1688,6 +1726,302 @@ def phase_train_faults(out_dir: Path) -> dict:
         f"({hang['s']:.1f} s); peak {peak / 2**30:.2f} GiB; {stats['wall_s']:.1f} s")
     if problems:
         raise AssertionError("training faults: " + "; ".join(problems))
+    return stats
+
+
+# the pipelined training phase (18): phase 6's configuration and data
+PIPE_STEPS = 6
+PIPE_CHECK_STEPS = 3
+
+
+def _step_recorder(trainer, record: dict):
+    """Wrap ``trainer.step_fn``: per step its loss, ``step_s`` the wall time
+    from one step's end (its loss on the host) to the next's, waits on the
+    loader or the ring included, and ``busy_s`` from the call to its loss on
+    the host (phase 6's step time, which excludes those waits), with no
+    device-wide sync, so a producer's side stream runs on; and the batch's
+    indices."""
+    step_fn = trainer.step_fn
+
+    def step(state, batch):
+        start = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        record["losses"].append(float(metrics["loss"]))
+        end = time.perf_counter()
+        prev = record["ends"][-1] if record["ends"] else start
+        record["step_s"].append(end - prev)
+        record["busy_s"].append(end - start)
+        record["ends"].append(end)
+        record["index"].append([int(i) for i in batch["index"]])
+        return state, metrics
+    trainer.step_fn = step
+
+
+def _pipe_step_check(cfg) -> dict:
+    """Phase 18 (a): PIPE_CHECK_STEPS steps of the fused step against the
+    encode stage + denoiser step, from copies of one state, on the loader's
+    first batches with the steps' own generator streams. Held bit for bit:
+    losses, grad norms, every UNet param and Adam's second moments."""
+    import gc
+
+    from dcr_tpu_torch.core import rng as rngmod
+    from dcr_tpu_torch.data.dataset import ObjectAttributeDataset
+    from dcr_tpu_torch.data.loader import DataLoader
+    from dcr_tpu_torch.data.tokenizer import load_tokenizer
+    from dcr_tpu_torch.diffusion import encode_stage as E
+    from dcr_tpu_torch.diffusion import train as T
+    from dcr_tpu_torch.sampling.pipeline import build_models
+
+    tok = load_tokenizer(None, vocab_size=cfg.model.text_vocab_size,
+                         model_max_length=cfg.model.text_max_length)
+    loader = DataLoader(ObjectAttributeDataset(cfg.data, tok), batch_size=cfg.train_batch_size,
+                        num_workers=cfg.data.num_workers, seed=cfg.data.seed)
+    epoch = loader.epoch(0)
+    batches = [next(epoch) for _ in range(PIPE_CHECK_STEPS)]
+    epoch.close()
+    models = build_models(cfg.model, "cuda", seed=rngmod.stream_seed(cfg.seed, "init"))
+    unet0 = {k: p.detach().clone() for k, p in models.unet.named_parameters()}
+    frozen_params = {"text": dict(models.text_encoder.named_parameters()),
+                     "vae": dict(models.vae.named_parameters())}
+    fused_state = T.init_train_state(cfg, models, unet_params=dict(models.unet.named_parameters()),
+                                     **{f"{k}_params": v for k, v in frozen_params.items()})
+    pipe_state = T.init_train_state(cfg, models, unet_params=unet0,
+                                    **{f"{k}_params": v for k, v in frozen_params.items()})
+    fused, encode = T.make_train_step(cfg, models), E.make_encode_stage(cfg, models)
+    denoise = E.make_denoise_step(cfg, models)
+    hot, frozen = E.split_state(pipe_state, cfg.train_text_encoder)
+    out = {"fused_s": [], "encode_s": [], "denoise_s": [], "fused": [], "pipelined": [],
+           "launches_fused": [], "launches_pipelined": [],
+           "index": [[int(i) for i in b["index"]] for b in batches]}
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        start, before = time.perf_counter(), read_launches()
+        result = fn(*args)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - start, tuple(
+            b - a for a, b in zip(before, read_launches()))
+
+    for batch in batches:
+        (fused_state, fm), s, n = timed(fused, fused_state, batch)
+        out["fused_s"].append(s)
+        out["launches_fused"].append(n)
+        enc, s, n_enc = timed(encode, frozen, batch, hot.step)
+        out["encode_s"].append(s)
+        (hot, pm), s, n = timed(denoise, hot, enc)
+        out["denoise_s"].append(s)
+        out["launches_pipelined"].append(tuple(a + b for a, b in zip(n_enc, n)))
+        out["fused"].append((fm["loss"].item(), fm["grad_norm"].item()))
+        out["pipelined"].append((pm["loss"].item(), pm["grad_norm"].item()))
+    out["unet_max_abs_diff"] = max((fused_state.unet_params[k] - hot.unet_params[k])
+                                   .abs().max().item() for k in unet0)
+    out["nu_max_abs_diff"] = max((fused_state.opt_state.nu[k] - hot.opt_state.nu[k])
+                                 .abs().max().item() for k in fused_state.opt_state.nu)
+    out["steps"] = (fused_state.step, hot.step)
+    del fused_state, pipe_state, hot, frozen, models, unet0, frozen_params, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipelined_training(out_dir: Path, fused_stats: dict) -> dict:
+    """Phase 18: pipelined training and the latent cache at phase 6's
+    configuration (TrainConfig(): SD-2.1 widths, 256 px, batch 16, bf16) with
+    data.random_flip=false, on phase 6's 48 JPEGs:
+    (a) _pipe_step_check: the fused step and encode stage + denoiser step
+        bit for bit over PIPE_CHECK_STEPS steps;
+    (b) dcr-precompute-latents-torch through its main (cache shards of 16
+        rows): seconds, images/s, the fingerprint's seconds, shards, bytes;
+        0 flash launches;
+    (c) cache-fed: Trainer with pipe.latent_cache for PIPE_STEPS steps; the
+        VAE encoder never called, every index served from the cache;
+    (d) live-pipelined: Trainer with pipe.enabled, depth 2, PIPE_STEPS steps;
+        the consumer's wait on the ring per step; peak memory.
+    (c) and (d): 10 launches of each kernel per step, bf16, at phase 6's
+    shapes; (d)'s first PIPE_CHECK_STEPS losses bit-equal to (a)'s (the
+    same init, batches and draws, so the producer thread and its side
+    stream hand over exactly what the synced stages computed); (c)'s within
+    rtol 1e-3 of (d)'s step by step, on the same batches (the cache's rows
+    were encoded in other batches). s per step in the step (as phase 6
+    times its fused steps) and step to step (waits included), beside phase
+    6's; no device-wide sync. Both Trainers skip the final save and
+    export (phase 6 holds them at full width; the CPU tests hold the
+    pipelined checkpoint and resume)."""
+    import contextlib
+    import dataclasses
+    import gc
+    import io
+
+    from dcr_tpu_torch.cli import precompute as precompute_cli
+    from dcr_tpu_torch.core.config import PipeConfig, TrainConfig, save_config
+    from dcr_tpu_torch.diffusion.trainer import Trainer
+    from dcr_tpu_torch.ops import flash_attention as fa
+
+    wall0 = time.perf_counter()
+    data = out_dir / "data"
+    _write_train_jpegs(data)
+    cfg = TrainConfig(output_dir=str(out_dir / "unused"), max_train_steps=PIPE_STEPS,
+                      log_every=1, modelsavesteps=10 ** 6, checkpoints_total_limit=1)
+    cfg.data.train_data_dir = str(data)
+    cfg.data.random_flip = False
+    stats: dict = {"card": CARD[0], "steps": PIPE_STEPS, "batch": cfg.train_batch_size}
+    problems = []
+
+    # (a) the step-level check
+    t0 = time.perf_counter()
+    check = _pipe_step_check(cfg)
+    check["s"] = time.perf_counter() - t0
+    stats["step_check"] = check
+    per_step = kernel_attentions_per_step(cfg.model.layers_per_block)
+    if (check["fused"] != check["pipelined"] or check["unet_max_abs_diff"] != 0.0
+            or check["nu_max_abs_diff"] != 0.0
+            or check["steps"] != (PIPE_CHECK_STEPS, PIPE_CHECK_STEPS)
+            or any(n != (per_step,) * 3 for n in check["launches_fused"]
+                   + check["launches_pipelined"])):
+        problems.append(f"(a) fused vs pipelined: {json.dumps(check)}")
+    log(f"pipelined training (a) step check ({CARD[0]}): {json.dumps(check)}")
+
+    # (b) the precompute, through the CLI's main
+    cache = out_dir / "latent_cache"
+    save_config(cfg, out_dir / "pre.json")
+    reset_launches()
+    shapes, check_inputs = set(), fa._check_kernel_inputs
+
+    def recording_check(q, k, v):
+        shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3], q.dtype))
+        return check_inputs(q, k, v)
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        precompute_cli.main([f"--config={out_dir / 'pre.json'}",
+                             f"--pipe.latent_cache={cache}", "--pipe.cache_shard_size=16"])
+    pre = json.loads(out.getvalue().strip().splitlines()[-1])
+    pre["main_s"] = time.perf_counter() - t0
+    pre["launches_fwd_dq_dkv"] = read_launches()
+    stats["precompute"] = pre
+    log(f"pipelined training (b) precompute ({CARD[0]}): {json.dumps(pre)}")
+    if pre["indices"] != 48 or pre["shards"] != 3 or pre["launches_fwd_dq_dkv"] != (0, 0, 0):
+        problems.append(f"(b) precompute: {json.dumps(pre)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def leg(name: str, pipe: PipeConfig) -> tuple[dict, "Trainer"]:
+        leg_cfg = dataclasses.replace(cfg, output_dir=str(out_dir / name), pipe=pipe)
+        record = {"losses": [], "step_s": [], "busy_s": [], "ends": [], "index": []}
+        t_build = time.perf_counter()
+        trainer = Trainer(leg_cfg, device="cuda")
+        build_s = time.perf_counter() - t_build
+        _step_recorder(trainer, record)
+        open_cache, open_s = trainer._open_latent_cache, []
+
+        def timed_open():
+            start = time.perf_counter()
+            open_cache()
+            open_s.append(time.perf_counter() - start)
+        trainer._open_latent_cache = timed_open
+        trainer.save = lambda: None
+        trainer.export_checkpoint = lambda tag="checkpoint": None
+        encoder_calls = []
+        hook = trainer.models.vae.encoder.register_forward_pre_hook(
+            lambda m, a: encoder_calls.append(1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa._check_kernel_inputs = recording_check
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            trainer.train()
+        finally:
+            launches = read_launches()
+            fa._check_kernel_inputs = check_inputs
+            hook.remove()
+        result = {
+            "train_s": time.perf_counter() - t0, "build_s": build_s,
+            "step_s": record["step_s"],
+            "median_step_s_after_first": statistics.median(record["step_s"][1:]),
+            "busy_s": record["busy_s"],
+            "median_busy_s_after_first": statistics.median(record["busy_s"][1:]),
+            "ring_wait_s": trainer.ring_wait_s,
+            "losses": record["losses"], "launches_fwd_dq_dkv": launches,
+            "encoder_calls": len(encoder_calls),
+            "peak_bytes": torch.cuda.max_memory_allocated(), "index": record["index"],
+            "cache_open_s": open_s[0] if open_s else None}
+        result["images_per_s"] = cfg.train_batch_size / result["median_step_s_after_first"]
+        if trainer._cache_reader is not None:
+            result["cache_coverage"] = trainer._cache_reader.coverage()
+        return result, trainer
+
+    # (c) cache-fed
+    cached, trainer = leg("cache_fed", PipeConfig(latent_cache=str(cache)))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["cache_fed"] = cached
+    log(f"pipelined training (c) cache-fed ({CARD[0]}): "
+        f"{json.dumps({k: v for k, v in cached.items() if k != 'index'})}")
+
+    # (d) live-pipelined
+    live, trainer = leg("live", PipeConfig(enabled=True, depth=2))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["live"] = live
+    log(f"pipelined training (d) live-pipelined ({CARD[0]}): "
+        f"{json.dumps({k: v for k, v in live.items() if k != 'index'})}")
+
+    expected = (per_step * PIPE_STEPS,) * 3
+    held = {(16, 1024, 1024, 5, 64, torch.bfloat16), (16, 256, 256, 10, 64, torch.bfloat16)}
+    for name, r in (("(c) cache-fed", cached), ("(d) live", live)):
+        if r["launches_fwd_dq_dkv"] != expected or len(r["losses"]) != PIPE_STEPS:
+            problems.append(f"{name}: launches {r['launches_fwd_dq_dkv']}, expected {expected}; "
+                            f"{len(r['losses'])} steps")
+        if not all(map(math.isfinite, r["losses"])):
+            problems.append(f"{name}: losses {r['losses']}")
+    if cached["encoder_calls"] != 0 or cached.get("cache_coverage") != (48, 48):
+        problems.append(f"(c) the VAE encoder ran {cached['encoder_calls']} times in the "
+                        f"cache-fed loop; coverage {cached.get('cache_coverage')}")
+    # the producer may run ahead of the last step by the ring's depth + 1
+    if not PIPE_STEPS <= live["encoder_calls"] <= PIPE_STEPS + 3:
+        problems.append(f"(d) the VAE encoder ran {live['encoder_calls']} times for "
+                        f"{PIPE_STEPS} steps")
+    if cached["index"] != live["index"]:
+        problems.append("(c) and (d) saw different batches")
+    # the producer ring against the synced stages of (a), bit for bit
+    stats["live_equals_step_check"] = (
+        live["index"][:PIPE_CHECK_STEPS] == check["index"]
+        and live["losses"][:PIPE_CHECK_STEPS] == [loss for loss, _ in check["pipelined"]])
+    if not stats["live_equals_step_check"]:
+        problems.append(f"(d) vs (a): losses {live['losses'][:PIPE_CHECK_STEPS]} vs "
+                        f"{check['pipelined']}, batches {live['index'][:PIPE_CHECK_STEPS]} "
+                        f"vs {check['index']}")
+    if shapes != held:
+        problems.append(f"kernel shapes {sorted(map(str, shapes))}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(cached["losses"], live["losses"])]
+    stats["cache_vs_live_loss_rel"] = rel
+    if not rel or max(rel) > 1e-3:
+        problems.append(f"(c) vs (d) losses: {cached['losses']} vs {live['losses']}")
+    fused_median = fused_stats.get("median_step_s_after_first")
+    stats["phase6_fused_median_step_s"] = fused_median
+    stats["wall_s"] = time.perf_counter() - wall0
+    log(f"pipelined training ({CARD[0]}): s per step (median after the first) fused "
+        f"{fused_median} (phase 6); live-pipelined "
+        f"{live['median_busy_s_after_first']:.4f} in the step, "
+        f"{live['median_step_s_after_first']:.4f} step to step; cache-fed "
+        f"{cached['median_busy_s_after_first']:.4f} in the step, "
+        f"{cached['median_step_s_after_first']:.4f} step to step; the encode stage "
+        f"{1e3 * statistics.median(check['encode_s']):.1f} ms and the denoiser "
+        f"{1e3 * statistics.median(check['denoise_s']):.1f} ms beside the fused step "
+        f"{1e3 * statistics.median(check['fused_s']):.1f} ms (synced, (a)); ring wait "
+        f"{[round(w * 1e3, 1) for w in live['ring_wait_s']]} ms (live), "
+        f"{[round(w * 1e3, 1) for w in cached['ring_wait_s']]} ms (cache); cache-vs-live "
+        f"loss max rel {max(rel) if rel else None}; live vs (a) bit-equal over "
+        f"{PIPE_CHECK_STEPS} steps: {stats['live_equals_step_check']}; precompute {pre['seconds']} s "
+        f"({pre['images_per_s']} images/s, fingerprint {pre['fingerprint_s']} s, "
+        f"{pre['bytes']} bytes); peak {live['peak_bytes'] / 2**30:.2f} GiB (live), "
+        f"{cached['peak_bytes'] / 2**30:.2f} GiB (cache); {stats['wall_s']:.1f} s")
+    if problems:
+        raise AssertionError("pipelined training: " + "; ".join(problems))
     return stats
 
 
@@ -4097,6 +4431,20 @@ def kernel_entry(kind: str, dtype: str, rows: list[dict], cases: tuple[str, ...]
     return entry
 
 
+# wall seconds of each phase of this run, in order
+PHASE_S: dict[str, float] = {}
+
+
+def run_phase(name: str, fn, *args, **kwargs):
+    """Run one phase and print its wall seconds."""
+    start = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_S[name] = time.perf_counter() - start
+        log(f"phase {name}: {PHASE_S[name]:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -4104,64 +4452,75 @@ def main() -> int:
         return 1
     import dcr_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    phase_card()
-    built = phase_build()
-    codec = phase_jpeg_codec()
-    kern = phase_kernels(reps=10)
-    bwd = phase_bwd_kernels(reps=10)
-    limits = phase_kernel_limits()
-    phase_small_reference()
-    small_train = phase_small_train_reference()
+    wall0 = time.perf_counter()
+    run_phase("1 card", phase_card)
+    built = run_phase("2 build", phase_build)
+    codec = run_phase("2b jpeg codec", phase_jpeg_codec)
+    kern = run_phase("3 kernels B1", phase_kernels, reps=10)
+    bwd = run_phase("3 kernels B2 B3", phase_bwd_kernels, reps=10)
+    limits = run_phase("8 kernel limits", phase_kernel_limits)
+    run_phase("4 small reference", phase_small_reference)
+    small_train = run_phase("4 small train reference", phase_small_train_reference)
     with tempfile.TemporaryDirectory() as tmp:
-        small_eval = phase_small_eval_reference(Path(tmp))
+        small_eval = run_phase("9 small eval reference", phase_small_eval_reference, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        small_dino = phase_small_dino_reference(Path(tmp))
+        small_dino = run_phase("9b small dino eval reference", phase_small_dino_reference,
+                               Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        main_stats, main = phase_main_path(Path(tmp))
+        main_stats, main = run_phase("5 sampling main path", phase_main_path, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        interop_stats = phase_checkpoint_interop(Path(tmp), main)
+        interop_stats = run_phase("5b checkpoint interop", phase_checkpoint_interop,
+                                  Path(tmp), main)
         torch.cuda.empty_cache()
-        mitigation_stats = phase_mitigation(Path(tmp) / "sd21", Path(tmp))
+        mitigation_stats = run_phase("5d mitigation", phase_mitigation, Path(tmp) / "sd21",
+                                     Path(tmp))
         torch.cuda.empty_cache()
-        serve_stats = phase_serve(Path(tmp) / "sd21", Path(tmp))
+        serve_stats = run_phase("14 serving", phase_serve, Path(tmp) / "sd21", Path(tmp))
         torch.cuda.empty_cache()
         # phase 16 runs here so that phase 17 serves 5b's checkpoint over
         # phase 16's store
         ann_root = Path(tmp) / "ann"
         ann_root.mkdir()
-        ann_stats = phase_ann(ann_root)
+        ann_stats = run_phase("16 ann", phase_ann, ann_root)
         torch.cuda.empty_cache()
         live_root = Path(tmp) / "live"
         live_root.mkdir()
-        live_stats = phase_live_serving(Path(tmp) / "sd21", ann_root / "store", live_root,
-                                        serve_stats)
+        live_stats = run_phase("17 live provenance", phase_live_serving, Path(tmp) / "sd21",
+                               ann_root / "store", live_root, serve_stats)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        fast_stats = phase_fast_sampling(Path(tmp), main, main_stats)
+        fast_stats = run_phase("5c fast sampling", phase_fast_sampling, Path(tmp), main,
+                               main_stats)
     del main
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        train_stats = phase_train_main_path(Path(tmp), steps=6)
+        train_stats = run_phase("6 training main path", phase_train_main_path, Path(tmp),
+                                steps=6)
     torch.cuda.empty_cache()
-    f32_train_stats = phase_train_f32_step(steps=2)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        fault_stats = phase_train_faults(Path(tmp))
+    f32_train_stats = run_phase("7 f32 training", phase_train_f32_step, steps=2)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        eval_stats = phase_eval_main_path(Path(tmp))
+        fault_stats = run_phase("15 training faults", phase_train_faults, Path(tmp))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe_stats = run_phase("18 pipelined training", phase_pipelined_training, Path(tmp),
+                               train_stats)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_stats = run_phase("10 eval main path", phase_eval_main_path, Path(tmp))
     if eval_stats["launches_fwd_dq_dkv"] != (0, 0, 0):
         raise AssertionError(f"the eval path launched flash kernels: "
                              f"{eval_stats['launches_fwd_dq_dkv']}")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        backbone_stats = phase_backbones(Path(tmp))
+        backbone_stats = run_phase("11 backbones", phase_backbones, Path(tmp))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        small_search = phase_small_search_reference(Path(tmp))
+        small_search = run_phase("12 small search reference", phase_small_search_reference,
+                                 Path(tmp))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        search_stats = phase_search_main_path(Path(tmp))
+        search_stats = run_phase("13 search main path", phase_search_main_path, Path(tmp))
 
     def fwd_row(case, dtype):
         return next(r for r in kern["rows"] if r["case"] == case and r["dtype"] == dtype)
@@ -4194,6 +4553,9 @@ def main() -> int:
     # bf16, the f32 training mode f32
     train = dict(zip(("fwd", "dq", "dkv"), train_stats["launches_fwd_dq_dkv"]))
     train_faults = dict(zip(("fwd", "dq", "dkv"), fault_stats["launches_fwd_dq_dkv"]))
+    train_pipe = dict(zip(("fwd", "dq", "dkv"), pipe_stats["live"]["launches_fwd_dq_dkv"]))
+    train_cache = dict(zip(("fwd", "dq", "dkv"),
+                           pipe_stats["cache_fed"]["launches_fwd_dq_dkv"]))
     f32_train = dict(zip(("fwd", "dq", "dkv"), f32_train_stats["launches_fwd_dq_dkv"]))
     sample_cases = ("level0", "level1", "level2", "hook_level0", "hook_level1",
                     *(c[0] for c in MITIGATE_CASES), *SERVE_CASES)
@@ -4210,7 +4572,8 @@ def main() -> int:
                       "train_f32": f32_train["fwd"]},
                      tensor_cores("flash_fwd_tf32x3_kernel")),
         kernel_entry("fwd", "bfloat16", kern["rows"], train_cases,
-                     {"train": train["fwd"], "train_faults": train_faults["fwd"]},
+                     {"train": train["fwd"], "train_faults": train_faults["fwd"],
+                      "train_pipe": train_pipe["fwd"], "train_cache": train_cache["fwd"]},
                      tensor_cores("flash_fwd_bf16_kernel")),
     ]
     for kind in ("dq", "dkv"):
@@ -4219,7 +4582,8 @@ def main() -> int:
                          {"train_f32": f32_train[kind]},
                          tensor_cores(f"flash_bwd_{kind}_tf32x3_kernel")),
             kernel_entry(kind, "bfloat16", bwd["rows"], train_cases,
-                         {"train": train[kind], "train_faults": train_faults[kind]},
+                         {"train": train[kind], "train_faults": train_faults[kind],
+                          "train_pipe": train_pipe[kind], "train_cache": train_cache[kind]},
                          tensor_cores(f"flash_bwd_{kind}_bf16_kernel")),
         ]
     entries[0]["per_shape"] = kern["rows"]
@@ -4243,6 +4607,9 @@ def main() -> int:
     log(f"search path stats: {json.dumps(search_stats)}")
     log(f"ann path stats: {json.dumps(ann_stats, default=str)}")
     log(f"live serving stats: {json.dumps(live_stats, default=str)}")
+    log(f"pipelined training stats: {json.dumps(pipe_stats, default=str)}")
+    log(f"phase seconds ({CARD[0]}): {json.dumps(PHASE_S)}; script "
+        f"{time.perf_counter() - wall0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

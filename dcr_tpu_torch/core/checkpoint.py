@@ -199,9 +199,11 @@ def _check_compatible(state, saved: dict) -> None:
             raise ValueError(f"checkpoint {what} shapes differ from the run's: {bad[:5]}")
 
 
-def _copy_into(state, saved: dict) -> None:
+def _copy_into(state, saved: dict, skip: tuple[str, ...] = ()) -> None:
     with torch.no_grad():
         for what, dst in _live_groups(state).items():
+            if what in skip:
+                continue
             src = _saved_groups(saved)[what]
             for k, t in (dst or {}).items():
                 t.copy_(src[k])
@@ -313,13 +315,16 @@ class CheckpointManager:
         _copy_into(state, saved)
         return state.step
 
-    def restore_latest_valid(self, state) -> tuple[int, list[tuple[int, str]]]:
+    def restore_latest_valid(self, state, *, skip: tuple[str, ...] = ()
+                             ) -> tuple[int, list[tuple[int, str]]]:
         """(step, skipped): walk the steps newest first to the newest one
         that loads and verifies, restore it into ``state``, and move every
         damaged step on the way to ``quarantined/<step>`` (recorded, logged)
         so it is never offered again. Raises FileNotFoundError only when no
         valid step is left: a silent restart from scratch would hide the
-        loss of the run."""
+        loss of the run. ``skip`` names groups of :func:`_live_groups`
+        ("vae params", ...) that are verified but not written: a pipelined
+        run's frozen params, which its producer thread is reading."""
         skipped: list[tuple[int, str]] = []
         while True:
             steps = self.all_steps()
@@ -337,7 +342,7 @@ class CheckpointManager:
                 skipped.append((step, str(e)))
                 continue
             _check_compatible(state, saved)
-            _copy_into(state, saved)
+            _copy_into(state, saved, skip)
             return step, skipped
 
     def quarantine_step(self, step: int, reason: str) -> None:

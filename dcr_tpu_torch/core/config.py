@@ -9,7 +9,7 @@ its fleet, ingest and SLO sections) and of its
 ``model_index.json`` or ``config.json`` written by either package and a
 ``dcr-sample``, ``dcr-train``, ``dcr-eval``, ``dcr-search``,
 ``dcr-mitigate`` or ``dcr-serve`` command line parse the same way here.
-Sections the port does not run yet (mesh, warm cache, pipelined training,
+Sections the port does not run yet (mesh, warm cache, 8-bit Adam,
 the serving fleet) parse, and :func:`validate_train_config`,
 :func:`validate_eval_config`, :func:`validate_search_config` and
 :func:`validate_serve_config` refuse a setting that would need them with
@@ -249,7 +249,10 @@ class RiskConfig:
 
 @dataclass
 class PipeConfig:
-    """Pipelined training and the latent cache (parsed; not ported)."""
+    """Pipelined training (``enabled``: the frozen encoders on a producer
+    thread ``depth`` steps ahead) and the latent cache (``latent_cache``: a
+    directory ``dcr-precompute-latents-torch`` wrote, shards of
+    ``cache_shard_size`` rows)."""
 
     enabled: bool = False
     depth: int = 2
@@ -372,8 +375,6 @@ def _not_ported(cfg: TrainConfig) -> list[str]:
     mesh_devices = _mesh_devices(cfg.mesh)
     checks = [
         (cfg.optim.use_8bit_adam, "optim.use_8bit_adam (8-bit Adam)"),
-        (cfg.pipe.enabled, "pipe.enabled (pipelined training)"),
-        (bool(cfg.pipe.latent_cache), "pipe.latent_cache (the latent cache)"),
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port trains on one)"),
         (cfg.use_wandb, "use_wandb (the wandb sink)"),

@@ -3,7 +3,10 @@
 Counterpart of ``dcr_tpu/diffusion/train.py``. One eager function computes
 vae-encode -> q-sample -> text-encode (+ embedding mitigations) -> unet ->
 mse(eps|v) -> clip -> AdamW, in the JAX step's order (reference
-diff_train.py:613-666). Train-time mitigations (arXiv:2305.20086):
+diff_train.py:613-666). Everything after the VAE's sample is
+:func:`make_update`, the body the pipelined denoiser step
+(``diffusion/encode_stage.py``) shares. Train-time mitigations
+(arXiv:2305.20086):
 
 - ``rand_noise_lam``: Gaussian noise added to the text embeddings;
 - ``mixup_noise_lam``: Beta(lambda, 1)-weighted mixup of the text embeddings
@@ -233,47 +236,82 @@ class _Encode(nn.Module):
         return self.vae.encode(x)
 
 
-def make_train_step(cfg: TrainConfig, models: DiffusionModels) -> Callable:
-    """The train step: (state, batch, draws=None) -> (state, metrics).
+def draw_fn(seed: int, step: int, device: torch.device,
+            draws: Optional[dict]) -> Callable:
+    """``draw(name, make)``: the injected tensor for stream ``name`` when
+    ``draws`` holds one, else ``make`` of the stream's generator at ``step``."""
+    def draw(name: str, make: Callable[[torch.Generator], torch.Tensor]) -> torch.Tensor:
+        if draws is not None and name in draws:
+            return torch.as_tensor(draws[name], device=device)
+        return make(rngmod.stream_generator(seed, f"train/{name}", step, device))
+    return draw
 
-    batch: ``pixel_values`` [B, H, W, 3] f32 in [-1, 1] (NHWC, as the loader
-    gives it) and ``input_ids`` [B, L]. ``draws`` maps the names of
-    :data:`DRAW_STREAMS` to tensors that replace the step's own draws:
-    ``vae_sample`` and ``noise`` [B, C, h, w], ``timesteps`` [B],
-    ``emb_noise`` [B, L, D], ``mixup_beta`` (lambda) and ``mixup_perm`` [B].
-    The state is updated in place and returned; metrics are device tensors
-    (``loss``, ``grad_norm``) and a float (``lr``).
-    """
+
+def posterior_std(logvar: torch.Tensor) -> torch.Tensor:
+    """The VAE posterior's std, in the moments' dtype."""
+    return torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
+
+
+def sample_latents(mean: torch.Tensor, std: torch.Tensor, draw: Callable,
+                   scaling: float) -> torch.Tensor:
+    """The scaled posterior sample ``(mean + std * eps) * scaling`` in f32,
+    ``eps`` an f32 draw of the ``vae_sample`` stream (over bf16 moments the
+    sum is formed in f32, so f32 copies of the moments give the same bits)."""
+    eps = draw("vae_sample", lambda g: torch.randn(mean.shape, generator=g,
+                                                   device=mean.device))
+    return ((mean + std * eps) * scaling).float()
+
+
+def pixels_and_ids(batch: dict, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The batch's pixels as NCHW f32 and its token ids as int64 on ``device``."""
+    pixels = torch.as_tensor(batch["pixel_values"], dtype=torch.float32, device=device)
+    input_ids = torch.as_tensor(batch["input_ids"], dtype=torch.long, device=device)
+    return pixels.permute(0, 3, 1, 2).contiguous(), input_ids
+
+
+def make_vae_encode(cfg: TrainConfig, models: DiffusionModels) -> Callable:
+    """(vae_params, pixels NCHW f32) -> the posterior (``mean``, ``logvar``
+    in the compute dtype), without gradients."""
+    policy = policy_from_string(cfg.mixed_precision)
+    encoder = _Encode(models.vae)
+
+    @torch.no_grad()
+    def encode(vae_params: Params, pixels: torch.Tensor):
+        return functional_call(encoder, {f"vae.{k}": v for k, v in
+                                         policy.cast_to_compute(vae_params).items()},
+                               (policy.cast_to_compute(pixels),))
+    return encode
+
+
+def make_text_encode(cfg: TrainConfig, models: DiffusionModels) -> Callable:
+    """(text_params, input_ids) -> the text encoder's last hidden state in
+    the compute dtype (gradients flow where the params require them)."""
+    policy = policy_from_string(cfg.mixed_precision)
+
+    def encode(text_params: Params, input_ids: torch.Tensor) -> torch.Tensor:
+        return functional_call(models.text_encoder, policy.cast_to_compute(text_params),
+                               (input_ids,)).last_hidden_state
+    return encode
+
+
+def make_update(cfg: TrainConfig, models: DiffusionModels) -> Callable:
+    """The body both train steps share: q-sample -> text conditioning (+
+    embedding mitigations) -> unet -> mse(eps|v) -> grad -> clip/AdamW ->
+    EMA. ``update(state, latents, ctx_of, draw) -> (state, metrics)``:
+    ``state`` is a :class:`TrainState` or the pipelined step's hot view
+    (anything with ``step``, ``unet_params``, ``text_params``,
+    ``opt_state`` and ``ema_params``), updated in place; ``latents`` the
+    scaled f32 latents; ``ctx_of(trainable)`` the text embeddings given the
+    trainable params; ``draw`` as :func:`draw_fn` makes it."""
     cfg = resolve_scale_lr(cfg)
     policy = policy_from_string(cfg.mixed_precision)
     tx = make_optimizer(cfg.optim)
     sched = models.schedule
     accum = tx.accum
-    encoder = _Encode(models.vae)
-    scaling = models.vae.config.vae_scaling_factor
 
-    def step_fn(state: TrainState, batch: dict, draws: Optional[dict] = None):
-        device = next(iter(state.unet_params.values())).device
-        pixels = torch.as_tensor(batch["pixel_values"], dtype=torch.float32, device=device)
-        pixels = pixels.permute(0, 3, 1, 2).contiguous()
-        input_ids = torch.as_tensor(batch["input_ids"], dtype=torch.long, device=device)
-        bsz = pixels.shape[0]
-        step = state.step
-
-        def draw(name: str, make: Callable[[torch.Generator], torch.Tensor]) -> torch.Tensor:
-            if draws is not None and name in draws:
-                return torch.as_tensor(draws[name], device=device)
-            return make(rngmod.stream_generator(cfg.seed, f"train/{name}", step, device))
-
-        # frozen VAE encode, posterior sample, scale
+    def update(state, latents: torch.Tensor, ctx_of: Callable, draw: Callable):
+        device, bsz, step = latents.device, latents.shape[0], state.step
         with torch.no_grad():
-            post = functional_call(encoder, {f"vae.{k}": v for k, v in
-                                             policy.cast_to_compute(state.vae_params).items()},
-                                   (policy.cast_to_compute(pixels),))
-            eps = draw("vae_sample", lambda g: torch.randn(
-                post.mean.shape, generator=g, device=device))
-            std = torch.exp(0.5 * torch.clamp(post.logvar, -30.0, 20.0))
-            latents = ((post.mean + std * eps) * scaling).float()
             noise = draw("noise", lambda g: torch.randn(latents.shape, generator=g,
                                                         device=device))
             timesteps = draw("timesteps", lambda g: torch.randint(
@@ -281,17 +319,9 @@ def make_train_step(cfg: TrainConfig, models: DiffusionModels) -> Callable:
             noisy_latents = S.add_noise(sched, latents, noise, timesteps)
             target = S.training_target(sched, latents, noise, timesteps)
 
-        def text_encode(text_params: Params) -> torch.Tensor:
-            return functional_call(models.text_encoder, policy.cast_to_compute(text_params),
-                                   (input_ids,)).last_hidden_state
-
         trainable = trainable_of(state, cfg.train_text_encoder)
         with torch.enable_grad():
-            if cfg.train_text_encoder:
-                ctx = text_encode(trainable["text_encoder"])
-            else:
-                with torch.no_grad():
-                    ctx = text_encode(state.text_params)
+            ctx = ctx_of(trainable)
             if cfg.rand_noise_lam > 0:
                 ctx = ctx + cfg.rand_noise_lam * draw("emb_noise", lambda g: torch.randn(
                     ctx.shape, generator=g, device=device, dtype=ctx.dtype))
@@ -328,5 +358,42 @@ def make_train_step(cfg: TrainConfig, models: DiffusionModels) -> Callable:
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                    "lr": tx.schedule(step // accum)}
         return state, metrics
+
+    return update
+
+
+def make_train_step(cfg: TrainConfig, models: DiffusionModels) -> Callable:
+    """The train step: (state, batch, draws=None) -> (state, metrics).
+
+    batch: ``pixel_values`` [B, H, W, 3] f32 in [-1, 1] (NHWC, as the loader
+    gives it) and ``input_ids`` [B, L]. ``draws`` maps the names of
+    :data:`DRAW_STREAMS` to tensors that replace the step's own draws:
+    ``vae_sample`` and ``noise`` [B, C, h, w], ``timesteps`` [B],
+    ``emb_noise`` [B, L, D], ``mixup_beta`` (lambda) and ``mixup_perm`` [B].
+    The state is updated in place and returned; metrics are device tensors
+    (``loss``, ``grad_norm``) and a float (``lr``).
+    """
+    cfg = resolve_scale_lr(cfg)
+    vae_encode = make_vae_encode(cfg, models)
+    text_encode = make_text_encode(cfg, models)
+    update = make_update(cfg, models)
+    scaling = models.vae.config.vae_scaling_factor
+
+    def step_fn(state: TrainState, batch: dict, draws: Optional[dict] = None):
+        device = next(iter(state.unet_params.values())).device
+        pixels, input_ids = pixels_and_ids(batch, device)
+        draw = draw_fn(cfg.seed, state.step, device, draws)
+        # frozen VAE encode, posterior sample, scale
+        post = vae_encode(state.vae_params, pixels)
+        with torch.no_grad():
+            latents = sample_latents(post.mean, posterior_std(post.logvar), draw, scaling)
+
+        def ctx_of(trainable: dict) -> torch.Tensor:
+            if cfg.train_text_encoder:
+                return text_encode(trainable["text_encoder"], input_ids)
+            with torch.no_grad():
+                return text_encode(state.text_params, input_ids)
+
+        return update(state, latents, ctx_of, draw)
 
     return step_fn

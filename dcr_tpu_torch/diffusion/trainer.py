@@ -29,6 +29,15 @@ the newest valid checkpoint, and exports the HF-layout checkpoint at the end.
   not finish in time exits 89 (the watchdog is paused over the
   synchronous saves, a rollback's restore and the sample hook). ``DCR_FAULTS`` injects each fault
   (``utils/faults.py``). Multi-host is not ported.
+- Pipelined training (``pipe.enabled`` or ``pipe.latent_cache``), as the
+  JAX trainer's single-host branch: an :class:`~dcr_tpu_torch.diffusion.
+  encode_stage.EncodeProducer` per epoch runs the frozen encoders (or, with
+  a latent cache, the cache stage) up to ``pipe.depth`` steps ahead on its
+  own thread, and the loop runs the denoiser hot step on what it hands
+  over. The cache is resolved after the resume and fingerprinted over the
+  restored frozen params; one that cannot serve the run raises
+  ``LatentCacheError``. A NaN rollback restores the hot part only: the
+  frozen tensors, which the producer reads, are never written.
 - ``sample_hook(trainer, sync)`` runs every ``save_steps`` optimizer steps,
   as in the JAX trainer; ``dcr-train`` installs
   :func:`dcr_tpu_torch.diffusion.sample_hook.make_sample_hook`, which
@@ -37,6 +46,7 @@ the newest valid checkpoint, and exports the HF-layout checkpoint at the end.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import logging
 import math
@@ -59,6 +69,7 @@ from dcr_tpu_torch.core.metrics import MetricWriter
 from dcr_tpu_torch.data.dataset import ObjectAttributeDataset
 from dcr_tpu_torch.data.loader import DataLoader
 from dcr_tpu_torch.data.tokenizer import TokenizerBase, load_tokenizer
+from dcr_tpu_torch.diffusion import encode_stage as E
 from dcr_tpu_torch.diffusion import train as T
 from dcr_tpu_torch.models import export as EX
 from dcr_tpu_torch.sampling.pipeline import build_models
@@ -120,7 +131,22 @@ class Trainer:
         params = {name: dict(m.named_parameters()) for name, m in modules.items()}
         self.state = T.init_train_state(cfg, self.models, unet_params=params["unet"],
                                         text_params=params["text"], vae_params=params["vae"])
-        self.step_fn = T.make_train_step(cfg, self.models)
+        # pipelined mode splits the fused step into a frozen-encoder producer
+        # and the denoiser hot step; the fused step is not built then
+        self.pipelined = bool(cfg.pipe.enabled or cfg.pipe.latent_cache)
+        self._cache_reader = None
+        self._cache_fn = None
+        if self.pipelined:
+            _, self._frozen = E.split_state(self.state, cfg.train_text_encoder)
+            self.encode_fn = E.make_encode_stage(cfg, self.models)
+            self.denoise_fn = E.make_denoise_step(cfg, self.models)
+            # what the loop calls: (state, encoded batch) -> (state, metrics)
+            self.step_fn = self._pipelined_step
+        else:
+            self.step_fn = T.make_train_step(cfg, self.models)
+        self.producer: Optional[E.EncodeProducer] = None
+        # the consumer's seconds blocked on the producer ring, one per step
+        self.ring_wait_s: list[float] = []
         self.writer = MetricWriter(self.out_dir / "logs")
         self.ckpt = CheckpointManager(self.out_dir / "checkpoints",
                                       max_to_keep=cfg.checkpoints_total_limit,
@@ -157,6 +183,48 @@ class Trainer:
             else:
                 shutil.copyfile(src, tok_dir / dst)
 
+    # -- pipelined mode ------------------------------------------------------
+
+    def _pipelined_step(self, state: T.TrainState, enc: dict):
+        """The denoiser hot step on the hot view of ``state``; returns the
+        merged view (the same tensors) for the checkpoints and the hook."""
+        tte = self.cfg.train_text_encoder
+        hot, _ = E.split_state(state, tte)
+        hot, metrics = self.denoise_fn(hot, enc)
+        return E.merge_state(hot, self._frozen, tte), metrics
+
+    def _frozen_groups(self) -> tuple[str, ...]:
+        """The checkpoint groups a pipelined rollback leaves unwritten."""
+        if not self.pipelined:
+            return ()
+        return ("vae params",) if self.cfg.train_text_encoder else ("vae params",
+                                                                     "text params")
+
+    def _open_latent_cache(self) -> None:
+        """Verify and load ``pipe.latent_cache`` against this run's
+        fingerprint, over the frozen params as restored (LatentCacheError
+        when the cache cannot serve the run)."""
+        from dcr_tpu_torch.data import latent_cache as LC
+
+        cfg = self.cfg
+        expected = LC.cache_fingerprint(cfg, self.dataset, self.tokenizer,
+                                        vae_params=self.state.vae_params,
+                                        text_params=self.state.text_params)
+        self._cache_reader = LC.LatentCacheReader(cfg.pipe.latent_cache, expected)
+        self._cache_fn = E.make_cache_stage(cfg, self.models)
+        cached, total = self._cache_reader.coverage()
+        log.info("latent cache %s: %d/%d indices cached (misses re-encode live)",
+                 cfg.pipe.latent_cache, cached, total)
+
+    def _make_producer(self, batches, start_step: int) -> E.EncodeProducer:
+        """The epoch's producer: the live encode stage, or the cache stage
+        with the live stage as the recompute path of uncached indices."""
+        encode = E.live_encode(self.encode_fn, self._frozen)
+        if self._cache_reader is not None:
+            encode = E.cached_encode(self._cache_fn, self._cache_reader, encode)
+        return E.EncodeProducer(batches, encode, depth=self.cfg.pipe.depth,
+                                start_step=start_step, device=self.device)
+
     # -- checkpoint/resume ---------------------------------------------------
 
     def save(self) -> None:
@@ -192,7 +260,8 @@ class Trainer:
         skipped_total = 0
         while True:
             try:
-                ckpt_step, skipped = self.ckpt.restore_latest_valid(self.state)
+                ckpt_step, skipped = self.ckpt.restore_latest_valid(
+                    self.state, skip=self._frozen_groups())
             except FileNotFoundError as e:
                 R.log_event("nan_rollback_impossible", at_step=step, reason=repr(e))
                 self._ckpt_fallbacks += skipped_total
@@ -292,6 +361,8 @@ class Trainer:
     def _train(self) -> dict:
         cfg = self.cfg
         step = self.maybe_resume()
+        if self.pipelined and cfg.pipe.latent_cache:
+            self._open_latent_cache()
         steps_per_epoch = self.loader.steps_per_epoch()
         accum = max(1, cfg.optim.gradient_accumulation_steps)
         # stop at whichever comes first in micro-batches: the requested
@@ -307,8 +378,16 @@ class Trainer:
         while step < max_micro:
             epoch = step // steps_per_epoch
             batches = self.loader.epoch(epoch, start_step=step % steps_per_epoch)
+            # pipelined: the producer thread takes the loader's batches and
+            # hands over encoded ones, in step order
+            self.producer = (self._make_producer(batches, start_step=step)
+                             if self.pipelined else None)
             try:
-                for batch in batches:
+                while True:
+                    batch = (next(batches, None) if self.producer is None
+                             else self.producer.get(step))
+                    if batch is None:
+                        break
                     self.state, metrics = self.step_fn(self.state, batch)
                     step += 1
                     imgs_last += cfg.train_batch_size
@@ -341,7 +420,9 @@ class Trainer:
                         t_last, imgs_last = time.time(), 0
                     if (self.sample_hook and cfg.save_steps > 0 and at_sync
                             and sync % cfg.save_steps == 0):
-                        with self.watchdog.paused(step):
+                        with self.watchdog.paused(step), (
+                                self.producer.paused() if self.producer is not None
+                                else contextlib.nullcontext()):
                             self.sample_hook(self, sync)
                     # before the periodic save, so no step is written twice
                     if self._preempted:
@@ -358,6 +439,11 @@ class Trainer:
                     if step >= max_micro:
                         break
             finally:
+                # every exit path stops the producer before the loader's
+                # generator closes: the thread may be running it
+                if self.producer is not None:
+                    self.producer.stop()
+                    self.ring_wait_s += self.producer.wait_s
                 batches.close()
         self.watchdog.stop()  # the save and export below have no heartbeat
         self.save()

@@ -58,6 +58,10 @@ The kinds the port fires, and their hook points:
 - ``recall_degrade``: ``obs/recall_probe.RecallProbe.observe``, coordinate
   ``probe`` (1-based probe index): corrupts the shortlist the probe judges,
   so that probe reads recall 0 while the served answers stay unchanged.
+- ``latent_cache_corrupt``: ``data/latent_cache.LatentCacheReader``,
+  coordinate ``load`` (the reader's shard read index): damages a shard's
+  bytes in memory, so the shard is quarantined and its indices re-encode
+  live (``latentcache/batch_recompute``).
 
 The JAX package's other kinds have no hook in the port yet, and a spec that
 names one raises :class:`NotPortedError` when it is parsed: a fault that
@@ -89,7 +93,7 @@ class InjectedFault(RuntimeError):
 PORTED_KINDS = ("decode_error", "ckpt_corrupt", "nan_loss", "sigterm", "hang",
                 "search_dump_corrupt", "store_shard_corrupt", "ivf_list_corrupt",
                 "kmeans_nan", "wal_torn", "ingest_crash", "compact_crash", "ingest_stall",
-                "recall_degrade")
+                "recall_degrade", "latent_cache_corrupt")
 
 #: the JAX package's other kinds, each with the ROADMAP Queue A item that
 #: brings its hook point
@@ -99,7 +103,6 @@ NOT_PORTED_KINDS = {
     "worker_crash": "item 8 (the serving fleet)",
     "worker_hang": "item 8 (the serving fleet)",
     "slow_step": "item 8 (the serving fleet)",
-    "latent_cache_corrupt": "item 6 (the latent cache)",
 }
 
 _ENTRY_RE = re.compile(r"^(?P<kind>[a-z_]+)@(?P<coords>[a-z_]+=\d+(?:[&@][a-z_]+=\d+)*)"

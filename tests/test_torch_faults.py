@@ -327,6 +327,31 @@ def test_search_dump_corrupt_fault_kind(tmp_path):
     assert keys == ["a", "b", "c"]
 
 
+def test_latent_cache_corrupt_fault_kind_fires(tmp_path):
+    """latent_cache_corrupt has a hook since the latent cache was ported:
+    it parses as the JAX package parses it and damages the Nth shard read,
+    which is quarantined and counted."""
+    from dcr_tpu_torch.data import latent_cache as LC
+
+    spec = "latent_cache_corrupt@load=1"
+    assert [(s.kind, s.where) for s in faults.parse_faults(spec)] == [
+        (s.kind, s.where) for s in jfaults.parse_faults(spec)]
+    assert "latent_cache_corrupt" in faults.PORTED_KINDS
+    w = LC.LatentCacheWriter(tmp_path, {"v": 1}, shard_size=2)
+    w.add(np.arange(4), np.zeros((4, 2, 2, 4), np.float32),
+          np.ones((4, 2, 2, 4), np.float32), np.zeros((4, 3, 8), np.float32))
+    w.finalize()
+    R.reset_counters()
+    faults.install(spec)
+    try:
+        reader = LC.LatentCacheReader(tmp_path, {"v": 1})
+    finally:
+        faults.clear()
+    assert reader.coverage() == (2, 4) and reader.lookup(np.asarray([2])) is None
+    assert R.counters() == {"latentcache/shard_corrupt": 1}
+    assert not (tmp_path / "shard_00001.npz").exists()
+
+
 def test_store_shard_corrupt_fault_kind(tmp_path):
     from dcr_tpu_torch.search import store as ST
 

@@ -172,7 +172,6 @@ def test_non_finite_loss_fails_fast(tmp_path):
 
 @pytest.mark.parametrize("override,what", [
     ("--optim.use_8bit_adam=true", "8-bit Adam"),
-    ("--pipe.enabled=true", "pipelined"),
     ("--use_wandb=true", "wandb"),
     ("--mesh.data=2", "mesh of 2"),
     ("--warm.dir=w", "warm"),
@@ -181,6 +180,21 @@ def test_settings_not_ported_are_refused(tmp_path, override, what):
     cfg = TC.parse_cli(TC.TrainConfig, [override], base=_cfg(tmp_path))
     with pytest.raises(TC.NotPortedError, match=what):
         Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override", ["--pipe.enabled=true"])
+def test_pipelined_settings_run(tmp_path, override):
+    """Pipelined training runs since its slice was ported: the Trainer
+    builds the producer and the denoiser step in place of the fused step
+    and trains."""
+    _data(tmp_path / "data")
+    cfg = TC.parse_cli(TC.TrainConfig, [override, "--max_train_steps=2"],
+                       base=_cfg(tmp_path))
+    trainer = Trainer(cfg, device="cpu")
+    assert trainer.pipelined and trainer.step_fn == trainer._pipelined_step
+    metrics = trainer.train()
+    assert trainer.state.step == 2 and np.isfinite(metrics["loss"])
+    assert len(trainer.ring_wait_s) == 2
 
 
 def test_cli_trains_on_cpu_when_asked(tmp_path, monkeypatch):
