@@ -56,7 +56,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and an HF-layout export that loads back; dcr-train's sample hook at
    save_steps=3 writes grids at syncs 3 and 6 (read back with the port's
    PNG reader, image_grid's size), 200 forward launches per grid, counted
-   apart from the steps' launches and times;
+   apart from the steps' launches and times; the run's trace.jsonl through
+   tools/trace_report.py (a train/step and a train/data_wait span per step,
+   the Memory section's hbm samples) and mfu in every metrics row;
 7. the f32 training mode: 2 steps of the train step (make_train_step) at
    SD-2.1 widths with mixed_precision="no"; 10 launches of each kernel per
    step, all in f32, finite losses;
@@ -70,9 +72,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the run trained to its end and exported; quarantine.jsonl and the
    faults/* metrics held to the expected records, 6 launches of each
    kernel per executed step at the train shapes in bf16; a straight run
-   beside the resumed one; dcr-train-torch subprocesses exiting 83 on
-   SIGTERM and 89 on a hang. Seconds per step and per save with and without
+   beside the resumed one. Seconds per step and per save with and without
    the manifest pass, restore seconds, the cost of a bad sample;
+19. 8-bit AdamW (after 7): TrainConfig() with optim.use_8bit_adam, its
+   train step for ADAM8_STEPS steps on seeded random weights: finite
+   losses, 10 launches of each kernel per step in bf16, the 8-bit state's
+   bytes equal to the formula; one more step from the same state with
+   8-bit and with f32 AdamW: the optimizer's ms, the peaks (beside phase
+   6's) and the largest parameter difference;
+20. exit drills (after 19): four dcr-train-torch subprocesses at once: at
+   the tiny kernel-shaped model sigterm@step=2 exits 83, hang@step=1 exits
+   89 with a thread dump, oom@step=2 exits 85; at TrainConfig() in a
+   process whose share of the card (OOM_LIMIT_BYTES) cannot hold the first
+   step, a real torch.OutOfMemoryError exits 85; each with a
+   flight-recorder dump holding its reason and the card's memory figures;
 8. kernel limits (after phase 3): B*H = 66560, above the grid's y limit,
    with a misaligned q, forward and backward through the dispatcher and the
    autograd Function in both dtypes, against the plain versions;
@@ -148,7 +161,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    list's entry byte-identical); every /check (in the tail, then
    committed) against a float64 oracle over the committed and acked rows
    under the tie rule; the online recall within 0.05 of spot_check_recall;
-   1,500 B1 launches. Drills on phase 16's 65,536-row store (ingest_crash
+   1,500 B1 launches; each generation's store key gen/<its trace id>,
+   read from the phase's trace.jsonl; the dcr_device_mem_* gauges and a
+   novel bucket refused 503 memory_budget under a memory share cut for the
+   drill (_serve_memory_drills).
+   Drills on phase 16's 65,536-row store (ingest_crash
    and compact_crash in subprocesses, wal_torn, recall_degrade) and the
    JAX-written WAL of tests/fixtures/jax_wal_store. Reported: ms per WAL
    append, compaction, fold and refresh seconds, risk ms per batch through
@@ -165,6 +182,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    other; s per step beside phase 6's, the ring wait per step, the
    precompute's seconds, images/s, fingerprint seconds and bytes, peaks.
    Both Trainers skip the final save and export (phase 6 holds them).
+21. profile drill (last): POST /debug/profile on an in-process server at
+   SD-2.1 widths arms torch.profiler for one device step; a 4-step request
+   runs under it, and its Chrome trace holds the forward kernel's 40
+   launches (the launches counted as serve_profiled).
 Every phase prints its wall seconds (`phase <name>: N s`).
 No kernel lies on the eval, search and ANN paths (9-13 and 16: their
 attention is SDPA's, XCiT's is over channels; search and ANN are matmuls,
@@ -1283,6 +1304,19 @@ def phase_train_main_path(out_dir: Path, steps: int) -> dict:
              "jpeg_decode_ms_per_batch": 1e3 * cfg.train_batch_size * statistics.mean(
                  t for t, _ in decode_s),
              "last_metrics": last}
+    # the run's trace.jsonl through the repo's own reader (stdlib only)
+    report = subprocess.run([sys.executable, "-m", "tools.trace_report", str(run), "--json"],
+                            cwd=Path(__file__).resolve().parent, capture_output=True,
+                            text=True, timeout=120)
+    trace = json.loads(report.stdout) if report.returncode == 0 else {}
+    by_name, memory = trace.get("by_name", {}), trace.get("memory") or {}
+    stats["trace_report"] = {
+        "rc": report.returncode, "records": trace.get("records"),
+        "spans": {n: by_name[n] for n in ("train/step", "train/data_wait") if n in by_name},
+        "memory": {k: memory.get(k) for k in ("sampled_spans", "peak_bytes",
+                                              "resident_delta_by_stage")}}
+    stats["mfu"] = rows[-1].get("mfu")
+    stats["tflops_per_sec"] = rows[-1].get("tflops_per_sec")
     log(f"train main path: {json.dumps(stats)}")
     log(f"train main path on JPEG data: {len(decode_s)} decodes to "
         f"{stats['jpeg_decoded_shape']}, {stats['jpeg_decode_ms_per_image']:.2f} ms each, "
@@ -1298,6 +1332,14 @@ def phase_train_main_path(out_dir: Path, steps: int) -> dict:
     if launches != expected:
         raise AssertionError(f"train main path launched (fwd, dQ, dK/dV) {launches}, "
                              f"expected {expected}")
+    if (report.returncode != 0 or by_name.get("train/step", {}).get("count") != steps
+            or by_name.get("train/data_wait", {}).get("count", 0) < steps
+            or (memory.get("sampled_spans") or 0) < steps
+            or not (memory.get("peak_bytes") or 0) > 0):
+        raise AssertionError(f"trace_report on the run: rc {report.returncode}, "
+                             f"{stats['trace_report']}, {report.stderr[-2000:]}")
+    if not all(r.get("mfu", 0) > 0 for r in rows):
+        raise AssertionError(f"train main path: mfu missing from metrics.jsonl: {rows[-1]}")
     # the hook: a grid at syncs 3 and 6, each 20 DDIM steps of the f32
     # weights at 256 px, 10 forward launches per UNet call (S = 64 takes SDPA),
     # at phase 3's hook shapes: one prompt x 4 images, B = 8 with CFG
@@ -1375,6 +1417,282 @@ def phase_train_f32_step(steps: int) -> dict:
                              f"{(10 * steps,) * 3}; losses {losses}")
     return stats
 
+
+# the 8-bit AdamW phase (19): steps of TrainConfig() with use_8bit_adam
+ADAM8_STEPS = 3
+
+
+def phase_train_8bit(fused_stats: dict) -> dict:
+    """Phase 19: 8-bit AdamW at full width. TrainConfig() (SD-2.1 widths,
+    256 px, batch 16, bf16, AdamW with warmup) with optim.use_8bit_adam, its
+    train step (make_train_step) on seeded random weights built on the card
+    and phase 7's random batch, ADAM8_STEPS steps: s per step, finite
+    losses, 10 launches of each kernel per step in bf16, the 8-bit state's
+    bytes held to the formula exactly (int8 m and uint8 v codes over
+    256-element blocks plus two f32 scales per block for every tensor of at
+    least 4,096 elements, f32 moments for the rest) and beside f32 AdamW's.
+    Then one more step from the same state twice: 8-bit, and f32 AdamW over
+    the 8-bit moments dequantized. Reported: the optimizer's ms in each
+    (CUDA-synced around Optimizer.update), each one's peak against phase 6's,
+    and the largest parameter difference beside the step's own largest
+    update."""
+    import dataclasses
+
+    import numpy as np
+
+    from dcr_tpu_torch.core import adam8bit as A8
+    from dcr_tpu_torch.core.config import TrainConfig
+    from dcr_tpu_torch.diffusion import train as T
+    from dcr_tpu_torch.sampling.pipeline import build_models
+
+    wall0 = time.perf_counter()
+    cfg = TrainConfig()
+    cfg8 = TrainConfig(optim=dataclasses.replace(cfg.optim, use_8bit_adam=True))
+    models = build_models(cfg.model, "cuda", seed=0)
+    params = {name: dict(m.named_parameters()) for name, m in
+              (("unet", models.unet), ("text", models.text_encoder), ("vae", models.vae))}
+    state = T.init_train_state(cfg8, models, unet_params=params["unet"],
+                               text_params=params["text"], vae_params=params["vae"])
+    opt = state.opt_state
+    n_unet = sum(p.numel() for p in params["unet"].values())
+    state_bytes = sum(t.numel() * t.element_size()
+                      for d in (opt.m8, opt.v8, opt.mu, opt.nu) for t in d.values())
+    formula = sum(A8.state_bytes(p.numel()) if A8.is_quantized(p.numel()) else 8 * p.numel()
+                  for p in params["unet"].values())
+    quantized = sum(A8.is_quantized(p.numel()) for p in params["unet"].values())
+    rng = np.random.default_rng(4)
+    bsz, res = cfg.train_batch_size, cfg.data.resolution
+    batch = {"pixel_values": rng.uniform(-1, 1, (bsz, res, res, 3)).astype(np.float32),
+             "input_ids": rng.integers(0, cfg.model.text_vocab_size - 1,
+                                       (bsz, cfg.model.text_max_length))}
+    opt_ms: list[float] = []
+    update = T.Optimizer.update
+
+    def timed_update(self, grads, opt_state, trainable):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = update(self, grads, opt_state, trainable)
+        torch.cuda.synchronize()
+        opt_ms.append(1e3 * (time.perf_counter() - start))
+        return out
+
+    def run(step_fn, st, timed_opt: bool):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        if timed_opt:
+            T.Optimizer.update = timed_update
+        try:
+            st, metrics = step_fn(st, batch)
+            loss = float(metrics["loss"])
+        finally:
+            T.Optimizer.update = update
+        torch.cuda.synchronize()
+        return st, loss, time.perf_counter() - start
+
+    step8 = T.make_train_step(cfg8, models)
+    losses, step_s = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        for _ in range(ADAM8_STEPS):
+            state, loss, s = run(step8, state, timed_opt=False)
+            losses.append(loss)
+            step_s.append(s)
+    finally:
+        launches = read_launches()
+    peak8 = torch.cuda.max_memory_allocated()
+    # one more step from this state, twice: 8-bit, then f32 AdamW over the
+    # same moments dequantized (the params put back from the host between)
+    before = {k: p.detach().cpu() for k, p in params["unet"].items()}
+    saved = {name: {k: t.clone() for k, t in getattr(opt, name).items()}
+             for name in ("m8", "v8", "mu", "nu")}
+    count = opt.count
+    state, loss8, s8 = run(step8, state, timed_opt=True)
+    opt8_ms = opt_ms[-1]
+    after8 = {k: p.detach().cpu() for k, p in params["unet"].items()}
+    mu, nu, m8, v8 = saved["mu"], saved["nu"], saved["m8"], saved["v8"]
+    for name, p in params["unet"].items():
+        k = f"unet/{name}"
+        if k not in mu:
+            mu[k] = A8.dequantize_linear(A8.Quant8(m8[f"{k}/q"], m8[f"{k}/scale"]),
+                                         p.shape, p.numel())
+            nu[k] = A8.dequantize_log(A8.Quant8(v8[f"{k}/q"], v8[f"{k}/scale"]),
+                                      p.shape, p.numel())
+    state.opt_state = T.OptState(count=count, mu=mu, nu=nu)
+    del opt, saved, m8, v8
+    with torch.no_grad():
+        for k, p in params["unet"].items():
+            p.copy_(before[k])
+    state.step -= 1
+    torch.cuda.reset_peak_memory_stats()
+    state, loss32, s32 = run(T.make_train_step(cfg, models), state, timed_opt=True)
+    peak32 = torch.cuda.max_memory_allocated()
+    opt32_ms = opt_ms[-1]
+    diff = max((after8[k] - p.detach().cpu()).abs().max().item()
+               for k, p in params["unet"].items())
+    step_size = max((after8[k] - before[k]).abs().max().item() for k in before)
+    lr = T.make_lr_schedule(cfg.optim)(ADAM8_STEPS)
+    stats = {"card": CARD[0], "steps": ADAM8_STEPS, "batch": bsz, "step_s": step_s,
+             "median_step_s_after_first": statistics.median(step_s[1:]), "losses": losses,
+             "launches_fwd_dq_dkv": launches, "unet_params": n_unet,
+             "quantized_tensors": quantized, "unet_tensors": len(params["unet"]),
+             "state_bytes": state_bytes, "state_bytes_formula": formula,
+             "f32_state_bytes": 8 * n_unet, "peak_bytes_8bit": peak8,
+             "peak_bytes_f32_step": peak32,
+             "peak_bytes_phase6": fused_stats.get("peak_bytes"),
+             "optimizer_ms_8bit": opt8_ms, "optimizer_ms_f32": opt32_ms,
+             "step_s_with_synced_optimizer": {"8bit": s8, "f32": s32},
+             "loss_8bit_vs_f32_step": [loss8, loss32], "lr_at_compared_step": lr,
+             "max_param_diff_8bit_vs_f32": diff, "max_param_update": step_size,
+             "wall_s": time.perf_counter() - wall0}
+    log(f"8-bit adam (phase 19, {CARD[0]}): {json.dumps(stats)}")
+    log(f"8-bit adam ({CARD[0]}): {stats['median_step_s_after_first']:.4f} s per step, "
+        f"optimizer {opt8_ms:.1f} ms (f32 AdamW {opt32_ms:.1f} ms); state "
+        f"{state_bytes / 1e9:.3f} GB (f32 moments {8 * n_unet / 1e9:.3f} GB); peak "
+        f"{peak8 / 1e9:.2f} GB against {peak32 / 1e9:.2f} GB with f32 AdamW and "
+        f"{(fused_stats.get('peak_bytes') or 0) / 1e9:.2f} GB in phase 6; one step's "
+        f"max |8-bit - f32| {diff:.3e} beside its max update {step_size:.3e} (lr {lr:.3e}); "
+        f"launches {launches}")
+    problems = []
+    if state_bytes != formula:
+        problems.append(f"8-bit state {state_bytes} bytes, formula {formula}")
+    if launches != (10 * ADAM8_STEPS,) * 3:
+        problems.append(f"launches (fwd, dQ, dK/dV) {launches}, expected "
+                        f"{(10 * ADAM8_STEPS,) * 3}")
+    if not all(np.isfinite(losses + [loss8, loss32])):
+        problems.append(f"losses {losses}, {loss8}, {loss32}")
+    if problems:
+        raise AssertionError("8-bit adam: " + "; ".join(problems))
+    del state, models, params
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _flightrec(run: Path) -> dict:
+    """The run's flight-recorder dump (any rank or worker index)."""
+    (path,) = sorted(run.glob("flightrec_*.json"))
+    return json.loads(path.read_text())
+
+
+def _real_memory(doc: dict, what: str) -> list[str]:
+    """Problems with a dump's memory section: it must hold the card's
+    allocator figures (bytes in use > 0, a limit)."""
+    mem = (doc.get("memory") or {}).get("device_memory_stats") or {}
+    if not (mem.get("bytes_in_use", 0) > 0 and mem.get("bytes_limit", 0) > 0):
+        return [f"{what}: memory section {doc.get('memory')}"]
+    return []
+
+
+# the real out-of-memory drill: the process's share of the card, small
+# enough that TrainConfig()'s first step cannot fit beside its state
+OOM_LIMIT_BYTES = 16e9
+
+_REAL_OOM = """
+import sys
+import torch
+torch.cuda.set_per_process_memory_fraction(float(sys.argv[1]))
+from dcr_tpu_torch.cli.train import main
+main(sys.argv[2:])
+"""
+
+
+def phase_exit_drills(root: Path) -> dict:
+    """Phase 20: dcr-train-torch's typed exits, four subprocesses at once
+    (each mostly process start-up on the host): at phase 15's kernel-shaped
+    tiny model, sigterm@step=2 exits 83 with a checkpoint at step 2,
+    hang@step=1 with --fault.hang_timeout_s=5 exits 89 within 60 s with a
+    thread dump on stderr, and oom@step=2 exits 85; and a real
+    torch.OutOfMemoryError: TrainConfig() (SD-2.1 widths, 256 px, batch 16)
+    on phase 6's 48 JPEGs in a process limited to OOM_LIMIT_BYTES by
+    torch.cuda.set_per_process_memory_fraction, where the models and AdamW's
+    state fit (~12 GB) and the first step does not, exits 85. Each writes a
+    flightrec_0.json whose reason is its exit's and whose memory section
+    holds the card's allocator figures; the OOM dumps' oom section names
+    the step, the real one's error is the allocator's and its limit the
+    fraction's."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dcr_tpu_torch.core.config import TrainConfig, save_config
+    from dcr_tpu_torch.sampling.png import write_png
+
+    stats: dict = {"card": CARD[0]}
+    problems: list[str] = []
+    for i in range(8):
+        (root / "tiny_data" / f"c{i % 2}").mkdir(parents=True, exist_ok=True)
+        write_png(root / "tiny_data" / f"c{i % 2}" / f"{i}.png", _photo(i, 128, 128))
+    _write_train_jpegs(root / "data")
+    cfg = TrainConfig(output_dir=str(root / "real_oom"), max_train_steps=2, log_every=1)
+    cfg.data.train_data_dir = str(root / "data")
+    save_config(cfg, root / "real_oom.json")
+    total = torch.cuda.get_device_properties(0).total_memory
+    fraction = OOM_LIMIT_BYTES / total
+
+    def real_oom() -> dict:
+        env = {k: v for k, v in os.environ.items() if k != "DCR_FAULTS"}
+        env["PYTHONPATH"] = str(Path(__file__).resolve().parent)
+        start = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _REAL_OOM, str(fraction),
+                               f"--config={root / 'real_oom.json'}"], env=env, cwd=root,
+                              capture_output=True, text=True, timeout=300)
+        return {"rc": proc.returncode, "s": time.perf_counter() - start,
+                "run": root / "real_oom", "stderr": proc.stderr}
+
+    with ThreadPoolExecutor(max_workers=4) as ex:
+        jobs = {"sigterm": ex.submit(_cli_fault_run, root, "cli_sigterm", "sigterm@step=2",
+                                     steps=3),
+                "hang": ex.submit(_cli_fault_run, root, "cli_hang", "hang@step=1",
+                                  "--fault.hang_timeout_s=5", steps=3),
+                "oom": ex.submit(_cli_fault_run, root, "cli_oom", "oom@step=2", steps=3),
+                "real_oom": ex.submit(real_oom)}
+        runs = {name: job.result() for name, job in jobs.items()}
+    expected = {"sigterm": (83, "preempted: checkpointed at step 2"),
+                "hang": (89, "hang_abort:train"),
+                "oom": (85, "oom: train step 2"), "real_oom": (85, "oom: train step 0")}
+    for name, run in runs.items():
+        rc, reason = expected[name]
+        stats[name] = {"rc": run["rc"], "s": run["s"]}
+        if run["rc"] != rc:
+            problems.append(f"{name}: rc {run['rc']} (expected {rc}), {run['stderr'][-2000:]}")
+            continue
+        try:
+            doc = _flightrec(run["run"])
+        except ValueError:
+            problems.append(f"{name}: no flight-recorder dump under {run['run']}")
+            continue
+        stats[name].update(reason=doc["reason"][:300],
+                           memory=doc["memory"]["device_memory_stats"], oom=doc.get("oom"))
+        if not doc["reason"].startswith(reason):
+            problems.append(f"{name}'s dump: reason {doc['reason'][:300]}")
+        problems += _real_memory(doc, f"{name}'s dump")
+    stop, hang = runs["sigterm"], runs["hang"]
+    if stop["rc"] == 83:
+        stats["sigterm"]["checkpoints"] = sorted(p.name for p in
+                                                 (stop["run"] / "checkpoints").iterdir())
+        if not (stop["run"] / "checkpoints" / "2" / "state.pt").exists():
+            problems.append(f"sigterm@step=2 left no checkpoint at step 2: "
+                            f"{stats['sigterm']['checkpoints']}")
+    stats["hang"]["thread_dump"] = ("Thread 0x" in hang["stderr"]
+                                    and "simulate_hang" in hang["stderr"])
+    if not stats["hang"]["thread_dump"] or hang["s"] > 60:
+        problems.append(f"hang@step=1: thread dump {stats['hang']['thread_dump']}, "
+                        f"{hang['s']:.1f} s, {hang['stderr'][-2000:]}")
+    if runs["oom"]["rc"] == 85 and (stats["oom"].get("oom") or {}).get("where") \
+            != "train step 2":
+        problems.append(f"oom@step=2's dump: {stats['oom'].get('oom')}")
+    if runs["real_oom"]["rc"] == 85:
+        real = stats["real_oom"]
+        real.update(fraction=fraction, limit_bytes=int(total * fraction))
+        if "OutOfMemoryError" not in ((real.get("oom") or {}).get("error") or ""):
+            problems.append(f"real OOM dump's error: {real.get('oom')}")
+        if abs((real.get("memory") or {}).get("bytes_limit", 0) - int(total * fraction)) \
+                > 1 << 20:
+            problems.append(f"real OOM dump's limit {real.get('memory')}, the fraction's "
+                            f"{int(total * fraction)}")
+    log(f"exit drills (phase 20, {CARD[0]}): {json.dumps(stats, default=str)}")
+    if problems:
+        raise AssertionError("exit drills: " + "; ".join(problems))
+    return stats
 
 # the training faults phase (15): the spec that fires every recovery once
 FAULT_SPEC = ("decode_error@step=0&slot=3,nan_loss@step=4,sigterm@step=5,"
@@ -1466,10 +1784,8 @@ def phase_train_faults(out_dir: Path) -> dict:
     the export loading back. A straight run (the same spec's decode_error
     only, no saves) gives the resumed run's reference: equal step counter,
     optimizer count and loader index sequences; the params' max |diff| is
-    reported (cuDNN's backward may pick nondeterministic algorithms). Then
-    two dcr-train-torch subprocesses at the tiny kernel-shaped model:
-    sigterm@step=2 exits 83 with a checkpoint at step 2, and hang@step=1
-    with --fault.hang_timeout_s=5 exits 89 with a thread dump on stderr.
+    reported (cuDNN's backward may pick nondeterministic algorithms). (The
+    dcr-train-torch subprocesses that exit 83 and 89 run in phase 20.)
     Reports s per step, s per save with the manifest pass (steps 3 and 6)
     and without it (step 5, the save that is torn: a torn file fails its
     load, so it needs no manifest to be caught),
@@ -1488,7 +1804,6 @@ def phase_train_faults(out_dir: Path) -> dict:
     from dcr_tpu_torch.native.jpeg_helper import encode
     from dcr_tpu_torch.ops import flash_attention as fa
     from dcr_tpu_torch.sampling.pipeline import load_checkpoint_models
-    from dcr_tpu_torch.sampling.png import write_png
     from dcr_tpu_torch.utils import faults
 
     wall0 = time.perf_counter()
@@ -1694,25 +2009,6 @@ def phase_train_faults(out_dir: Path) -> dict:
         problems.append(f"straight vs resumed: counts {straight_counts} / {resumed_counts}, "
                         f"index {straight['index']} / {first['index']} + {resumed['index']}")
 
-    # dcr-train-torch on the card: exit 83 and exit 89
-    for i in range(8):
-        (out_dir / "tiny_data" / f"c{i % 2}").mkdir(parents=True, exist_ok=True)
-        write_png(out_dir / "tiny_data" / f"c{i % 2}" / f"{i}.png", _photo(i, 128, 128))
-    stop = _cli_fault_run(out_dir, "cli_sigterm", "sigterm@step=2", steps=3)
-    hang = _cli_fault_run(out_dir, "cli_hang", "hang@step=1", "--fault.hang_timeout_s=5",
-                          steps=3)
-    stats["cli_sigterm"] = {"rc": stop["rc"], "s": stop["s"],
-                            "checkpoints": sorted(p.name for p in (stop["run"] / "checkpoints")
-                                                  .iterdir()) if stop["rc"] == 83 else None}
-    stats["cli_hang"] = {"rc": hang["rc"], "s": hang["s"],
-                         "thread_dump": "Thread 0x" in hang["stderr"]
-                         and "simulate_hang" in hang["stderr"]}
-    if stop["rc"] != 83 or not (stop["run"] / "checkpoints" / "2" / "state.pt").exists():
-        problems.append(f"dcr-train-torch with sigterm@step=2: rc {stop['rc']}, "
-                        f"{stop['stderr'][-2000:]}")
-    if hang["rc"] != 89 or not stats["cli_hang"]["thread_dump"] or hang["s"] > 60:
-        problems.append(f"dcr-train-torch with hang@step=1: rc {hang['rc']} in "
-                        f"{hang['s']:.1f} s, {hang['stderr'][-2000:]}")
     stats["wall_s"] = time.perf_counter() - wall0
     log(f"training faults (phase 15, {CARD[0]}): {json.dumps(stats, default=str)}")
     log(f"training faults ({CARD[0]}): s per step {stats['median_step_s_after_first']:.4f}; "
@@ -1722,8 +2018,8 @@ def phase_train_faults(out_dir: Path) -> dict:
         f"{statistics.mean(times['no_manifest_save']):.2f} s without; restore {rollback_restore_s} s (rollback), {fallback_restore_s} s "
         f"(fallback); a bad sample {statistics.mean(f for f, _ in overhead) * 1e3:.1f} ms "
         f"failing + {statistics.mean(g for _, g in overhead) * 1e3:.1f} ms replacing; "
-        f"straight vs resumed max |diff| {max_diff:.3e}; exits {stop['rc']}, {hang['rc']} "
-        f"({hang['s']:.1f} s); peak {peak / 2**30:.2f} GiB; {stats['wall_s']:.1f} s")
+        f"straight vs resumed max |diff| {max_diff:.3e}; peak {peak / 2**30:.2f} GiB; "
+        f"{stats['wall_s']:.1f} s")
     if problems:
         raise AssertionError("training faults: " + "; ".join(problems))
     return stats
@@ -2627,6 +2923,7 @@ def phase_serve(ckpt: Path, root: Path) -> dict:
     import numpy as np
 
     from dcr_tpu_torch.core.config import SampleConfig, SearchConfig, ServeConfig
+    from dcr_tpu_torch.obs import memwatch
     from dcr_tpu_torch.obs.copyrisk import CopyRiskIndex
     from dcr_tpu_torch.ops import flash_attention as fa
     from dcr_tpu_torch.sampling import fastsample
@@ -2655,7 +2952,7 @@ def phase_serve(ckpt: Path, root: Path) -> dict:
         shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3], q.dtype))
         return check_inputs(q, k, v)
 
-    torch.cuda.reset_peak_memory_stats()
+    memwatch.reset_peak()
     fa._check_kernel_inputs = recording_check
     reset_launches()
     try:
@@ -2691,7 +2988,7 @@ def phase_serve(ckpt: Path, root: Path) -> dict:
     stats.update(launches=launches[0], expected_launches=expected,
                  kernel_shapes=sorted(list(x[:5]) for x in shapes),
                  alone_vs_mixed=mixed_checks,
-                 inprocess_peak_bytes=torch.cuda.max_memory_allocated())
+                 inprocess_peak_bytes=memwatch.peak_bytes())
     # one CFG UNet call of the bucket alone: CUDA events around 5 calls
     m = stack.models
     x = torch.randn((16, 4, 32, 32), device="cuda")
@@ -4085,6 +4382,54 @@ def _exact_rows(q, feats, row_of: dict, keys):
     return scores, np.asarray(keys, object)
 
 
+# the profiled request's denoising steps (a bucket of its own)
+PROFILE_STEPS = 4
+
+
+def _serve_memory_drills(port: int, root: Path) -> dict:
+    """On phase 17's live server, in-process: (a) the dcr_device_mem_*
+    gauges in /metrics' Prometheus text, with the card's figures; (b) the
+    memory budget: the process's share of the card
+    (torch.cuda.set_per_process_memory_fraction) cut for the drill to the
+    bytes in use plus half the default bucket's measured footprint, a
+    request for a novel bucket answers 503 memory_budget, then the share
+    is put back."""
+    from dcr_tpu_torch.obs import memwatch
+
+    out: dict = {}
+    problems: list[str] = []
+    prom = {}
+    for line in _http(port, "/metrics?format=prometheus")[2].decode().splitlines():
+        if line.startswith("dcr_device_mem_"):
+            name, value = line.rsplit(" ", 1)
+            prom[name] = float(value)
+    out["gauges"] = prom
+    if not (prom.get("dcr_device_mem_in_use_bytes", 0) > 0
+            and prom.get("dcr_device_mem_limit_bytes", 0) > 0
+            and prom.get("dcr_device_mem_peak_bytes", 0) > 0):
+        problems.append(f"dcr_device_mem_* gauges: {prom}")
+
+    estimate = memwatch.estimate_surface_bytes("serve/batch_sampler")
+    total = torch.cuda.get_device_properties(0).total_memory
+    in_use = torch.cuda.memory_allocated()
+    out["budget"] = {"estimate_bytes": estimate, "in_use_bytes": in_use,
+                     "limit_bytes": in_use + (estimate or 0) // 2}
+    torch.cuda.set_per_process_memory_fraction((in_use + (estimate or 0) // 2) / total)
+    try:
+        code, _, raw = _http(port, "/generate", {"prompt": "a red square", "seed": 5,
+                                                 "steps": PROFILE_STEPS})
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    out["budget"].update(code=code, body=json.loads(raw))
+    if not estimate or code != 503 or json.loads(raw).get("error") != "memory_budget":
+        problems.append(f"memory budget drill: estimate {estimate}, answered {code} {raw[:300]}")
+
+    log(f"serve memory drills (phase 17, {CARD[0]}): {json.dumps(out, default=str)}")
+    if problems:
+        raise AssertionError("serve memory drills: " + "; ".join(problems))
+    return out
+
+
 def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -> dict:
     """Phase 17: live provenance in serving on phase 16's raw store of one
     LAION chunk (1,048,576 rows x 512), its IVF tier retrained with
@@ -4094,7 +4439,7 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
     --risk.store_dir, --risk.ann=true, --risk.top_k=5, --ingest.enabled=true,
     --ingest.batch_rows=1, --ingest.compact_rows=8 and
     --slo.recall_probe_every_n=1, with DCR_FAULTS' ingest_stall before the
-    8th and 16th rows (15 s each) so each wave's first 7 rows sit in the
+    8th and 16th rows (LIVE_STALL_S, 15 s, each) so each wave's first 7 rows sit in the
     live tail while /check reads them. Before any request, the risk engine
     over the corpus against float64 (_risk_engine_over_corpus). 16
     concurrent requests (two full batches). Held: 16 rows acked, none
@@ -4117,8 +4462,10 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
 
     import numpy as np
 
+    from dcr_tpu_torch.core import tracing
     from dcr_tpu_torch.core.config import (SampleConfig, ServeConfig, parse_cli,
                                            validate_serve_config)
+    from dcr_tpu_torch.obs import memwatch
     from dcr_tpu_torch.obs.recall_probe import RecallProbe
     from dcr_tpu_torch.sampling.pipeline import load_generation_stack
     from dcr_tpu_torch.sampling.png import decode_png
@@ -4151,7 +4498,10 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
     stack = load_generation_stack(SampleConfig(model_path=str(ckpt)), device="cuda")
     os.environ["DCR_INGEST_STALL_S"] = str(LIVE_STALL_S)
     faults.install(LIVE_FAULTS)
-    torch.cuda.reset_peak_memory_stats()
+    # the served requests' span trees; a generation's store key is
+    # gen/<its trace id>, which its serve/request root carries
+    tracing.configure(root / "trace")
+    memwatch.reset_peak()
     reset_launches()
     probe = LiveProbe().__enter__()
     t0 = time.perf_counter()
@@ -4165,6 +4515,17 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
 
     def pump():
         return svc._pump.stats() if svc._pump is not None else {}
+
+    trace_ids: dict[int, str] = {}
+
+    def gen_key(doc) -> str:
+        """The store key of a served generation: gen/<trace id>."""
+        if doc["id"] not in trace_ids:
+            for line in (root / "trace" / "trace.jsonl").read_text().splitlines():
+                r = json.loads(line)
+                if r["name"] == "serve/request" and "trace" in r:
+                    trace_ids[r["args"]["request_id"]] = r["trace"]
+        return f"gen/{trace_ids[doc['id']]}"
 
     def wait_for(what, cond, timeout=600.0):
         deadline = time.monotonic() + timeout
@@ -4180,7 +4541,7 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
         body = json.loads(raw)
         if code != 200:
             raise AssertionError(f"/check answered {code}: {body}")
-        checks.append({"key": f"gen/{doc['id']}", "when": when, "ms": ms,
+        checks.append({"key": gen_key(doc), "when": when, "ms": ms,
                        "acked": sorted(acked), "scores": [s for _, s in body["topk"]],
                        "keys": [k for k, _ in body["topk"]]})
 
@@ -4216,14 +4577,14 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
                         docs.setdefault(doc["id"], doc)
                 # acked: the tail, and the first batch once compaction 1 folded it
                 tail_keys = {str(k) for k in load_wal_tail(store)[1]}
-                for i, doc in docs.items():
-                    if f"gen/{i}" in tail_keys:
+                for doc in docs.values():
+                    if gen_key(doc) in tail_keys:
                         check(doc, "tail", tail_keys | first_batch)
                 s = pump()
                 if s.get("appended_rows") != n_acked or s.get("status") != "stalled":
                     raise AssertionError(f"the stall ended before the tail checks: {s}")
                 stats[f"tail_rows_at_row_{n_acked}"] = len(tail_keys)
-                first_batch = {f"gen/{i}" for i in docs}
+                first_batch = {gen_key(d) for d in docs.values()}
             results = [f.result() for f in futs]
             stats["wave_s"] = time.perf_counter() - t_wave
         wait_for("two compactions and refreshes",
@@ -4232,7 +4593,7 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
         codes = [c for c, _, _ in results]
         latencies = [s for _, _, s in results]
         docs = {d["id"]: d for _, d, _ in results}
-        all_gen = {f"gen/{i}" for i in docs}
+        all_gen = {gen_key(d) for d in docs.values()}
         for doc in docs.values():
             check(doc, "committed", all_gen)
         metrics = json.loads(_http(port, "/metrics")[2])
@@ -4242,6 +4603,7 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
             if line and not line.startswith("#"):
                 name, value = line.rsplit(" ", 1)
                 prom[name] = float(value)
+        stats["memory_drills"] = _serve_memory_drills(port, root)
     finally:
         svc.begin_drain()
         svc.join_drained(timeout=600)
@@ -4252,8 +4614,9 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
         faults.clear()
         os.environ.pop("DCR_INGEST_STALL_S", None)
     launches = read_launches()
+    # the warm batch and the wave's two batches
     stats.update(launches=launches[0], expected_launches=10 * 50 * 3,
-                 peak_bytes=torch.cuda.max_memory_allocated(), codes=codes,
+                 peak_bytes=memwatch.peak_bytes(), codes=codes,
                  latency_p50_s=_percentile(latencies, 50),
                  latency_p99_s=_percentile(latencies, 99),
                  phase14_latency_p50_s=serve_stats.get("latency_p50_s"),
@@ -4388,6 +4751,78 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
     return stats
 
 
+def phase_profile_drill(root: Path) -> dict:
+    """Phase 21 (last: torch.profiler's CUDA tracing may leave launches
+    slower for the rest of the process, so no measured phase follows it):
+    dcr-serve-torch's /debug/profile on an in-process server over
+    ServeConfig()'s bucket at SD-2.1 widths (seeded random weights built on
+    the card, f32): armed for one device step, a request of a
+    PROFILE_STEPS-step bucket runs under torch.profiler; GET reports the
+    Chrome trace, whose kernel events hold the forward kernel's
+    10 x PROFILE_STEPS launches; a second arm while armed is a 409."""
+    import threading
+
+    from dcr_tpu_torch.core.config import ModelConfig, ServeConfig
+    from dcr_tpu_torch.data.tokenizer import HashTokenizer
+    from dcr_tpu_torch.sampling.pipeline import GenerationStack, build_models
+    from dcr_tpu_torch.serve.server import make_server
+    from dcr_tpu_torch.serve.worker import GenerationService
+
+    mc = ModelConfig()
+    stack = GenerationStack(build_models(mc, "cuda", seed=0), mc,
+                            HashTokenizer(mc.text_vocab_size, mc.text_max_length),
+                            torch.device("cuda"))
+    cfg = ServeConfig(port=0)
+    svc = GenerationService(cfg, stack)
+    svc.start()
+    httpd = make_server(cfg, svc)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, name="profile-http", daemon=True).start()
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        code, _, raw = _http(port, "/debug/profile", {"steps": 1,
+                                                      "logdir": str(root / "profile")})
+        again = _http(port, "/debug/profile", {"steps": 1, "logdir": str(root / "x")})[0]
+        gen_code = _http(port, "/generate", {"prompt": "a red square", "seed": 5,
+                                             "steps": PROFILE_STEPS})[0]
+        status = json.loads(_http(port, "/debug/profile")[2])
+        deadline = time.monotonic() + 120
+        while status.get("armed") and time.monotonic() < deadline:
+            time.sleep(0.2)
+            status = json.loads(_http(port, "/debug/profile")[2])
+        wall = time.perf_counter() - t0
+    finally:
+        svc.begin_drain()
+        svc.join_drained(timeout=120)
+        httpd.shutdown()
+        httpd.server_close()
+        launches = read_launches()
+    stats = {"card": CARD[0], "arm": code, "armed": json.loads(raw), "second_arm": again,
+             "generate": gen_code, "status": status, "s": wall, "launches": launches[0]}
+    artifact = status.get("artifact")
+    problems = []
+    if (code != 200 or again != 409 or gen_code != 200 or not artifact
+            or not Path(artifact).is_file()):
+        problems.append("arm, generate or artifact")
+    else:
+        events = json.loads(Path(artifact).read_text()).get("traceEvents", [])
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        stats.update(events=len(events), kernel_events=len(kernels),
+                     flash_fwd_events=sum("flash_fwd" in e.get("name", "") for e in kernels),
+                     bytes=Path(artifact).stat().st_size)
+        if stats["flash_fwd_events"] != 10 * PROFILE_STEPS:
+            problems.append(f"{stats['flash_fwd_events']} forward-kernel events in the trace")
+    if launches != (10 * PROFILE_STEPS, 0, 0):
+        problems.append(f"launches {launches}")
+    log(f"profile drill (phase 21, {CARD[0]}): {json.dumps(stats, default=str)}")
+    if problems:
+        raise AssertionError("profile drill: " + "; ".join(problems) + f": {stats}")
+    del svc, stack
+    torch.cuda.empty_cache()
+    return stats
+
+
 def kernel_entry(kind: str, dtype: str, rows: list[dict], cases: tuple[str, ...],
                  launches: dict, tensor_core_instructions: dict) -> dict:
     """One kernel's record for the JSON line, from its phase-3 rows at the
@@ -4499,6 +4934,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_train_stats = run_phase("7 f32 training", phase_train_f32_step, steps=2)
     torch.cuda.empty_cache()
+    adam8_stats = run_phase("19 8-bit adam", phase_train_8bit, train_stats)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        drill_stats = run_phase("20 exit drills", phase_exit_drills, Path(tmp))
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         fault_stats = run_phase("15 training faults", phase_train_faults, Path(tmp))
     torch.cuda.empty_cache()
@@ -4521,6 +4961,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         search_stats = run_phase("13 search main path", phase_search_main_path, Path(tmp))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        profile_stats = run_phase("21 profile drill", phase_profile_drill, Path(tmp))
 
     def fwd_row(case, dtype):
         return next(r for r in kern["rows"] if r["case"] == case and r["dtype"] == dtype)
@@ -4556,6 +4999,7 @@ def main() -> int:
     train_pipe = dict(zip(("fwd", "dq", "dkv"), pipe_stats["live"]["launches_fwd_dq_dkv"]))
     train_cache = dict(zip(("fwd", "dq", "dkv"),
                            pipe_stats["cache_fed"]["launches_fwd_dq_dkv"]))
+    train_8bit = dict(zip(("fwd", "dq", "dkv"), adam8_stats["launches_fwd_dq_dkv"]))
     f32_train = dict(zip(("fwd", "dq", "dkv"), f32_train_stats["launches_fwd_dq_dkv"]))
     sample_cases = ("level0", "level1", "level2", "hook_level0", "hook_level1",
                     *(c[0] for c in MITIGATE_CASES), *SERVE_CASES)
@@ -4568,12 +5012,14 @@ def main() -> int:
                       "mitigate": mitigation_stats["launches"],
                       "serve": serve_stats["launches"],
                       "live_serve": live_stats["launches"],
+                      "serve_profiled": profile_stats["launches"],
                       "train_hook": train_stats["hook_launches_fwd_dq_dkv"][0],
                       "train_f32": f32_train["fwd"]},
                      tensor_cores("flash_fwd_tf32x3_kernel")),
         kernel_entry("fwd", "bfloat16", kern["rows"], train_cases,
                      {"train": train["fwd"], "train_faults": train_faults["fwd"],
-                      "train_pipe": train_pipe["fwd"], "train_cache": train_cache["fwd"]},
+                      "train_pipe": train_pipe["fwd"], "train_cache": train_cache["fwd"],
+                      "train_8bit": train_8bit["fwd"]},
                      tensor_cores("flash_fwd_bf16_kernel")),
     ]
     for kind in ("dq", "dkv"):
@@ -4583,7 +5029,8 @@ def main() -> int:
                          tensor_cores(f"flash_bwd_{kind}_tf32x3_kernel")),
             kernel_entry(kind, "bfloat16", bwd["rows"], train_cases,
                          {"train": train[kind], "train_faults": train_faults[kind],
-                          "train_pipe": train_pipe[kind], "train_cache": train_cache[kind]},
+                          "train_pipe": train_pipe[kind], "train_cache": train_cache[kind],
+                          "train_8bit": train_8bit[kind]},
                          tensor_cores(f"flash_bwd_{kind}_bf16_kernel")),
         ]
     entries[0]["per_shape"] = kern["rows"]
@@ -4608,6 +5055,9 @@ def main() -> int:
     log(f"ann path stats: {json.dumps(ann_stats, default=str)}")
     log(f"live serving stats: {json.dumps(live_stats, default=str)}")
     log(f"pipelined training stats: {json.dumps(pipe_stats, default=str)}")
+    log(f"8-bit adam stats: {json.dumps(adam8_stats)}")
+    log(f"exit drill stats: {json.dumps(drill_stats, default=str)}")
+    log(f"profile drill stats: {json.dumps(profile_stats, default=str)}")
     log(f"phase seconds ({CARD[0]}): {json.dumps(PHASE_S)}; script "
         f"{time.perf_counter() - wall0:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -30,8 +30,10 @@ embedding_search/ scripts plus the sharded embedding store.
 
 Same flags and ``--config=<config.json>`` as the JAX package's
 ``dcr-search``, on stores either package wrote. It runs on one CUDA device
-(``DCR_TPU_PLATFORM=cpu`` selects the CPU). The settings ``warm_dir``,
-``logdir`` and a mesh raise ``NotPortedError``.
+(``DCR_TPU_PLATFORM=cpu`` selects the CPU). ``--logdir=<dir>`` writes the
+command's spans (``search/chunk`` per query chunk of the folder search) to
+``<dir>/trace.jsonl``. The settings ``warm_dir`` and a mesh raise
+``NotPortedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import sys
 from pathlib import Path
 
 from dcr_tpu_torch.cli import device_from_env
+from dcr_tpu_torch.core import tracing
 from dcr_tpu_torch.core.config import SearchConfig, parse_cli, validate_search_config
 from dcr_tpu_torch.search import ann
 from dcr_tpu_torch.search import embed as E
@@ -165,6 +168,8 @@ def main(argv=None) -> None:
     cfg = parse_cli(SearchConfig, rest)
     validate_search_config(cfg)
     device = device_from_env()
+    if cfg.logdir:
+        tracing.configure(cfg.logdir)
     if command == "download":
         E.download_laion_chunk(cfg.parquet_path, cfg.laion_folder, image_size=cfg.image_size)
         E.embed_images(cfg, source=cfg.laion_folder, device=device)

@@ -16,7 +16,14 @@ and an embedding cache, ``POST /check``, ``GET /healthz`` and ``GET
    its response;
 3. with ``--ingest.enabled=true`` the ingest pump appends its queued rows
    to the store's WAL and releases the writer lease;
-4. the process exits with ``EXIT_PREEMPTED`` (83).
+4. the flight recorder is dumped (``flightrec_0.json`` under
+   ``--logdir``, or ``DCR_FLIGHTREC_DIR``) and the process exits with
+   ``EXIT_PREEMPTED`` (83).
+
+``--logdir=<dir>`` writes ``<dir>/trace.jsonl`` (every request's span tree)
+and ``<dir>/metrics.jsonl`` (``serve/*`` scalars per batch); ``POST
+/debug/profile`` then defaults to ``<dir>/profile``. Out of device memory
+in a batch exits 85 after a dump.
 
 A second signal kills the process at once. It runs on CUDA;
 ``DCR_TPU_PLATFORM=cpu`` selects the CPU. The fleet roles
@@ -47,17 +54,24 @@ def _run_worker(cfg: ServeConfig) -> None:
     import time
 
     from dcr_tpu_torch.core import resilience as R
+    from dcr_tpu_torch.core import tracing
+    from dcr_tpu_torch.core.metrics import MetricWriter
     from dcr_tpu_torch.sampling.pipeline import load_generation_stack
     from dcr_tpu_torch.serve.server import make_server
     from dcr_tpu_torch.serve.worker import GenerationService
 
+    if cfg.logdir:
+        # request span trees into <logdir>/trace.jsonl; the drain's and the
+        # fatal paths' dumps land beside it
+        tracing.configure(cfg.logdir)
+    writer = MetricWriter(cfg.logdir) if cfg.logdir else None
     t0 = time.monotonic()
     stack = load_generation_stack(SampleConfig(model_path=cfg.model_path,
                                                iternum=cfg.iternum,
                                                resolution=cfg.resolution),
                                   device=device_from_env())
     log.info("[stage] serve_load: done in %.2fs", time.monotonic() - t0)
-    service = GenerationService(cfg, stack)
+    service = GenerationService(cfg, stack, writer=writer)
     # warming flips BEFORE the port opens: /healthz never says "ok" while
     # the default bucket has not run
     planned = service.begin_warm()
@@ -89,6 +103,10 @@ def _run_worker(cfg: ServeConfig) -> None:
     httpd.shutdown()
     httpd.server_close()       # joins handler threads: responses are on the wire
     server_thread.join(timeout=5.0)
+    if writer is not None:
+        writer.close()
+    # the exit-83 path: the last requests' spans for the operator
+    tracing.dump_flight_recorder("preempted: serve drained")
     log.warning("drained: exiting with code %d for the restart wrapper", R.EXIT_PREEMPTED)
     raise SystemExit(R.EXIT_PREEMPTED)
 

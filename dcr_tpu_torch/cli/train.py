@@ -11,12 +11,20 @@ seeded random weights, writes a sample grid every ``save_steps``
 ``<output_dir>/checkpoint`` at the end. A setting the port does not run yet
 is refused with ``NotPortedError``.
 
+``--optim.use_8bit_adam=true`` keeps Adam's moments as 8-bit codes
+(``core/adam8bit.py``). The run writes ``<output_dir>/trace.jsonl`` (read it
+with ``python -m tools.trace_report <output_dir>``); ``DCR_PROFILE_AT_STEP=K``
+captures ``DCR_PROFILE_STEPS`` steps from micro-step K with ``torch.profiler``
+into ``<output_dir>/profile``.
+
 Exit codes: 0 when training ends; 83 (``EXIT_PREEMPTED``) after a SIGTERM
 or SIGINT, once the final checkpoint is written (a second signal ends the
-process at once); 89 (``EXIT_HANG``) when ``--fault.hang_timeout_s`` (or
+process at once); 85 (``EXIT_OOM``) when the device runs out of memory;
+89 (``EXIT_HANG``) when ``--fault.hang_timeout_s`` (or
 ``DCR_HANG_TIMEOUT_S``) passes without a finished step, with every thread's
-stack on stderr. ``DCR_FAULTS`` injects faults (``utils/faults.py``), e.g.
-``DCR_FAULTS=sigterm@step=2``.
+stack on stderr. The NaN abort and exits 83, 85 and 89 write
+``<output_dir>/flightrec_0.json`` first. ``DCR_FAULTS`` injects faults
+(``utils/faults.py``), e.g. ``DCR_FAULTS=sigterm@step=2`` or ``oom@step=2``.
 """
 
 from __future__ import annotations

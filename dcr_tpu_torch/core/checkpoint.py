@@ -96,7 +96,8 @@ def _state_dict(state) -> dict:
                        "vae": plain(state.vae_params)},
             "opt": {"count": int(opt.count), "mini_step": int(opt.mini_step),
                     "mu": plain(opt.mu), "nu": plain(opt.nu),
-                    "acc_grads": plain(opt.acc_grads)},
+                    "acc_grads": plain(opt.acc_grads),
+                    "m8": plain(opt.m8), "v8": plain(opt.v8)},
             "ema": plain(state.ema_params)}
 
 
@@ -167,7 +168,8 @@ def _live_groups(state) -> dict[str, Optional[dict]]:
     return {"unet params": state.unet_params, "text params": state.text_params,
             "vae params": state.vae_params, "Adam first moments": opt.mu,
             "Adam second moments": opt.nu, "accumulated gradients": opt.acc_grads,
-            "EMA params": state.ema_params}
+            "EMA params": state.ema_params, "8-bit Adam first moments": opt.m8,
+            "8-bit Adam second moments": opt.v8}
 
 
 def _saved_groups(saved: dict) -> dict[str, Optional[dict]]:
@@ -175,7 +177,10 @@ def _saved_groups(saved: dict) -> dict[str, Optional[dict]]:
         return {"unet params": saved["params"]["unet"], "text params": saved["params"]["text"],
                 "vae params": saved["params"]["vae"], "Adam first moments": saved["opt"]["mu"],
                 "Adam second moments": saved["opt"]["nu"],
-                "accumulated gradients": saved["opt"]["acc_grads"], "EMA params": saved["ema"]}
+                "accumulated gradients": saved["opt"]["acc_grads"], "EMA params": saved["ema"],
+                # absent from checkpoints written before 8-bit Adam was ported
+                "8-bit Adam first moments": saved["opt"].get("m8"),
+                "8-bit Adam second moments": saved["opt"].get("v8")}
     except (KeyError, TypeError) as e:
         raise CheckpointCorrupt(f"not a train state: {e!r}") from e
 
@@ -183,7 +188,15 @@ def _saved_groups(saved: dict) -> dict[str, Optional[dict]]:
 def _check_compatible(state, saved: dict) -> None:
     """ValueError when a loaded state cannot go into the run's: a section
     present in one and absent in the other, other keys or other shapes. A
-    checkpoint of another configuration, not a damaged one."""
+    checkpoint of another configuration, not a damaged one. A checkpoint
+    written with the other ``optim.use_8bit_adam`` setting says so: its
+    moments are never re-initialised in silence."""
+    run_8bit = state.opt_state.m8 is not None
+    if run_8bit != (_saved_groups(saved)["8-bit Adam first moments"] is not None):
+        raise ValueError(
+            f"checkpoint was written with optim.use_8bit_adam={not run_8bit} and the run "
+            f"has optim.use_8bit_adam={run_8bit}: its Adam moments cannot be resumed; "
+            f"set optim.use_8bit_adam={not run_8bit} or start a new output_dir")
     for what, dst in _live_groups(state).items():
         src = _saved_groups(saved)[what]
         if (dst is None) != (src is None):

@@ -374,7 +374,6 @@ def _not_ported(cfg: TrainConfig) -> list[str]:
     port does not have yet."""
     mesh_devices = _mesh_devices(cfg.mesh)
     checks = [
-        (cfg.optim.use_8bit_adam, "optim.use_8bit_adam (8-bit Adam)"),
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port trains on one)"),
         (cfg.use_wandb, "use_wandb (the wandb sink)"),
@@ -527,19 +526,18 @@ class SearchConfig:
     shortlist_k: int = 32
     json_out: bool = False       # machine-readable `stats` output
     warm_dir: str = ""           # persistent executable cache (not ported)
-    logdir: str = ""             # trace.jsonl sink (not ported)
+    logdir: str = ""             # trace.jsonl sink
 
 
 def validate_search_config(cfg: SearchConfig) -> None:
     """NotPortedError for a search setting the port does not run yet, naming
-    the ROADMAP Queue A item that ports it: the warm cache and the trace sink
-    (item 7), a mesh of more than one device (item 9)."""
+    the ROADMAP Queue A item that ports it: the warm cache (item 7c), a mesh
+    of more than one device (item 9)."""
     mesh_devices = _mesh_devices(cfg.mesh)
     checks = [
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port searches on "
                            "one; ROADMAP Queue A item 9)"),
-        (bool(cfg.warm_dir), "warm_dir (the warm executable cache, ROADMAP Queue A item 7)"),
-        (bool(cfg.logdir), "logdir (the trace.jsonl sink, ROADMAP Queue A item 7)"),
+        (bool(cfg.warm_dir), "warm_dir (the warm executable cache, ROADMAP Queue A item 7c)"),
     ]
     missing = [name for on, name in checks if on]
     if missing:
@@ -635,7 +633,7 @@ class ServeConfig:
     max_compiled_buckets: int = 8          # resident bucket budget (typed 503 beyond)
     request_timeout_s: float = 600.0       # per-request wait bound in the handler
     hang_timeout_s: float = 0.0            # the batch watchdog (not ported: the fleet)
-    logdir: str = ""                       # the trace / metrics sink (not ported)
+    logdir: str = ""                       # the trace / metrics sink
     seed: int = 42                         # root of the per-request draws
     mesh: MeshConfig = field(default_factory=MeshConfig)
     fleet: FleetConfig = field(default_factory=FleetConfig)
@@ -649,7 +647,7 @@ class ServeConfig:
 def validate_serve_config(cfg: ServeConfig) -> None:
     """The JAX package's checks (``ValueError``), then NotPortedError for a
     serve setting the port does not run yet, naming the ROADMAP Queue A item
-    that ports it: the warm cache and the trace sink (item 7), the fleet and
+    that ports it: the warm cache (item 7c), the fleet and
     the hang watchdog (item 8), a mesh of more than one device (item 9)."""
     if cfg.sampler not in ("ddim", "dpm++", "ddpm"):
         raise ValueError("serve sampler must be 'ddim', 'dpm++' or 'ddpm'")
@@ -695,8 +693,7 @@ def validate_serve_config(cfg: ServeConfig) -> None:
         (f.workers > 0, "fleet.workers > 0 (the fleet supervisor, ROADMAP Queue A item 8)"),
         (f.worker_index >= 0, "fleet.worker_index >= 0 (a fleet worker, ROADMAP Queue A "
                               "item 8)"),
-        (bool(cfg.warm.dir), "warm.dir (the warm executable cache, ROADMAP Queue A item 7)"),
-        (bool(cfg.logdir), "logdir (the trace and metrics sink, ROADMAP Queue A item 7)"),
+        (bool(cfg.warm.dir), "warm.dir (the warm executable cache, ROADMAP Queue A item 7c)"),
         (cfg.hang_timeout_s > 0, "hang_timeout_s > 0 (the hang watchdog, ROADMAP Queue A "
                                  "item 8)"),
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port serves on one; "

@@ -7,9 +7,10 @@
   stack dump, then restart".
 - :class:`HangWatchdog` is a heartbeat thread: the train loop beats it at
   every step boundary, and when the beats stop for longer than its timeout
-  it calls :func:`hang_abort`, which logs, dumps every thread's stack to
-  stderr and exits with :data:`EXIT_HANG` instead of hanging until a
-  scheduler kills the job.
+  it calls :func:`hang_abort`, which logs, dumps the flight recorder and
+  every thread's stack and exits with :data:`EXIT_HANG` instead of hanging
+  until a scheduler kills the job. The out-of-memory exit
+  (:data:`EXIT_OOM`) is ``obs/memwatch.oom_abort``'s.
 - :func:`simulate_hang` is the target of the ``hang`` fault kind.
 
 The port runs one process, so the reference's fault-agreement rounds
@@ -44,10 +45,11 @@ _abort_started = False
 
 
 def hang_abort(name: str, *, detail: str = "") -> None:
-    """Post-mortem (a ``[fault] hang_abort`` line, every thread's stack on
-    stderr), then a hard exit with :data:`EXIT_HANG`. ``os._exit``, not
-    ``sys.exit``: the wedged main thread cannot unwind, and nothing after
-    this call runs, so the logs are flushed first."""
+    """Post-mortem (a ``[fault] hang_abort`` line, a flight-recorder dump,
+    every thread's stack on stderr), then a hard exit with
+    :data:`EXIT_HANG`. ``os._exit``, not ``sys.exit``: the wedged main
+    thread cannot unwind, and nothing after this call runs, so the logs are
+    flushed first."""
     from dcr_tpu_torch.core.resilience import log_event
 
     global _abort_started
@@ -59,8 +61,13 @@ def hang_abort(name: str, *, detail: str = "") -> None:
     # exception on the watchdog thread would leave the process hung forever
     try:
         log_event("hang_abort", name=name, detail=detail, exit_code=EXIT_HANG)
-        log.error("hang watchdog: aborting %r with exit code %d (%s); every thread's "
-                  "stack follows", name, EXIT_HANG, detail)
+        # the flight recorder: what was making progress, and when it stopped
+        from dcr_tpu_torch.core import tracing
+
+        tracing.dump_flight_recorder(f"hang_abort:{name} ({detail})")
+        log.error("hang watchdog: aborting %r with exit code %d (%s); last trace records: "
+                  "%s; every thread's stack follows", name, EXIT_HANG, detail,
+                  tracing.last_span_names())
         for handler in logging.getLogger().handlers + log.handlers:
             handler.flush()
         sys.stderr.flush()

@@ -38,8 +38,17 @@ NONTRANSIENT_IO = (FileNotFoundError, IsADirectoryError, NotADirectoryError)
 
 def log_event(event: str, **fields: Any) -> None:
     """One structured, greppable WARNING line per fault or recovery action
-    (the JAX package's ``[fault] <event> {json}`` format)."""
+    (the JAX package's ``[fault] <event> {json}`` format), and a
+    ``fault/<event>`` trace event, so the flight recorder and
+    ``tools/trace_report.py``'s fault timeline see it."""
     log.warning("[fault] %s %s", event, json.dumps(fields, sort_keys=True, default=str))
+    tracing.event(f"fault/{event}", attrs=fields)
+
+
+def log_trace(event: str, **fields: Any) -> None:
+    """The INFO-level ``[trace] <event> {json}`` line of lifecycle events
+    (a profile armed, a sampler that has nothing to read)."""
+    log.info("[trace] %s %s", event, json.dumps(fields, sort_keys=True, default=str))
 
 
 def bump_counter(name: str, n: int = 1) -> int:

@@ -27,11 +27,13 @@ encoded tensors are marked as used by the consumer's stream
 (``record_stream``), so the caching allocator does not hand their memory
 back to the producer before the step that reads them has run.
 
-Telemetry: the ``data/queue_depth`` gauge on the port's ``core/tracing``
-registry follows the ring's occupancy. The JAX package's spans
-(``train/encode``, ``train/encode_wait`` and ``train/data_wait``) wait for
-the port's trace sink; :attr:`EncodeProducer.wait_s` keeps the consumer's
-seconds blocked on the ring per step meanwhile.
+Telemetry, as the JAX producer's: ``train/data_wait`` and ``train/encode``
+spans on the producer thread (the encode's with ``obs/memwatch.span_hbm``'s
+attrs), the consumer's ``train/encode_wait`` span inside
+:meth:`EncodeProducer.get` (the pipeline bubble ``tools/trace_report.py``'s
+Pipeline section reports), and the ``data/queue_depth`` gauge on every ring
+transition. :attr:`EncodeProducer.wait_s` keeps the consumer's seconds
+blocked on the ring per step.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import tracing
 from dcr_tpu_torch.core.config import TrainConfig
 from dcr_tpu_torch.diffusion import train as T
+from dcr_tpu_torch.obs import memwatch
 
 #: streams drawn by the producer stage; the denoiser owns the rest. Together
 #: they are train.DRAW_STREAMS (a test holds it), so a new stream needs an
@@ -257,10 +260,12 @@ class EncodeProducer:
         step = self._start_step
         try:
             while not self._stop.is_set():
-                batch = next(self._source, None)
+                with tracing.span("train/data_wait", step=step):
+                    batch = next(self._source, None)
                 if batch is None:
                     break
-                with self._lock:
+                with self._lock, tracing.span("train/encode", step=step) as sp, \
+                        memwatch.span_hbm(sp):
                     enc, ready = self._encode_one(batch, step)
                 if not self._safe_put((step, enc, ready, None)):
                     return
@@ -275,7 +280,8 @@ class EncodeProducer:
         lockstep), or None at the epoch's end. Producer errors re-raise
         here, on the train thread."""
         start = time.perf_counter()
-        got_step, enc, ready, err = self._q.get()
+        with tracing.span("train/encode_wait", step=step):
+            got_step, enc, ready, err = self._q.get()
         self.wait_s.append(time.perf_counter() - start)
         self._gauge.set(float(self._q.qsize()))
         if err is not None:

@@ -17,7 +17,10 @@ it is the JAX package's optax chain step for step: global-norm clipping by
 ``g * max_norm / g_norm`` (no epsilon), AdamW that decays every parameter,
 the learning-rate schedule indexed by the optimizer-update count (the first
 update uses ``schedule(0)``), and ``optax.MultiSteps``' running mean of the
-gradients when ``gradient_accumulation_steps > 1``.
+gradients when ``gradient_accumulation_steps > 1``. ``optim.use_8bit_adam``
+swaps AdamW for the JAX package's ``adamw8bit`` (``core/adam8bit.py``):
+8-bit moments per block of 256 for every tensor of at least 4,096
+elements, updated one tensor at a time.
 
 Parameters are dicts of f32 master tensors under the port's state-dict
 names (the modules' own parameters in the trainer). Under
@@ -40,8 +43,9 @@ import torch.nn as nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from dcr_tpu_torch.core import adam8bit as A8
 from dcr_tpu_torch.core import rng as rngmod
-from dcr_tpu_torch.core.config import NotPortedError, OptimConfig, TrainConfig
+from dcr_tpu_torch.core.config import OptimConfig, TrainConfig
 from dcr_tpu_torch.core.precision import policy_from_string
 from dcr_tpu_torch.models import schedulers as S
 from dcr_tpu_torch.sampling.sampler import DiffusionModels  # noqa: F401 (the bundle)
@@ -55,13 +59,22 @@ DRAW_STREAMS = ("vae_sample", "noise", "timesteps", "emb_noise", "mixup_beta", "
 class OptState:
     """optax's state for clip + AdamW (+ MultiSteps), flat over
     ``<group>/<param name>`` keys. ``count`` is AdamW's update count (it also
-    indexes the schedule); ``mini_step`` and ``acc_grads`` are MultiSteps'."""
+    indexes the schedule); ``mini_step`` and ``acc_grads`` are MultiSteps'.
+
+    With ``optim.use_8bit_adam`` (``adamw8bit``'s state), every trainable
+    tensor of at least ``adam8bit.MIN_QUANTIZE_SIZE`` elements keeps its
+    moments in ``m8`` / ``v8`` instead: ``<key>/q`` the codes (int8 for m,
+    uint8 for v, ``[n_blocks, 256]``) and ``<key>/scale`` the f32 block
+    scales ``[n_blocks, 1]``; ``mu`` / ``nu`` then hold the smaller
+    tensors' f32 moments only. ``m8`` is None without 8-bit Adam."""
 
     count: int
     mu: Params
     nu: Params
     mini_step: int = 0
     acc_grads: Optional[Params] = None
+    m8: Optional[Params] = None
+    v8: Optional[Params] = None
 
 
 @dataclass
@@ -143,21 +156,33 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class Optimizer:
-    """optax.chain(clip_by_global_norm, adamw) wrapped in MultiSteps when
-    accumulating; :meth:`update` applies the update to the params in place."""
+    """optax.chain(clip_by_global_norm, adamw) -- or, with
+    ``use_8bit_adam``, the JAX package's ``adamw8bit`` -- wrapped in
+    MultiSteps when accumulating; :meth:`update` applies the update to the
+    params in place."""
 
     def __init__(self, cfg: OptimConfig):
-        if cfg.use_8bit_adam:
-            raise NotPortedError("optim.use_8bit_adam is not ported to dcr_tpu_torch yet")
         self.cfg = cfg
         self.schedule = make_lr_schedule(cfg)
         self.accum = max(1, cfg.gradient_accumulation_steps)
 
     def init(self, trainable: dict[str, Params]) -> OptState:
         flat = _flat(trainable)
-        zeros = lambda: {k: torch.zeros_like(p, dtype=torch.float32) for k, p in flat.items()}
-        return OptState(count=0, mu=zeros(), nu=zeros(),
-                        acc_grads=zeros() if self.accum > 1 else None)
+        zeros = lambda keys: {k: torch.zeros_like(flat[k], dtype=torch.float32)
+                              for k in keys}
+        small = [k for k, p in flat.items()
+                 if not (self.cfg.use_8bit_adam and A8.is_quantized(p.numel()))]
+        opt = OptState(count=0, mu=zeros(small), nu=zeros(small),
+                       acc_grads=zeros(flat) if self.accum > 1 else None)
+        if self.cfg.use_8bit_adam:
+            opt.m8, opt.v8 = {}, {}
+            for k, p in flat.items():
+                if k in opt.mu:
+                    continue
+                for store, dtype in ((opt.m8, torch.int8), (opt.v8, torch.uint8)):
+                    q = A8.zeros(p.numel(), dtype, p.device)
+                    store[f"{k}/q"], store[f"{k}/scale"] = q.q, q.scale
+        return opt
 
     @torch.no_grad()
     def update(self, grads: Params, opt: OptState, trainable: dict[str, Params]) -> bool:
@@ -173,7 +198,8 @@ class Optimizer:
                 return False
             opt.mini_step = 0
             grads = opt.acc_grads
-        self._adamw(self._clip(grads), opt, _flat(trainable))
+        adamw = self._adamw8bit if opt.m8 is not None else self._adamw
+        adamw(self._clip(grads), opt, _flat(trainable))
         if self.accum > 1:
             for acc in opt.acc_grads.values():
                 acc.zero_()
@@ -196,6 +222,33 @@ class Optimizer:
             mu.mul_(c.adam_beta1).add_(g, alpha=1.0 - c.adam_beta1)
             nu.mul_(c.adam_beta2).addcmul_(g, g, value=1.0 - c.adam_beta2)
             upd = (mu / bc1) / ((nu / bc2).sqrt_() + c.adam_epsilon)
+            upd.add_(p, alpha=c.adam_weight_decay)
+            p.add_(upd, alpha=-lr)
+
+    def _adamw8bit(self, grads: Params, opt: OptState, params: Params) -> None:
+        """``adamw8bit``: per tensor, dequantize (8-bit tensors), update the
+        moments, take ``(m/c1)/(sqrt(v/c2)+eps)`` with the bias corrections
+        in f32 as the JAX update takes them, requantize; then add ``wd * p``
+        and scale by ``-lr``."""
+        c = self.cfg
+        lr = self.schedule(opt.count)
+        opt.count += 1
+        c1, c2 = A8.bias_corrections(c.adam_beta1, c.adam_beta2, opt.count)
+        for k, g in grads.items():
+            p = params[k]
+            if k in opt.mu:
+                m, v = opt.mu[k], opt.nu[k]
+            else:
+                m = A8.Quant8(opt.m8[f"{k}/q"], opt.m8[f"{k}/scale"])
+                v = A8.Quant8(opt.v8[f"{k}/q"], opt.v8[f"{k}/scale"])
+            upd, m_new, v_new = A8.update_leaf(g, m, v, b1=c.adam_beta1, b2=c.adam_beta2,
+                                               eps=c.adam_epsilon, c1=c1, c2=c2)
+            for old, new in ((m, m_new), (v, v_new)):
+                if isinstance(old, A8.Quant8):
+                    old.q.copy_(new.q)
+                    old.scale.copy_(new.scale)
+                else:
+                    old.copy_(new)
             upd.add_(p, alpha=c.adam_weight_decay)
             p.add_(upd, alpha=-lr)
 

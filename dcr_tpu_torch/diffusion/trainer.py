@@ -38,6 +38,18 @@ the newest valid checkpoint, and exports the HF-layout checkpoint at the end.
   restored frozen params; one that cannot serve the run raises
   ``LatentCacheError``. A NaN rollback restores the hot part only: the
   frozen tensors, which the producer reads, are never written.
+- Telemetry, as the JAX trainer's: ``<output_dir>/trace.jsonl`` with the
+  ``train/data_wait`` and ``train/step`` spans (the step's with
+  ``hbm_peak`` / ``hbm_delta``; host time, no device sync) and the
+  producer's ``train/encode`` / ``train/encode_wait``; a flight-recorder
+  dump (``flightrec_0.json``) on the NaN abort, the preemption exit and the
+  hang exit; the ``dcr_device_mem_*`` gauges; ``tflops_per_sec`` and
+  ``mfu`` at each log boundary on a card (``utils/profiling``). Out of
+  device memory anywhere in the loop (or the ``oom`` fault) ends the
+  process with exit 85 and a memory post-mortem
+  (``obs/memwatch.oom_abort``). ``DCR_PROFILE_AT_STEP=K`` (and
+  ``DCR_PROFILE_STEPS``) captures those steps with ``torch.profiler`` into
+  ``<output_dir>/profile``.
 - ``sample_hook(trainer, sync)`` runs every ``save_steps`` optimizer steps,
   as in the JAX trainer; ``dcr-train`` installs
   :func:`dcr_tpu_torch.diffusion.sample_hook.make_sample_hook`, which
@@ -62,6 +74,7 @@ import torch
 from dcr_tpu_torch.core import coordination as C
 from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import rng as rngmod
+from dcr_tpu_torch.core import tracing
 from dcr_tpu_torch.core.checkpoint import CheckpointManager, export_hf_layout
 from dcr_tpu_torch.core.config import TrainConfig, save_config, to_dict, validate_train_config
 from dcr_tpu_torch.core.device import resolve_device
@@ -72,8 +85,9 @@ from dcr_tpu_torch.data.tokenizer import TokenizerBase, load_tokenizer
 from dcr_tpu_torch.diffusion import encode_stage as E
 from dcr_tpu_torch.diffusion import train as T
 from dcr_tpu_torch.models import export as EX
+from dcr_tpu_torch.obs import memwatch
 from dcr_tpu_torch.sampling.pipeline import build_models
-from dcr_tpu_torch.utils import faults
+from dcr_tpu_torch.utils import faults, profiling
 
 log = logging.getLogger("dcr_tpu_torch")
 
@@ -105,6 +119,9 @@ class Trainer:
         self.sample_hook = sample_hook
         self.out_dir = Path(cfg.output_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
+        # spans into <output_dir>/trace.jsonl (DCR_TRACE=0 keeps the ring
+        # only), and the anchor of flightrec_<rank>.json on every fatal path
+        tracing.configure(self.out_dir)
         save_config(cfg, self.out_dir / "config.json")
         self.tokenizer = tokenizer or load_tokenizer(
             cfg.pretrained_model or None, vocab_size=cfg.model.text_vocab_size,
@@ -122,6 +139,8 @@ class Trainer:
                                  fault=cfg.fault, quarantine=self.quarantine)
         self.models = build_models(cfg.model, self.device,
                                    seed=rngmod.stream_seed(cfg.seed, "init"))
+        # dcr_device_mem_* gauges (nothing to sample on the CPU)
+        memwatch.start_sampler()
         modules = {"unet": self.models.unet, "vae": self.models.vae,
                    "text": self.models.text_encoder}
         for name, sd in _flax_to_state_dicts(pretrained_params or {}, cfg).items():
@@ -337,6 +356,9 @@ class Trainer:
         """The loop's fault-injection hooks (free when DCR_FAULTS is unset)."""
         if faults.fire("nan_loss", step=step):
             self._nan_pending = True
+        if faults.fire("oom", step=step):
+            # through train()'s out-of-memory path, as a real one goes
+            raise memwatch.InjectedOom(f"train step {step}")
         if faults.fire("sigterm", step=step):
             os.kill(os.getpid(), signal.SIGTERM)
         if faults.fire("hang", step=step):
@@ -352,6 +374,15 @@ class Trainer:
     def train(self) -> dict:
         try:
             return self._train()
+        except Exception as e:
+            # out of device memory anywhere in the loop (the step, the
+            # producer, a restore): the typed exit 85 with a memory post-
+            # mortem, so a restart wrapper can tell "shrink the batch" from
+            # a crash. Every other error keeps its meaning
+            if memwatch.is_oom_error(e):
+                self.watchdog.stop()
+                memwatch.oom_abort(f"train step {self.state.step}", e)
+            raise
         finally:
             # a raise stops the heartbeats: a still-armed watchdog would exit
             # 89 mid-unwind and hide the real failure
@@ -372,6 +403,23 @@ class Trainer:
         log.info("training: %d optimizer steps (micro-batch accum %d, %d micro/epoch), "
                  "batch %d on %s", max_micro // accum, accum, steps_per_epoch,
                  cfg.train_batch_size, self.device)
+        # mfu: one step's FLOPs, counted once on meta tensors (on a card;
+        # the CPU has no peak to hold them to)
+        flops = peak = None
+        if self.device.type == "cuda":
+            t0 = time.perf_counter()
+            try:
+                flops = profiling.train_step_flops(cfg, hot_only=self.pipelined)
+            except Exception as e:  # telemetry never stops training: logged, no mfu
+                R.log_event("step_flops_count_failed", error=repr(e))
+            peak = profiling.chip_peak_tflops(
+                "bf16" if cfg.mixed_precision == "bf16" else "f32")
+            log.info("a step's FLOPs: %s (counted in %.2f s); peak %s TFLOP/s",
+                     flops, time.perf_counter() - t0, peak)
+        # on-demand profiling: DCR_PROFILE_AT_STEP=K captures micro-steps
+        # [K, K + DCR_PROFILE_STEPS) into <output_dir>/profile
+        profile_at = int(os.environ.get("DCR_PROFILE_AT_STEP", "-1") or -1)
+        profile_steps = int(os.environ.get("DCR_PROFILE_STEPS", "1") or 1)
         t_last, imgs_last = time.time(), 0
         last_metrics: dict = {}
         self.watchdog.start()
@@ -384,11 +432,27 @@ class Trainer:
                              if self.pipelined else None)
             try:
                 while True:
-                    batch = (next(batches, None) if self.producer is None
-                             else self.producer.get(step))
+                    if self.producer is None:
+                        # the host's wait on the loader (its decodes run on
+                        # its worker threads); pipelined, the producer
+                        # thread waits and get() spans train/encode_wait
+                        with tracing.span("train/data_wait", step=step):
+                            batch = next(batches, None)
+                    else:
+                        batch = self.producer.get(step)
                     if batch is None:
                         break
-                    self.state, metrics = self.step_fn(self.state, batch)
+                    if step == profile_at:
+                        try:
+                            profiling.arm(str(self.out_dir / "profile"), profile_steps)
+                            R.log_trace("profile_armed", at_step=step, steps=profile_steps)
+                        except (RuntimeError, ValueError) as e:
+                            R.log_event("profile_arm_failed", error=repr(e))
+                    # host time of the step's launches (no device sync);
+                    # hbm_peak / hbm_delta from the allocator's counters
+                    with profiling.capture(), \
+                            tracing.span("train/step", step=step) as sp, memwatch.span_hbm(sp):
+                        self.state, metrics = self.step_fn(self.state, batch)
                     step += 1
                     imgs_last += cfg.train_batch_size
                     self.watchdog.beat(step)
@@ -403,6 +467,8 @@ class Trainer:
                             with self.watchdog.paused(step):
                                 rolled_back = self._rollback_after_nan(step, metrics["loss"])
                             if not rolled_back:
+                                tracing.dump_flight_recorder(
+                                    f"nan_abort: step {step} loss {metrics['loss']}")
                                 raise FloatingPointError(
                                     f"non-finite loss {metrics['loss']} at step {step}; "
                                     f"resume from the last good checkpoint (step "
@@ -413,7 +479,15 @@ class Trainer:
                             if step >= max_micro:
                                 break
                             continue
-                        metrics["images_per_sec"] = imgs_last / max(time.time() - t_last, 1e-9)
+                        dt = max(time.time() - t_last, 1e-9)
+                        metrics["images_per_sec"] = imgs_last / dt
+                        if flops:
+                            # one device: per-device and whole-job rates agree
+                            tflops = flops * imgs_last / cfg.train_batch_size / dt / 1e12
+                            metrics["tflops_per_sec"] = tflops
+                            metrics["tflops_per_sec_total"] = tflops
+                            if peak:
+                                metrics["mfu"] = tflops / peak
                         metrics.update(self._fault_metrics())
                         self.writer.scalars(sync, metrics)
                         last_metrics = metrics
@@ -432,6 +506,9 @@ class Trainer:
                         self.save()
                         self.writer.close()
                         self.preempted_exit = True
+                        # the exit-83 path: the run's last moments for the
+                        # restart's operator
+                        tracing.dump_flight_recorder(f"preempted: checkpointed at step {step}")
                         return last_metrics
                     if at_sync and sync % cfg.modelsavesteps == 0:
                         with self.watchdog.paused(step):

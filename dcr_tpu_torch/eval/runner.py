@@ -73,6 +73,7 @@ from dcr_tpu_torch.models.clip_image import (
     CLIPImageTower,
     CLIPScorer,
     image_state_dict_from_openai,
+    image_state_dict_from_transformers,
     make_clip_scorer,
     scorer_state_dict_from_openai,
 )
@@ -147,8 +148,10 @@ def load_backbone_params(pt_style: str, arch: str, path: str) -> dict[str, torch
     dict, from the torch names the JAX package's converters read: SSCD (a
     TorchScript archive or a plain state dict, whose names are the port's),
     a DINO hub checkpoint (ViT and XCiT names are the port's; the ResNet-50
-    trunk goes under ``backbone.``), or an OpenAI CLIP archive (its
-    ``visual.*`` image tower)."""
+    trunk goes under ``backbone.``), or a CLIP image tower: an OpenAI CLIP
+    archive (``visual.*``) or a transformers ``CLIPVisionModel`` state dict
+    (``vision_model.*``). Any other CLIP layout raises ``KeyError``, as the
+    JAX converter does."""
     sd = load_torch_weights(path)
     if pt_style == "sscd":
         return sd
@@ -161,9 +164,12 @@ def load_backbone_params(pt_style: str, arch: str, path: str) -> dict[str, torch
             keep["cls_token"] = keep["cls_token"].reshape(1, 1, -1)
         return keep
     if pt_style == "clip":
-        if not any(k.startswith("visual.") for k in sd):
-            raise KeyError(f"{path}: not an OpenAI CLIP archive (no visual.* keys)")
-        return image_state_dict_from_openai(sd)
+        if any(k.startswith("visual.") for k in sd):
+            return image_state_dict_from_openai(sd)
+        if any(k.startswith("vision_model.") for k in sd):
+            return image_state_dict_from_transformers(sd)
+        raise KeyError(f"{path}: neither an OpenAI CLIP archive (visual.*) nor a "
+                       f"transformers CLIPVisionModel state dict (vision_model.*)")
     raise ValueError(f"unknown pt_style {pt_style!r} (sscd | dino | clip)")
 
 

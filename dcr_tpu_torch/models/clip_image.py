@@ -13,7 +13,11 @@ Module names follow the JAX module's (``patch_embed``, ``class_embedding``,
 ``pos_embed``, ``ln_pre``, ``blocks.N``, ``ln_post``, ``proj``), with the
 blocks under :class:`~dcr_tpu_torch.models.vit.ViTBlock`'s names. An OpenAI
 CLIP archive loads through :func:`scorer_state_dict_from_openai`, the
-counterpart of ``dcr_tpu/models/convert.py`` ``convert_openai_clip``.
+counterpart of ``dcr_tpu/models/convert.py`` ``convert_openai_clip``; an
+image tower from an OpenAI archive or a transformers ``CLIPVisionModel``
+through :func:`image_state_dict_from_openai` or
+:func:`image_state_dict_from_transformers`, the two branches of
+``convert_clip_image``.
 LayerNorms have Flax's eps of 1e-6 in the image tower; the text tower keeps
 the port's CLIPTextModel (eps 1e-5, as the JAX text tower).
 """
@@ -140,6 +144,43 @@ def image_state_dict_from_openai(sd: Mapping[str, torch.Tensor], *,
         out[f"{dst}.attn.qkv.bias"] = sd[f"{src}.attn.in_proj_bias"]
         for ours, theirs in block_map:
             for leaf in ("weight", "bias"):
+                out[f"{dst}.{ours}.{leaf}"] = sd[f"{src}.{theirs}.{leaf}"]
+    return {k: torch.as_tensor(val).float().contiguous() for k, val in out.items()}
+
+
+def image_state_dict_from_transformers(sd: Mapping[str, torch.Tensor], *,
+                                       layers: Optional[int] = None
+                                       ) -> dict[str, torch.Tensor]:
+    """A transformers ``CLIPVisionModel`` state dict (``vision_model.*``
+    with split q/k/v projections; ``visual_projection.weight`` when it was
+    saved with its projection) -> the port's :class:`CLIPImageTower` state
+    dict (``layers`` blocks; by default as many as the state dict has). The
+    second branch of ``dcr_tpu/models/convert.py`` ``convert_clip_image``:
+    q, k and v concatenated in that order into the fused ``qkv``, and both
+    spellings of the pre-LayerNorm (transformers' ``pre_layrnorm``)."""
+    out: dict[str, torch.Tensor] = {}
+    v = "vision_model."
+    if layers is None:
+        blocks = re.compile(r"vision_model\.encoder\.layers\.(\d+)\.")
+        layers = 1 + max(int(m.group(1)) for k in sd if (m := blocks.match(k)))
+    out["patch_embed.weight"] = sd[f"{v}embeddings.patch_embedding.weight"]
+    out["class_embedding"] = torch.as_tensor(sd[f"{v}embeddings.class_embedding"]).reshape(-1)
+    out["pos_embed"] = sd[f"{v}embeddings.position_embedding.weight"][None]
+    pre = f"{v}pre_layrnorm" if f"{v}pre_layrnorm.weight" in sd else f"{v}pre_layernorm"
+    for ours, theirs in (("ln_pre", pre), ("ln_post", f"{v}post_layernorm")):
+        for leaf in ("weight", "bias"):
+            out[f"{ours}.{leaf}"] = sd[f"{theirs}.{leaf}"]
+    if "visual_projection.weight" in sd:
+        out["proj"] = torch.as_tensor(sd["visual_projection.weight"]).t()
+    block_map = (("norm1", "layer_norm1"), ("norm2", "layer_norm2"),
+                 ("attn.proj", "self_attn.out_proj"), ("mlp.fc1", "mlp.fc1"),
+                 ("mlp.fc2", "mlp.fc2"))
+    for i in range(layers):
+        src, dst = f"{v}encoder.layers.{i}", f"blocks.{i}"
+        for leaf in ("weight", "bias"):
+            out[f"{dst}.attn.qkv.{leaf}"] = torch.cat(
+                [torch.as_tensor(sd[f"{src}.self_attn.{n}_proj.{leaf}"]) for n in "qkv"])
+            for ours, theirs in block_map:
                 out[f"{dst}.{ours}.{leaf}"] = sd[f"{src}.{theirs}.{leaf}"]
     return {k: torch.as_tensor(val).float().contiguous() for k, val in out.items()}
 

@@ -534,7 +534,7 @@ def train_ivf(store_dir: str | Path, *, n_lists: int = DEFAULT_N_LISTS,
     """
     if warm_dir:
         raise NotPortedError("warm_dir (the warm executable cache) is not ported to "
-                             "dcr_tpu_torch yet (ROADMAP Queue A item 7)")
+                             "dcr_tpu_torch yet (ROADMAP Queue A item 7c)")
     if int(n_lists) < 1:
         raise AnnError(f"n_lists must be >= 1, got {n_lists}")
     if int(iters) < 1:

@@ -112,7 +112,7 @@ class AnnEngine:
                                  "dcr_tpu_torch yet (ROADMAP Queue A item 9)")
         if warm_dir:
             raise NotPortedError("warm_dir (the warm executable cache) is not ported to "
-                                 "dcr_tpu_torch yet (ROADMAP Queue A item 7)")
+                                 "dcr_tpu_torch yet (ROADMAP Queue A item 7c)")
         self.store_dir = store_dir
         self.reader = EmbeddingStoreReader(store_dir)
         self.ann = AnnIndexReader(store_dir)

@@ -123,8 +123,13 @@ def search_folders(gen_features: np.ndarray, gen_keys: Sequence[str],
         valid = torch.ones(len(feats), dtype=torch.bool, device=device)
         k = min(top_k, feats.shape[0])
         for start in range(0, n, chunk_size):
-            top_scores, top_idx = topk(feats_dev, valid, gen[start:start + chunk_size], k)
-            top_scores, top_idx = top_scores.cpu().numpy(), top_idx.cpu().numpy()
+            # one span per chunk's device top-k and host copy: the search
+            # stage's time breakdown in trace_report
+            with tracing.span("search/chunk", folder=str(folder), start=start,
+                              rows=int(min(chunk_size, n - start)),
+                              index_size=int(feats.shape[0])):
+                top_scores, top_idx = topk(feats_dev, valid, gen[start:start + chunk_size], k)
+                top_scores, top_idx = top_scores.cpu().numpy(), top_idx.cpu().numpy()
             if k < top_k:  # pad tiny chunks
                 pad = top_k - k
                 top_scores = np.pad(top_scores, ((0, 0), (0, pad)), constant_values=-np.inf)

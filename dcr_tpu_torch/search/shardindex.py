@@ -107,7 +107,7 @@ class ShardedTopK:
                                  "dcr_tpu_torch yet (ROADMAP Queue A item 9)")
         if warm_dir:
             raise NotPortedError("warm_dir (the warm executable cache) is not ported to "
-                                 "dcr_tpu_torch yet (ROADMAP Queue A item 7)")
+                                 "dcr_tpu_torch yet (ROADMAP Queue A item 7c)")
         self.reader = reader
         self.device = resolve_device(device)
         self.top_k = max(1, int(top_k))

@@ -1,8 +1,6 @@
 """Thread-safe request queue with bounded-depth admission control.
 
-Counterpart of ``dcr_tpu/serve/queue.py``, operation for operation; the
-port's :class:`Request` has no span or trace id (spans come with ROADMAP
-Queue A item 7).
+Counterpart of ``dcr_tpu/serve/queue.py``, operation for operation.
 
 The admission contract is the first line of overload defense: a request
 either enters the bounded queue or is rejected *immediately* with a typed
@@ -21,7 +19,7 @@ import threading
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 
 class AdmissionError(RuntimeError):
@@ -50,10 +48,9 @@ class BucketLimitError(AdmissionError):
 
 
 class MemoryBudgetError(AdmissionError):
-    """Admitting this request's novel bucket would build a resident sampler
-    whose estimated footprint exceeds remaining device memory (HTTP 503).
-    The port raises it nowhere yet: the memory budget comes with ROADMAP
-    Queue A item 7; the type keeps the wire tags and counters whole."""
+    """Admitting this request's novel bucket would run a sampler whose
+    estimated footprint (the largest measured sibling's, obs/memwatch.py)
+    exceeds remaining device memory (HTTP 503)."""
 
 
 class SloShedError(AdmissionError):
@@ -119,6 +116,13 @@ class Request:
     # after the device step when a risk index is loaded; None = unscored
     # (scoring disabled / still loading / scoring failed)
     risk: Optional[dict] = None
+    # tracing.SpanHandle of the serve/request root span (opened at
+    # admission, ended when the future resolves); the queue wait, device
+    # step and respond spans parent on its id, one tree per request across
+    # the handler and worker threads
+    span: Any = None
+    # the request's distributed trace id (tracing.new_trace_id)
+    trace_id: Optional[str] = None
 
 
 class RequestQueue:

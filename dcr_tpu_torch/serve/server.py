@@ -17,12 +17,18 @@ Endpoints (JSON in and out):
   "buckets_total", "risk": "absent"|"loading"|"ok"|"failed"}``.
 - ``GET /metrics``: the :meth:`GenerationService.status` document;
   ``?format=prometheus`` renders the telemetry registry (the same document
-  folded into gauges, the copy-risk counters and the latency summary) in
-  Prometheus text format.
+  folded into gauges, the copy-risk counters, the latency summary and the
+  ``dcr_device_mem_*`` gauges) in Prometheus text format.
+- ``POST /debug/profile``: body ``{"steps"?: int, "logdir"?: str}`` arms
+  ``torch.profiler`` over the next K device steps (200 with the armed
+  status; 409 when already armed or without a destination); ``GET
+  /debug/profile`` reports the status, with ``artifact`` (the Chrome
+  trace) once written.
 
-``POST /generate_batch`` and ``GET /slo`` belong to the serving fleet, and
-``/debug/profile`` to profiling (ROADMAP Queue A items 8 and 7): they
-answer 404 as the JAX handler does for a service without them. PNGs are
+``POST /generate_batch`` and ``GET /slo`` belong to the serving fleet
+(ROADMAP Queue A item 8): they answer 404 as the JAX handler does for a
+service without them. Each /generate response is written inside a
+``serve/respond`` span under the request's root. PNGs are
 written by the port's own encoder (``sampling/png``). ``block_on_close`` and
 non-daemon handler threads give the drain guarantee: ``server_close()``
 returns only after every in-flight response has been written.
@@ -172,7 +178,10 @@ class ServeHandler(BaseHTTPRequestHandler):
         elif url.path == "/slo":
             self._reply(404, {"error": "slo engine not supported"})
         elif url.path == "/debug/profile":
-            self._reply(404, {"error": "profiling not supported"})
+            try:
+                self._reply(200, self.service.profile_status())
+            except Exception as e:
+                self._reply(500, {"error": f"profile status failed: {e!r}"})
         else:
             self._reply(404, {"error": f"no such endpoint {self.path!r}"})
 
@@ -203,10 +212,25 @@ class ServeHandler(BaseHTTPRequestHandler):
         elif self.path == "/check":
             self._post_check()
         elif self.path == "/debug/profile":
-            self._reply(404, {"error": "profiling not supported"})
+            self._post_profile()
         else:
             # /generate_batch too: the fleet's dispatch channel
             self._reply(404, {"error": f"no such endpoint {self.path!r}"})
+
+    def _post_profile(self) -> None:
+        """Arm ``torch.profiler`` around the worker's next K device steps."""
+        try:
+            body = self._read_json()
+        except (TypeError, ValueError) as e:
+            self._reply(400, {"error": f"bad request: {e!r}"})
+            return
+        try:
+            self._reply(200, self.service.profile(body))
+        except (ValueError, RuntimeError) as e:
+            # already armed, no destination, steps < 1
+            self._reply(409, {"error": str(e)})
+        except Exception as e:
+            self._reply(500, {"error": f"profile arm failed: {e!r}"})
 
     def _post_check(self) -> None:
         """Copy-risk query: score one submitted image against the index."""
@@ -249,7 +273,12 @@ class ServeHandler(BaseHTTPRequestHandler):
         except Exception as e:
             self._reply(500, {"error": f"generation failed: {e!r}"})
             return
-        self._reply(200, self._render(req, result))
+        # the response leg of the request's tree: PNG encode and socket write
+        # on this handler thread, off the device worker's path
+        with tracing.span("serve/respond", request_id=req.id,
+                          parent=req.span.id if req.span is not None else None,
+                          trace=req.trace_id):
+            self._reply(200, self._render(req, result))
 
 
 class _Server(ThreadingHTTPServer):

@@ -22,20 +22,36 @@ benches and tests drive it in-process:
   failed batch;
 - live provenance (``ingest.enabled``): every scored generation's SSCD row
   goes to the store's WAL through :class:`~dcr_tpu_torch.serve.ingest.
-  IngestPump`, keyed ``gen/<request id>``; ``/check`` sees it through the
-  live tail once it is acked, and each compaction swaps the risk engine onto
-  the new snapshot (:meth:`CopyRiskIndex.refresh_store`) without a restart.
+  IngestPump`, keyed ``gen/<trace id>`` as the JAX worker keys it;
+  ``/check`` sees it through the live tail once it is acked, and each
+  compaction swaps the risk engine onto the new snapshot
+  (:meth:`CopyRiskIndex.refresh_store`) without a restart;
+- tracing, as the JAX worker's: a trace id and a ``serve/request`` root
+  span per request, ``serve/queue_wait``, ``serve/assemble``,
+  ``serve/device_step`` (with ``hbm_peak`` / ``hbm_delta``),
+  ``serve/risk_score``, ``sample/fast``, and ``serve/rejected`` /
+  ``risk/flagged`` events;
+- the memory budget: a novel bucket is admitted only while the largest
+  measured bucket footprint (each bucket's peak rise over its first batch,
+  ``obs/memwatch``), times the admitted buckets that have not run yet plus
+  one, fits in the device's remaining memory; else ``MemoryBudgetError``
+  (HTTP 503 ``memory_budget``). Out of device memory in a batch (or the
+  ``oom`` fault) ends the process with exit 85 and a post-mortem naming
+  the resident buckets;
+- on-demand profiling (``POST /debug/profile``): ``torch.profiler`` over the
+  next K device steps.
 
 The JAX worker traces one jitted scan per bucket; here each step runs
 eagerly. Device work runs on the worker thread, the risk loader's thread and
 the ``/check`` handler threads: every function that runs a model enters
 ``torch.inference_mode()`` itself (grad mode is thread-local). The warm
-cache, the serving fleet's fault hooks, the hang watchdog, the memory budget
-and profiling are not ported (ROADMAP Queue A items 7 and 8).
+cache and the serving fleet's fault hooks and hang watchdog are not ported
+(ROADMAP Queue A items 7c and 8).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -50,8 +66,9 @@ from dcr_tpu_torch.core import rng as rngmod
 from dcr_tpu_torch.core import tracing
 from dcr_tpu_torch.core.config import ServeConfig, validate_serve_config
 from dcr_tpu_torch.core.device import resolve_device
-from dcr_tpu_torch.core.metrics import LatencyTracker
+from dcr_tpu_torch.core.metrics import LatencyTracker, MetricWriter
 from dcr_tpu_torch.models.vae import vae_scale_factor
+from dcr_tpu_torch.obs import memwatch
 from dcr_tpu_torch.sampling import fastsample
 from dcr_tpu_torch.sampling.pipeline import GenerationStack
 from dcr_tpu_torch.sampling.sampler import (DiffusionModels, decode_images, denoise,
@@ -61,6 +78,7 @@ from dcr_tpu_torch.serve.cache import EmbeddingCache, embedding_key, mitigation_
 from dcr_tpu_torch.serve.queue import (AdmissionError, BucketLimitError, DrainingError,
                                        GenBucket, InvalidRequestError, MemoryBudgetError,
                                        Request, RequestQueue)
+from dcr_tpu_torch.utils import faults, profiling
 
 log = logging.getLogger("dcr_tpu_torch")
 
@@ -294,7 +312,8 @@ class GenerationService:
     calls and two processes on the same card give the same image.
     """
 
-    def __init__(self, cfg: ServeConfig, stack: GenerationStack):
+    def __init__(self, cfg: ServeConfig, stack: GenerationStack,
+                 writer: Optional[MetricWriter] = None):
         validate_serve_config(cfg)
         if stack.device.type == "cuda":
             torch.backends.cudnn.benchmark = False
@@ -306,7 +325,12 @@ class GenerationService:
         self.batcher = Batcher(cfg.max_batch, cfg.max_wait_ms / 1000.0)
         self.cache = EmbeddingCache(cfg.cache_entries)
         self.metrics = ServeMetrics()
+        # serve/* scalars per batch into <logdir>/metrics.jsonl
+        self._writer = writer
         self._samplers: dict[GenBucket, object] = {}
+        # buckets whose first batch's footprint is noted (obs/memwatch)
+        self._measured: set[GenBucket] = set()
+        self._batch_index = 0
         # buckets counted against max_compiled_buckets at ADMISSION time, not
         # at first build: otherwise a burst of novel buckets all passes the
         # budget check before the worker builds any of them
@@ -317,6 +341,8 @@ class GenerationService:
         # replica that 400s every default request
         validate_bucket(self.default_bucket(), vae_scale=self._vae_scale)
         self._build_lock = threading.Lock()
+        # dcr_device_mem_* gauges for /metrics (nothing to sample on the CPU)
+        memwatch.start_sampler()
         # warm-start readiness: begin_warm() flips health to "warming",
         # warm_start() runs the plan and flips it back. Set at first, so an
         # in-process service that never warms reports "ok"
@@ -373,8 +399,18 @@ class GenerationService:
                             f"compiled-sampler budget "
                             f"({self.cfg.max_compiled_buckets}); use an "
                             "already-served parameter combination")
+                    # a novel bucket: its batch must fit in the memory left
+                    self._check_memory_budget(bucket)
                     self._admitted_buckets.add(bucket)
             req = Request(prompt=prompt, seed=int(seed) & 0xFFFFFFFF, bucket=bucket)
+            req.trace_id = tracing.new_trace_id()
+            # the root of the request's span tree, ended by the future's
+            # callback on whichever thread resolves it: its duration is the
+            # in-service latency. Attached before the queue publishes the
+            # request; a rejected request's root is never ended (not recorded)
+            req.span = tracing.begin_span("serve/request", parent=None, trace=req.trace_id,
+                                          request_id=req.id, seed=req.seed,
+                                          bucket=str(tuple(bucket)))
             try:
                 self.queue.submit(req)
             except AdmissionError:
@@ -389,9 +425,43 @@ class GenerationService:
                 raise
         except AdmissionError as e:
             self.metrics.note_rejected(e)
+            tracing.event("serve/rejected", error=type(e).__name__)
             raise
         self.metrics.note_submitted()
+        root = req.span
+        req.future.add_done_callback(
+            lambda f: root.end(error=repr(f.exception())) if f.exception() is not None
+            else root.end())
         return req
+
+    def _check_memory_budget(self, bucket: GenBucket) -> None:
+        """Reject a novel bucket whose estimated footprint exceeds the
+        device's remaining memory (the caller holds ``_samplers_lock``).
+        The estimate is the largest measured ``serve/batch_sampler``
+        footprint (same model, same padded batch: only the bucket's
+        parameters differ); with none measured yet, or no device
+        statistics, there is no check. Admitted buckets that have not run
+        yet reserve the estimate too: the device's reading moves only once
+        a batch runs, so a burst of novel buckets would otherwise all pass
+        against the same reading."""
+        estimate = memwatch.estimate_surface_bytes("serve/batch_sampler")
+        if estimate is None:
+            return
+        remaining = memwatch.remaining_device_bytes()
+        if remaining is None:
+            return
+        pending = sum(1 for b in self._admitted_buckets if b not in self._measured)
+        needed = estimate * (pending + 1)
+        if needed > remaining:
+            tracing.registry().counter("serve/rejected_memory_budget").inc()
+            R.log_event("memory_budget_rejected", bucket=str(tuple(bucket)),
+                        estimate_bytes=estimate, pending_compiles=pending,
+                        needed_bytes=needed, remaining_bytes=remaining)
+            raise MemoryBudgetError(
+                f"bucket {bucket} would run a new sampler (~{estimate} bytes estimated "
+                f"from measured buckets; {pending} admitted bucket(s) not run yet) past "
+                f"remaining device memory ({remaining} bytes); use an already-served "
+                "parameter combination")
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -480,7 +550,7 @@ class GenerationService:
         for bucket in self._warm_plan:
             with self._samplers_lock:
                 self._admitted_buckets.add(bucket)
-            self._sampler_for(bucket)(uncond, uncond, seeds).cpu()
+            self._run_sampler(bucket, self._sampler_for(bucket), uncond, uncond, seeds)
         self._warm_complete.set()
         doc = {"buckets_warm": len(self._warm_plan),
                "buckets_total": len(self._warm_plan),
@@ -586,7 +656,8 @@ class GenerationService:
         """True once the index load terminalized (ok OR failed)."""
         return self._risk_done.wait(timeout)
 
-    def _score_risk(self, requests: list[Request], images: np.ndarray) -> None:
+    def _score_risk(self, requests: list[Request], images: np.ndarray, ids: list,
+                    traces: list) -> None:
         """Score one finished batch against the train index: ``copy_risk``
         on each request, the sim histogram and flagged counters, a bounded
         evidence dump per over-threshold generation. Any failure is counted
@@ -598,8 +669,15 @@ class GenerationService:
             return
         rcfg = self.cfg.risk
         try:
-            scores, feats = index.score_batch_with_features(images)
-            copyrisk.observe_scores(scores, rcfg.threshold)
+            with tracing.span("serve/risk_score", batch=len(requests), request_ids=ids,
+                              trace_ids=traces) as sp:
+                scores, feats = index.score_batch_with_features(images)
+                agg = copyrisk.observe_scores(scores, rcfg.threshold)
+                # the per-row sims ride the span: trace_report's copy-risk
+                # percentiles come from here
+                sp.attrs.update(sims=[round(s.max_sim, 6) for s in scores],
+                                prompts=[r.prompt for r in requests],
+                                flagged=agg["flagged"])
         except Exception as e:
             log.exception("serve: copy-risk scoring failed")
             R.log_event("risk_score_failed", batch=len(requests), error=repr(e))
@@ -607,18 +685,22 @@ class GenerationService:
             return
         for req, score, img in zip(requests, scores, images):
             req.risk = score.doc(rcfg.threshold)
-            if score.max_sim >= rcfg.threshold and self._evidence is not None:
-                self._evidence.record(img, score, rcfg.threshold, request_id=req.id,
-                                      prompt=req.prompt, seed=req.seed,
-                                      bucket=list(tuple(req.bucket)))
+            if score.max_sim >= rcfg.threshold:
+                tracing.event("risk/flagged", trace=req.trace_id, request_id=req.id,
+                              seed=req.seed, prompt=req.prompt,
+                              max_sim=round(score.max_sim, 6), top_key=score.top_key,
+                              threshold=rcfg.threshold)
+                if self._evidence is not None:
+                    self._evidence.record(img, score, rcfg.threshold, request_id=req.id,
+                                          prompt=req.prompt, seed=req.seed,
+                                          bucket=list(tuple(req.bucket)), trace=req.trace_id)
         pump = self._pump
         if pump is not None:
             # offer() never blocks: a full queue drops the row and bumps
             # ingest/dropped_total, generation latency is untouched. The key
-            # is the JAX worker's, whose requests without a trace id use
-            # their id
+            # is the JAX worker's
             for req, row in zip(requests, feats):
-                pump.offer(row, f"gen/{req.id}")
+                pump.offer(row, f"gen/{req.trace_id or req.id}")
 
     def check(self, body: dict) -> dict:
         """``POST /check``: score ONE submitted image against the train
@@ -634,7 +716,9 @@ class GenerationService:
                 f"{(self.cfg.risk.store_dir or self.cfg.risk.index_path)!r})",
                 status=self._risk_status)
         image = decode_image_b64(body)
-        score = index.score_batch(image[None])[0]
+        with tracing.span("serve/risk_score", source="check", batch=1) as sp:
+            score = index.score_batch(image[None])[0]
+            sp.attrs.update(sims=[round(score.max_sim, 6)])
         reg = tracing.registry()
         reg.counter("copy_risk/checked_total").inc()
         reg.histogram("copy_risk/sim").observe(score.max_sim)
@@ -658,23 +742,76 @@ class GenerationService:
         if pad < 0:
             raise ValueError(f"batch of {n} exceeds max_batch={self.cfg.max_batch}")
         fn = self._sampler_for(bucket)
-        mitigation = mitigation_tag(bucket)
-        uncond_row = self._uncond_embedding()
-        cond = np.stack([self._cond_embedding(r, mitigation) for r in requests]
-                        + [uncond_row] * pad)
-        uncond = np.stack([uncond_row] * self.cfg.max_batch)
-        seeds = np.asarray([r.seed for r in requests] + [0] * pad, np.uint32)
-        images = fn(cond, uncond, seeds)[:n].float().cpu().numpy()
-        self._score_risk(requests, images)
+        ids = [r.id for r in requests]
+        traces = [r.trace_id for r in requests]
+        # batch-level spans carry the member request and trace ids
+        with tracing.span("serve/assemble", batch=n, request_ids=ids, trace_ids=traces):
+            mitigation = mitigation_tag(bucket)
+            uncond_row = self._uncond_embedding()
+            cond = np.stack([self._cond_embedding(r, mitigation) for r in requests]
+                            + [uncond_row] * pad)
+            uncond = np.stack([uncond_row] * self.cfg.max_batch)
+            seeds = np.asarray([r.seed for r in requests] + [0] * pad, np.uint32)
+        # one sample/fast span per accelerated batch (trace_report's Fast
+        # sampling section); a dense bucket's trace keeps its shape
+        calls = fastsample.unet_calls(fastsample.fast_plan(bucket.steps, bucket.fast_ratio))
+        fast_span = (tracing.span("sample/fast", steps=bucket.steps, unet_calls=calls,
+                                  batch=n, fast_ratio=bucket.fast_ratio,
+                                  fast_order=bucket.fast_order, sampler=bucket.sampler)
+                     if calls < bucket.steps else contextlib.nullcontext())
+        # the copy to the host closes the span when the device work is done
+        with profiling.capture(), \
+                tracing.span("serve/device_step", batch=n, request_ids=ids, trace_ids=traces,
+                             bucket=str(tuple(bucket))) as dsp, \
+                memwatch.span_hbm(dsp), fast_span:
+            images = self._run_sampler(bucket, fn, cond, uncond, seeds)[:n]
+        self._score_risk(requests, images, ids, traces)
+        return images
+
+    def _run_sampler(self, bucket: GenBucket, fn, cond, uncond, seeds) -> np.ndarray:
+        """One padded batch of ``bucket`` to host f32 images. A bucket's first
+        batch notes its footprint, the peak rise over the bytes in use
+        before it, as ``serve/batch_sampler@<bucket>`` (the memory budget's
+        estimate)."""
+        if bucket in self._measured:
+            return fn(cond, uncond, seeds).float().cpu().numpy()
+        with memwatch.region_peak() as region:
+            images = fn(cond, uncond, seeds).float().cpu().numpy()
+        if region.rise is not None:
+            memwatch.note_surface("serve/batch_sampler", str(tuple(bucket)),
+                                  {"temp_bytes": region.rise})
+        with self._samplers_lock:
+            self._measured.add(bucket)
         return images
 
     # -- the drain loop ------------------------------------------------------
 
     def _process(self, batch: list[Request]) -> None:
         t0 = time.monotonic()
+        now_wall = time.time()
+        batch_index = self._batch_index
+        self._batch_index += 1
+        for req in batch:
+            # the queue wait from the admission stamp, under the request's root
+            waited = t0 - req.enqueued_at
+            tracing.complete_span("serve/queue_wait", start_wall=now_wall - waited,
+                                  dur_s=waited,
+                                  parent=req.span.id if req.span is not None else None,
+                                  trace=req.trace_id, request_id=req.id)
         try:
+            if faults.fire("oom", batch=batch_index):
+                # through the out-of-memory path below, as a real one goes
+                raise memwatch.InjectedOom(f"serve batch {batch_index}")
             images = self.execute(batch)
         except Exception as e:
+            if memwatch.is_oom_error(e):
+                # this process can promise no further batch: exit 85 with a
+                # memory post-mortem naming the resident buckets (the
+                # futures are left to the process's death)
+                with self._samplers_lock:
+                    buckets = [tuple(b) for b in self._samplers]
+                memwatch.oom_abort(f"serve batch {batch_index} bucket {batch[0].bucket}", e,
+                                   buckets=buckets)
             log.exception("serve: batch failed")
             R.log_event("serve_batch_failed", batch=len(batch),
                         bucket=str(batch[0].bucket), error=repr(e))
@@ -690,6 +827,20 @@ class GenerationService:
         self.metrics.note_batch(len(batch), self.cfg.max_batch, ok=True)
         log.info("serve: batch of %d/%d in %.3fs (queue depth %d)",
                  len(batch), self.cfg.max_batch, now - t0, self.queue.depth())
+        if self._writer is not None:
+            try:
+                snap = self.metrics.snapshot()
+                self._writer.scalars(snap["batches_total"], {
+                    "serve/queue_depth": self.queue.depth(),
+                    "serve/batch_occupancy": snap["batch_occupancy_last"],
+                    "serve/cache_hit_rate": self.cache.stats()["hit_rate"],
+                    "serve/latency_p50_ms": snap["latency_ms"]["p50"],
+                    "serve/latency_p99_ms": snap["latency_ms"]["p99"]})
+            except Exception as e:
+                # a full disk under logdir is not a generation failure: the
+                # requests were answered above
+                R.log_event("serve_metrics_write_failed", error=repr(e))
+                R.bump_counter("serve_metrics_write_failed")
 
     def _run(self) -> None:
         with torch.inference_mode():
@@ -709,6 +860,27 @@ class GenerationService:
                         if not req.future.done():
                             req.future.set_exception(e)
         log.info("serve: worker drained and stopped")
+
+    # -- on-demand profiling -------------------------------------------------
+
+    def profile(self, body: dict) -> dict:
+        """``POST /debug/profile``: arm ``torch.profiler`` over the next K
+        ``serve/device_step`` regions. Body ``{"steps"?: int, "logdir"?:
+        str}``; the logdir defaults to ``<trace dir>/profile``. Returns the
+        armed status; ``GET /debug/profile`` reports the ``artifact`` (the
+        Chrome trace's path) once written."""
+        steps = int(body.get("steps", 1))
+        logdir = body.get("logdir")
+        if not logdir:
+            base = tracing.trace_dir()
+            if base is None:
+                raise ValueError("no profile destination: pass 'logdir' or run the "
+                                 "worker with --logdir")
+            logdir = str(base / "profile")
+        return profiling.arm(logdir, steps)
+
+    def profile_status(self) -> dict:
+        return profiling.status()
 
     # -- introspection -------------------------------------------------------
 

@@ -62,6 +62,11 @@ The kinds the port fires, and their hook points:
   coordinate ``load`` (the reader's shard read index): damages a shard's
   bytes in memory, so the shard is quarantined and its indices re-encode
   live (``latentcache/batch_recompute``).
+- ``oom``: the Trainer loop (coordinate ``step``) and the serve worker's
+  batch loop (coordinate ``batch``, the worker's batch index): raises
+  ``obs/memwatch.InjectedOom`` through the path a real
+  ``torch.OutOfMemoryError`` takes, so the process exits 85 after a
+  flight-recorder dump with its memory section.
 
 The JAX package's other kinds have no hook in the port yet, and a spec that
 names one raises :class:`NotPortedError` when it is parsed: a fault that
@@ -93,13 +98,12 @@ class InjectedFault(RuntimeError):
 PORTED_KINDS = ("decode_error", "ckpt_corrupt", "nan_loss", "sigterm", "hang",
                 "search_dump_corrupt", "store_shard_corrupt", "ivf_list_corrupt",
                 "kmeans_nan", "wal_torn", "ingest_crash", "compact_crash", "ingest_stall",
-                "recall_degrade", "latent_cache_corrupt")
+                "recall_degrade", "latent_cache_corrupt", "oom")
 
 #: the JAX package's other kinds, each with the ROADMAP Queue A item that
 #: brings its hook point
 NOT_PORTED_KINDS = {
-    "oom": "item 7 (obs/memwatch, the typed OOM exit)",
-    "cache_corrupt": "item 7 (the warm executable cache)",
+    "cache_corrupt": "item 7c (the warm executable cache)",
     "worker_crash": "item 8 (the serving fleet)",
     "worker_hang": "item 8 (the serving fleet)",
     "slow_step": "item 8 (the serving fleet)",

@@ -305,8 +305,8 @@ def test_load_backbone_params_reads_an_openai_clip_archive(tmp_path):
     with torch.inference_mode():
         _close(model.eval()(torch.from_numpy(x)), jmodel.apply({"params": ref}, _nhwc(x)))
     (tmp_path / "bad.pt").write_bytes(b"")
-    torch.save({"vision_model.x": torch.zeros(1)}, tmp_path / "bad.pt")
-    with pytest.raises(KeyError, match="not an OpenAI CLIP archive"):
+    torch.save({"text_model.x": torch.zeros(1)}, tmp_path / "bad.pt")
+    with pytest.raises(KeyError, match="neither an OpenAI CLIP archive"):
         RUN.load_backbone_params("clip", "", str(tmp_path / "bad.pt"))
 
 

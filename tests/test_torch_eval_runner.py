@@ -244,3 +244,39 @@ def test_reads_retry_transient_errors_only():
     with pytest.raises(FileNotFoundError):
         read_with_retry(failing(1, FileNotFoundError), fault, "missing")
     assert len(calls) == 1
+
+
+# -- C6: a transformers CLIP vision archive ------------------------------------
+
+def test_load_backbone_params_reads_a_transformers_clip_vision_archive(tmp_path):
+    """A transformers ``CLIPVisionModelWithProjection`` state dict
+    (``vision_model.*``, split q/k/v, ``pre_layrnorm``, and the
+    ``visual_projection``), built locally at tiny widths, goes through both
+    packages' ``load_backbone_params("clip", ...)``; the towers' features on
+    one seeded batch agree at the f32 bar (atol 2e-4, rtol 1e-3). 12 blocks,
+    because the JAX loader assumes ViT-B/16's depth."""
+    transformers = pytest.importorskip("transformers")
+    from dcr_tpu.eval.runner import load_backbone_params as jax_load
+    from dcr_tpu.models.clip_image import CLIPImageTower as JaxTower
+    from dcr_tpu_torch.eval.runner import load_backbone_params
+    from dcr_tpu_torch.models.clip_image import CLIPImageTower
+
+    torch.manual_seed(0)
+    vcfg = transformers.CLIPVisionConfig(hidden_size=32, intermediate_size=128,
+                                         num_hidden_layers=12, num_attention_heads=2,
+                                         image_size=16, patch_size=8, projection_dim=16)
+    model = transformers.CLIPVisionModelWithProjection(vcfg)
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    assert any(k.startswith("vision_model.pre_layrnorm") for k in sd)
+    torch.save(sd, tmp_path / "clip_vision.pt")
+    ours = load_backbone_params("clip", "", str(tmp_path / "clip_vision.pt"))
+    ref = jax_load("clip", "", str(tmp_path / "clip_vision.pt"))
+    tower = CLIPImageTower(image_size=16, patch_size=8, width=32, layers=12, heads=2,
+                           embed_dim=16)
+    tower.load_state_dict(ours, strict=True)
+    x = np.random.default_rng(6).uniform(0, 1, (2, 3, 16, 16)).astype(np.float32)
+    with torch.inference_mode():
+        got = tower.eval()(torch.from_numpy(x)).numpy()
+    want = np.asarray(JaxTower(patch_size=8, width=32, layers=12, heads=2, embed_dim=16)
+                      .apply({"params": ref}, jnp.asarray(x.transpose(0, 2, 3, 1))))
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)

@@ -388,6 +388,10 @@ def test_cli_exits_83_with_a_checkpoint_on_sigterm(tmp_path):
     assert (tmp_path / "cli" / "checkpoints" / "2" / CK.STATE_FILE).exists()
     assert (tmp_path / "cli" / "checkpoints" / "manifests" / "2.json").exists()
     assert [r["step"] for r in _rows(tmp_path / "cli")] == [1, 2]
+    # the exit-83 path's flight-recorder dump, beside the run's trace
+    dump = json.loads((tmp_path / "cli" / "flightrec_0.json").read_text())
+    assert dump["reason"] == "preempted: checkpointed at step 2" and "memory" in dump
+    assert (tmp_path / "cli" / "trace.jsonl").exists()
 
 
 def test_cli_exits_89_with_a_thread_dump_when_a_step_hangs(tmp_path):
@@ -399,4 +403,9 @@ def test_cli_exits_89_with_a_thread_dump_when_a_step_hangs(tmp_path):
     assert "[fault] injected_hang" in proc.stderr and "[fault] hang_abort" in proc.stderr
     # faulthandler's dump: the wedged main thread sits in simulate_hang
     assert "Thread 0x" in proc.stderr and "simulate_hang" in proc.stderr
+    # the flight recorder, dumped before the exit: the last spans
+    dump = json.loads((tmp_path / "hang" / "flightrec_0.json").read_text())
+    assert dump["reason"].startswith("hang_abort:train") and "memory" in dump
+    assert "train/step" in [r["name"] for r in dump["records"]]
+    assert "last trace records:" in proc.stderr
     shutil.rmtree(tmp_path / "hang", ignore_errors=True)

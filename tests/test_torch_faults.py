@@ -102,6 +102,23 @@ def test_live_tier_kinds_parse_and_fire_as_in_jax(spec):
     assert reg.fire(kind, **coord)
 
 
+@pytest.mark.parametrize("spec", ["oom@step=2", "oom@batch=0x2"])
+def test_oom_kind_parses_and_fires_as_in_jax(spec):
+    """The ``oom`` kind has its hooks since the memory slice (the trainer's
+    step, the serve worker's batch): it parses as the JAX package parses it
+    and fires at its coordinate."""
+    def entries(mod):
+        return [(s.kind, s.where, s.times) for s in mod.parse_faults(spec)]
+
+    assert entries(faults) == entries(jfaults)
+    (kind, where, times), = entries(faults)
+    assert kind in faults.PORTED_KINDS and kind not in faults.NOT_PORTED_KINDS
+    reg = faults.install(spec)
+    assert not reg.fire(kind, **{k: v + 1 for k, v in where.items()})
+    assert all(reg.fire(kind, **where) for _ in range(times))
+    assert not reg.fire(kind, **where)
+
+
 def test_unknown_kind_is_refused():
     with pytest.raises(ValueError, match="unknown fault kind"):
         faults.parse_faults("decode_errr@step=1")

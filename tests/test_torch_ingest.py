@@ -109,10 +109,20 @@ def test_pump_appends_compacts_and_calls_back(tmp_path):
         for i in range(16):
             assert pump.offer(rows[i], f"g{i}")
         _wait(lambda: pump.stats()["appended_rows"] == 16 and pump.stats()["compactions"] >= 1)
-        s = pump.stats()
+        # the pump may commit its next compaction between the reads: take
+        # the manifest of the snapshot the stats report, between two equal
+        # stats documents
+        for _ in range(1000):
+            s = pump.stats()
+            manifest = ST.read_store_manifest(store)
+            tail = pump.tail(manifest["wal_through"])[0]
+            if manifest["snapshot"] == s["snapshot"] and pump.stats() == s:
+                break
+            time.sleep(0.01)
+        else:
+            raise AssertionError(f"the pump's stats never settled: {s}, {manifest}")
         assert s["status"] == "ok" and s["dropped_rows"] == 0
-        wal_through = ST.read_store_manifest(store)["wal_through"]
-        assert len(pump.tail(wal_through)[0]) == s["total_rows"] - s["snapshot"] * 8
+        assert len(tail) == s["total_rows"] - s["snapshot"] * 8
     assert pump.stats()["status"] == "stopped"
     assert snapshots and snapshots[0] == 1
     # every acked row is durable, and the JAX package reads it all
@@ -218,7 +228,7 @@ def test_serve_with_ann_and_ingest_end_to_end(tmp_path):
         req = svc.submit("a blue circle", seed=2)
         np.testing.assert_array_equal(req.future.result(timeout=120), img_new)
         _wait(lambda: svc._pump.stats()["appended_rows"] >= 1)
-        key = f"gen/{req.id}"
+        key = f"gen/{req.trace_id}"
         check = svc.check(png)
         assert check["top_key"] == key and check["max_sim"] > 0.9999, check
         assert svc.health_doc()["ingest"]["status"] == "ok"

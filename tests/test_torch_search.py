@@ -327,12 +327,42 @@ def test_cli_build_append_verify_query_stats(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["query", "--mesh.data=2"], ["query", "--warm_dir=w"], ["query", "--logdir=l"]],
+    ["query", "--mesh.data=2"], ["query", "--warm_dir=w"]],
     ids=lambda a: "_".join(a).replace("--", ""))
 def test_unported_settings_and_subcommands_raise(tmp_path, monkeypatch, argv):
     monkeypatch.setenv("DCR_TPU_PLATFORM", "cpu")
     with pytest.raises(NotPortedError, match="ROADMAP Queue A item [79]"):
         cli.main(argv + [f"--store_dir={tmp_path}"])
+
+
+@pytest.mark.parametrize("argv", [["search", "--logdir=l"]],
+                         ids=lambda a: "_".join(a).replace("--", ""))
+def test_logdir_traces_the_search(corpus, tmp_path, monkeypatch, argv):
+    """``--logdir`` runs since the trace sink was ported: the folder search
+    writes one ``search/chunk`` span per query chunk and folder to
+    ``<logdir>/trace.jsonl``, which ``tools/trace_report.py`` reads (its
+    search section counts them) and its schema accepts."""
+    from tools import trace_report as TR
+
+    folders, _, _, _, q = corpus
+    monkeypatch.setenv("DCR_TPU_PLATFORM", "cpu")
+    gdir = tmp_path / "q" / "gens"
+    gdir.mkdir(parents=True)
+    E.save_embeddings(gdir / "embedding.npz", q, [f"g{i}" for i in range(len(q))])
+    logdir = tmp_path / "q" / argv[1].split("=")[1]
+    tracing.reset_for_tests()
+    try:
+        cli.main([argv[0], f"--logdir={logdir}", f"--gen_folder={gdir}",
+                  f"--laion_folder={folders[0].parent}", f"--out_path={tmp_path / 'r.npz'}",
+                  "--num_chunks=2"])
+    finally:
+        tracing.reset_for_tests()
+    records, errors = TR.load_trace(logdir, TR.load_schema())
+    assert errors == []
+    chunks = [r for r in records if r["name"] == "search/chunk"]
+    assert len(chunks) == 2 * len(folders)
+    assert {r["args"]["folder"] for r in chunks} == {str(f) for f in folders}
+    assert TR.summarize(records)["search"]["brute_chunks"]["chunks"] == len(chunks)
 
 
 @pytest.mark.parametrize("argv", [["query", "--live=true"], ["recover"], ["compact"]],
@@ -399,7 +429,7 @@ def test_ann_settings_and_subcommands_run(corpus, tmp_path, monkeypatch, capsys,
 
 
 @pytest.mark.parametrize("field,value", [("mesh", MeshConfig(data=4)),
-                                         ("warm_dir", "w"), ("logdir", "l")])
+                                         ("warm_dir", "w")])
 def test_run_search_refuses_unported_settings(corpus, tmp_path, field, value):
     folders, store, _, _, q = corpus
     gdir = tmp_path / "gens"

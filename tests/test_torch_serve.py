@@ -573,10 +573,14 @@ def test_http_front_end_in_process(tiny, tmp_path):
         assert _http(port, "/generate", {"prompt": "x", "steps": 3})[0] == 200
         code, _, raw = _http(port, "/generate", {"prompt": "x", "steps": 4})
         assert code == 503 and json.loads(raw)["error"] == "bucket_limit"
-        for path in ("/slo", "/debug/profile", "/nope"):
+        for path in ("/slo", "/nope"):
             assert _http(port, path)[0] == 404
-        code, _, raw = _http(port, "/debug/profile", {})
-        assert code == 404 and json.loads(raw)["error"] == "profiling not supported"
+        # profiling is ported: GET is the armer's status, a bad arm a 409
+        # (tests/test_torch_profiling.py arms it and reads the trace)
+        code, _, raw = _http(port, "/debug/profile")
+        assert code == 200 and json.loads(raw)["armed"] is False
+        code, _, raw = _http(port, "/debug/profile", {"steps": 0, "logdir": str(tmp_path)})
+        assert code == 409 and "steps must be >= 1" in json.loads(raw)["error"]
         assert _http(port, "/generate_batch", {"requests": [{"prompt": "x"}]})[0] == 404
     finally:
         svc.begin_drain()
@@ -652,13 +656,16 @@ def _export_tiny_ckpt(tiny, root: Path) -> Path:
 
 
 def test_cli_serves_a_jax_export_and_drains_with_exit_83(tiny, tmp_path):
+    """With ``--logdir``: every request's span tree in trace.jsonl, serve/*
+    scalars in metrics.jsonl, and the drain's flight-recorder dump."""
     ckpt = _export_tiny_ckpt(tiny, tmp_path)
     env = dict(os.environ, DCR_TPU_PLATFORM="cpu",
                PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    logdir = tmp_path / "logs"
     proc = subprocess.Popen(
         [sys.executable, "-m", "dcr_tpu_torch.cli.serve", f"--model_path={ckpt}",
          "--port=0", "--resolution=16", "--num_inference_steps=2", "--sampler=ddim",
-         "--max_batch=2", "--max_wait_ms=200", "--seed=0"],
+         "--max_batch=2", "--max_wait_ms=200", "--seed=0", f"--logdir={logdir}"],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines: list[str] = []
     reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
@@ -693,6 +700,18 @@ def test_cli_serves_a_jax_export_and_drains_with_exit_83(tiny, tmp_path):
             proc.kill()
             proc.wait(timeout=30)
     assert any("drained: exiting with code 83" in line for line in lines)
+    from tools import trace_report as TR
+
+    records, errors = TR.load_trace(logdir, TR.load_schema())
+    assert errors == []
+    roots = [r for r in records if r["name"] == "serve/request"]
+    assert len(roots) == 3 and all(r.get("trace") for r in roots)
+    for name in ("serve/queue_wait", "serve/assemble", "serve/device_step", "serve/respond"):
+        assert any(r["name"] == name for r in records), name
+    dump = json.loads((logdir / "flightrec_0.json").read_text())
+    assert dump["reason"] == "preempted: serve drained" and "memory" in dump
+    rows = [json.loads(x) for x in (logdir / "metrics.jsonl").read_text().splitlines()]
+    assert rows and "serve/latency_p99_ms" in rows[-1]
 
 
 def test_cli_refuses_to_run_without_a_gpu_unless_asked(tmp_path, monkeypatch):
@@ -712,8 +731,7 @@ def test_cli_refuses_to_run_without_a_gpu_unless_asked(tmp_path, monkeypatch):
 @pytest.mark.parametrize("overrides,item", [
     (["--fleet.workers=2"], "item 8"),
     (["--fleet.worker_index=0"], "item 8"),
-    (["--warm.dir=w"], "item 7"),
-    (["--logdir=l"], "item 7"),
+    (["--warm.dir=w"], "item 7c"),
     (["--hang_timeout_s=30"], "item 8"),
     (["--mesh.data=2"], "item 9"),
 ])
@@ -722,6 +740,14 @@ def test_unported_serve_settings_raise(overrides, item):
     JC.validate_serve_config(JC.parse_cli(JC.ServeConfig, overrides))   # valid in JAX
     with pytest.raises(TC.NotPortedError, match=f"ROADMAP Queue A {item}\\)"):
         TC.validate_serve_config(cfg)
+
+
+@pytest.mark.parametrize("overrides", [["--logdir=l"]])
+def test_serve_settings_that_run(overrides):
+    """``logdir`` runs since the trace and metrics sink was ported (the CLI
+    test below serves with it): it validates in both packages."""
+    JC.validate_serve_config(JC.parse_cli(JC.ServeConfig, overrides))
+    TC.validate_serve_config(TC.parse_cli(TC.ServeConfig, overrides))
 
 
 def test_serve_config_parses_as_the_jax_one():

@@ -171,7 +171,6 @@ def test_non_finite_loss_fails_fast(tmp_path):
 
 
 @pytest.mark.parametrize("override,what", [
-    ("--optim.use_8bit_adam=true", "8-bit Adam"),
     ("--use_wandb=true", "wandb"),
     ("--mesh.data=2", "mesh of 2"),
     ("--warm.dir=w", "warm"),
@@ -180,6 +179,21 @@ def test_settings_not_ported_are_refused(tmp_path, override, what):
     cfg = TC.parse_cli(TC.TrainConfig, [override], base=_cfg(tmp_path))
     with pytest.raises(TC.NotPortedError, match=what):
         Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override", ["--optim.use_8bit_adam=true"])
+def test_8bit_adam_setting_runs(tmp_path, override):
+    """8-bit Adam runs since its slice was ported: the Trainer trains with
+    int8/uint8 moment codes for the large tensors (tests/test_torch_adam8bit.py
+    holds it to the JAX package)."""
+    _data(tmp_path / "data")
+    cfg = TC.parse_cli(TC.TrainConfig, [override, "--max_train_steps=1"],
+                       base=_cfg(tmp_path))
+    trainer = Trainer(cfg, device="cpu")
+    metrics = trainer.train()
+    assert trainer.state.step == 1 and np.isfinite(metrics["loss"])
+    opt = trainer.state.opt_state
+    assert opt.m8 and {t.dtype for k, t in opt.m8.items() if k.endswith("/q")} == {torch.int8}
 
 
 @pytest.mark.parametrize("override", ["--pipe.enabled=true"])
