@@ -63,9 +63,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    SD-2.1 widths with mixed_precision="no"; 10 launches of each kernel per
    step, all in f32, finite losses;
 15. training faults (after phase 7): Trainer(TrainConfig()) as in phase 6
-   but with its UNet cut in depth to FAULTS_LAYERS_PER_BLOCK (SD-2.1's
-   widths, so the kernels' shapes are phase 6's; 6 kernel attentions per
-   step), on 48 JPEGs and one truncated JPEG with fault.max_bad_sample_frac 0.05,
+   but with its UNet cut in depth to FAULTS_LAYERS_PER_BLOCK and three
+   levels (SD-2.1's widths, so the kernels' shapes are phase 6's; 6 kernel
+   attentions per step), on 48 JPEGs and one truncated JPEG with fault.max_bad_sample_frac 0.05,
    max_rollbacks 1 and DCR_FAULTS's decode_error, nan_loss, sigterm and
    ckpt_corrupt: bad samples retried, quarantined and replaced, a NaN rolled
    back, a SIGTERM checkpointed, the torn checkpoint quarantined on resume,
@@ -109,8 +109,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    near-ties) against a float64 reference;
 13. search main path (last), through dcr-search-torch: embed (SSCD at 224,
    batch 128, over 2 tars of 512 JPEGs at 256 px and a corrupt member),
-   build from 2 reference-format pickle dumps of 1,048,576 unit rows x
-   512 (32 shards of 65,536, 4.3 GB), verify, query 4,096 rows (64 planted
+   build from 2 reference-format pickle dumps of 1,048,576 and 262,144
+   unit rows x 512 (20 shards of 65,536, 2.7 GB), verify, query 4,096 rows (64 planted
    copies) at top_k=1 and 10 (host-streamed) and on a resident one-chunk
    store, and the brute force (num_chunks=20); every copy top-1, a float64
    oracle over the whole store for 64 queries and the brute force against
@@ -164,7 +164,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    1,500 B1 launches; each generation's store key gen/<its trace id>,
    read from the phase's trace.jsonl; the dcr_device_mem_* gauges and a
    novel bucket refused 503 memory_budget under a memory share cut for the
-   drill (_serve_memory_drills).
+   drill (_serve_memory_drills); the exact store engine over the snapshot
+   after ingest (past 2^20 rows) host-streamed.
    Drills on phase 16's 65,536-row store (ingest_crash
    and compact_crash in subprocesses, wal_torn, recall_degrade) and the
    JAX-written WAL of tests/fixtures/jax_wal_store. Reported: ms per WAL
@@ -182,6 +183,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    other; s per step beside phase 6's, the ring wait per step, the
    precompute's seconds, images/s, fingerprint seconds and bytes, peaks.
    Both Trainers skip the final save and export (phase 6 holds them).
+22. serving fleet (inside 5b, after 14, on its genuine directory):
+   dcr-serve-torch --fleet.workers=2 as a subprocess at phase 14's bucket,
+   two worker processes on the card: (a) ready, the supervisor without a
+   CUDA context; (b) phase 14's wave, every image phase 14's in-process
+   image bit for bit; (c) worker_crash on worker 0 and (d) worker_hang on
+   worker 1 (exit 89 under the batch watchdog, its budget 1.5x a
+   two-worker batch): each batch requeued and
+   answered bit for bit, the journal at 0 dropped and 0 failed, the worker
+   respawned; (e) the merged Prometheus text with both workers' series,
+   GET /slo, dcr-status-torch --json exit 0; (f) /debug/profile through
+   the supervisor to worker 1, 10 forward-kernel events per UNet call in
+   its trace; (g) SIGTERM with a wave in flight, every request answered,
+   exit 83, no worker left. Ready, wave, requeue and respawn seconds,
+   both workers' memory gauges (phase_fleet);
 21. profile drill (last): POST /debug/profile on an in-process server at
    SD-2.1 widths arms torch.profiler for one device step; a 4-step request
    runs under it, and its Chrome trace holds the forward kernel's 40
@@ -1747,22 +1762,27 @@ def _cli_fault_run(root: Path, name: str, dcr_faults: str, *extra: str,
             "stderr": proc.stderr}
 
 
-# phase 15's UNet depth: SD-2.1 has 2 layers per block (865.9 M UNet
-# params); 1 keeps every width (583.5 M), cutting each checkpoint from ~12.1
-# to ~8.7 GB; the fault drills do not depend on depth
+# phase 15's UNet depth: SD-2.1 has 2 layers per block and four levels
+# (865.9 M UNet params); 1 layer per block (583.5 M) and its first three
+# levels (318.3 M: the fourth's 1280-wide blocks go; levels 0 and 1, the
+# kernel-shaped attentions, stay as they are) cut each checkpoint from
+# ~12.1 to ~4.8 GB; the fault drills do not depend on depth
 FAULTS_LAYERS_PER_BLOCK = 1
+FAULTS_BLOCK_OUT_CHANNELS = (320, 640, 1280)
 
 
 def kernel_attentions_per_step(layers_per_block: int) -> int:
     """Kernel-shaped self-attentions per SD-2.1 UNet call at 256 px: levels 0
     and 1 (S = 1024, 256) each hold layers_per_block down and
-    layers_per_block + 1 up; level 2 (S = 64) and the mid block go to SDPA."""
+    layers_per_block + 1 up; level 2 (S = 64) and the mid block go to SDPA
+    (with three levels, level 2 has none and the mid block's is at S = 64)."""
     return 2 * (2 * layers_per_block + 1)
 
 
 def phase_train_faults(out_dir: Path) -> dict:
     """Phase 15: training's fault tolerance at SD-2.1's widths, its UNet cut to
-    FAULTS_LAYERS_PER_BLOCK. Trainer(TrainConfig())
+    FAULTS_LAYERS_PER_BLOCK and the levels of FAULTS_BLOCK_OUT_CHANNELS.
+    Trainer(TrainConfig())
     (256 px, batch 16, bf16) on 48 photo-like JPEGs and one
     truncated JPEG, with fault.max_bad_sample_frac 0.05, max_rollbacks 1,
     a checkpoint every 3 steps (2 kept) and FAULT_SPEC installed:
@@ -1815,7 +1835,8 @@ def phase_train_faults(out_dir: Path) -> dict:
     run = out_dir / "run"
     cfg = TrainConfig(output_dir=str(run), max_train_steps=6, log_every=1, modelsavesteps=3,
                       checkpoints_total_limit=2)
-    cfg.model = dataclasses.replace(cfg.model, layers_per_block=FAULTS_LAYERS_PER_BLOCK)
+    cfg.model = dataclasses.replace(cfg.model, layers_per_block=FAULTS_LAYERS_PER_BLOCK,
+                                    block_out_channels=FAULTS_BLOCK_OUT_CHANNELS)
     cfg.data.train_data_dir = str(data)
     cfg.fault = FaultToleranceConfig(max_bad_sample_frac=0.05, max_rollbacks=1)
 
@@ -1951,6 +1972,7 @@ def phase_train_faults(out_dir: Path) -> dict:
     steps_run = len(first["step_s"]) + len(resumed["step_s"]) + len(straight["step_s"])
     stats = {
         "card": CARD[0], "spec": FAULT_SPEC, "layers_per_block": FAULTS_LAYERS_PER_BLOCK,
+        "block_out_channels": FAULTS_BLOCK_OUT_CHANNELS,
         "records": {k: kinds.count(k) for k in set(kinds)},
         "expected_bad_samples": sorted(expected_bad),
         "metric_steps": [r["step"] for r in rows],
@@ -2809,30 +2831,40 @@ def phase_mitigation(ckpt: Path, root: Path) -> dict:
 # B1 launch at one of these shapes (phase 3's train_level0/1 rows in f32)
 SERVE_CASES = ("train_level0", "train_level1")
 SERVE_PROMPTS = ("a red square", "a photo of a church", "a garbage truck", "an old map")
+# phase 14's in-process pixels of its wave, by "prompt|seed": phase 22's
+# fleet answers are held to them
+SERVE_WAVE_PIXELS: dict = {}
 
 
 class ServeProcess:
     """``python -m dcr_tpu_torch.cli.serve`` as a subprocess, its output in a
-    file; killed on exit unless it ended by itself."""
+    file; killed on exit unless it ended by itself. A fleet (``group``) runs
+    in a process group of its own, so its workers die with it."""
 
-    def __init__(self, argv: list[str], log_path: Path):
+    def __init__(self, argv: list[str], log_path: Path, env: dict | None = None,
+                 group: bool = False):
         import os
 
         self.log_path = log_path
         self._log = open(log_path, "w")
-        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)
+        self.group = group
+        env = dict(os.environ, **(env or {}),
+                   PYTHONPATH=str(Path(__file__).resolve().parent)
                    + os.pathsep + os.environ.get("PYTHONPATH", ""))
         self.proc = subprocess.Popen([sys.executable, "-m", "dcr_tpu_torch.cli.serve", *argv],
                                      stdout=self._log, stderr=subprocess.STDOUT, env=env,
-                                     cwd=str(Path(__file__).resolve().parent))
+                                     cwd=str(Path(__file__).resolve().parent),
+                                     start_new_session=group)
 
     def text(self) -> str:
         return self.log_path.read_text(errors="replace")
 
-    def wait_for_port(self, timeout: float) -> int:
+    def wait_for_port(self, timeout: float, role: str = "") -> int:
+        """The port of the line ``dcr-serve <role>listening on``; role
+        "supervisor " for a fleet's front end."""
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
-            m = re.search(r"dcr-serve listening on http://[\d.]+:(\d+)", self.text())
+            m = re.search(rf"dcr-serve {role}listening on http://[\d.]+:(\d+)", self.text())
             if m:
                 return int(m.group(1))
             if self.proc.poll() is not None:
@@ -2842,9 +2874,17 @@ class ServeProcess:
                              + self.text()[-4000:])
 
     def close(self) -> None:
+        import os
+        import signal
+
+        if self.group:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)    # the workers too
+            except ProcessLookupError:
+                pass
         if self.proc.poll() is None:
             self.proc.kill()
-            self.proc.wait(timeout=60)
+        self.proc.wait(timeout=60)
         self._log.close()
 
 
@@ -2884,6 +2924,23 @@ def _concurrent_posts(port: int, bodies: list[dict]) -> tuple[list, list[float]]
 
 def _metrics(port: int) -> dict:
     return json.loads(_http(port, "/metrics")[2])
+
+
+def _wave_key(body: dict) -> str:
+    return f"{body['prompt']}|{body['seed']}"
+
+
+def _pixel_sha256(image) -> str:
+    """sha256 of an image's uint8 pixels as the server's PNG carries them
+    (a float image in [0, 1] is rounded as the server rounds it)."""
+    import hashlib
+
+    import numpy as np
+
+    image = np.asarray(image)
+    if image.dtype != np.uint8:
+        image = (image * 255.0).round().astype(np.uint8)
+    return hashlib.sha256(np.ascontiguousarray(image).tobytes()).hexdigest()
 
 
 def _percentile(xs: list[float], q: float) -> float:
@@ -2965,6 +3022,10 @@ def phase_serve(ckpt: Path, root: Path) -> dict:
             torch.cuda.synchronize()
             batch_s.append(time.perf_counter() - t0)
         stats["inprocess_full_batch_s"] = batch_s
+        # phase 22's fleet answers the same wave: its images are held to these
+        for w, img in zip(wave, [*halves[0], *halves[1]]):
+            SERVE_WAVE_PIXELS[_wave_key(w)] = (img * 255.0).round().astype(np.uint8)
+        stats["wave_pixel_sha256"] = {k: _pixel_sha256(v) for k, v in SERVE_WAVE_PIXELS.items()}
         unet_calls = fastsample.unet_calls(fastsample.fast_plan(bucket.steps, 0.0))
         mixed_steps, mixed_checks = 10, {}
         for sampler, lam in (("dpm++", 0.1), ("ddpm", 0.0)):
@@ -3179,6 +3240,363 @@ def phase_serve(ckpt: Path, root: Path) -> dict:
     log(f"serve ({CARD[0]}): {json.dumps({k: v for k, v in stats.items() if k != 'check'})}")
     return stats
 
+# the batch index (each worker process counts its own from 0) at which phase
+# 22's drills fire: past what a respawned incarnation reaches in the phase
+FLEET_FAULT_BATCH = 8
+FLEET_PROFILE_STEPS = 4
+# a batch of phase 14's bucket with two workers on the card over one alone
+# (2.12-2.16 measured on an H100 80GB HBM3 at 700 W)
+FLEET_SHARED_BATCH_RATIO = 2.2
+
+
+def _cuda_context_holders(pids: list[int]) -> dict:
+    """Which of ``pids`` hold a CUDA context, two ways: nvidia-smi's compute
+    apps (whose pids may be another namespace's) and each process's
+    mappings of /dev/nvidia*."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    smi = {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+    maps = {}
+    for pid in pids:
+        try:
+            maps[pid] = "/dev/nvidia" in Path(f"/proc/{pid}/maps").read_text()
+        except OSError:
+            maps[pid] = None
+    return {"nvidia_smi": {pid: pid in smi for pid in pids}, "maps": maps}
+
+
+def _log_times(text: str, pattern: str) -> list[float]:
+    """Wall times (s since the epoch) of the log lines matching ``pattern``."""
+    import datetime
+
+    out = []
+    for m in re.finditer(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) .*" + pattern, text, re.M):
+        out.append(datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp())
+    return out
+
+
+def _requeue_latencies(journal: Path, worker: int) -> dict:
+    """Per request requeued off ``worker``, from the journal's wall stamps:
+    the dispatch that was lost to its requeue (the death's detection), the
+    requeue to the next dispatch (the wait for a live worker) and to the
+    ack."""
+    recs = [json.loads(line) for line in journal.read_text().splitlines() if line.strip()]
+    by_id: dict = {}
+    for r in recs:
+        by_id.setdefault(r.get("id"), []).append(r)
+    detect, wait, answer = [], [], []
+    for rs in by_id.values():
+        for i, r in enumerate(rs):
+            if r["op"] != "requeue" or r["worker"] != worker:
+                continue
+            lost = [x for x in rs[:i] if x["op"] == "dispatch"][-1]
+            nxt = [x for x in rs[i + 1:] if x["op"] == "dispatch"]
+            ack = [x for x in rs[i + 1:] if x["op"] == "ack"]
+            detect.append(r["t"] - lost["t"])
+            if nxt:
+                wait.append(nxt[0]["t"] - r["t"])
+            if ack:
+                answer.append(ack[0]["t"] - r["t"])
+    med = (lambda xs: statistics.median(xs) if xs else None)
+    return {"requeued": len(detect), "detect_s": med(detect), "redispatch_s": med(wait),
+            "answer_s": med(answer)}
+
+
+def phase_fleet(ckpt: Path, root: Path, serve_stats: dict) -> dict:
+    """Phase 22: the serving fleet. ``dcr-serve-torch --fleet.workers=2`` as
+    a subprocess on phase 5b's genuine SD-2.1 directory at phase 14's bucket
+    (ServeConfig()'s: 256 px, 50 DPM++ steps, max_batch 8; max_wait 1 s so a
+    wave forms full batches): two worker processes share the card.
+
+    (a) /healthz ok once both leases are ready; the supervisor holds no CUDA
+    context, the workers do. (b) phase 14's 16-request wave answers 200,
+    every image phase 14's in-process image bit for bit (its pixel hashes).
+    (c) and (d) in one wave of the same 16 requests: worker_crash on worker
+    0 (it SIGKILLs itself at its batch) and worker_hang on worker 1 with
+    hang_timeout_s at 1.5x the predicted two-worker batch time, the
+    longest batch the watchdog must let through (exit 89
+    after its thread dump and flight-recorder dump); both batches requeued
+    and answered bit for bit, the journal at 0 dropped and 0 failed,
+    workers_lost >= 2, both workers respawned to ready (workers_alive 2).
+    The fault's batch coordinate counts per process and which worker takes
+    which batch of a wave is a race, so the drill first brings each worker
+    to batch FLEET_FAULT_BATCH with 1-step requests sent to its own port.
+    (e) the merged
+    /metrics parses as Prometheus text with both workers' series under
+    worker labels (and each worker's dcr_device_mem_* gauges: both believe
+    they own the card), GET /slo has availability and shed_rate,
+    dcr-status-torch --json exits 0. (f) POST /debug/profile through the
+    supervisor arms worker 1 for one batch of (g)'s wave of
+    FLEET_PROFILE_STEPS-step requests: its Chrome trace holds 10
+    forward-kernel events per UNet call. (g) SIGTERM with that wave in
+    flight: every accepted request answered, the supervisor exits 83, no
+    worker process left. The workers' B1 launches are not counted (other
+    processes); (f)'s trace shows them."""
+    import base64
+    import contextlib
+    import io
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from dcr_tpu_torch.cli import status as status_cli
+    from dcr_tpu_torch.sampling import fastsample
+    from dcr_tpu_torch.sampling.png import decode_png
+    from dcr_tpu_torch.serve.fleet import RequestJournal, fleet_paths
+
+    t_phase = time.perf_counter()
+    wave = [{"prompt": p, "seed": s} for s in (1, 2, 3, 4) for p in SERVE_PROMPTS]
+    single_batch_s = statistics.median(serve_stats["server_full_batch_s"])
+    # two workers time-slice the card, so a batch of each at once takes
+    # FLEET_SHARED_BATCH_RATIO x phase 14's; the watchdog covers every batch
+    # of a worker, the clean wave's 50-step ones too, so its budget is 1.5x
+    # that, and the hang drill costs this budget plus one respawn
+    hang_timeout_s = round(1.5 * FLEET_SHARED_BATCH_RATIO * single_batch_s, 1)
+    k = FLEET_FAULT_BATCH
+    fault_spec = f"worker_crash@batch={k}&rank=0,worker_hang@batch={k}&rank=1"
+    fleet_dir = root / "fleet"
+    paths = fleet_paths(fleet_dir)
+    argv = [f"--model_path={ckpt}", "--port=0", "--max_wait_ms=1000", "--fleet.workers=2",
+            f"--fleet.dir={fleet_dir}", "--fleet.heartbeat_s=1", "--fleet.lease_s=20",
+            "--fleet.respawn_base_delay_s=0.5", "--fleet.max_attempts=6",
+            "--fleet.spawn_timeout_s=300", "--fleet.scrape_period_s=1",
+            "--slo.short_window_s=5", "--slo.long_window_s=10",
+            f"--hang_timeout_s={hang_timeout_s}"]
+    stats: dict = {"card": CARD[0], "faults": fault_spec, "hang_timeout_s": hang_timeout_s,
+                   "phase14_batch_s": single_batch_s}
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"fleet: {what}: {json.dumps(stats, default=str)}")
+
+    def worker_log(i: int) -> str:
+        return paths.worker_log(i).read_text(errors="replace")
+
+    def bring_to_batch(i: int) -> int:
+        """1-step requests straight to worker i's own port until its next
+        batch is batch k; returns how many were sent."""
+        wport = next(w for w in _metrics(port)["workers"] if w["index"] == i)["port"]
+        n = json.loads(_http(wport, "/metrics")[2])["batches_total"]
+        check(n <= k, f"worker {i} is already past batch {k} ({n} batches)")
+        for seed in range(k - n):
+            code = _http(wport, "/generate", {"prompt": "warm", "seed": seed, "steps": 1,
+                                              "sampler": "ddim"})[0]
+            check(code == 200, f"a direct request to worker {i} answered {code}")
+        return k - n
+
+    def answer(bodies: list[dict], what: str) -> dict:
+        t0 = time.perf_counter()
+        results, lat = _concurrent_posts(port, bodies)
+        out = {"s": time.perf_counter() - t0, "p50_s": _percentile(lat, 50),
+               "p99_s": _percentile(lat, 99)}
+        codes = [c for c, _ in results]
+        check(codes == [200] * len(bodies), f"{what} answered {codes}")
+        if "steps" not in bodies[0]:
+            diff = {}
+            for body, (_, doc) in zip(bodies, results):
+                img = decode_png(base64.b64decode(doc["image_png_b64"]))
+                ref = SERVE_WAVE_PIXELS[_wave_key(body)]
+                if _pixel_sha256(img) != serve_stats["wave_pixel_sha256"][_wave_key(body)]:
+                    diff[_wave_key(body)] = int(np.abs(img.astype(int) - ref.astype(int)).max())
+            out["pixel_mismatches"] = diff
+            check(not diff, f"{what}: images differ from phase 14's in-process ones "
+                            f"(largest |diff| per request {diff})")
+        out["workers"] = sorted({doc.get("worker") for _, doc in results})
+        return out
+
+    def wait_alive(n: int, timeout: float) -> float:
+        t0 = time.perf_counter()
+        while _metrics(port)["workers_alive"] != n:
+            check(time.perf_counter() - t0 < timeout and sup.proc.poll() is None,
+                  f"workers_alive never returned to {n}")
+            time.sleep(0.2)
+        return time.perf_counter() - t0
+
+    sup = ServeProcess(argv, root / "fleet_supervisor.log", env={"DCR_FAULTS": fault_spec},
+                       group=True)
+    try:
+        # -- (a) startup --------------------------------------------------
+        t0 = time.perf_counter()
+        port = sup.wait_for_port(timeout=120, role="supervisor ")
+        while True:
+            health = json.loads(_http(port, "/healthz")[2])
+            if health["status"] == "ok" and health["workers_ready"] == 2:
+                break
+            check(time.perf_counter() - t0 < 300 and sup.proc.poll() is None,
+                  f"the fleet never became ready: {health}\n" + sup.text()[-3000:])
+            time.sleep(0.2)
+        stats["ready_s"] = time.perf_counter() - t0
+        for i in (0, 1):
+            text = worker_log(i)
+            for stage in ("serve_load", "serve_warm"):
+                m = re.search(rf"\[stage\] {stage}: done in ([\d.]+)s", text)
+                stats[f"worker{i}_{stage}_s"] = float(m.group(1)) if m else None
+        pids = {w["index"]: w["pid"] for w in _metrics(port)["workers"]}
+        holders = _cuda_context_holders([sup.proc.pid, pids[0], pids[1]])
+        stats["cuda_contexts"] = {"supervisor": sup.proc.pid, "workers": pids, **holders}
+        seen = [m for m in ("nvidia_smi", "maps")
+                if holders[m][pids[0]] and holders[m][pids[1]]]
+        check(bool(seen), "neither nvidia-smi nor /proc/<pid>/maps shows the workers' contexts")
+        check(not any(holders[m][sup.proc.pid] for m in seen),
+              "the supervisor holds a CUDA context")
+        stats["cuda_context_seen_by"] = seen
+
+        # -- (b) the clean wave --------------------------------------------
+        stats["clean_wave"] = answer(wave, "the clean wave")
+        stats["clean_batches"] = {
+            i: [[int(n), float(t)] for n, t in
+                re.findall(r"serve: batch of (\d+)/8 in ([\d.]+)s", worker_log(i))]
+            for i in (0, 1)}
+        fleet_batch_s = [t for b in stats["clean_batches"].values() for n, t in b if n == 8]
+        stats["fleet_batch_s_median"] = statistics.median(fleet_batch_s) if fleet_batch_s \
+            else None
+        if stats["fleet_batch_s_median"]:
+            stats["hang_timeout_over_batch"] = hang_timeout_s / stats["fleet_batch_s_median"]
+
+        # -- (c) and (d): the crash and the hang drills, in one wave ----------
+        # worker 0 SIGKILLs itself at its batch; its batch waits at the
+        # queue's head for the respawned worker 0 (worker 1 is wedged). Worker
+        # 1 hangs in its batch until the watchdog's exit 89; that batch goes
+        # to worker 0 too, and worker 1 respawns
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            stats["drill_direct_requests"] = list(ex.map(bring_to_batch, (0, 1)))
+        lost0 = _metrics(port)["fleet"].get("workers_lost", 0)
+        stats["drill_wave"] = answer(wave, "the drills' wave")
+        stats["drill_respawn_wait_s"] = wait_alive(2, 300)
+        doc = _metrics(port)
+        replay = RequestJournal.replay(paths.journal)["counts"]
+        stats["drill_journal"] = replay
+        stats["drill_workers_lost"] = doc["fleet"].get("workers_lost", 0) - lost0
+        check(stats["drill_workers_lost"] >= 2, "the drills lost fewer than two workers")
+        check(replay["dropped"] == 0 and replay["failed"] == 0
+              and replay["requeued_total"] >= 2, f"the drills' journal {replay}")
+        for w in doc["workers"]:
+            check(w["incarnation"] == 2 and w["state"] == "alive",
+                  f"worker {w['index']} did not respawn once: {w}")
+        check('"kind": "worker_crash"' in worker_log(0), "worker_crash never fired")
+        w1log = worker_log(1)
+        check('"kind": "worker_hang"' in w1log
+              and "hang watchdog: aborting 'serve_batch' with exit code 89" in w1log
+              and "Thread 0x" in w1log, "no exit 89 with its thread dump in worker 1's log")
+        dump_path = fleet_dir / "worker_1" / "flightrec_w1_0.json"
+        dump = json.loads(dump_path.read_text()) if dump_path.exists() else {}
+        stats["hang_dump_reason"] = dump.get("reason")
+        check(str(dump.get("reason", "")).startswith("hang_abort:serve_batch"),
+              f"worker 1's flight-recorder dump: {dump.get('reason')}")
+        text = sup.text()
+        for i, what in ((0, "crash"), (1, "hang")):
+            lost = re.findall(rf'fleet_worker_lost (\{{.*"worker": {i}\}})', text)
+            lost_t = _log_times(text, rf'fleet_worker_lost .*"worker": {i}\}}')
+            joined_t = _log_times(text, rf'fleet_worker_joined .*"incarnation": 2.*"worker": {i}')
+            stats[what] = {"worker_lost": json.loads(lost[-1]) if lost else None,
+                           "respawn_s": joined_t[0] - lost_t[0] if lost_t and joined_t
+                           else None,
+                           "requeue": _requeue_latencies(paths.journal, i)}
+            check(stats[what]["requeue"]["requeued"] >= 1, f"no {what} batch was requeued")
+
+        # -- (e) observability ---------------------------------------------
+        time.sleep(2.5)                       # two scrape periods after the respawn
+        code, _, raw = _http(port, "/metrics?format=prometheus")
+        samples, bad_lines = {}, []
+        for line in raw.decode().splitlines():
+            if not line or line.startswith("#"):
+                continue
+            mm = re.match(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$', line)
+            if mm is None:
+                bad_lines.append(line)
+                continue
+            samples[mm.group(1) + (mm.group(2) or "")] = float(mm.group(3))
+        per_worker = {i: {n.split("{")[0]: v for n, v in samples.items()
+                          if f'worker="{i}"' in n and "quantile" not in n} for i in (0, 1)}
+        stats["prometheus"] = {"code": code, "samples": len(samples), "bad_lines": bad_lines[:5],
+                               "series_worker0": len(per_worker[0]),
+                               "series_worker1": len(per_worker[1])}
+        stats["memory_budget"] = {i: {g: per_worker[i].get(f"dcr_device_mem_{g}_bytes")
+                                      for g in ("in_use", "peak", "limit")} for i in (0, 1)}
+        check(code == 200 and not bad_lines and per_worker[0] and per_worker[1]
+              and "dcr_serve_completed_total" in per_worker[0]
+              and "dcr_serve_completed_total" in per_worker[1]
+              and samples.get('dcr_fleet_worker_up{worker="0"}') == 1
+              and samples.get('dcr_fleet_worker_up{worker="1"}') == 1,
+              "the merged Prometheus text")
+        t0 = time.perf_counter()
+        while True:
+            slo = json.loads(_http(port, "/slo")[2])
+            if slo.get("state") == "ok" or time.perf_counter() - t0 > 60:
+                break
+            time.sleep(0.5)
+        stats["slo"] = {"state": slo.get("state"), "breach_total": slo.get("breach_total"),
+                        "objectives": {n: o["state"] for n, o in slo["objectives"].items()},
+                        "wait_s": time.perf_counter() - t0}
+        check({"availability", "shed_rate"} <= set(slo["objectives"]), "GET /slo objectives")
+        # dcr-status-torch's entry point, in this process (stdlib only)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            try:
+                status_cli.main([f"--port={port}", "--json"])
+                rc = 0
+            except SystemExit as e:
+                rc = e.code
+        status_doc = json.loads(out.getvalue()) if out.getvalue().strip() else {}
+        stats["dcr_status"] = {"rc": rc, "workers_alive": status_doc.get("workers_alive"),
+                               "slo_state": status_doc.get("slo", {}).get("state"),
+                               "journal": status_doc.get("journal")}
+        check(rc == 0 and status_doc.get("workers_alive") == 2, f"dcr-status-torch: rc {rc}")
+
+        # -- (f) profiling through the supervisor, (g) the drain ---------------
+        # the profiled batch is one of the drain's wave: a capture slows the
+        # process's later launches, and nothing runs after the drain
+        code, _, raw = _http(port, "/debug/profile", {"steps": 1, "worker": 1})
+        armed = json.loads(raw)
+        again = _http(port, "/debug/profile", {"steps": 1, "worker": 1})[0]
+        check(code == 200 and armed.get("worker") == 1 and armed.get("logdir")
+              and again == 409, f"profile arm {code} {raw[:300]!r}, second arm {again}")
+        pids = [w["pid"] for w in _metrics(port)["workers"]]
+        accepted = _metrics(port)["journal"]["accepted"]
+        drain_wave = [{"prompt": SERVE_PROMPTS[i % 4], "seed": 200 + i,
+                       "steps": FLEET_PROFILE_STEPS} for i in range(16)]
+        with ThreadPoolExecutor(max_workers=len(drain_wave)) as ex:
+            futs = [ex.submit(_http, port, "/generate", body) for body in drain_wave]
+            t0 = time.perf_counter()
+            while _metrics(port)["journal"]["accepted"] < accepted + len(drain_wave):
+                check(time.perf_counter() - t0 < 60, "the drain wave was not admitted")
+                time.sleep(0.01)
+            journal = _metrics(port)["journal"]
+            t0 = time.perf_counter()
+            sup.proc.send_signal(signal.SIGTERM)
+            codes = [f.result(timeout=300)[0] for f in futs]
+            rc = sup.proc.wait(timeout=300)
+        left = [pid for pid in pids if Path(f"/proc/{pid}").exists()]
+        stats["drain"] = {"pending_at_sigterm": journal["queued"] + journal["in_flight"],
+                          "codes_ok": codes.count(200), "exit_code": rc,
+                          "s": time.perf_counter() - t0, "workers_left": left}
+        check(codes == [200] * len(drain_wave) and rc == 83 and not left,
+              f"drain: codes {codes}, exit {rc}, workers left {left}")
+        traces = sorted(Path(armed["logdir"]).glob("*.json"))
+        check(len(traces) == 1, f"worker 1's profile: {traces}")
+        events = json.loads(traces[0].read_text()).get("traceEvents", [])
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        calls = fastsample.unet_calls(fastsample.fast_plan(FLEET_PROFILE_STEPS, 0.0))
+        stats["profile"] = {"artifact": str(traces[0]), "events": len(events),
+                            "kernel_events": len(kernels), "unet_calls": calls,
+                            "flash_fwd_events": sum("flash_fwd" in e.get("name", "")
+                                                    for e in kernels),
+                            "bytes": traces[0].stat().st_size}
+        check(stats["profile"]["flash_fwd_events"] >= 10 * calls,
+              "fewer than 10 forward-kernel events per UNet call in the profiled batch")
+        replay = RequestJournal.replay(paths.journal)["counts"]
+        stats["journal"] = replay
+        check(replay["dropped"] == 0 and replay["failed"] == 0
+              and replay["accepted"] == replay["acked"] == 2 * len(wave) + len(drain_wave),
+              f"the whole run's journal {replay}")
+    finally:
+        sup.close()
+        stats["supervisor_log_tail"] = sup.text()[-1500:].splitlines()[-6:]
+        stats["phase_s"] = time.perf_counter() - t_phase
+        log(f"serving fleet (phase 22, {CARD[0]}): {json.dumps(stats, default=str)}")
+    return stats
+
 
 def tie_rule(what: str, scores_a, keys_a, scores_b, keys_b, exact, *, bound: float = 1e-5,
              gap: float = 2e-5) -> dict:
@@ -3293,6 +3711,11 @@ def phase_small_search_reference(root: Path) -> dict:
 
 
 SEARCH_DIM, SEARCH_CHUNK_ROWS, SEARCH_QUERIES, SEARCH_COPIES = 512, 1 << 20, 4096, 64
+# phase 13's store: a LAION chunk and a quarter of the next one, past
+# DEFAULT_MAX_RESIDENT_ROWS (2^20) so the query engine streams (cut from two
+# whole chunks so the script keeps inside its time limit)
+SEARCH_STORE_CHUNKS = (SEARCH_CHUNK_ROWS, SEARCH_CHUNK_ROWS // 4)
+SEARCH_STORE_ROWS = sum(SEARCH_STORE_CHUNKS)
 
 
 def _write_laion_tars(root: Path, n_tars: int, per_tar: int) -> int:
@@ -3515,8 +3938,9 @@ def phase_search_main_path(root: Path) -> dict:
     """Phase 13: the LAION search stage through dcr-search-torch at SSCD's
     width (512) and a LAION-chunk scale: embed (SSCD over 2 tars of 512
     JPEGs), build a store from 2 chunk folders of reference-format pickle
-    dumps of 1,048,576 unit rows each (2,097,152 rows, 4.3 GB, 32 shards of
-    65,536), verify it, query it with 4,096 generation rows (64 of them
+    dumps of 1,048,576 and 262,144 unit rows (SEARCH_STORE_CHUNKS: 1,310,720
+    rows, 2.7 GB, 20 shards of 65,536), verify it, query it with 4,096
+    generation rows (64 of them
     planted copies, normalize(store row + 0.05 noise)) at top_k=1 and 10
     (host-streamed: above DEFAULT_MAX_RESIDENT_ROWS), query a resident
     one-chunk store, and run the brute force (num_chunks=20) over the same
@@ -3535,14 +3959,14 @@ def phase_search_main_path(root: Path) -> dict:
     stats = {"embed": _search_embed(root / "embed")}
     log(f"search main path, embed: {json.dumps(stats['embed'])}")
 
-    # the two LAION chunks: reference-format pickles of unit rows
+    # the two LAION chunk dumps: reference-format pickles of unit rows
     t0 = time.perf_counter()
     laion, chunks = root / "laion", []
-    for c in range(2):
+    for c, n_rows in enumerate(SEARCH_STORE_CHUNKS):
         folder = laion / f"chunk{c}"
         folder.mkdir(parents=True)
-        feats = _unit_rows(SEARCH_CHUNK_ROWS, SEARCH_DIM, seed=100 + c)
-        keys = [f"{c:05d}{i:07d}" for i in range(SEARCH_CHUNK_ROWS)]
+        feats = _unit_rows(n_rows, SEARCH_DIM, seed=100 + c)
+        keys = [f"{c:05d}{i:07d}" for i in range(n_rows)]
         with open(folder / "embedding.pkl", "wb") as f:
             pickle.dump({"features": feats, "indexes": keys}, f, protocol=4)
         chunks.append((feats, keys))
@@ -3550,7 +3974,7 @@ def phase_search_main_path(root: Path) -> dict:
     stats["write_dumps_s"] = time.perf_counter() - t0
     rng = np.random.default_rng(13)
     q = _unit_rows(SEARCH_QUERIES, SEARCH_DIM, seed=200)
-    planted_rows = rng.choice(2 * SEARCH_CHUNK_ROWS, SEARCH_COPIES, replace=False)
+    planted_rows = rng.choice(SEARCH_STORE_ROWS, SEARCH_COPIES, replace=False)
     planted_q = rng.choice(SEARCH_QUERIES, SEARCH_COPIES, replace=False)
     planted_keys = []
     for qi, row in zip(planted_q, planted_rows):
@@ -3572,9 +3996,10 @@ def phase_search_main_path(root: Path) -> dict:
                       "verify": verify, "verify_s": verify_s,
                       "verify_gb_per_s": store_bytes / verify_s / 1e9}
     log(f"search main path, build + verify: {json.dumps(stats['build'])}")
-    if (report["rows"] != 2 * SEARCH_CHUNK_ROWS or report["shards"] != 32
-            or verify != {"shards": 32, "ok": 32, "corrupt": 0,
-                          "rows_ok": 2 * SEARCH_CHUNK_ROWS, "total": 2 * SEARCH_CHUNK_ROWS}):
+    shards = -(-SEARCH_STORE_ROWS // 65536)
+    if (report["rows"] != SEARCH_STORE_ROWS or report["shards"] != shards
+            or verify != {"shards": shards, "ok": shards, "corrupt": 0,
+                          "rows_ok": SEARCH_STORE_ROWS, "total": SEARCH_STORE_ROWS}):
         raise AssertionError(f"search build/verify failed: {report}, {verify}")
 
     stats["build"]["one_chunk_ingest_s"], _ = _cli([
@@ -3589,7 +4014,7 @@ def phase_search_main_path(root: Path) -> dict:
         with EngineProbe() as probe:
             cli_s, _ = _cli(["query", f"--store_dir={s}", f"--gen_folder={gens}",
                              f"--out_path={out}", f"--top_k={k}"])
-        rows = SEARCH_CHUNK_ROWS * (1 if s == store1 else 2)
+        rows = SEARCH_CHUNK_ROWS if s == store1 else SEARCH_STORE_ROWS
         entry = {"cli_s": cli_s, "top_k": k, "rows": rows,
                  "peak_bytes": torch.cuda.max_memory_allocated(),
                  **probe.report(rows, SEARCH_QUERIES, SEARCH_DIM)}
@@ -3598,7 +4023,7 @@ def phase_search_main_path(root: Path) -> dict:
         stats[name] = entry
         log(f"search main path, query {name}: {json.dumps(entry)}")
     if stats["streamed_k10"]["resident"] or not stats["resident_one_chunk_k10"]["resident"]:
-        raise AssertionError("search: the 2M-row store must stream, the 1M-row one stay "
+        raise AssertionError("search: the 1.3M-row store must stream, the 1M-row one stay "
                              "resident")
 
     # planted copies: top-1 with their keys (in the one-chunk store, those of chunk 0)
@@ -3641,7 +4066,7 @@ def phase_search_main_path(root: Path) -> dict:
     launches = read_launches()
     stats["brute_force"] = {"cli_s": brute_s, "top_k": 11, "num_chunks": 20,
                             "peak_bytes": torch.cuda.max_memory_allocated(),
-                            "rows_x_queries_per_s": 2 * SEARCH_CHUNK_ROWS * SEARCH_QUERIES
+                            "rows_x_queries_per_s": SEARCH_STORE_ROWS * SEARCH_QUERIES
                             / brute_s}
     stats.update({"checks": checks, "oracle_s": oracle_s,
                   "copies_found": sum(found), "copies": len(found),
@@ -4028,7 +4453,8 @@ LIVE_TOP_K = 5
 LIVE_WIDE_SHORTLIST = 2048
 # the pump stalls (ingest_stall) before the 8th and the 16th row, so each
 # wave's first 7 rows sit acked in the live tail while /check reads them
-LIVE_STALL_S = 15.0
+# (7 calls of 0.46-0.47 s each on an H100: the stall leaves them ~2.5x)
+LIVE_STALL_S = 9.0
 LIVE_FAULTS = "ingest_stall@row=7,ingest_stall@row=15"
 # tests/fixtures/jax_wal_store: a live store the JAX package wrote, and the
 # recipe of its rows (tests/test_torch_livestore.fixture_rows)
@@ -4439,7 +4865,7 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
     --risk.store_dir, --risk.ann=true, --risk.top_k=5, --ingest.enabled=true,
     --ingest.batch_rows=1, --ingest.compact_rows=8 and
     --slo.recall_probe_every_n=1, with DCR_FAULTS' ingest_stall before the
-    8th and 16th rows (LIVE_STALL_S, 15 s, each) so each wave's first 7 rows sit in the
+    8th and 16th rows (LIVE_STALL_S, 9 s, each) so each wave's first 7 rows sit in the
     live tail while /check reads them. Before any request, the risk engine
     over the corpus against float64 (_risk_engine_over_corpus). 16
     concurrent requests (two full batches). Held: 16 rows acked, none
@@ -4450,7 +4876,9 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
     the committed rows plus the rows acked at the time, under the tie rule;
     ann/recall_online_pct on /metrics with samples >= 1, within 0.05 of
     spot_check_recall offline on the 16 generations; 1,500 B1 launches
-    (warm batch and two batches, 10 per UNet call). Then the drills
+    (warm batch and two batches, 10 per UNet call); the exact engine that
+    the index builds without risk.ann over the snapshot after ingest, past
+    DEFAULT_MAX_RESIDENT_ROWS, host-streamed. Then the drills
     (_live_drills) and the JAX-written WAL (_jax_wal_fixture). Reported,
     not held: each check's rank of its own gen/ key; risk ms per batch
     through the ANN engine and through the exact engine the index builds
@@ -4473,7 +4901,7 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
     from dcr_tpu_torch.search import store as ST
     from dcr_tpu_torch.search.annindex import spot_check_recall
     from dcr_tpu_torch.search.livestore import load_wal_tail
-    from dcr_tpu_torch.search.shardindex import ShardedTopK
+    from dcr_tpu_torch.search.shardindex import DEFAULT_MAX_RESIDENT_ROWS, ShardedTopK
     from dcr_tpu_torch.serve.server import make_server
     from dcr_tpu_torch.serve.worker import GenerationService
     from dcr_tpu_torch.utils import faults
@@ -4712,6 +5140,9 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
         stats[f"risk_score_ms_per_batch_{name}"] = 1e3 * statistics.median(score_s)
     index._engine = engine
     stats["risk_rows"] = [engine.reader.total, exact.total]
+    # past DEFAULT_MAX_RESIDENT_ROWS after ingest: the exact engine streams
+    # its segments from pinned host memory, rows normalised as they load
+    stats["exact_engine_resident"] = exact.resident
     stats["phase14_risk_score_ms_per_batch_dense"] = serve_stats.get("risk_score_ms_per_batch")
     q = np.stack([gen_rows[k] for k in qkeys])
     _, served = engine.query(q[:8])
@@ -4727,6 +5158,8 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
     log(f"live serving (phase 17, {CARD[0]}): {json.dumps(stats)}")
     ing = stats["ingest"] or {}
     if (codes != [200] * 16 or ing.get("appended_rows") != 16 or ing.get("dropped_rows") != 0
+            or stats["exact_engine_resident"]
+            or stats["risk_rows"][1] <= DEFAULT_MAX_RESIDENT_ROWS
             or launches != (stats["expected_launches"], 0, 0)
             or len(compactions) != 2 or any(r["folded_rows"] != 8 for _, r in compactions)
             or sum(r["ann_lists_folded"] for _, r in compactions) < 1
@@ -4912,6 +5345,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         serve_stats = run_phase("14 serving", phase_serve, Path(tmp) / "sd21", Path(tmp))
         torch.cuda.empty_cache()
+        fleet_stats = run_phase("22 serving fleet", phase_fleet, Path(tmp) / "sd21", Path(tmp),
+                                serve_stats)
         # phase 16 runs here so that phase 17 serves 5b's checkpoint over
         # phase 16's store
         ann_root = Path(tmp) / "ann"
@@ -5050,6 +5485,7 @@ def main() -> int:
     log(f"backbone stats: {json.dumps(backbone_stats)}")
     log(f"mitigation stats: {json.dumps(mitigation_stats)}")
     log(f"serve stats: {json.dumps({k: v for k, v in serve_stats.items() if k != 'check'})}")
+    log(f"serving fleet stats: {json.dumps(fleet_stats, default=str)}")
     log(f"small search reference: {json.dumps(small_search)}")
     log(f"search path stats: {json.dumps(search_stats)}")
     log(f"ann path stats: {json.dumps(ann_stats, default=str)}")

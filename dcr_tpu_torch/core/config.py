@@ -9,8 +9,8 @@ its fleet, ingest and SLO sections) and of its
 ``model_index.json`` or ``config.json`` written by either package and a
 ``dcr-sample``, ``dcr-train``, ``dcr-eval``, ``dcr-search``,
 ``dcr-mitigate`` or ``dcr-serve`` command line parse the same way here.
-Sections the port does not run yet (mesh, warm cache, 8-bit Adam,
-the serving fleet) parse, and :func:`validate_train_config`,
+Sections the port does not run yet (a mesh, the warm cache) parse,
+and :func:`validate_train_config`,
 :func:`validate_eval_config`, :func:`validate_search_config` and
 :func:`validate_serve_config` refuse a setting that would need them with
 :class:`NotPortedError`. The mesh and warm-cache sections of
@@ -562,9 +562,10 @@ class IngestConfig:
 
 @dataclass
 class SloConfig:
-    """Service-level objectives. The fleet supervisor's SLO engine is not
-    ported; ``enabled`` and the ``recall_probe_*`` fields drive the online
-    recall probe of ANN copy-risk scoring."""
+    """Service-level objectives: the fleet supervisor's SLO engine
+    (:mod:`dcr_tpu_torch.obs.slo`, ``GET /slo``) judges its objectives over
+    the windows and burn rates here; ``enabled`` and the ``recall_probe_*``
+    fields also drive the online recall probe of ANN copy-risk scoring."""
 
     enabled: bool = True
     short_window_s: float = 60.0
@@ -587,8 +588,9 @@ class SloConfig:
 
 @dataclass
 class FleetConfig:
-    """Multi-worker serving (parsed; ``workers > 0`` and ``worker_index >=
-    0`` are not ported)."""
+    """Multi-worker serving (:mod:`dcr_tpu_torch.serve.supervisor`):
+    ``workers > 0`` runs dcr-serve-torch as the fleet's supervisor,
+    ``worker_index >= 0`` as one of its workers."""
 
     workers: int = 0           # >0 runs dcr-serve as a fleet supervisor
     worker_index: int = -1     # >=0 marks a fleet worker process
@@ -632,7 +634,7 @@ class ServeConfig:
     cache_entries: int = 1024              # LRU prompt-embedding cache capacity
     max_compiled_buckets: int = 8          # resident bucket budget (typed 503 beyond)
     request_timeout_s: float = 600.0       # per-request wait bound in the handler
-    hang_timeout_s: float = 0.0            # the batch watchdog (not ported: the fleet)
+    hang_timeout_s: float = 0.0            # the batch watchdog (exit 89); 0 = off
     logdir: str = ""                       # the trace / metrics sink
     seed: int = 42                         # root of the per-request draws
     mesh: MeshConfig = field(default_factory=MeshConfig)
@@ -647,8 +649,8 @@ class ServeConfig:
 def validate_serve_config(cfg: ServeConfig) -> None:
     """The JAX package's checks (``ValueError``), then NotPortedError for a
     serve setting the port does not run yet, naming the ROADMAP Queue A item
-    that ports it: the warm cache (item 7c), the fleet and
-    the hang watchdog (item 8), a mesh of more than one device (item 9)."""
+    that ports it: the warm cache (item 7c), a mesh of more than one device
+    (item 9). The fleet's roles and the batch watchdog run."""
     if cfg.sampler not in ("ddim", "dpm++", "ddpm"):
         raise ValueError("serve sampler must be 'ddim', 'dpm++' or 'ddpm'")
     if cfg.max_batch < 1:
@@ -690,12 +692,7 @@ def validate_serve_config(cfg: ServeConfig) -> None:
     validate_slo_config(cfg.slo)
     mesh_devices = _mesh_devices(cfg.mesh)
     checks = [
-        (f.workers > 0, "fleet.workers > 0 (the fleet supervisor, ROADMAP Queue A item 8)"),
-        (f.worker_index >= 0, "fleet.worker_index >= 0 (a fleet worker, ROADMAP Queue A "
-                              "item 8)"),
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache, ROADMAP Queue A item 7c)"),
-        (cfg.hang_timeout_s > 0, "hang_timeout_s > 0 (the hang watchdog, ROADMAP Queue A "
-                                 "item 8)"),
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port serves on one; "
                            "ROADMAP Queue A item 9)"),
     ]

@@ -11,7 +11,8 @@ settings, the dataset's decode retry is it with every error retried.
 :class:`QuarantineManifest` is the per-run ``quarantine.jsonl`` record of
 everything skipped or recovered (bad samples, bad checkpoints, NaN
 rollbacks). :func:`install_signal_drain` is the serving layer's SIGTERM
-hook; a drained service exits with :data:`EXIT_PREEMPTED`.
+hook; a drained service exits with :data:`EXIT_PREEMPTED`. :func:`watchdog`
+runs a block under a soft deadline (serve's batch watchdog).
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ import random
 import signal
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Iterator, Optional, Sequence
 
 from dcr_tpu_torch.core import tracing
 # re-exported: the serving layer's drain exits with the trainer's code
@@ -136,6 +138,31 @@ def install_signal_drain(callback: Callable[[int], None],
 
     for s in sigs:
         signal.signal(s, handler)
+
+
+@contextmanager
+def watchdog(name: str, seconds: float,
+             on_timeout: Optional[Callable[[], None]] = None) -> Iterator[None]:
+    """Run a block under a soft deadline: if it still runs after
+    ``seconds``, log one ``watchdog_timeout`` fault line and call
+    ``on_timeout`` on the timer's thread (serve's batch watchdog passes
+    ``coordination.hang_abort``, exit 89). ``seconds <= 0`` disables the
+    timer. The block itself is never interrupted: a host thread cannot be
+    stopped safely."""
+    timer: Optional[threading.Timer] = None
+    if seconds > 0:
+        def fire() -> None:
+            log_event("watchdog_timeout", name=name, budget_secs=seconds)
+            if on_timeout is not None:
+                on_timeout()
+        timer = threading.Timer(seconds, fire)
+        timer.daemon = True
+        timer.start()
+    try:
+        yield
+    finally:
+        if timer is not None:
+            timer.cancel()
 
 
 class QuarantineManifest:

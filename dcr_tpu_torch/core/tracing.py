@@ -274,6 +274,16 @@ def current_trace_id() -> Optional[str]:
     return _current_trace.get()
 
 
+def wire_context(span: SpanHandle, attempt: int = 1) -> dict:
+    """The cross-process trace context a dispatcher ships with work (the
+    fleet supervisor's ``/generate_batch`` items): enough for the receiving
+    process to parent its own root span under ``span``, span ids being
+    process-local. The worker's ``serve/request`` root takes the trace id
+    and records ``remote_parent`` and ``attempt``, so a requeued
+    re-execution merges as a sibling child of the same root."""
+    return {"trace_id": span.trace, "parent_span": span.id, "attempt": int(attempt)}
+
+
 # ---------------------------------------------------------------------------
 # Telemetry registry: counters / gauges / histograms
 # ---------------------------------------------------------------------------
@@ -354,6 +364,13 @@ def sanitize_metric_name(name: str) -> str:
     ``[a-zA-Z_:][a-zA-Z0-9_:]*``; the ``dcr_`` prefix namespaces the export
     and guarantees a legal first character."""
     return "dcr_" + re.sub(r"[^a-zA-Z0-9_]", "_", name)
+
+
+def sanitize_label_name(name: str) -> str:
+    """Label-name form of :func:`sanitize_metric_name` (labels may not
+    contain colons and may not start with a digit)."""
+    s = re.sub(r"[^a-zA-Z0-9_]", "_", name)
+    return s if s and not s[0].isdigit() else "_" + s
 
 
 def prometheus_value(v: float) -> str:

@@ -24,14 +24,24 @@ Endpoints (JSON in and out):
   status; 409 when already armed or without a destination); ``GET
   /debug/profile`` reports the status, with ``artifact`` (the Chrome
   trace) once written.
+- ``POST /generate_batch``: the fleet supervisor's dispatch call, body
+  ``{"requests": [item, ...]}`` where an item is a /generate body with the
+  full bucket and a ``trace`` context (``supervisor.wire_item``). 200 with
+  ``{"results": [...]}``, positional; a per-item failure is an
+  ``{"error": "<TypeName>: <detail>"}`` item, a malformed envelope a 400.
+- ``GET /slo``: the fleet supervisor's SLO document (``obs/slo.py``); 404
+  on a service without an SLO engine, as a single worker is.
 
-``POST /generate_batch`` and ``GET /slo`` belong to the serving fleet
-(ROADMAP Queue A item 8): they answer 404 as the JAX handler does for a
-service without them. Each /generate response is written inside a
-``serve/respond`` span under the request's root. PNGs are
-written by the port's own encoder (``sampling/png``). ``block_on_close`` and
-non-daemon handler threads give the drain guarantee: ``server_close()``
-returns only after every in-flight response has been written.
+The handler works against either service: a :class:`GenerationService` or
+a :class:`~dcr_tpu_torch.serve.supervisor.FleetSupervisor`, whose futures
+resolve to the worker's rendered document (passed through, bar the id),
+whose ``/metrics?format=prometheus`` is every worker's text merged under
+``worker`` labels (``prometheus_merged``), and which routes ``/check`` and
+``/debug/profile`` to a worker. Each response is written inside a
+``serve/respond`` span under the request's root. PNGs are written by the
+port's own encoder (``sampling/png``). ``block_on_close`` and non-daemon
+handler threads give the drain guarantee: ``server_close()`` returns only
+after every in-flight response has been written.
 """
 
 from __future__ import annotations
@@ -167,6 +177,13 @@ class ServeHandler(BaseHTTPRequestHandler):
         elif url.path == "/metrics":
             fmt = parse_qs(url.query).get("format", ["json"])[0]
             if fmt == "prometheus":
+                merged = getattr(self.service, "prometheus_merged", None)
+                if callable(merged):
+                    # a fleet supervisor: its own registry and every
+                    # worker's cached scrape under worker labels; never
+                    # blocks on a worker
+                    self._reply_text(200, merged())
+                    return
                 # fold the live status document into registry gauges, then
                 # render the whole registry
                 status_doc = dict(self.service.status())
@@ -176,7 +193,14 @@ class ServeHandler(BaseHTTPRequestHandler):
             else:
                 self._reply(200, self.service.status())
         elif url.path == "/slo":
-            self._reply(404, {"error": "slo engine not supported"})
+            slo_fn = getattr(self.service, "slo_doc", None)
+            if not callable(slo_fn):
+                self._reply(404, {"error": "slo engine not supported"})
+                return
+            try:
+                self._reply(200, slo_fn())
+            except Exception as e:
+                self._reply(500, {"error": f"slo status failed: {e!r}"})
         elif url.path == "/debug/profile":
             try:
                 self._reply(200, self.service.profile_status())
@@ -192,8 +216,13 @@ class ServeHandler(BaseHTTPRequestHandler):
         bucket = request_bucket(self.service, body)
         return prompt, int(body.get("seed", 0)), bucket
 
-    def _render(self, req, image: np.ndarray) -> dict:
-        """The /generate response document."""
+    def _render(self, req, image) -> dict:
+        """The /generate response document. A fleet supervisor's future
+        resolves to the worker's rendered document, passed through bar the
+        id, so a response is the same whichever worker or incarnation ran
+        the batch; a single service's resolves to the image array."""
+        if isinstance(image, dict):
+            return {**image, "id": req.id, "latency_ms": None}
         return {
             "id": req.id,
             "image_png_b64": base64.b64encode(png_bytes(image)).decode(),
@@ -209,16 +238,19 @@ class ServeHandler(BaseHTTPRequestHandler):
     def do_POST(self) -> None:
         if self.path == "/generate":
             self._post_generate()
+        elif self.path == "/generate_batch":
+            self._post_generate_batch()
         elif self.path == "/check":
             self._post_check()
         elif self.path == "/debug/profile":
             self._post_profile()
         else:
-            # /generate_batch too: the fleet's dispatch channel
             self._reply(404, {"error": f"no such endpoint {self.path!r}"})
 
     def _post_profile(self) -> None:
-        """Arm ``torch.profiler`` around the worker's next K device steps."""
+        """Arm ``torch.profiler`` around the worker's next K device steps;
+        on a fleet supervisor, routed to the named (or the first alive)
+        worker."""
         try:
             body = self._read_json()
         except (TypeError, ValueError) as e:
@@ -226,6 +258,8 @@ class ServeHandler(BaseHTTPRequestHandler):
             return
         try:
             self._reply(200, self.service.profile(body))
+        except AdmissionError as e:      # a fleet with no alive worker
+            self._reply(*admission_response(e))
         except (ValueError, RuntimeError) as e:
             # already armed, no destination, steps < 1
             self._reply(409, {"error": str(e)})
@@ -280,6 +314,52 @@ class ServeHandler(BaseHTTPRequestHandler):
                           trace=req.trace_id):
             self._reply(200, self._render(req, result))
 
+    def _post_generate_batch(self) -> None:
+        """The fleet dispatch channel's call: a bucket-coherent batch
+        submitted together and answered together, positionally. A per-item
+        failure is an ``{"error": ...}`` item (the supervisor fails exactly
+        that request, or requeues it when the error names this worker's
+        state); a malformed envelope is a 400 (the supervisor requeues the
+        whole batch elsewhere)."""
+        try:
+            body = self._read_json()
+            items = body["requests"]
+            if not isinstance(items, list) or not items:
+                raise ValueError("'requests' must be a non-empty list")
+        except (KeyError, TypeError, ValueError) as e:
+            self._reply(400, {"error": f"bad request: {e!r}"})
+            return
+        reqs: list = []
+        for item in items:
+            try:
+                # the dispatcher's trace context rides beside the generation
+                # fields; it is not a bucket override
+                item = dict(item) if isinstance(item, dict) else item
+                tctx = item.pop("trace", None) if isinstance(item, dict) else None
+                if not isinstance(item, dict):
+                    raise ValueError("body must be a JSON object")
+                prompt, seed, bucket = self._parse_one(item)
+                reqs.append(self.service.submit(
+                    prompt, seed=seed, bucket=bucket,
+                    trace_ctx=tctx if isinstance(tctx, dict) else None))
+            except (KeyError, TypeError, ValueError, AdmissionError) as e:
+                reqs.append({"error": f"{type(e).__name__}: {e}"})
+        results: list[dict] = []
+        for req in reqs:
+            if isinstance(req, dict):        # refused at submit
+                results.append(req)
+                continue
+            try:
+                image = req.future.result(timeout=self.cfg.request_timeout_s)
+            except Exception as e:  # a timeout or a failed batch: per item
+                results.append({"error": f"{type(e).__name__}: {e}"})
+                continue
+            with tracing.span("serve/respond", request_id=req.id,
+                              parent=req.span.id if req.span is not None else None,
+                              trace=req.trace_id):
+                results.append(self._render(req, image))
+        self._reply(200, {"results": results})
+
 
 class _Server(ThreadingHTTPServer):
     # socketserver's listen backlog of 5 resets the connections of a burst
@@ -288,11 +368,13 @@ class _Server(ThreadingHTTPServer):
     request_queue_size = socket.SOMAXCONN
 
 
-def make_server(cfg: ServeConfig, service: GenerationService) -> ThreadingHTTPServer:
-    """ThreadingHTTPServer wired to the service. Handler threads are
-    non-daemon and joined by ``server_close()`` (block_on_close), so the
-    drain sequence can guarantee every accepted request gets its response.
-    The listen backlog holds a burst of concurrent clients."""
+def make_server(cfg: ServeConfig, service) -> ThreadingHTTPServer:
+    """ThreadingHTTPServer wired to the service (a :class:`GenerationService`
+    or a fleet supervisor). Handler threads are non-daemon and joined by
+    ``server_close()`` (block_on_close), so the drain sequence can
+    guarantee every accepted request gets its response. The listen backlog
+    holds a burst of concurrent clients, the supervisor's front end's
+    too."""
     handler = type("BoundServeHandler", (ServeHandler,), {"service": service, "cfg": cfg})
     httpd = _Server((cfg.host, cfg.port), handler)
     httpd.daemon_threads = False

@@ -39,14 +39,23 @@ benches and tests drive it in-process:
   ``oom`` fault) ends the process with exit 85 and a post-mortem naming
   the resident buckets;
 - on-demand profiling (``POST /debug/profile``): ``torch.profiler`` over the
-  next K device steps.
+  next K device steps;
+- the batch watchdog: with ``hang_timeout_s > 0`` a batch still running
+  after that many seconds ends the process through
+  ``coordination.hang_abort`` (every thread's stack, a flight-recorder
+  dump, exit 89) instead of leaving a dead port listening; the fault hooks
+  ``worker_crash``, ``worker_hang``, ``slow_step`` and ``oom`` fire inside
+  its window at the process's batch index;
+- the fleet's wire path: :meth:`GenerationService.submit` takes the trace
+  context a supervisor ships with each ``/generate_batch`` item, so the
+  worker's ``serve/request`` root joins the supervisor's trace
+  (``remote_parent``, ``attempt``).
 
 The JAX worker traces one jitted scan per bucket; here each step runs
 eagerly. Device work runs on the worker thread, the risk loader's thread and
 the ``/check`` handler threads: every function that runs a model enters
 ``torch.inference_mode()`` itself (grad mode is thread-local). The warm
-cache and the serving fleet's fault hooks and hang watchdog are not ported
-(ROADMAP Queue A items 7c and 8).
+cache is not ported (ROADMAP Queue A item 7c).
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import signal
 import threading
 import time
 from typing import NamedTuple, Optional
@@ -382,11 +392,19 @@ class GenerationService:
                          fast_ratio=ratio, fast_order=order)
 
     def submit(self, prompt: str, *, seed: int = 0,
-               bucket: Optional[GenBucket] = None) -> Request:
+               bucket: Optional[GenBucket] = None,
+               trace_ctx: Optional[dict] = None) -> Request:
         """Admit a request. A typed AdmissionError on every rejection path:
         InvalidRequestError (bad bucket parameters), BucketLimitError (past
         the resident-bucket budget), QueueFullError (overload),
-        DrainingError (SIGTERM seen)."""
+        DrainingError (SIGTERM seen).
+
+        ``trace_ctx`` is the distributed trace context a fleet supervisor
+        ships with a dispatched item (:func:`tracing.wire_context`): the
+        ``serve/request`` root then takes the supervisor's trace id and
+        records ``remote_parent`` (the supervisor's root span) and
+        ``attempt``, so a requeued re-execution is a sibling under the same
+        root instead of a disconnected tree."""
         bucket = bucket or self.default_bucket()
         try:
             validate_bucket(bucket, vae_scale=self._vae_scale)
@@ -403,14 +421,22 @@ class GenerationService:
                     self._check_memory_budget(bucket)
                     self._admitted_buckets.add(bucket)
             req = Request(prompt=prompt, seed=int(seed) & 0xFFFFFFFF, bucket=bucket)
-            req.trace_id = tracing.new_trace_id()
+            trace_attrs: dict = {}
+            if trace_ctx and trace_ctx.get("trace_id"):
+                req.trace_id = str(trace_ctx["trace_id"])
+                if trace_ctx.get("parent_span") is not None:
+                    trace_attrs["remote_parent"] = int(trace_ctx["parent_span"])
+                if trace_ctx.get("attempt") is not None:
+                    trace_attrs["attempt"] = int(trace_ctx["attempt"])
+            else:
+                req.trace_id = tracing.new_trace_id()
             # the root of the request's span tree, ended by the future's
             # callback on whichever thread resolves it: its duration is the
             # in-service latency. Attached before the queue publishes the
             # request; a rejected request's root is never ended (not recorded)
             req.span = tracing.begin_span("serve/request", parent=None, trace=req.trace_id,
                                           request_id=req.id, seed=req.seed,
-                                          bucket=str(tuple(bucket)))
+                                          bucket=str(tuple(bucket)), **trace_attrs)
             try:
                 self.queue.submit(req)
             except AdmissionError:
@@ -786,6 +812,29 @@ class GenerationService:
 
     # -- the drain loop ------------------------------------------------------
 
+    def _on_hang(self) -> None:
+        from dcr_tpu_torch.core.coordination import hang_abort
+
+        hang_abort("serve_batch", detail=f"sampler step exceeded {self.cfg.hang_timeout_s}s")
+
+    def _inject_batch_faults(self, batch_index: int) -> None:
+        """The serve-side fault hooks, fired inside the batch watchdog's
+        window so an injected wedge is caught by the machinery a real one
+        meets. ``worker_crash`` is a true SIGKILL (no drain, no flush, no
+        exit handler); ``worker_hang`` wedges this thread; ``slow_step`` is
+        a straggler (``DCR_SLOW_STEP_S``, default 30 s); ``oom`` goes through
+        the out-of-memory path of :meth:`_process`, as a real one does."""
+        if faults.fire("worker_crash", batch=batch_index):
+            os.kill(os.getpid(), signal.SIGKILL)
+        if faults.fire("worker_hang", batch=batch_index):
+            from dcr_tpu_torch.core.coordination import simulate_hang
+
+            simulate_hang(f"worker_hang@batch={batch_index}")
+        if faults.fire("slow_step", batch=batch_index):
+            time.sleep(float(os.environ.get("DCR_SLOW_STEP_S", "30")))
+        if faults.fire("oom", batch=batch_index):
+            raise memwatch.InjectedOom(f"serve batch {batch_index}")
+
     def _process(self, batch: list[Request]) -> None:
         t0 = time.monotonic()
         now_wall = time.time()
@@ -799,10 +848,10 @@ class GenerationService:
                                   parent=req.span.id if req.span is not None else None,
                                   trace=req.trace_id, request_id=req.id)
         try:
-            if faults.fire("oom", batch=batch_index):
-                # through the out-of-memory path below, as a real one goes
-                raise memwatch.InjectedOom(f"serve batch {batch_index}")
-            images = self.execute(batch)
+            # a wedged batch becomes a post-mortem and exit 89, not a dead port
+            with R.watchdog("serve:batch", self.cfg.hang_timeout_s, on_timeout=self._on_hang):
+                self._inject_batch_faults(batch_index)
+                images = self.execute(batch)
         except Exception as e:
             if memwatch.is_oom_error(e):
                 # this process can promise no further batch: exit 85 with a

@@ -67,10 +67,20 @@ The kinds the port fires, and their hook points:
   ``obs/memwatch.InjectedOom`` through the path a real
   ``torch.OutOfMemoryError`` takes, so the process exits 85 after a
   flight-recorder dump with its memory section.
+- ``worker_crash``: the serve worker's batch loop, coordinate ``batch``
+  (the process's batch index, from 0): a real SIGKILL of the worker before
+  the batch runs (no drain, no flush, no exit handler), the death a fleet
+  supervisor requeues around. ``worker_crash@batch=1&rank=0`` kills fleet
+  worker 0 in its second batch; a respawned worker counts from 0 again.
+- ``worker_hang``: the same hook point: wedges the batch thread
+  (``core/coordination.simulate_hang``) inside serve's batch watchdog, so
+  ``hang_timeout_s`` ends the process with exit 89 after the dump.
+- ``slow_step``: the same hook point: sleeps ``DCR_SLOW_STEP_S`` seconds
+  (default 30) before the batch, a straggler for latency and SLO drills.
 
-The JAX package's other kinds have no hook in the port yet, and a spec that
-names one raises :class:`NotPortedError` when it is parsed: a fault that
-silently never fires would invalidate the run that asked for it.
+The cache's kind (``cache_corrupt``) has no hook in the port yet, and a
+spec that names it raises :class:`NotPortedError` when it is parsed: a
+fault that silently never fires would invalidate the run that asked for it.
 
 The registry is process-global, parsed once from ``DCR_FAULTS`` (tests use
 :func:`install` and :func:`clear`), thread-safe (loader workers fire
@@ -98,15 +108,13 @@ class InjectedFault(RuntimeError):
 PORTED_KINDS = ("decode_error", "ckpt_corrupt", "nan_loss", "sigterm", "hang",
                 "search_dump_corrupt", "store_shard_corrupt", "ivf_list_corrupt",
                 "kmeans_nan", "wal_torn", "ingest_crash", "compact_crash", "ingest_stall",
-                "recall_degrade", "latent_cache_corrupt", "oom")
+                "recall_degrade", "latent_cache_corrupt", "oom", "worker_crash",
+                "worker_hang", "slow_step")
 
 #: the JAX package's other kinds, each with the ROADMAP Queue A item that
 #: brings its hook point
 NOT_PORTED_KINDS = {
     "cache_corrupt": "item 7c (the warm executable cache)",
-    "worker_crash": "item 8 (the serving fleet)",
-    "worker_hang": "item 8 (the serving fleet)",
-    "slow_step": "item 8 (the serving fleet)",
 }
 
 _ENTRY_RE = re.compile(r"^(?P<kind>[a-z_]+)@(?P<coords>[a-z_]+=\d+(?:[&@][a-z_]+=\d+)*)"

@@ -102,6 +102,25 @@ def test_live_tier_kinds_parse_and_fire_as_in_jax(spec):
     assert reg.fire(kind, **coord)
 
 
+@pytest.mark.parametrize("spec", ["worker_crash@batch=1&rank=0", "worker_hang@batch=0@rank=1",
+                                  "slow_step@batch=2x3"],
+                         ids=lambda s: s.split("@")[0])
+def test_fleet_kinds_parse_and_fire_as_in_jax(spec):
+    """The serving fleet's kinds have their hook (the serve worker's batch
+    loop) since the fleet slice: they parse as the JAX package parses them
+    and fire at their coordinate; tests/test_torch_fleet.py drives each."""
+    def entries(mod):
+        return [(s.kind, s.where, s.times) for s in mod.parse_faults(spec)]
+
+    assert entries(faults) == entries(jfaults)
+    (kind, where, times), = entries(faults)
+    assert kind in faults.PORTED_KINDS and set(faults.NOT_PORTED_KINDS) == {"cache_corrupt"}
+    reg = faults.install(spec)
+    assert not reg.fire(kind, **{k: v + 1 for k, v in where.items()})
+    assert all(reg.fire(kind, **where) for _ in range(times))
+    assert not reg.fire(kind, **where)
+
+
 @pytest.mark.parametrize("spec", ["oom@step=2", "oom@batch=0x2"])
 def test_oom_kind_parses_and_fires_as_in_jax(spec):
     """The ``oom`` kind has its hooks since the memory slice (the trainer's
@@ -313,9 +332,8 @@ def test_training_runs_the_fault_budgets_and_watchdog():
     with pytest.raises(ValueError, match="max_bad_sample_frac"):
         TC.validate_train_config(TC.parse_cli(TC.TrainConfig,
                                               ["--fault.max_bad_sample_frac=1.5"]))
-    # serving's batch watchdog comes with the fleet; eval arms none
-    with pytest.raises(TC.NotPortedError, match="hang_timeout_s"):
-        TC.validate_serve_config(TC.ServeConfig(hang_timeout_s=5))
+    # serving's batch watchdog runs since the fleet slice; eval arms none
+    TC.validate_serve_config(TC.ServeConfig(hang_timeout_s=5))
     with pytest.raises(TC.NotPortedError, match="hang_timeout_s"):
         TC.validate_eval_config(TC.parse_cli(TC.EvalConfig, ["--fault.hang_timeout_s=5"]))
 

@@ -42,7 +42,8 @@ def test_importing_every_module_loads_no_jax_or_dcr_tpu():
     assert "dcr_tpu_torch.search.annindex" in doc["imported"]
     for name in ("search.livestore", "serve.ingest", "obs.recall_probe",
                  "diffusion.encode_stage", "data.latent_cache", "cli.precompute",
-                 "core.adam8bit", "core.tracing", "obs.memwatch", "utils.profiling"):
+                 "core.adam8bit", "core.tracing", "obs.memwatch", "utils.profiling",
+                 "serve.fleet", "serve.scrape", "serve.supervisor", "obs.slo", "cli.status"):
         assert f"dcr_tpu_torch.{name}" in doc["imported"]
     assert doc["bad"] == []
 

@@ -17,8 +17,9 @@ on the CPU at a tiny model, 16 px, 2-5 steps and ``max_batch`` 2.
   port 0 (documents with the JAX package's keys), copy-risk scoring of a
   planted copy, and ``dcr-serve-torch`` as a subprocess on the CPU drained
   by SIGTERM with exit code 83;
-- every serve setting the port does not run raises ``NotPortedError``
-  naming its ROADMAP item.
+- every serve setting the port does not run (the warm cache, a mesh)
+  raises ``NotPortedError`` naming its ROADMAP item; the fleet's roles and
+  the batch watchdog validate as in the JAX package.
 """
 
 from __future__ import annotations
@@ -573,6 +574,8 @@ def test_http_front_end_in_process(tiny, tmp_path):
         assert _http(port, "/generate", {"prompt": "x", "steps": 3})[0] == 200
         code, _, raw = _http(port, "/generate", {"prompt": "x", "steps": 4})
         assert code == 503 and json.loads(raw)["error"] == "bucket_limit"
+        # /slo belongs to a fleet supervisor's SLO engine: a single service
+        # has none and answers 404, as the JAX handler does
         for path in ("/slo", "/nope"):
             assert _http(port, path)[0] == 404
         # profiling is ported: GET is the armer's status, a bad arm a 409
@@ -581,7 +584,13 @@ def test_http_front_end_in_process(tiny, tmp_path):
         assert code == 200 and json.loads(raw)["armed"] is False
         code, _, raw = _http(port, "/debug/profile", {"steps": 0, "logdir": str(tmp_path)})
         assert code == 409 and "steps must be >= 1" in json.loads(raw)["error"]
-        assert _http(port, "/generate_batch", {"requests": [{"prompt": "x"}]})[0] == 404
+        # /generate_batch answers (the fleet's dispatch call): the item's image
+        # is /generate's for the same prompt and seed; a bad envelope is a 400
+        code, _, raw = _http(port, "/generate_batch", {"requests": [{"prompt": "x", "seed": 1}]})
+        item, = json.loads(raw)["results"]
+        code1, _, raw1 = _http(port, "/generate", {"prompt": "x", "seed": 1})
+        assert code == code1 == 200 and item["image_png_b64"] == json.loads(raw1)["image_png_b64"]
+        assert _http(port, "/generate_batch", {"requests": []})[0] == 400
     finally:
         svc.begin_drain()
         assert svc.join_drained(timeout=60)
@@ -729,10 +738,7 @@ def test_cli_refuses_to_run_without_a_gpu_unless_asked(tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("overrides,item", [
-    (["--fleet.workers=2"], "item 8"),
-    (["--fleet.worker_index=0"], "item 8"),
     (["--warm.dir=w"], "item 7c"),
-    (["--hang_timeout_s=30"], "item 8"),
     (["--mesh.data=2"], "item 9"),
 ])
 def test_unported_serve_settings_raise(overrides, item):
@@ -742,12 +748,25 @@ def test_unported_serve_settings_raise(overrides, item):
         TC.validate_serve_config(cfg)
 
 
-@pytest.mark.parametrize("overrides", [["--logdir=l"]])
+@pytest.mark.parametrize("overrides", [
+    ["--logdir=l"],
+    ["--fleet.workers=2"],
+    ["--fleet.worker_index=0"],
+    ["--hang_timeout_s=30"],
+])
 def test_serve_settings_that_run(overrides):
     """``logdir`` runs since the trace and metrics sink was ported (the CLI
-    test below serves with it): it validates in both packages."""
+    test below serves with it); the fleet's roles and the batch watchdog
+    since the fleet was (tests/test_torch_fleet.py drives them): each
+    validates in both packages, and the fleet's own checks still refuse a
+    bad lease contract."""
     JC.validate_serve_config(JC.parse_cli(JC.ServeConfig, overrides))
     TC.validate_serve_config(TC.parse_cli(TC.ServeConfig, overrides))
+    if overrides[0].startswith("--fleet."):
+        bad = overrides + ["--fleet.heartbeat_s=2", "--fleet.lease_s=1"]
+        for pkg in (JC, TC):
+            with pytest.raises(ValueError, match="lease_s"):
+                pkg.validate_serve_config(pkg.parse_cli(pkg.ServeConfig, bad))
 
 
 def test_serve_config_parses_as_the_jax_one():
