@@ -18,7 +18,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    decoding to PIL's pixels; decode rates (500x375 full scale, 1024x768 at
    the scale that covers 256; 1 and 8 threads) and the encode time;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes and a few edge shapes, in f32 and bf16 (bf16
+   the main paths' shapes (phase 23's per-rank shapes, SEQPAR_CASES,
+   included) and a few edge shapes, in f32 and bf16 (bf16
    against the plain version in bf16, which rounds where the kernels round),
    with times, the plain version's and the library call's time, the bound
    and the share of it reached, and for f32 the kernel's and the plain
@@ -80,7 +81,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    bytes equal to the formula; one more step from the same state with
    8-bit and with f32 AdamW: the optimizer's ms, the peaks (beside phase
    6's) and the largest parameter difference;
-20. exit drills (after 19): four dcr-train-torch subprocesses at once: at
+20. exit drills (beside phases 8, 4, 9b, 17a and 17b): four dcr-train-torch subprocesses at once: at
    the tiny kernel-shaped model sigterm@step=2 exits 83, hang@step=1 exits
    89 with a thread dump, oom@step=2 exits 85; at TrainConfig() in a
    process whose share of the card (OOM_LIMIT_BYTES) cannot hold the first
@@ -89,20 +90,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 8. kernel limits (after phase 3): B*H = 66560, above the grid's y limit,
    with a misaligned q, forward and backward through the dispatcher and the
    autograd Function in both dtypes, against the plain versions;
-9. small eval reference (after phase 4): the port's run_eval on the card
+9. small eval reference (while phase 2 builds): the port's run_eval on the card
    and on the CPU over one tiny folder, every scalar within 1e-4;
 9b. small dino eval reference: the dino run_eval (ViT-S/16, its layer 2
    with splitloss, XCiT-S/16) on the card and on the CPU, within 1e-4;
 10. eval main path: run_eval at the JAX defaults (SSCD at 224, the
-   complexity stage, FID, precision/recall, CLIP score, galleries) on 256
-   generations at 512 px (16 of them copies of training files) and 512
-   training JPEGs at 256 px; scalars finite, the copies found, the
+   complexity stage, FID, precision/recall, CLIP score, galleries) on 128
+   generations at 512 px (8 of them copies of training files) and 256
+   training JPEGs at 256 px (EVAL_GENS, EVAL_COPIES, EVAL_TRAIN); scalars finite, the copies found, the
    artifacts written; stage seconds, SSCD images/s and ms per batch, host
    decode against device time, peak memory;
 11. backbones: one run_eval each with dino_vitb8, dino_xcit_small_12_p16,
    dino_resnet50 and the CLIP image tower at full width over 500x375 JPEGs;
    device ms per batch of 64, images/s, peak memory;
-12. small search reference: a store of 8,192 unit rows x 512 in 4 segments
+12. small search reference (while phase 2 builds): a store of 8,192 unit rows x 512 in 4 segments
    of 2,048, 100 queries at top_k=5, resident and streamed: the card
    against the CPU, and the store against search_folders on the card,
    under the tie rule (scores within 1e-5 |q||x|, keys equal away from
@@ -133,7 +134,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    bucket_limit; SIGTERM with a batch queued, every request answered,
    exit 83. Seconds per batch, images/s, p50/p99, UNet call ms, risk ms
    per batch, /check ms, peak memory, load and warm seconds.
-16. ANN (inside 5b, after 14), through dcr-search-torch: a store of 1,048,576 rows x
+16. ANN (after the build, on a corpus made while phase 2 builds (16a); phase 17 serves its store), through dcr-search-torch: a store of 1,048,576 rows x
    512 clustered as tools/bench_ann.py builds its corpus (1,024 clusters),
    `train-ivf` with 1,024 lists and 10 iterations, `query --ann=true` and
    the exact `query` for 4,096 queries from 16 hot clusters at top_k 10,
@@ -149,7 +150,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    kmeans_nan@iter=2 makes train-ivf restart once.
 17. live provenance serving (inside 5b, after 16, on 5b's genuine SD-2.1
    and phase 16's raw store): `train-ivf --ivf_normalize=true` (1,024
-   lists), then phase 14's bucket in-process behind the HTTP front end with
+   lists; a subprocess beside phase 20, 17a), then phase 14's bucket in-process behind the HTTP front end with
    --risk.ann=true, --ingest.enabled=true, batch_rows 1, compact_rows 8, the
    recall probe on every call, and ingest_stall before the 8th and 16th
    rows; 16 concurrent requests. Held before any ingest, on 256 queries
@@ -168,7 +169,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    after ingest (past 2^20 rows) host-streamed.
    Drills on phase 16's 65,536-row store (ingest_crash
    and compact_crash in subprocesses, wal_torn, recall_degrade) and the
-   JAX-written WAL of tests/fixtures/jax_wal_store. Reported: ms per WAL
+   JAX-written WAL of tests/fixtures/jax_wal_store, beside phase 20 (17b).
+   Reported: ms per WAL
    append, compaction, fold and refresh seconds, risk ms per batch through
    ANN and through the exact store engine over the same snapshot, /check ms
    with a tail, probe ms, p50/p99, peak memory.
@@ -197,6 +199,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    its trace; (g) SIGTERM with a wave in flight, every request answered,
    exit 83, no worker left. Ready, wave, requeue and respawn seconds,
    both workers' memory gauges (phase_fleet);
+23. multi-process training (inside phase 6's temp dir, on its 48 JPEGs):
+   two rank subprocesses on cuda:0 run the Trainer (b) over gloo as data =
+   2 (8 rows each, losses within rtol 1e-3 and grad norms within 2e-3 of
+   phase 6's, Adam's first moment within 1e-1 of (a)'s, the ranks'
+   parameters bit-equal, the gradients' all-reduce through host memory
+   timed), (c) over gloo as seq = 2 at 512 px, global batch 2, phase 15's
+   depth, Ulysses from 1,024 tokens (ring at level 0; B1/B2/B3 at
+   SEQPAR_CASES' shapes per rank; losses, grad norms and Adam's first
+   moment within the same bars of a single-process Trainer run here), then
+   (a) rank 0 alone over NCCL at TrainConfig() (losses and grad norms equal
+   phase 6's first 3 bit for bit; join, barrier and agreement times); (d)
+   NCCL refuses two ranks on one device ("Duplicate GPU detected"), an
+   expected error;
 21. profile drill (last): POST /debug/profile on an in-process server at
    SD-2.1 widths arms torch.profiler for one device step; a 4-step request
    runs under it, and its Chrome trace holds the forward kernel's 40
@@ -558,6 +573,7 @@ def phase_kernels(reps: int) -> dict:
         ("hook_level0", 8, 1024, 1024, 5, 64, 1.0, True),
         ("hook_level1", 8, 256, 256, 10, 64, 1.0, True),
         *MITIGATE_CASES,
+        *SEQPAR_CASES,
         ("d128", 2, 1024, 1024, 4, 128, 1.0, False),
         ("d256", 2, 512, 512, 4, 256, 1.0, False),
         ("rect", 2, 1024, 256, 4, 64, 1.0, False),
@@ -704,6 +720,8 @@ def phase_bwd_kernels(reps: int) -> dict:
         ("hook_level1", 8, 256, 256, 10, 64, 1.0, True),
         # dcr-mitigate's forward shapes; it runs no backward
         *(c[:-1] + (False,) for c in MITIGATE_CASES),
+        # phase 23 (c)'s per-rank shapes: Ulysses' head groups, the mid block
+        *SEQPAR_CASES,
         ("d128", 2, 1024, 1024, 4, 128, 1.0, False),
         ("d256", 2, 512, 512, 4, 256, 1.0, False),
         ("sq_gt_sk", 2, 1024, 256, 4, 64, 1.0, False),
@@ -1308,7 +1326,8 @@ def phase_train_main_path(out_dir: Path, steps: int) -> dict:
     stats = {"steps": steps, "batch": cfg.train_batch_size, "step_s": step_s,
              "median_step_s_after_first": median_s,
              "images_per_s": cfg.train_batch_size / median_s,
-             "peak_bytes": peak, "losses": losses, "launches_fwd_dq_dkv": launches,
+             "peak_bytes": peak, "losses": losses,
+             "grad_norms": [r["grad_norm"] for r in rows], "launches_fwd_dq_dkv": launches,
              "loop_and_save_s": total_s,
              "save_and_export_s": total_s - sum(step_s) - sum(hook_s),
              "hook_s_per_grid": hook_s, "hook_launches_fwd_dq_dkv": tuple(hook_launches),
@@ -2065,6 +2084,7 @@ def _step_recorder(trainer, record: dict):
         start = time.perf_counter()
         state, metrics = step_fn(state, batch)
         record["losses"].append(float(metrics["loss"]))
+        record.setdefault("grad_norms", []).append(float(metrics["grad_norm"]))
         end = time.perf_counter()
         prev = record["ends"][-1] if record["ends"] else start
         record["step_s"].append(end - prev)
@@ -2474,13 +2494,18 @@ def phase_small_eval_reference(root: Path) -> dict:
     return stats
 
 
+# phase 10's corpus (256, 512 and 16 before it was halved for the time
+# limit; every check and stage stays)
+EVAL_GENS, EVAL_TRAIN, EVAL_COPIES = 128, 256, 8
+
+
 def phase_eval_main_path(root: Path) -> dict:
     """dcr_tpu_torch.eval.runner.run_eval(EvalConfig(...)) at the JAX
     defaults (SSCD ResNet-50 at 224 px, batch 64; the complexity stage; FID
     with Inception at 299; precision/recall with VGG16; CLIP score with
-    ViT-B/16; galleries), seeded random weights, on 256 generations at 512 px
-    (16 of them training files copied byte for byte) and 512 training JPEGs
-    at 256 px (the port's encoder) in two class folders. Checks the scalars,
+    ViT-B/16; galleries), seeded random weights, on EVAL_GENS generations at
+    512 px (EVAL_COPIES of them training files copied byte for byte) and
+    EVAL_TRAIN training JPEGs at 256 px (the port's encoder) in two class folders. Checks the scalars,
     the copies' top-1 matches and the artifacts; prints stage seconds, SSCD
     images/s, device ms per SSCD batch of 64, host decode + transform ms per
     batch, the device's busy share during eval/features and peak memory."""
@@ -2491,7 +2516,8 @@ def phase_eval_main_path(root: Path) -> dict:
     from dcr_tpu_torch.eval.features import EvalImageFolder
 
     t0 = time.perf_counter()
-    gen, train, caps, copies = _write_eval_folders(root, 256, 512, 512, (256, 256), 16, seed=8,
+    gen, train, caps, copies = _write_eval_folders(root, EVAL_GENS, 512, EVAL_TRAIN, (256, 256),
+                                                   EVAL_COPIES, seed=8,
                                                    train_jpeg=True)
     write_s = time.perf_counter() - t0
     # per batch of each extraction: host ms to decode + transform it, device
@@ -2604,8 +2630,9 @@ def phase_eval_main_path(root: Path) -> dict:
         absent.append("galleries/gallery_rank*.png")
     if _has_matplotlib():
         absent += absent_plots
-    if (missing or bad_copies or absent or sim.shape != (256, 512)
-            or scalars["sim_gt_05pc"] < 16 / 256 or len(copy_rows) != 16
+    if (missing or bad_copies or absent or sim.shape != (EVAL_GENS, EVAL_TRAIN)
+            or scalars["sim_gt_05pc"] < EVAL_COPIES / EVAL_GENS
+            or len(copy_rows) != EVAL_COPIES
             or calls != list(passes)):
         raise AssertionError(f"eval main path failed: scalars missing or not finite "
                              f"{missing}, copies {bad_copies}, artifacts absent {absent}, "
@@ -3839,7 +3866,12 @@ def _cli(argv: list[str]) -> tuple[float, list]:
     with contextlib.redirect_stdout(buf):
         cli.main(argv)
     seconds = time.perf_counter() - t0
-    text, docs, dec = buf.getvalue(), [], json.JSONDecoder()
+    return seconds, _json_docs(buf.getvalue())
+
+
+def _json_docs(text: str) -> list:
+    """The JSON documents a command printed, other lines skipped."""
+    docs, dec = [], json.JSONDecoder()
     pos = 0
     while text[pos:].strip():
         if text[pos:].lstrip().startswith("{"):
@@ -3848,7 +3880,7 @@ def _cli(argv: list[str]) -> tuple[float, list]:
             docs.append(doc)
         else:
             pos = text.index("\n", pos) + 1 if "\n" in text[pos:] else len(text)
-    return seconds, docs
+    return docs
 
 
 class EngineProbe:
@@ -4293,7 +4325,32 @@ def _ann_small_store_drills(root: Path) -> dict:
     return stats
 
 
-def phase_ann(root: Path) -> dict:
+def phase_ann_corpus(root: Path) -> dict:
+    """Phase 16's set-up, run while phase 2 builds (numpy and the disk, no
+    card kernel, no JPEG library): the clustered corpus, its
+    reference-format pickle dump and the generations' npz."""
+    import pickle
+
+    import numpy as np
+
+    from dcr_tpu_torch.search import embed as E
+
+    t0 = time.perf_counter()
+    feats, q, picks = _ann_corpus(ANN_ROWS, SEARCH_DIM, ANN_CLUSTERS, ANN_QUERIES, ANN_HOT)
+    keys = np.asarray([f"ann{i:07d}" for i in range(ANN_ROWS)], dtype=object)
+    dump, gens = root / "chunk" / "embedding.pkl", root / "gens"
+    dump.parent.mkdir()
+    gens.mkdir()
+    # a reference-format pickle, as phase 13 writes its chunks (an npz dump
+    # is zlib-compressed: tens of seconds for 2 GB of random floats)
+    with open(dump, "wb") as f:
+        pickle.dump({"features": feats, "indexes": keys.tolist()}, f, protocol=4)
+    E.save_embeddings(gens / "embedding.npz", q, [f"gen{i}" for i in range(ANN_QUERIES)])
+    return {"feats": feats, "q": q, "picks": picks, "keys": keys, "dump": dump, "gens": gens,
+            "corpus_s": time.perf_counter() - t0}
+
+
+def phase_ann(root: Path, corpus: dict) -> dict:
     """Phase 16: the IVF tier of dcr-search-torch at one LAION chunk: a
     clustered corpus of 1,048,576 rows x 512 (1,024 clusters; tools/
     bench_ann.py's recipe) built into a store, `train-ivf` with 1,024 lists
@@ -4306,31 +4363,20 @@ def phase_ann(root: Path) -> dict:
     nprobe = n_lists agrees with the exact engine, bit-identical centroids,
     the drills, 0 flash launches. The source row of a query is its float64
     top-1 only where no row of its cluster has a larger dot product: the
-    share is reported, not held (the engines rank by dot product)."""
-    import pickle
-
+    share is reported, not held (the engines rank by dot product). The
+    corpus comes from phase_ann_corpus."""
     import numpy as np
 
     from dcr_tpu_torch.core import tracing
     from dcr_tpu_torch.search import ann
     from dcr_tpu_torch.search import annindex as AI
-    from dcr_tpu_torch.search import embed as E
 
     t_phase = time.perf_counter()
     reset_launches()
     stats: dict = {"card": CARD[0]}
-    t0 = time.perf_counter()
-    feats, q, picks = _ann_corpus(ANN_ROWS, SEARCH_DIM, ANN_CLUSTERS, ANN_QUERIES, ANN_HOT)
-    keys = np.asarray([f"ann{i:07d}" for i in range(ANN_ROWS)], dtype=object)
-    dump, gens, store = root / "chunk" / "embedding.pkl", root / "gens", root / "store"
-    dump.parent.mkdir()
-    gens.mkdir()
-    # a reference-format pickle, as phase 13 writes its chunks (an npz dump
-    # is zlib-compressed: tens of seconds for 2 GB of random floats)
-    with open(dump, "wb") as f:
-        pickle.dump({"features": feats, "indexes": keys.tolist()}, f, protocol=4)
-    E.save_embeddings(gens / "embedding.npz", q, [f"gen{i}" for i in range(ANN_QUERIES)])
-    stats["corpus_s"] = time.perf_counter() - t0
+    feats, q, picks, keys = (corpus[k] for k in ("feats", "q", "picks", "keys"))
+    dump, gens, store = corpus["dump"], corpus["gens"], root / "store"
+    stats["corpus_s"] = corpus["corpus_s"]
     build_s, (build,) = _cli(["build", f"--store_dir={store}", f"--dumps={dump}",
                               "--shard_rows=65536"])
     stats["build"] = {"ingest_s": build_s, "rows": build["rows"], "shards": build["shards"]}
@@ -4856,10 +4902,47 @@ def _serve_memory_drills(port: int, root: Path) -> dict:
     return out
 
 
-def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -> dict:
+def phase_live_retrain(store: Path) -> dict:
+    """Phase 17's set-up, run beside phase 20 and the reference phases:
+    `train-ivf --ivf_normalize=true` (1,024 lists) over phase 16's store,
+    dcr-search-torch as a subprocess on the card (in this process its
+    stdout capture would take the other phases' log lines)."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k != "DCR_FAULTS"}
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent)
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dcr_tpu_torch.cli.search", "train-ivf",
+                           f"--store_dir={store}", f"--n_lists={ANN_LISTS}",
+                           f"--ivf_iters={ANN_ITERS}", "--ivf_normalize=true"], env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 17's train-ivf exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    (report,) = _json_docs(proc.stdout)
+    return {"cli_s": time.perf_counter() - start, **report}
+
+
+def phase_live_drills(ann_root: Path, root: Path) -> dict:
+    """Phase 17's drills, run beside phase 20 (they hold results, not
+    times): _live_drills on phase 16's small store and the JAX-written WAL
+    (_jax_wal_fixture), with no flash launch."""
+    before = read_launches()
+    stats = {"drills": _live_drills(ann_root / "small_store", root)}
+    log(f"live drills (phase 17, {CARD[0]}): {json.dumps(stats['drills'], default=str)}")
+    stats["jax_wal"] = _jax_wal_fixture(root)
+    log(f"JAX-written WAL (phase 17, {CARD[0]}): {json.dumps(stats['jax_wal'], default=str)}")
+    if read_launches() != before:
+        raise AssertionError(f"the drills launched flash kernels: {read_launches()}")
+    return stats
+
+
+def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict,
+                       retrain: dict) -> dict:
     """Phase 17: live provenance in serving on phase 16's raw store of one
     LAION chunk (1,048,576 rows x 512), its IVF tier retrained with
-    `train-ivf --ivf_normalize=true` (1,024 lists), behind phase 14's bucket
+    `train-ivf --ivf_normalize=true` (1,024 lists; phase_live_retrain's
+    ``retrain``), behind phase 14's bucket
     (5b's genuine SD-2.1, 256 px, 50 DPM++ steps, max_batch 8, f32): the
     service and its HTTP front end in-process, parsed from dcr-serve's flags
     --risk.store_dir, --risk.ann=true, --risk.top_k=5, --ingest.enabled=true,
@@ -4878,8 +4961,8 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
     spot_check_recall offline on the 16 generations; 1,500 B1 launches
     (warm batch and two batches, 10 per UNet call); the exact engine that
     the index builds without risk.ann over the snapshot after ingest, past
-    DEFAULT_MAX_RESIDENT_ROWS, host-streamed. Then the drills
-    (_live_drills) and the JAX-written WAL (_jax_wal_fixture). Reported,
+    DEFAULT_MAX_RESIDENT_ROWS, host-streamed. The drills run apart
+    (phase_live_drills). Reported,
     not held: each check's rank of its own gen/ key; risk ms per batch
     through the ANN engine and through the exact engine the index builds
     without risk.ann, over the same snapshot."""
@@ -4909,9 +4992,7 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
     t_phase = time.perf_counter()
     stats: dict = {"card": CARD[0]}
     torch.cuda.empty_cache()
-    train_s, (report,) = _cli(["train-ivf", f"--store_dir={store}", f"--n_lists={ANN_LISTS}",
-                               f"--ivf_iters={ANN_ITERS}", "--ivf_normalize=true"])
-    stats["train_ivf"] = {"cli_s": train_s, **report}
+    stats["train_ivf"] = retrain
     lists_before = {int(e["list"]): (e["file"], e["sha256"])
                     for e in ann.read_ann_manifest(store)["lists"]}
     ann_snap0, store_snap0 = ann.ann_snapshot_version(store), ST.snapshot_version(store)
@@ -5173,12 +5254,6 @@ def phase_live_serving(ckpt: Path, store: Path, root: Path, serve_stats: dict) -
             or abs(stats["recall_online_pct"] / 100 - stats["offline_recall"]) > 0.05):
         raise AssertionError(f"phase 17 failed: {json.dumps(stats, default=str)}")
 
-    stats["drills"] = _live_drills(store.parent / "small_store", root)
-    log(f"live drills (phase 17, {CARD[0]}): {json.dumps(stats['drills'], default=str)}")
-    stats["jax_wal"] = _jax_wal_fixture(root)
-    log(f"JAX-written WAL (phase 17, {CARD[0]}): {json.dumps(stats['jax_wal'], default=str)}")
-    if read_launches() != launches:
-        raise AssertionError(f"the drills launched flash kernels: {read_launches()}")
     stats["phase_s"] = time.perf_counter() - t_phase
     log(f"live serving phase 17: {stats['phase_s']:.1f} s")
     return stats
@@ -5256,6 +5331,427 @@ def phase_profile_drill(root: Path) -> dict:
     return stats
 
 
+# phase 23: multi-process training. Two rank subprocesses, both on cuda:0,
+# run _DIST_RANK over the parts of <root>/plan.json in order, joining a new
+# process group for each (a TCPStore on the part's port), and write
+# <root>/rank_<r>.json. (a) runs DIST_STEPS steps, (b) and (c) GLOO_STEPS:
+# gloo moves 3.46 GB of gradients through host memory at 0.5-0.8 GB/s
+# (PERF.md §6, multi-process training)
+DIST_STEPS = 3
+GLOO_STEPS = 2
+# (c) runs phase 15's depth at 512 px: level 0 (S 4096, 5 heads) takes ring
+# attention, level 1 (S 1024, 10 heads) Ulysses, the mid block (S 256) the
+# kernels per rank
+SEQPAR_CASES = [
+    ("seq_level1", 2, 1024, 1024, 5, 64, 1.0, True),
+    ("seq_level2", 2, 256, 256, 20, 64, 1.0, True),
+]
+
+# phase 23's bars, against a run of the same global batch and draws in one
+# process, from the largest gaps read on the card (PERF.md §6, multi-process
+# training): the losses (8.2e-5) and the logged global grad norms (1.2e-4),
+# each under a tenth of its bar; Adam's first moment after GLOO_STEPS steps,
+# linear in the steps' global gradients so it keeps their scale, which the
+# update hides (a leaf's norm 1.2e-2, a DIGEST_LEAVES leaf whole 2.5e-2: bf16
+# sums reordered at the 256-token level), under a quarter of its bar. A sum
+# in place of a mean moves a moment by 1.0; a missing rank's rows or seq
+# slice gives another gradient
+DIST_LOSS_RTOL = 1e-3
+DIST_GRAD_NORM_RTOL = 2e-3
+DIST_MOMENT_RTOL = 1e-1
+# the UNet leaves whose whole first moment is compared: the input conv (every
+# gradient reaches it), the first self-attention of each block's value and
+# output projections (the ring, Ulysses and per-rank paths; the query and
+# key projections' gradients at random init are bf16 rounding, up to 4.4e-2
+# apart) and the output conv
+DIGEST_LEAVES = ("conv_in.weight", *(f"attentions.0.transformer_blocks.0.attn1.{n}.weight"
+                                     for n in ("to_v", "to_out.0")),
+                 "conv_out.weight")
+
+
+def adam_digest(state) -> dict:
+    """Adam's first moment of every UNet leaf as its norm, and of the
+    DIGEST_LEAVES leaves whole, on the host."""
+    mu = {k[len("unet/"):]: v for k, v in state.opt_state.mu.items() if k.startswith("unet/")}
+    return {"norms": {k: float(v.norm()) for k, v in mu.items()},
+            "leaves": {k: v.detach().float().cpu().clone() for k, v in mu.items()
+                       if k.endswith(DIGEST_LEAVES)}}
+
+
+def digest_gap(got: dict, want: dict) -> dict:
+    """The worst relative gap of ``got``'s leaf norms and of its whole
+    DIGEST_LEAVES leaves from ``want``'s."""
+    norms = {k: abs(got["norms"][k] - n) / n for k, n in want["norms"].items() if n > 0}
+    leaves = {k: float((got["leaves"][k] - w).norm() / w.norm())
+              for k, w in want["leaves"].items() if float(w.norm()) > 0}
+    worst_norm, worst_leaf = max(norms, key=norms.get), max(leaves, key=leaves.get)
+    return {"leaf_norms": len(norms), "worst_norm_rel": norms[worst_norm],
+            "worst_norm_leaf": worst_norm, "whole_leaves": len(leaves),
+            "worst_leaf_rel": leaves[worst_leaf], "worst_leaf": worst_leaf,
+            "leaf_rel": leaves}
+
+
+def rel_gaps(got, want) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(got, want))
+
+
+_DIST_RANK = r"""
+import datetime, json, statistics, sys, time
+from pathlib import Path
+
+import torch
+import torch.distributed as tdist
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from dcr_tpu_torch.core import coordination as C
+from dcr_tpu_torch.core import dist
+from dcr_tpu_torch.core.config import TrainConfig, from_dict
+from dcr_tpu_torch.diffusion.trainer import Trainer, state_fingerprint
+from dcr_tpu_torch.ops import flash_attention as fa
+from dcr_tpu_torch.parallel import mesh as pmesh
+from dcr_tpu_torch.utils import profiling
+from chip_smoke import adam_digest
+
+rank, root = int(sys.argv[1]), Path(sys.argv[2])
+plan = json.loads((root / "plan.json").read_text())
+device = plan["device"]
+out = {}
+reduce_s, shapes = [], []
+plain_reduce = pmesh.all_reduce_mean_
+
+
+def sync():
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def timed_reduce(tensors, group=None):
+    sync()
+    start = time.perf_counter()
+    plain_reduce(tensors, group)
+    sync()
+    reduce_s.append(time.perf_counter() - start)
+
+
+pmesh.all_reduce_mean_ = timed_reduce
+plain_flash = fa.flash_attention
+
+
+def spied_flash(q, k, v):
+    shapes.append([list(q.shape), str(q.dtype).split(".")[-1]])
+    return plain_flash(q, k, v)
+
+
+fa.flash_attention = spied_flash
+# mfu's FLOP count (phase 6 holds it) costs each Trainer ~2.5 s
+profiling.train_step_flops = lambda *a, **k: None
+for part in plan["parts"]:
+    if rank >= part["world"]:
+        continue
+    rec = {"world": part["world"], "backend": part["backend"]}
+    start = time.perf_counter()
+    store = tdist.TCPStore("127.0.0.1", part["port"], part["world"], is_master=rank == 0,
+                           timeout=datetime.timedelta(seconds=600), wait_for_workers=False)
+    dist.initialize(device, backend=part["backend"], store=store, rank=rank,
+                    world_size=part["world"])
+    rec["init_s"] = time.perf_counter() - start
+    start = time.perf_counter()
+    dist.barrier("probe", timeout_s=120)
+    rec["barrier_s"] = time.perf_counter() - start
+    coord = C.Coordinator(timeout_s=120)
+    start = time.perf_counter()
+    rec["probe_action"] = coord.exchange(0, tag="probe").action.value
+    rec["exchange_s"] = time.perf_counter() - start
+    cfg = from_dict(TrainConfig, part["cfg"])
+    if device.startswith("cuda"):
+        torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, device=device)
+    # phase 6 holds the saves and the export
+    trainer.save = lambda: None
+    trainer.export_checkpoint = lambda *a, **k: None
+    rec["mesh"] = trainer.mesh.shape
+    losses, grad_norms, step_s = [], [], []
+    step_fn = trainer.step_fn
+
+    def step(state, batch):
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        grad_norms.append(float(metrics["grad_norm"]))
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        if rank == 0 and len(losses) == plan["digest_step"]:
+            torch.save(adam_digest(state), root / f"digest_{part['name']}.pt")
+        return state, metrics
+
+    trainer.step_fn = step
+    reduce_s.clear()
+    shapes.clear()
+    pmesh.EXCHANGE_STATS.clear()
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.dq_launches = fa.flash_attention_bwd.dkv_launches = 0
+    trainer.train()
+    rec["launches_fwd_dq_dkv"] = [fa.flash_attention_fwd.launches,
+                                  fa.flash_attention_bwd.dq_launches,
+                                  fa.flash_attention_bwd.dkv_launches]
+    rec.update(losses=losses, grad_norms=grad_norms, step_s=step_s, reduce_s=list(reduce_s),
+               flash_shapes=sorted({json.dumps(s) for s in shapes}),
+               exchanges=dict(pmesh.EXCHANGE_STATS),
+               peak_bytes=torch.cuda.max_memory_allocated() if device != "cpu" else 0,
+               fingerprint=state_fingerprint(trainer.state) if part["world"] > 1 else None)
+    out[part["name"]] = rec
+    del trainer
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+    dist.shutdown()
+    (root / f"rank_{rank}.json").write_text(json.dumps(out))
+"""
+
+_NCCL_TWO_ON_ONE = r"""
+import datetime, json, sys
+import torch
+import torch.distributed as tdist
+from dcr_tpu_torch.core import dist
+
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+store = tdist.TCPStore("127.0.0.1", port, 2, is_master=rank == 0,
+                       timeout=datetime.timedelta(seconds=120), wait_for_workers=False)
+dist.initialize("cuda:0", backend="nccl", store=store, rank=rank, world_size=2)
+try:
+    t = torch.ones(1, device="cuda:0")
+    tdist.all_reduce(t)
+    torch.cuda.synchronize()
+    print(json.dumps({"error": None}))
+    sys.exit(3)
+except Exception as e:
+    print(json.dumps({"error": f"{type(e).__name__}: {e}"}))
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_env(**extra) -> dict:
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+                        "COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID", "DCR_FAULTS")}
+    env["PYTHONPATH"] = (str(Path(__file__).resolve().parent) + os.pathsep
+                         + env.get("PYTHONPATH", ""))
+    env.update(extra)
+    return env
+
+
+def _seqpar_cfg(out_dir: Path, data: Path, **kw):
+    """(c)'s configuration: TrainConfig() at 512 px, global batch 2, at
+    phase 15's depth, sequence parallelism from 1,024 tokens, Ulysses."""
+    from dcr_tpu_torch.core.config import ModelConfig, TrainConfig
+
+    cfg = TrainConfig(output_dir=str(out_dir), max_train_steps=GLOO_STEPS, log_every=1,
+                      modelsavesteps=10 ** 6, train_batch_size=2, **kw)
+    cfg.data.train_data_dir = str(data)
+    cfg.data.resolution = 512
+    cfg.model = ModelConfig(sample_size=64, layers_per_block=FAULTS_LAYERS_PER_BLOCK,
+                            block_out_channels=FAULTS_BLOCK_OUT_CHANNELS,
+                            seq_parallel_min_seq=1024, seq_parallel_mode="ulysses")
+    return cfg
+
+
+def phase_multi_process_training(root: Path, data: Path, fused_stats: dict) -> dict:
+    """Phase 23: dcr-train-torch's Trainer as several processes on the one
+    card (one card cannot host two NCCL ranks: (d)). Two rank subprocesses
+    on cuda:0 run, in turn,
+    (b) two ranks over gloo, mesh data = 2, 8 rows each, GLOO_STEPS steps:
+        losses within DIST_LOSS_RTOL and grad norms within
+        DIST_GRAD_NORM_RTOL of phase 6's, Adam's first moment within
+        DIST_MOMENT_RTOL of (a)'s
+        after as many steps (adam_digest), both ranks' parameters bit-equal
+        (state fingerprints), the gradients' all-reduce seconds per step
+        (gloo stages through host memory: not NCCL's);
+    (c) two ranks over gloo, mesh seq = 2, at 512 px, global batch 2, at
+        phase 15's depth with seq_parallel_min_seq 1,024 and Ulysses: ring
+        attention at level 0, Ulysses at level 1 (B1/B2/B3 at
+        [2,1024,5,64] per rank), the mid block's kernels at [2,256,20,64];
+        losses, grad norms and Adam's first moment within the same bars of
+        a single-process Trainer on the same batches and draws (run here
+        while the ranks start); peak memory;
+    (a) rank 0 alone over NCCL at TrainConfig() on phase 6's data and seed,
+        DIST_STEPS steps: its losses and grad norms equal phase 6's first
+        ones bit for bit (a one-rank all-reduce and a divide by 1 are
+        exact); the join, a
+        store barrier and an agreement round timed;
+    (d) two ranks over NCCL on one device, beside (c)'s reference: NCCL's
+        refusal, kept as an expected error with its text.
+    The phase's launches: the ranks' own counts over their train() calls."""
+    import gc
+
+    from dcr_tpu_torch.core.config import MeshConfig, TrainConfig, to_dict
+    from dcr_tpu_torch.diffusion.trainer import Trainer
+
+    stats: dict = {"card": CARD[0]}
+    base = TrainConfig(output_dir=str(root / "a"), max_train_steps=DIST_STEPS, log_every=1,
+                       modelsavesteps=10 ** 6, checkpoints_total_limit=1)
+    base.data.train_data_dir = str(data)
+    b_cfg = TrainConfig(output_dir=str(root / "b"), max_train_steps=GLOO_STEPS, log_every=1,
+                        modelsavesteps=10 ** 6, train_batch_size=8)
+    b_cfg.data.train_data_dir = str(data)
+    b_cfg.mesh = MeshConfig(data=2)
+    c_cfg = _seqpar_cfg(root / "c", data, mesh=MeshConfig(data=1, seq=2))
+    # (b) and (c) first: both ranks start cold together; (a) last, on rank
+    # 0 alone (its first step then skips the process's warm-up, not its
+    # numerics)
+    parts = [dict(name="b", world=2, backend="gloo", cfg=to_dict(b_cfg)),
+             dict(name="c", world=2, backend="gloo", cfg=to_dict(c_cfg)),
+             dict(name="a", world=1, backend="nccl", cfg=to_dict(base))]
+    for part in parts:
+        part["port"] = _free_port()
+    (root / "plan.json").write_text(json.dumps({"parts": parts, "device": "cuda:0",
+                                                "digest_step": GLOO_STEPS}))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _DIST_RANK, str(r), str(root)],
+                              env=_rank_env(), stdout=open(root / f"rank_{r}.log", "w"),
+                              stderr=subprocess.STDOUT) for r in range(2)]
+
+    # (d), and (c)'s single-process reference here, while the ranks start
+    port_d = _free_port()
+    nccl = [subprocess.Popen([sys.executable, "-c", _NCCL_TWO_ON_ONE, str(r), str(port_d)],
+                             env=_rank_env(NCCL_DEBUG="WARN"), stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    t_ref = time.perf_counter()
+    ref = Trainer(_seqpar_cfg(root / "c_ref", data), device="cuda")
+    ref.save = lambda: None
+    ref.export_checkpoint = lambda *a, **k: None
+    record = {"losses": [], "step_s": [], "busy_s": [], "ends": [], "index": []}
+    _step_recorder(ref, record)
+    ref.train()
+    stats["c_reference"] = {"losses": record["losses"], "grad_norms": record["grad_norms"],
+                            "busy_s": record["busy_s"], "s": time.perf_counter() - t_ref}
+    ref_digest = adam_digest(ref.state)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    nccl_out = []
+    for p in nccl:
+        try:
+            text, _ = p.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text = p.communicate()[0] + "\n(killed after 120 s)"
+        nccl_out.append((p.returncode, text))
+    errors = [json.loads(line)["error"] for _, text in nccl_out for line in text.splitlines()
+              if line.startswith('{"error"')]
+    stats["d_nccl_two_ranks_one_device"] = {"rcs": [rc for rc, _ in nccl_out],
+                                            "errors": errors}
+    log(f"multi-process training (d) NCCL, two ranks on cuda:0 ({CARD[0]}): exit codes "
+        f"{[rc for rc, _ in nccl_out]}, errors {errors}")
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=600))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            rcs.append(None)
+    stats["ranks_s"] = time.perf_counter() - t0
+    if not errors or any(e is None for e in errors) or any(rc != 0 for rc, _ in nccl_out):
+        tails = [text[-1500:] for _, text in nccl_out]
+        raise AssertionError(f"(d): NCCL did not refuse two ranks on one device: {tails}")
+    if rcs != [0, 0]:
+        tails = [(root / f"rank_{r}.log").read_text(errors="replace")[-4000:] for r in (0, 1)]
+        raise AssertionError(f"phase 23 ranks exited {rcs}:\n" + "\n".join(tails))
+    ranks = [json.loads((root / f"rank_{r}.json").read_text()) for r in (0, 1)]
+    a, b, c = ranks[0]["a"], [r["b"] for r in ranks], [r["c"] for r in ranks]
+
+    want = fused_stats["losses"][:DIST_STEPS]
+    want_b = want[:GLOO_STEPS]
+    want_norms = fused_stats["grad_norms"][:DIST_STEPS]
+    stats["a"] = {k: a[k] for k in ("init_s", "barrier_s", "exchange_s", "losses",
+                                    "grad_norms", "step_s", "reduce_s", "launches_fwd_dq_dkv",
+                                    "flash_shapes", "peak_bytes")}
+    stats["a"]["losses_equal_phase6"] = a["losses"] == want
+    stats["a"]["grad_norms_equal_phase6"] = a["grad_norms"] == want_norms
+    log(f"multi-process training (a) one rank over NCCL ({CARD[0]}): {json.dumps(stats['a'])}; "
+        f"phase 6 {want}, grad norms {want_norms}")
+    shapes_16 = {json.dumps([[16, s_, h, 64], "bfloat16"]) for s_, h in ((1024, 5), (256, 10))}
+    if (a["losses"] != want or a["grad_norms"] != want_norms
+            or set(a["flash_shapes"]) != shapes_16
+            or tuple(a["launches_fwd_dq_dkv"]) != (10 * DIST_STEPS,) * 3):
+        raise AssertionError(f"(a): one NCCL rank's losses {a['losses']} and grad norms "
+                             f"{a['grad_norms']} against phase 6's {want} and {want_norms}, "
+                             f"shapes {a['flash_shapes']}, launches "
+                             f"{a['launches_fwd_dq_dkv']}")
+    digests = {p_: torch.load(root / f"digest_{p_}.pt") for p_ in ("a", "b", "c")}
+    stats["b"] = {"losses": [r["losses"] for r in b], "step_s": [r["step_s"] for r in b],
+                  "reduce_s_gloo_through_host": [r["reduce_s"] for r in b],
+                  "init_s": [r["init_s"] for r in b], "barrier_s": [r["barrier_s"] for r in b],
+                  "exchange_s": [r["exchange_s"] for r in b],
+                  "launches_fwd_dq_dkv": [r["launches_fwd_dq_dkv"] for r in b],
+                  "flash_shapes": b[0]["flash_shapes"], "peak_bytes": [r["peak_bytes"] for r in b],
+                  "fingerprints": [r["fingerprint"] for r in b],
+                  "grad_norms": [r["grad_norms"] for r in b],
+                  "max_rel_diff_phase6": rel_gaps(b[0]["losses"], want_b),
+                  "grad_norm_max_rel_diff_phase6": rel_gaps(b[0]["grad_norms"],
+                                                            want_norms[:GLOO_STEPS]),
+                  "adam_mu_gap_to_a": digest_gap(digests["b"], digests["a"])}
+    log(f"multi-process training (b) two ranks over gloo, data = 2 ({CARD[0]}): "
+        f"{json.dumps(stats['b'])}")
+    # 8 rows per rank: phase 3's hook_level0/1 shapes
+    shapes_8 = {json.dumps([[8, s_, h, 64], "bfloat16"]) for s_, h in ((1024, 5), (256, 10))}
+    gap_b = stats["b"]["adam_mu_gap_to_a"]
+    if (b[0]["losses"] != b[1]["losses"] or b[0]["fingerprint"] != b[1]["fingerprint"]
+            or stats["b"]["max_rel_diff_phase6"] > DIST_LOSS_RTOL
+            or stats["b"]["grad_norm_max_rel_diff_phase6"] > DIST_GRAD_NORM_RTOL
+            or gap_b["worst_norm_rel"] > DIST_MOMENT_RTOL
+            or gap_b["worst_leaf_rel"] > DIST_MOMENT_RTOL
+            or set(b[0]["flash_shapes"]) != shapes_8
+            or any(tuple(r["launches_fwd_dq_dkv"]) != (10 * GLOO_STEPS,) * 3 for r in b)):
+        raise AssertionError(f"(b): {json.dumps(stats['b'])}; phase 6's losses {want_b}, "
+                             f"grad norms {want_norms[:GLOO_STEPS]}")
+    ref_losses = stats["c_reference"]["losses"]
+    stats["c"] = {"losses": [r["losses"] for r in c], "step_s": [r["step_s"] for r in c],
+                  "reduce_s_gloo_through_host": [r["reduce_s"] for r in c],
+                  "launches_fwd_dq_dkv": [r["launches_fwd_dq_dkv"] for r in c],
+                  "flash_shapes": c[0]["flash_shapes"], "exchanges": c[0]["exchanges"],
+                  "peak_bytes": [r["peak_bytes"] for r in c],
+                  "fingerprints": [r["fingerprint"] for r in c],
+                  "grad_norms": [r["grad_norms"] for r in c],
+                  "max_rel_diff_reference": rel_gaps(c[0]["losses"], ref_losses),
+                  "grad_norm_max_rel_diff_reference": rel_gaps(
+                      c[0]["grad_norms"], stats["c_reference"]["grad_norms"]),
+                  "adam_mu_gap_to_reference": digest_gap(digests["c"], ref_digest)}
+    log(f"multi-process training (c) two ranks over gloo, seq = 2 at 512 px ({CARD[0]}): "
+        f"{json.dumps(stats['c'])}; single-process reference {ref_losses}, grad norms "
+        f"{stats['c_reference']['grad_norms']}")
+    held = {json.dumps([[b_, sq, h, d], "bfloat16"]) for _, b_, sq, _, h, d, _, _ in SEQPAR_CASES}
+    # per rank and step: 3 Ulysses attentions at level 1 and the mid block's
+    expected = (GLOO_STEPS * 4,) * 3
+    gap_c = stats["c"]["adam_mu_gap_to_reference"]
+    if (c[0]["losses"] != c[1]["losses"] or c[0]["fingerprint"] != c[1]["fingerprint"]
+            or stats["c"]["max_rel_diff_reference"] > DIST_LOSS_RTOL
+            or stats["c"]["grad_norm_max_rel_diff_reference"] > DIST_GRAD_NORM_RTOL
+            or gap_c["worst_norm_rel"] > DIST_MOMENT_RTOL
+            or gap_c["worst_leaf_rel"] > DIST_MOMENT_RTOL
+            or set(c[0]["flash_shapes"]) != held
+            or any(tuple(r["launches_fwd_dq_dkv"]) != expected for r in c)
+            or not c[0]["exchanges"].get("ppermute") or not c[0]["exchanges"].get("all_to_all")):
+        raise AssertionError(f"(c): {json.dumps(stats['c'])}; reference {ref_losses}; "
+                             f"expected shapes {held}, launches {expected} per rank")
+    stats["launches"] = {"a": a["launches_fwd_dq_dkv"],
+                         "b": [sum(x) for x in zip(*(r["launches_fwd_dq_dkv"] for r in b))],
+                         "c": [sum(x) for x in zip(*(r["launches_fwd_dq_dkv"] for r in c))]}
+    log(f"multi-process training (phase 23, {CARD[0]}): {json.dumps(stats, default=str)}")
+    return stats
+
+
 def kernel_entry(kind: str, dtype: str, rows: list[dict], cases: tuple[str, ...],
                  launches: dict, tensor_core_instructions: dict) -> dict:
     """One kernel's record for the JSON line, from its phase-3 rows at the
@@ -5322,18 +5818,49 @@ def main() -> int:
 
     wall0 = time.perf_counter()
     run_phase("1 card", phase_card)
-    built = run_phase("2 build", phase_build)
+    # the build is nvcc's host work; phases 9 and 12 and phase 16's corpus,
+    # which launch no flash kernel, load no JPEG library and hold results
+    # or make inputs, not times, run meanwhile
+    from concurrent.futures import ThreadPoolExecutor
+
+    # phase 16's store is served again by phase 17
+    ann_tmp = tempfile.TemporaryDirectory()
+    ann_root = Path(ann_tmp.name) / "ann"
+    ann_root.mkdir()
+    with ThreadPoolExecutor(1) as pool:
+        building = pool.submit(run_phase, "2 build", phase_build)
+        with tempfile.TemporaryDirectory() as tmp:
+            small_eval = run_phase("9 small eval reference", phase_small_eval_reference,
+                                   Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            small_search = run_phase("12 small search reference",
+                                     phase_small_search_reference, Path(tmp))
+        ann_corpus = run_phase("16a ann corpus", phase_ann_corpus, ann_root)
+        built = building.result()
+    ann_stats = run_phase("16 ann", phase_ann, ann_root, ann_corpus)
+    del ann_corpus
+    torch.cuda.empty_cache()
     codec = run_phase("2b jpeg codec", phase_jpeg_codec)
     kern = run_phase("3 kernels B1", phase_kernels, reps=10)
     bwd = run_phase("3 kernels B2 B3", phase_bwd_kernels, reps=10)
-    limits = run_phase("8 kernel limits", phase_kernel_limits)
-    run_phase("4 small reference", phase_small_reference)
-    small_train = run_phase("4 small train reference", phase_small_train_reference)
-    with tempfile.TemporaryDirectory() as tmp:
-        small_eval = run_phase("9 small eval reference", phase_small_eval_reference, Path(tmp))
-    with tempfile.TemporaryDirectory() as tmp:
-        small_dino = run_phase("9b small dino eval reference", phase_small_dino_reference,
-                               Path(tmp))
+    # the exit drills' four children (phase 20) and phase 17's IVF retrain
+    # (a subprocess) run beside the reference phases and phase 17's drills,
+    # which hold results, not times; only this thread launches kernels in
+    # this process
+    with ThreadPoolExecutor(2) as pool, tempfile.TemporaryDirectory() as drill_tmp:
+        drilling = pool.submit(run_phase, "20 exit drills", phase_exit_drills, Path(drill_tmp))
+        retraining = pool.submit(run_phase, "17a live ivf retrain", phase_live_retrain,
+                                 ann_root / "store")
+        limits = run_phase("8 kernel limits", phase_kernel_limits)
+        run_phase("4 small reference", phase_small_reference)
+        small_train = run_phase("4 small train reference", phase_small_train_reference)
+        with tempfile.TemporaryDirectory() as tmp:
+            small_dino = run_phase("9b small dino eval reference", phase_small_dino_reference,
+                                   Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            live_drills = run_phase("17b live drills", phase_live_drills, ann_root, Path(tmp))
+        drill_stats = drilling.result()
+        live_retrain = retraining.result()
     with tempfile.TemporaryDirectory() as tmp:
         main_stats, main = run_phase("5 sampling main path", phase_main_path, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
@@ -5347,16 +5874,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         fleet_stats = run_phase("22 serving fleet", phase_fleet, Path(tmp) / "sd21", Path(tmp),
                                 serve_stats)
-        # phase 16 runs here so that phase 17 serves 5b's checkpoint over
-        # phase 16's store
-        ann_root = Path(tmp) / "ann"
-        ann_root.mkdir()
-        ann_stats = run_phase("16 ann", phase_ann, ann_root)
-        torch.cuda.empty_cache()
+        # phase 17 serves 5b's checkpoint over phase 16's store
         live_root = Path(tmp) / "live"
         live_root.mkdir()
         live_stats = run_phase("17 live provenance", phase_live_serving, Path(tmp) / "sd21",
-                               ann_root / "store", live_root, serve_stats)
+                               ann_root / "store", live_root, serve_stats, live_retrain)
+        live_stats.update(live_drills)
+    ann_tmp.cleanup()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         fast_stats = run_phase("5c fast sampling", phase_fast_sampling, Path(tmp), main,
@@ -5366,13 +5890,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train_stats = run_phase("6 training main path", phase_train_main_path, Path(tmp),
                                 steps=6)
+        torch.cuda.empty_cache()
+        (Path(tmp) / "dist").mkdir()
+        dist_stats = run_phase("23 multi-process training", phase_multi_process_training,
+                               Path(tmp) / "dist", Path(tmp) / "data", train_stats)
     torch.cuda.empty_cache()
     f32_train_stats = run_phase("7 f32 training", phase_train_f32_step, steps=2)
     torch.cuda.empty_cache()
     adam8_stats = run_phase("19 8-bit adam", phase_train_8bit, train_stats)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        drill_stats = run_phase("20 exit drills", phase_exit_drills, Path(tmp))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         fault_stats = run_phase("15 training faults", phase_train_faults, Path(tmp))
@@ -5389,10 +5914,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         backbone_stats = run_phase("11 backbones", phase_backbones, Path(tmp))
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        small_search = run_phase("12 small search reference", phase_small_search_reference,
-                                 Path(tmp))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         search_stats = run_phase("13 search main path", phase_search_main_path, Path(tmp))
@@ -5435,10 +5956,18 @@ def main() -> int:
     train_cache = dict(zip(("fwd", "dq", "dkv"),
                            pipe_stats["cache_fed"]["launches_fwd_dq_dkv"]))
     train_8bit = dict(zip(("fwd", "dq", "dkv"), adam8_stats["launches_fwd_dq_dkv"]))
+    # phase 23: (a) one NCCL rank at the train shapes, (b) two ranks at the
+    # hook_level shapes (8 rows each), (c) two seq ranks at SEQPAR_CASES
+    dist_train = {part: dict(zip(("fwd", "dq", "dkv"), dist_stats["launches"][part]))
+                  for part in ("a", "b", "c")}
     f32_train = dict(zip(("fwd", "dq", "dkv"), f32_train_stats["launches_fwd_dq_dkv"]))
     sample_cases = ("level0", "level1", "level2", "hook_level0", "hook_level1",
                     *(c[0] for c in MITIGATE_CASES), *SERVE_CASES)
     train_cases = ("train_level0", "train_level1")
+    # bf16 training also runs phase 23's shapes: 8 rows per rank in (b) (the
+    # hook_level rows' shapes), (c)'s per-rank shapes
+    bf16_train_cases = (*train_cases, "hook_level0", "hook_level1",
+                        *(c[0] for c in SEQPAR_CASES))
     entries = [
         kernel_entry("fwd", "float32", kern["rows"], sample_cases,
                      {"sample": main_stats["launches"],
@@ -5451,10 +5980,11 @@ def main() -> int:
                       "train_hook": train_stats["hook_launches_fwd_dq_dkv"][0],
                       "train_f32": f32_train["fwd"]},
                      tensor_cores("flash_fwd_tf32x3_kernel")),
-        kernel_entry("fwd", "bfloat16", kern["rows"], train_cases,
+        kernel_entry("fwd", "bfloat16", kern["rows"], bf16_train_cases,
                      {"train": train["fwd"], "train_faults": train_faults["fwd"],
                       "train_pipe": train_pipe["fwd"], "train_cache": train_cache["fwd"],
-                      "train_8bit": train_8bit["fwd"]},
+                      "train_8bit": train_8bit["fwd"],
+                      **{f"train_dist_{p_}": d["fwd"] for p_, d in dist_train.items()}},
                      tensor_cores("flash_fwd_bf16_kernel")),
     ]
     for kind in ("dq", "dkv"):
@@ -5462,10 +5992,11 @@ def main() -> int:
             kernel_entry(kind, "float32", bwd["rows"], train_cases,
                          {"train_f32": f32_train[kind]},
                          tensor_cores(f"flash_bwd_{kind}_tf32x3_kernel")),
-            kernel_entry(kind, "bfloat16", bwd["rows"], train_cases,
+            kernel_entry(kind, "bfloat16", bwd["rows"], bf16_train_cases,
                          {"train": train[kind], "train_faults": train_faults[kind],
                           "train_pipe": train_pipe[kind], "train_cache": train_cache[kind],
-                          "train_8bit": train_8bit[kind]},
+                          "train_8bit": train_8bit[kind],
+                          **{f"train_dist_{p_}": d[kind] for p_, d in dist_train.items()}},
                          tensor_cores(f"flash_bwd_{kind}_bf16_kernel")),
         ]
     entries[0]["per_shape"] = kern["rows"]
@@ -5494,6 +6025,7 @@ def main() -> int:
     log(f"8-bit adam stats: {json.dumps(adam8_stats)}")
     log(f"exit drill stats: {json.dumps(drill_stats, default=str)}")
     log(f"profile drill stats: {json.dumps(profile_stats, default=str)}")
+    log(f"multi-process training stats: {json.dumps(dist_stats, default=str)}")
     log(f"phase seconds ({CARD[0]}): {json.dumps(PHASE_S)}; script "
         f"{time.perf_counter() - wall0:.1f} s")
     print(json.dumps({"kernels": entries}))

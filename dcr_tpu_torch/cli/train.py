@@ -5,7 +5,16 @@
 
 Same flags and ``--config=<config.json>`` as the JAX package's ``dcr-train``.
 It trains on one CUDA device (``DCR_TPU_PLATFORM=cpu`` selects the CPU), from
-seeded random weights, writes a sample grid every ``save_steps``
+seeded random weights, or as N processes, one device each, under torchrun
+or the JAX package's variables:
+
+    torchrun --nproc_per_node=N -m dcr_tpu_torch.cli.train --mesh.data=N ...
+    COORDINATOR_ADDRESS=host:port NUM_PROCESSES=N PROCESS_ID=<r> \
+        python -m dcr_tpu_torch.cli.train --mesh.data=N ...
+
+``--mesh.data`` x ``--mesh.seq`` must equal N (``--mesh.data=-1`` takes
+what ``--mesh.seq`` leaves); ``train_batch_size`` is per data rank. The
+backend is NCCL on the card and gloo on the CPU. It writes a sample grid every ``save_steps``
 (``<output_dir>/generations/step_<n>.png``), resumes from
 ``<output_dir>/checkpoints`` (the newest valid step) and exports
 ``<output_dir>/checkpoint`` at the end. A setting the port does not run yet
@@ -23,7 +32,8 @@ process at once); 85 (``EXIT_OOM``) when the device runs out of memory;
 89 (``EXIT_HANG``) when ``--fault.hang_timeout_s`` (or
 ``DCR_HANG_TIMEOUT_S``) passes without a finished step, with every thread's
 stack on stderr. The NaN abort and exits 83, 85 and 89 write
-``<output_dir>/flightrec_0.json`` first. ``DCR_FAULTS`` injects faults
+``<output_dir>/flightrec_<rank>.json`` first. On several processes every
+rank ends with the same code. ``DCR_FAULTS`` injects faults
 (``utils/faults.py``), e.g. ``DCR_FAULTS=sigterm@step=2`` or ``oom@step=2``.
 """
 
@@ -32,6 +42,7 @@ from __future__ import annotations
 import logging
 
 from dcr_tpu_torch.cli import device_from_env
+from dcr_tpu_torch.core import dist
 from dcr_tpu_torch.core.config import TrainConfig, parse_cli
 from dcr_tpu_torch.core.coordination import EXIT_PREEMPTED
 from dcr_tpu_torch.diffusion.sample_hook import make_sample_hook
@@ -53,6 +64,7 @@ def main(argv=None) -> None:
     metrics = trainer.train()
     if reg and reg.pending():
         log.warning("fault entries never fired (check coordinates): %s", reg.pending())
+    dist.shutdown()
     if trainer.preempted_exit:
         log.warning("preempted: final checkpoint written; exiting with code %d for the "
                     "restart wrapper", EXIT_PREEMPTED)

@@ -8,8 +8,10 @@
   package's schema). A restore loads and verifies the whole step before it
   copies anything into the live state; resume walks back past damaged steps
   to the newest valid one and moves each damaged step to
-  ``quarantined/<step>``. It is the port's own format; the JAX package's
-  orbax/npz checkpoints are not read.
+  ``quarantined/<step>``. On several processes (a coordinator given) the
+  step restored is agreed: the newest step every process can see, valid on
+  every process. It is the port's own format; the JAX package's orbax/npz
+  checkpoints are not read.
 - :func:`export_hf_layout` writes the directory-of-subfolders export of
   ``dcr_tpu/core/checkpoint.py``: per component ``params.npz`` (the Flax
   tree flattened to ``a/b/c`` keys) and the torch-layout weights under the
@@ -233,14 +235,19 @@ class CheckpointManager:
     the step directory is renamed into place) and ``quarantined/<step>/``
     (damaged steps moved aside, never offered again). ``verify=False``
     writes and checks no manifests. ``quarantine`` records each bad step
-    as a ``bad_checkpoint`` record."""
+    as a ``bad_checkpoint`` record. ``coordinator``
+    (``core/coordination.Coordinator``) makes the restore of a
+    multi-process job an agreement (:meth:`_restore_latest_valid_coordinated`);
+    there the primary process writes the steps, on a filesystem every
+    process reads."""
 
     def __init__(self, directory: str | Path, max_to_keep: int = 3, *, verify: bool = True,
-                 quarantine: Optional[QuarantineManifest] = None):
+                 quarantine: Optional[QuarantineManifest] = None, coordinator=None):
         self.dir = Path(directory)
         self.max_to_keep = max_to_keep
         self.verify = verify
         self.quarantine = quarantine
+        self.coordinator = coordinator
         self.manifest_dir = self.dir / "manifests"
 
     def all_steps(self) -> list[int]:
@@ -338,6 +345,8 @@ class CheckpointManager:
         loss of the run. ``skip`` names groups of :func:`_live_groups`
         ("vae params", ...) that are verified but not written: a pipelined
         run's frozen params, which its producer thread is reading."""
+        if self.coordinator is not None and self.coordinator.process_count > 1:
+            return self._restore_latest_valid_coordinated(state, skip)
         skipped: list[tuple[int, str]] = []
         while True:
             steps = self.all_steps()
@@ -358,9 +367,41 @@ class CheckpointManager:
             _copy_into(state, saved, skip)
             return step, skipped
 
+    def _restore_latest_valid_coordinated(self, state, skip: tuple[str, ...] = ()
+                                          ) -> tuple[int, list[tuple[int, str]]]:
+        """The agreement loop of the JAX manager: each round every process
+        proposes its newest step, the job takes the minimum (the newest step
+        every process sees), every process loads and verifies it, and a
+        second round checks that all succeeded. A step any process rejects
+        is quarantined everywhere and the loop proposes again, so processes
+        that see different damage still resume from one step."""
+        coord = self.coordinator
+        skipped: list[tuple[int, str]] = []
+        while True:
+            steps = self.all_steps()
+            proposals = coord.agree_int(steps[-1] if steps else -1, "ckpt_candidate")
+            agreed = min(proposals)
+            if agreed < 0:
+                raise FileNotFoundError(
+                    f"no checkpoint available on every process under {self.dir}: "
+                    f"per-rank proposals {proposals}, skipped {skipped}")
+            try:
+                saved, reason = self._load_verified(agreed), ""
+            except CheckpointCorrupt as e:
+                saved, reason = None, str(e)
+            oks = coord.agree_int(int(saved is not None), "ckpt_valid")
+            if all(oks):
+                _check_compatible(state, saved)
+                _copy_into(state, saved, skip)
+                return agreed, skipped
+            reason = reason or f"peer process failed validation of step {agreed} (oks={oks})"
+            self.quarantine_step(agreed, reason)
+            skipped.append((agreed, reason))
+
     def quarantine_step(self, step: int, reason: str) -> None:
         """Move step ``step`` to ``quarantined/<step>`` (``<step>.<n>`` when
-        that step was quarantined before) and record it."""
+        that step was quarantined before) and record it. A peer process on
+        the same filesystem may move it first."""
         src = self.dir / str(step)
         dst = self.dir / "quarantined" / str(step)
         n = 1
@@ -369,7 +410,10 @@ class CheckpointManager:
             n += 1
         dst.parent.mkdir(parents=True, exist_ok=True)
         if src.exists():
-            shutil.move(str(src), str(dst))
+            try:
+                shutil.move(str(src), str(dst))
+            except OSError as e:  # a peer moved it first
+                log.info("quarantine move of step %d raced a peer: %r", step, e)
         self._manifest_path(step).unlink(missing_ok=True)
         moved_to = str(dst.absolute())
         R.log_event("ckpt_quarantined", step=step, reason=reason, moved_to=moved_to)

@@ -9,12 +9,14 @@ its fleet, ingest and SLO sections) and of its
 ``model_index.json`` or ``config.json`` written by either package and a
 ``dcr-sample``, ``dcr-train``, ``dcr-eval``, ``dcr-search``,
 ``dcr-mitigate`` or ``dcr-serve`` command line parse the same way here.
-Sections the port does not run yet (a mesh, the warm cache) parse,
-and :func:`validate_train_config`,
-:func:`validate_eval_config`, :func:`validate_search_config` and
-:func:`validate_serve_config` refuse a setting that would need them with
-:class:`NotPortedError`. The mesh and warm-cache sections of
-``SampleConfig`` are not ported yet.
+Sections the port does not run yet (the warm cache; a mesh outside
+training, or with ``fsdp`` or ``tensor`` above 1) parse, and
+:func:`validate_train_config`, :func:`validate_eval_config`,
+:func:`validate_search_config` and :func:`validate_serve_config` refuse a
+setting that would need them with :class:`NotPortedError`. Training takes
+a mesh of ``data`` x ``seq`` processes (``parallel/mesh.py``). The mesh and
+warm-cache sections of ``SampleConfig`` are not ported yet:
+:func:`refuse_unported_sample_flags` refuses their flags.
 """
 
 from __future__ import annotations
@@ -156,6 +158,19 @@ class SampleConfig:
     fast: FastSampleConfig = field(default_factory=FastSampleConfig)
 
 
+def refuse_unported_sample_flags(argv: Sequence[str]) -> None:
+    """NotPortedError for the JAX ``SampleConfig`` sections the port has no
+    fields for: ``--mesh.*`` (a sampling mesh, ROADMAP Queue A item 9b) and
+    ``--warm.*`` (the warm cache, item 7c)."""
+    for arg in argv:
+        for prefix, what in (("--mesh.", "a sampling mesh (ROADMAP Queue A item 9b)"),
+                             ("--warm.", "the warm executable cache (ROADMAP Queue A "
+                                         "item 7c)")):
+            if arg.startswith(prefix):
+                raise NotPortedError(f"{arg}: {what} is not ported to dcr_tpu_torch yet. "
+                                     "Run without it or use the JAX package.")
+
+
 def validate_fast_config(f: FastSampleConfig) -> None:
     from dcr_tpu_torch.sampling.fastsample import MAX_REUSE_RATIO
 
@@ -168,12 +183,26 @@ def validate_fast_config(f: FastSampleConfig) -> None:
 
 @dataclass
 class MeshConfig:
-    """Device-mesh shape (parsed; the port runs on one device)."""
+    """Device-mesh shape: one process per device. Training runs ``data`` x
+    ``seq``; ``fsdp`` and ``tensor`` above 1, and a mesh anywhere else, are
+    ROADMAP Queue A item 9b."""
 
     data: int = -1  # -1: all remaining devices
     fsdp: int = 1
     tensor: int = 1
     seq: int = 1
+
+    def axis_sizes(self, n_devices: int) -> tuple[int, int, int, int]:
+        d, f, t, s = self.data, self.fsdp, self.tensor, self.seq
+        known = max(1, f) * max(1, t) * max(1, s)
+        if d == -1:
+            if n_devices % known:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by fsdp*tensor*seq={known}")
+            d = n_devices // known
+        if d * f * t * s != n_devices:
+            raise ValueError(f"mesh {d}x{f}x{t}x{s} != {n_devices} devices")
+        return d, f, t, s
 
 
 @dataclass
@@ -201,11 +230,11 @@ class DataConfig:
 @dataclass
 class FaultToleranceConfig:
     """Recovery knobs (the JAX package's defaults: fail-fast). Training
-    runs every one of them on one process: decode retries, the bad-sample
-    quarantine budget, NaN rollbacks, checkpoint manifests, I/O retries and
-    the hang watchdog; ``stage_deadline_secs`` and ``barrier_timeout_s``
-    bound eval stages and multi-host barriers, which single-process
-    training does not have."""
+    runs every one of them: decode retries, the bad-sample quarantine
+    budget, NaN rollbacks, checkpoint manifests, I/O retries, the hang
+    watchdog and ``barrier_timeout_s`` (the agreement rounds and barriers
+    of a multi-process job; 0 waits forever); ``stage_deadline_secs``
+    bounds eval stages."""
 
     decode_retries: int = 1
     max_bad_sample_frac: float = 0.0
@@ -371,11 +400,13 @@ def _mesh_devices(m: MeshConfig) -> int:
 
 def _not_ported(cfg: TrainConfig) -> list[str]:
     """Settings of a valid config that need a part of the JAX package the
-    port does not have yet."""
-    mesh_devices = _mesh_devices(cfg.mesh)
+    port does not have yet. A mesh of ``data`` x ``seq`` processes trains."""
+    m = cfg.mesh
     checks = [
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
-        (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port trains on one)"),
+        (m.fsdp > 1 or m.tensor > 1,
+         f"mesh.fsdp={m.fsdp}, mesh.tensor={m.tensor} (FSDP and tensor-parallel "
+         "sharding; the port trains data x seq, ROADMAP Queue A item 9b)"),
         (cfg.use_wandb, "use_wandb (the wandb sink)"),
     ]
     return [name for on, name in checks if on]
@@ -475,7 +506,8 @@ def validate_eval_config(cfg: EvalConfig) -> None:
              if f.name not in _EVAL_FAULT_HONOURED
              and getattr(cfg.fault, f.name) != getattr(default_fault, f.name)]
     checks = [
-        (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port evaluates on one)"),
+        (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port evaluates on one; "
+                           "ROADMAP Queue A item 9b)"),
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
         (cfg.use_wandb, "use_wandb (the wandb sink)"),
         (bool(fault), ", ".join(fault) + " (the port honours only the I/O retries)"),
@@ -532,11 +564,11 @@ class SearchConfig:
 def validate_search_config(cfg: SearchConfig) -> None:
     """NotPortedError for a search setting the port does not run yet, naming
     the ROADMAP Queue A item that ports it: the warm cache (item 7c), a mesh
-    of more than one device (item 9)."""
+    of more than one device (item 9b)."""
     mesh_devices = _mesh_devices(cfg.mesh)
     checks = [
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port searches on "
-                           "one; ROADMAP Queue A item 9)"),
+                           "one; ROADMAP Queue A item 9b)"),
         (bool(cfg.warm_dir), "warm_dir (the warm executable cache, ROADMAP Queue A item 7c)"),
     ]
     missing = [name for on, name in checks if on]
@@ -650,7 +682,7 @@ def validate_serve_config(cfg: ServeConfig) -> None:
     """The JAX package's checks (``ValueError``), then NotPortedError for a
     serve setting the port does not run yet, naming the ROADMAP Queue A item
     that ports it: the warm cache (item 7c), a mesh of more than one device
-    (item 9). The fleet's roles and the batch watchdog run."""
+    (item 9b). The fleet's roles and the batch watchdog run."""
     if cfg.sampler not in ("ddim", "dpm++", "ddpm"):
         raise ValueError("serve sampler must be 'ddim', 'dpm++' or 'ddpm'")
     if cfg.max_batch < 1:
@@ -694,7 +726,7 @@ def validate_serve_config(cfg: ServeConfig) -> None:
     checks = [
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache, ROADMAP Queue A item 7c)"),
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port serves on one; "
-                           "ROADMAP Queue A item 9)"),
+                           "ROADMAP Queue A item 9b)"),
     ]
     missing = [name for on, name in checks if on]
     if missing:

@@ -23,12 +23,18 @@ from dcr_tpu_torch.core import tracing
 
 
 class MetricWriter:
-    def __init__(self, logdir: str | Path):
-        logdir = Path(logdir)
-        logdir.mkdir(parents=True, exist_ok=True)
-        self._jsonl = (logdir / "metrics.jsonl").open("a")
+    """``active=False`` (a non-primary process of a job) writes nothing."""
+
+    def __init__(self, logdir: str | Path, *, active: bool = True):
+        self._jsonl = None
+        if active:
+            logdir = Path(logdir)
+            logdir.mkdir(parents=True, exist_ok=True)
+            self._jsonl = (logdir / "metrics.jsonl").open("a")
 
     def scalars(self, step: int, values: Mapping[str, Any]) -> None:
+        if self._jsonl is None:
+            return
         clean = {}
         for k, v in values.items():
             v = np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v)
@@ -39,7 +45,8 @@ class MetricWriter:
         self._jsonl.flush()
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
 
 
 class LatencyTracker(tracing.Histogram):

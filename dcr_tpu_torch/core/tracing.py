@@ -501,6 +501,17 @@ def update_gauges(values: Mapping[str, Any], prefix: str = "") -> None:
 # Flight recorder
 # ---------------------------------------------------------------------------
 
+def merge_counter_rows(rows) -> dict[str, int]:
+    """Sum each counter across per-process dicts (a process that never saw
+    a kind contributes nothing): the job's fault view, gathered by the
+    trainer's timeout-bounded ``dist.kv_allgather`` round."""
+    out: dict[str, int] = {}
+    for row in rows:
+        for name, count in row.items():
+            out[name] = out.get(name, 0) + int(count)
+    return out
+
+
 def flight_records() -> list[dict]:
     """The last-N span/event ring, newest last."""
     with _state.lock:

@@ -1,6 +1,6 @@
 """Host data loader: deterministic sampling plan + threaded prefetch.
 
-Counterpart of ``dcr_tpu/data/loader.py`` on one device:
+Counterpart of ``dcr_tpu/data/loader.py``:
 
 - a *sampling plan* is computed up front per (seed, epoch): weighted with
   replacement under the dup regimes, shuffled otherwise;
@@ -8,6 +8,10 @@ Counterpart of ``dcr_tpu/data/loader.py`` on one device:
   contiguous numpy arrays;
 - the order is reproducible given (seed, epoch), including a restart mid-epoch
   through ``start_step``;
+- on several processes each loads its slice of the global batch: step s
+  takes plan slots ``s * global + process_index * batch_size`` onwards,
+  ``process_index`` being the rank's data index, so the seq replicas of one
+  data group read the same rows;
 - with ``fault.max_bad_sample_frac > 0`` a sample that does not decode is
   quarantined and replaced by the next plan slot that decodes (see
   :meth:`DataLoader.epoch`); with the default budget 0 the first bad sample
@@ -53,13 +57,18 @@ def sampling_plan(dataset: ObjectAttributeDataset, *, epoch: int,
 
 class DataLoader:
     def __init__(self, dataset: ObjectAttributeDataset, *, batch_size: int,
-                 num_workers: int = 8, seed: int = 0, drop_last: bool = True,
+                 num_workers: int = 8, seed: int = 0, process_index: int = 0,
+                 process_count: int = 1, drop_last: bool = True,
                  prefetch: int = 4, fault: Optional[FaultToleranceConfig] = None,
-                 quarantine: Optional[R.QuarantineManifest] = None):
+                 quarantine: Optional[R.QuarantineManifest] = None,
+                 defer_budget_abort: bool = False):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.global_batch_size = batch_size * process_count
+        self.process_index = process_index
+        self.process_count = process_count
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.drop_last = drop_last
@@ -71,22 +80,27 @@ class DataLoader:
         self.bad_samples = 0  # run total, reported as faults/bad_samples
         self._bad_lock = threading.Lock()
         self._epoch_bad = [0]  # rebound per epoch()
-        if len(dataset) < batch_size and drop_last:
-            raise ValueError(f"dataset of {len(dataset)} samples can't fill one batch "
-                             f"of {batch_size}")
+        # on several processes the budget is the job's: past it, the
+        # trainer aborts every rank through the fault agreement, so a
+        # worker does not raise on its own (one rank unwinding while its
+        # peers enter the next collective would hang them)
+        self.defer_budget_abort = defer_budget_abort
+        if len(dataset) < self.global_batch_size and drop_last:
+            raise ValueError(f"dataset of {len(dataset)} samples can't fill one global "
+                             f"batch of {self.global_batch_size}")
 
     def steps_per_epoch(self) -> int:
-        return len(self.dataset) // self.batch_size
+        return len(self.dataset) // self.global_batch_size
 
     @property
     def epoch_bad_count(self) -> int:
-        """Bad samples quarantined in the current epoch."""
+        """Bad samples this process quarantined in the current epoch."""
         return self._epoch_bad[0]
 
     def epoch_bad_budget(self) -> int:
-        """The epoch's quarantine budget in samples."""
+        """The epoch's quarantine budget in samples, over the global epoch."""
         budget_frac = self.fault.max_bad_sample_frac if self.fault else 0.0
-        return int(budget_frac * self.steps_per_epoch() * self.batch_size)
+        return int(budget_frac * self.steps_per_epoch() * self.global_batch_size)
 
     def epoch(self, epoch: int, start_step: int = 0) -> Iterator[Batch]:
         """Yield the batches of one epoch from ``start_step`` on.
@@ -133,7 +147,7 @@ class DataLoader:
                                      epoch_budget=epoch_budget, budget_frac=budget_frac)
 
         def make_batch(step: int) -> Batch:
-            base = step * self.batch_size
+            base = step * self.global_batch_size + self.process_index * self.batch_size
             examples = [fetch_or_replace(step, base + j) for j in range(self.batch_size)]
             return Batch(
                 pixel_values=np.stack([e.pixel_values for e in examples]),
@@ -197,7 +211,7 @@ class DataLoader:
             epoch_bad[0] += 1
             self.bad_samples += 1
             n_bad = epoch_bad[0]
-        if n_bad > epoch_budget:
+        if n_bad > epoch_budget and not self.defer_budget_abort:
             raise TooManyBadSamples(
                 f"epoch {epoch}: {n_bad} bad samples exceed the quarantine budget of "
                 f"{epoch_budget} (max_bad_sample_frac={budget_frac} of {len(plan)} "

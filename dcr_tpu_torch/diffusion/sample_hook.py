@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
+from dcr_tpu_torch.core import dist
 from dcr_tpu_torch.core import rng as rngmod
 from dcr_tpu_torch.core.config import SampleConfig
 from dcr_tpu_torch.eval.gallery import image_grid
@@ -90,7 +91,11 @@ def make_sample_hook(*, num_inference_steps: int = 20, images_per_prompt: int = 
             models = models._replace(unet=_WithParams(models.unet, trainer.state.ema_params))
         gen = rngmod.stream_generator(cfg.generation_seed, "train_samples", step,
                                       device=trainer.device)
+        # every rank samples (a sequence-parallel UNet needs its peers);
+        # the primary writes and scores the grid
         images = state["sampler"](models, state["ids"], state["uncond"], gen)
+        if not dist.is_primary():
+            return
         grid = image_grid(list(images.float().cpu().numpy()), cols=images_per_prompt)
         out = Path(cfg.output_dir) / "generations"
         out.mkdir(parents=True, exist_ok=True)

@@ -1,4 +1,4 @@
-"""The diffusion finetuning train step and its state, on one device.
+"""The diffusion finetuning train step and its state.
 
 Counterpart of ``dcr_tpu/diffusion/train.py``. One eager function computes
 vae-encode -> q-sample -> text-encode (+ embedding mitigations) -> unet ->
@@ -29,6 +29,19 @@ names (the modules' own parameters in the trainer). Under
 then compute in bf16. Device draws come from per-step ``torch.Generator``s
 of :func:`dcr_tpu_torch.core.rng.stream_generator`; the ``draws`` argument
 hands them in as tensors instead (the parity tests inject the JAX step's).
+
+On a mesh of several processes (``parallel/mesh.py``) the step is the JAX
+package's global-batch step. Each rank holds its data index's rows of the
+global batch. Every draw is made for the global batch from the one seeded
+stream, and the rank takes its rows; the mixup mitigation mixes across the
+global batch through ``mesh.gather_rows``. The optimizer takes one mean
+all-reduce of the flat gradients over the world per update, in buckets,
+after ``MultiSteps``' accumulation and before the clip, so the clip sees the
+global norm as optax does (the seq replicas of a data group hold equal
+gradients, so the world's mean is the data groups' mean). The logged loss
+is the global mean. With gradient accumulation on several ranks,
+``grad_norm`` is the rank's own micro-batch gradient's norm (the JAX step
+logs the global micro-batch's); without it, the global norm.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ from dcr_tpu_torch.core import rng as rngmod
 from dcr_tpu_torch.core.config import OptimConfig, TrainConfig
 from dcr_tpu_torch.core.precision import policy_from_string
 from dcr_tpu_torch.models import schedulers as S
+from dcr_tpu_torch.parallel import mesh as pmesh
 from dcr_tpu_torch.sampling.sampler import DiffusionModels  # noqa: F401 (the bundle)
 
 Params = dict[str, torch.Tensor]
@@ -99,15 +113,15 @@ def _flat(trainable: dict[str, Params]) -> Params:
             for name, p in params.items()}
 
 
-def resolve_scale_lr(cfg: TrainConfig) -> TrainConfig:
-    """Fold scale_lr (lr x grad-accum x per-device batch x device count, one
-    device here) into a new config with scale_lr cleared."""
+def resolve_scale_lr(cfg: TrainConfig, data_parallel: int = 1) -> TrainConfig:
+    """Fold scale_lr (lr x grad-accum x per-rank batch x data ranks: the
+    global batch) into a new config with scale_lr cleared."""
     if not cfg.optim.scale_lr:
         return cfg
     new_optim = dataclasses.replace(
         cfg.optim, scale_lr=False,
         learning_rate=cfg.optim.learning_rate * cfg.optim.gradient_accumulation_steps
-        * cfg.train_batch_size)
+        * cfg.train_batch_size * data_parallel)
     return dataclasses.replace(cfg, optim=new_optim)
 
 
@@ -159,12 +173,16 @@ class Optimizer:
     """optax.chain(clip_by_global_norm, adamw) -- or, with
     ``use_8bit_adam``, the JAX package's ``adamw8bit`` -- wrapped in
     MultiSteps when accumulating; :meth:`update` applies the update to the
-    params in place."""
+    params in place. ``reduce_grads`` (the mean over the world, in place)
+    runs on the gradients of each update, after the accumulation and before
+    the clip."""
 
-    def __init__(self, cfg: OptimConfig):
+    def __init__(self, cfg: OptimConfig,
+                 reduce_grads: Optional[Callable[[list], None]] = None):
         self.cfg = cfg
         self.schedule = make_lr_schedule(cfg)
         self.accum = max(1, cfg.gradient_accumulation_steps)
+        self.reduce_grads = reduce_grads
 
     def init(self, trainable: dict[str, Params]) -> OptState:
         flat = _flat(trainable)
@@ -198,6 +216,8 @@ class Optimizer:
                 return False
             opt.mini_step = 0
             grads = opt.acc_grads
+        if self.reduce_grads is not None:
+            self.reduce_grads(list(grads.values()))
         adamw = self._adamw8bit if opt.m8 is not None else self._adamw
         adamw(self._clip(grads), opt, _flat(trainable))
         if self.accum > 1:
@@ -253,10 +273,21 @@ class Optimizer:
             p.add_(upd, alpha=-lr)
 
 
-def make_optimizer(cfg: OptimConfig) -> Optimizer:
+def make_optimizer(cfg: OptimConfig,
+                   reduce_grads: Optional[Callable[[list], None]] = None) -> Optimizer:
     """AdamW with global-norm clipping and gradient accumulation (reference:
     AdamW diff_train.py:424-446, clip 657-663, accumulate 618)."""
-    return Optimizer(cfg)
+    return Optimizer(cfg, reduce_grads)
+
+
+def world_reducer(mesh: Optional[pmesh.Mesh]) -> Optional[Callable[[list], None]]:
+    """The gradients' mean over the world when the mesh has a process group
+    behind it (one rank too), else None."""
+    import torch.distributed as tdist
+
+    if mesh is None or not tdist.is_initialized():
+        return None
+    return pmesh.all_reduce_mean_
 
 
 def init_train_state(cfg: TrainConfig, models: DiffusionModels, *, unet_params: Params,
@@ -292,7 +323,8 @@ class _Encode(nn.Module):
 def draw_fn(seed: int, step: int, device: torch.device,
             draws: Optional[dict]) -> Callable:
     """``draw(name, make)``: the injected tensor for stream ``name`` when
-    ``draws`` holds one, else ``make`` of the stream's generator at ``step``."""
+    ``draws`` holds one, else ``make`` of the stream's generator at ``step``.
+    Draws are of the global batch."""
     def draw(name: str, make: Callable[[torch.Generator], torch.Tensor]) -> torch.Tensor:
         if draws is not None and name in draws:
             return torch.as_tensor(draws[name], device=device)
@@ -305,13 +337,20 @@ def posterior_std(logvar: torch.Tensor) -> torch.Tensor:
     return torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
 
 
+def global_shape(t: torch.Tensor, mesh: Optional[pmesh.Mesh]) -> tuple[int, ...]:
+    """``t``'s shape with its rows (dim 0) those of the global batch."""
+    n = 1 if mesh is None else mesh.data_parallel_size
+    return (t.shape[0] * n, *t.shape[1:])
+
+
 def sample_latents(mean: torch.Tensor, std: torch.Tensor, draw: Callable,
-                   scaling: float) -> torch.Tensor:
+                   scaling: float, mesh: Optional[pmesh.Mesh] = None) -> torch.Tensor:
     """The scaled posterior sample ``(mean + std * eps) * scaling`` in f32,
-    ``eps`` an f32 draw of the ``vae_sample`` stream (over bf16 moments the
-    sum is formed in f32, so f32 copies of the moments give the same bits)."""
-    eps = draw("vae_sample", lambda g: torch.randn(mean.shape, generator=g,
-                                                   device=mean.device))
+    ``eps`` this rank's rows of an f32 draw of the ``vae_sample`` stream
+    (over bf16 moments the sum is formed in f32, so f32 copies of the
+    moments give the same bits)."""
+    eps = pmesh.local_rows(draw("vae_sample", lambda g: torch.randn(
+        global_shape(mean, mesh), generator=g, device=mean.device)), mesh)
     return ((mean + std * eps) * scaling).float()
 
 
@@ -347,28 +386,35 @@ def make_text_encode(cfg: TrainConfig, models: DiffusionModels) -> Callable:
     return encode
 
 
-def make_update(cfg: TrainConfig, models: DiffusionModels) -> Callable:
+def make_update(cfg: TrainConfig, models: DiffusionModels,
+                mesh: Optional[pmesh.Mesh] = None) -> Callable:
     """The body both train steps share: q-sample -> text conditioning (+
     embedding mitigations) -> unet -> mse(eps|v) -> grad -> clip/AdamW ->
     EMA. ``update(state, latents, ctx_of, draw) -> (state, metrics)``:
     ``state`` is a :class:`TrainState` or the pipelined step's hot view
     (anything with ``step``, ``unet_params``, ``text_params``,
     ``opt_state`` and ``ema_params``), updated in place; ``latents`` the
-    scaled f32 latents; ``ctx_of(trainable)`` the text embeddings given the
-    trainable params; ``draw`` as :func:`draw_fn` makes it."""
-    cfg = resolve_scale_lr(cfg)
+    scaled f32 latents (this rank's rows); ``ctx_of(trainable)`` the text
+    embeddings given the trainable params; ``draw`` as :func:`draw_fn`
+    makes it. ``mesh``: the process mesh (None: one process)."""
+    cfg = resolve_scale_lr(cfg, 1 if mesh is None else mesh.data_parallel_size)
     policy = policy_from_string(cfg.mixed_precision)
-    tx = make_optimizer(cfg.optim)
+    reduce_grads = world_reducer(mesh)
+    tx = make_optimizer(cfg.optim, reduce_grads)
     sched = models.schedule
     accum = tx.accum
 
+    def rows(t: torch.Tensor) -> torch.Tensor:
+        return pmesh.local_rows(t, mesh)
+
     def update(state, latents: torch.Tensor, ctx_of: Callable, draw: Callable):
-        device, bsz, step = latents.device, latents.shape[0], state.step
+        device, step = latents.device, state.step
+        bsz = global_shape(latents, mesh)[0]
         with torch.no_grad():
-            noise = draw("noise", lambda g: torch.randn(latents.shape, generator=g,
-                                                        device=device))
-            timesteps = draw("timesteps", lambda g: torch.randint(
-                0, sched.num_train_timesteps, (bsz,), generator=g, device=device)).long()
+            noise = rows(draw("noise", lambda g: torch.randn(
+                global_shape(latents, mesh), generator=g, device=device)))
+            timesteps = rows(draw("timesteps", lambda g: torch.randint(
+                0, sched.num_train_timesteps, (bsz,), generator=g, device=device))).long()
             noisy_latents = S.add_noise(sched, latents, noise, timesteps)
             target = S.training_target(sched, latents, noise, timesteps)
 
@@ -376,15 +422,17 @@ def make_update(cfg: TrainConfig, models: DiffusionModels) -> Callable:
         with torch.enable_grad():
             ctx = ctx_of(trainable)
             if cfg.rand_noise_lam > 0:
-                ctx = ctx + cfg.rand_noise_lam * draw("emb_noise", lambda g: torch.randn(
-                    ctx.shape, generator=g, device=device, dtype=ctx.dtype))
+                ctx = ctx + cfg.rand_noise_lam * rows(draw("emb_noise", lambda g: torch.randn(
+                    global_shape(ctx, mesh), generator=g, device=device, dtype=ctx.dtype)))
             if cfg.mixup_noise_lam > 0:
                 # Beta(a, 1) by inversion: U ** (1 / a)
                 lam = draw("mixup_beta", lambda g: torch.rand(
                     (), generator=g, device=device) ** (1.0 / cfg.mixup_noise_lam))
                 perm = draw("mixup_perm", lambda g: torch.randperm(
                     bsz, generator=g, device=device)).long()
-                ctx = lam * ctx + (1.0 - lam) * ctx[perm]
+                # across the global batch: every rank mixes the gathered rows
+                full = pmesh.gather_rows(ctx, mesh)
+                ctx = rows(lam * full + (1.0 - lam) * full[perm])
 
             unet_params = policy.cast_to_compute(trainable["unet"])
 
@@ -399,8 +447,15 @@ def make_update(cfg: TrainConfig, models: DiffusionModels) -> Callable:
             flat = _flat(trainable)
             grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
 
-        grad_norm = global_norm(grads.values())
         applied = tx.update(grads, state.opt_state, trainable)
+        # after the update: without accumulation the reducer left the
+        # world's mean in ``grads``, so this is the global norm
+        grad_norm = global_norm(grads.values())
+        loss = loss.detach()
+        if reduce_grads is not None:
+            loss = loss.reshape(1)
+            reduce_grads([loss])
+            loss = loss.reshape(())
         if state.ema_params is not None and applied:
             d = cfg.ema_decay
             with torch.no_grad():
@@ -408,28 +463,30 @@ def make_update(cfg: TrainConfig, models: DiffusionModels) -> Callable:
                     e.mul_(d).add_(state.unet_params[k], alpha=1.0 - d)
         state.step = step + 1
         # the schedule advances once per accumulation boundary
-        metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
+        metrics = {"loss": loss, "grad_norm": grad_norm,
                    "lr": tx.schedule(step // accum)}
         return state, metrics
 
     return update
 
 
-def make_train_step(cfg: TrainConfig, models: DiffusionModels) -> Callable:
+def make_train_step(cfg: TrainConfig, models: DiffusionModels,
+                    mesh: Optional[pmesh.Mesh] = None) -> Callable:
     """The train step: (state, batch, draws=None) -> (state, metrics).
 
     batch: ``pixel_values`` [B, H, W, 3] f32 in [-1, 1] (NHWC, as the loader
-    gives it) and ``input_ids`` [B, L]. ``draws`` maps the names of
-    :data:`DRAW_STREAMS` to tensors that replace the step's own draws:
-    ``vae_sample`` and ``noise`` [B, C, h, w], ``timesteps`` [B],
-    ``emb_noise`` [B, L, D], ``mixup_beta`` (lambda) and ``mixup_perm`` [B].
-    The state is updated in place and returned; metrics are device tensors
-    (``loss``, ``grad_norm``) and a float (``lr``).
+    gives it) and ``input_ids`` [B, L], this rank's rows of the global
+    batch. ``draws`` maps the names of :data:`DRAW_STREAMS` to tensors of
+    the global batch that replace the step's own draws: ``vae_sample`` and
+    ``noise`` [B, C, h, w], ``timesteps`` [B], ``emb_noise`` [B, L, D],
+    ``mixup_beta`` (lambda) and ``mixup_perm`` [B]. The state is updated in
+    place and returned; metrics are device tensors (``loss``,
+    ``grad_norm``) and a float (``lr``).
     """
-    cfg = resolve_scale_lr(cfg)
+    cfg = resolve_scale_lr(cfg, 1 if mesh is None else mesh.data_parallel_size)
     vae_encode = make_vae_encode(cfg, models)
     text_encode = make_text_encode(cfg, models)
-    update = make_update(cfg, models)
+    update = make_update(cfg, models, mesh)
     scaling = models.vae.config.vae_scaling_factor
 
     def step_fn(state: TrainState, batch: dict, draws: Optional[dict] = None):
@@ -439,7 +496,8 @@ def make_train_step(cfg: TrainConfig, models: DiffusionModels) -> Callable:
         # frozen VAE encode, posterior sample, scale
         post = vae_encode(state.vae_params, pixels)
         with torch.no_grad():
-            latents = sample_latents(post.mean, posterior_std(post.logvar), draw, scaling)
+            latents = sample_latents(post.mean, posterior_std(post.logvar), draw, scaling,
+                                     mesh)
 
         def ctx_of(trainable: dict) -> torch.Tensor:
             if cfg.train_text_encoder:

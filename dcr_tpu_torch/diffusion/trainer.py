@@ -1,7 +1,7 @@
-"""The Trainer: the loop around the train step, on one device.
+"""The Trainer: the loop around the train step.
 
-Counterpart of ``dcr_tpu/diffusion/trainer.py`` on one process (the
-reference's diff_train.py:main, 328-733): it builds the models, the
+Counterpart of ``dcr_tpu/diffusion/trainer.py`` (the reference's
+diff_train.py:main, 328-733): it builds the models, the
 tokenizer, the dataset and loader and the optimizer from a TrainConfig, runs
 the epoch loop with metric logging and periodic checkpoints, resumes from
 the newest valid checkpoint, and exports the HF-layout checkpoint at the end.
@@ -28,7 +28,23 @@ the newest valid checkpoint, and exports the HF-layout checkpoint at the end.
   ``fault.hang_timeout_s`` (or ``DCR_HANG_TIMEOUT_S``) a step that does
   not finish in time exits 89 (the watchdog is paused over the
   synchronous saves, a rollback's restore and the sample hook). ``DCR_FAULTS`` injects each fault
-  (``utils/faults.py``). Multi-host is not ported.
+  (``utils/faults.py``).
+- Several processes (``core/dist``: the JAX package's ``COORDINATOR_ADDRESS``
+  / ``NUM_PROCESSES`` / ``PROCESS_ID`` or torchrun's variables), one device
+  each: ``cuda:LOCAL_RANK`` unless the caller names one. ``cfg.mesh`` lays
+  them out as data x seq (``parallel/mesh.py``); each rank loads its data
+  index's rows and the step is the global batch's (``diffusion/train``).
+  The primary writes the checkpoints, logs, exports and grids, with a
+  barrier after each save and at the export; every rank writes its own
+  ``quarantine.p<rank>.jsonl`` and ``trace.p<rank>.jsonl``. Every log
+  boundary is an agreement round (``core/coordination.Coordinator``): a NaN
+  on one rank rolls every rank back at one step, a SIGTERM on any rank
+  gives one checkpoint and exit 83 everywhere, the bad-sample budget is the
+  job's (a seq replica's bad samples counted once), and the resume step
+  must agree; the metrics add ``faults_pod/<counter>``, every rank's fault
+  counters summed. Pipelined training keeps the JAX
+  behaviour there: ``pipe.latent_cache`` raises, ``pipe.enabled`` logs and
+  runs the fused step.
 - Pipelined training (``pipe.enabled`` or ``pipe.latent_cache``), as the
   JAX trainer's single-host branch: an :class:`~dcr_tpu_torch.diffusion.
   encode_stage.EncodeProducer` per epoch runs the frozen encoders (or, with
@@ -60,18 +76,21 @@ from __future__ import annotations
 
 import contextlib
 import gzip
+import json
 import logging
 import math
 import os
 import shutil
 import signal
 import time
+import zlib
 from pathlib import Path
 from typing import Callable, Optional
 
 import torch
 
 from dcr_tpu_torch.core import coordination as C
+from dcr_tpu_torch.core import dist
 from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import rng as rngmod
 from dcr_tpu_torch.core import tracing
@@ -86,10 +105,22 @@ from dcr_tpu_torch.diffusion import encode_stage as E
 from dcr_tpu_torch.diffusion import train as T
 from dcr_tpu_torch.models import export as EX
 from dcr_tpu_torch.obs import memwatch
+from dcr_tpu_torch.parallel import mesh as pmesh
 from dcr_tpu_torch.sampling.pipeline import build_models
 from dcr_tpu_torch.utils import faults, profiling
 
 log = logging.getLogger("dcr_tpu_torch")
+
+
+def state_fingerprint(state: T.TrainState) -> str:
+    """crc32 over the UNet params and the step: logged at the end of a
+    multi-process run (and at a preemption), where equal fingerprints on
+    every rank show the replicas stayed bit-identical."""
+    crc = zlib.crc32(str(state.step).encode())
+    for name in sorted(state.unet_params):
+        t = state.unet_params[name].detach().cpu().contiguous()
+        crc = zlib.crc32(t.view(torch.uint8).numpy().tobytes() if t.numel() else b"", crc)
+    return f"{crc:08x}"
 
 
 def _flax_to_state_dicts(trees: dict, cfg: TrainConfig) -> dict:
@@ -111,34 +142,53 @@ class Trainer:
                  sample_hook: Optional[Callable] = None,
                  device: str | torch.device = "cuda"):
         validate_train_config(cfg)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None and dist.env_topology():
+            device = torch.device("cuda", dist.local_rank())
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and dist.env_topology():
+            torch.cuda.set_device(self.device)
+        dist.initialize(self.device)
+        self.mesh = pmesh.make_mesh(cfg.mesh)
+        self.multi = dist.process_count() > 1
         # scale_lr resolved into a private copy; config.json records the
         # effective lr
-        cfg = T.resolve_scale_lr(cfg)
+        cfg = T.resolve_scale_lr(cfg, self.mesh.data_parallel_size)
         self.cfg = cfg
         self.sample_hook = sample_hook
         self.out_dir = Path(cfg.output_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
-        # spans into <output_dir>/trace.jsonl (DCR_TRACE=0 keeps the ring
-        # only), and the anchor of flightrec_<rank>.json on every fatal path
-        tracing.configure(self.out_dir)
-        save_config(cfg, self.out_dir / "config.json")
+        pidx = dist.process_index()
+        # spans into <output_dir>/trace.jsonl (trace.p<rank>.jsonl; DCR_TRACE=0
+        # keeps the ring only), and the anchor of flightrec_<rank>.json on
+        # every fatal path
+        tracing.configure(self.out_dir, rank=pidx)
+        if dist.is_primary():
+            save_config(cfg, self.out_dir / "config.json")
         self.tokenizer = tokenizer or load_tokenizer(
             cfg.pretrained_model or None, vocab_size=cfg.model.text_vocab_size,
             model_max_length=cfg.model.text_max_length)
         if self.tokenizer.vocab_size > cfg.model.text_vocab_size:
             raise ValueError(f"tokenizer vocab ({self.tokenizer.vocab_size}) exceeds "
                              f"model.text_vocab_size ({cfg.model.text_vocab_size})")
-        self._publish_tokenizer()
-        # the durable record of every recovered failure of this run
-        self.quarantine = R.QuarantineManifest(self.out_dir / "quarantine.jsonl")
+        if dist.is_primary():
+            self._publish_tokenizer()
+        # the durable record of every recovered failure of this run, one
+        # file per process
+        qname = "quarantine.jsonl" if pidx == 0 else f"quarantine.p{pidx}.jsonl"
+        self.quarantine = R.QuarantineManifest(self.out_dir / qname)
         self.dataset = dataset or ObjectAttributeDataset(cfg.data, self.tokenizer,
                                                          fault=cfg.fault)
+        # each rank loads its data index's rows; the seq replicas of a data
+        # group load the same ones
         self.loader = DataLoader(self.dataset, batch_size=cfg.train_batch_size,
                                  num_workers=cfg.data.num_workers, seed=cfg.data.seed,
-                                 fault=cfg.fault, quarantine=self.quarantine)
+                                 process_index=self.mesh.index(pmesh.DATA_AXIS),
+                                 process_count=self.mesh.data_parallel_size,
+                                 fault=cfg.fault, quarantine=self.quarantine,
+                                 defer_budget_abort=self.multi)
         self.models = build_models(cfg.model, self.device,
-                                   seed=rngmod.stream_seed(cfg.seed, "init"))
+                                   seed=rngmod.stream_seed(cfg.seed, "init"), mesh=self.mesh)
         # dcr_device_mem_* gauges (nothing to sample on the CPU)
         memwatch.start_sampler()
         modules = {"unet": self.models.unet, "vae": self.models.vae,
@@ -151,8 +201,22 @@ class Trainer:
         self.state = T.init_train_state(cfg, self.models, unet_params=params["unet"],
                                         text_params=params["text"], vae_params=params["vae"])
         # pipelined mode splits the fused step into a frozen-encoder producer
-        # and the denoiser hot step; the fused step is not built then
+        # and the denoiser hot step; the fused step is not built then. On
+        # several processes the producer thread's launches would race the
+        # consumer's collectives, so, as in the JAX trainer, a latent cache
+        # is refused and pipe.enabled falls back to the fused step
         self.pipelined = bool(cfg.pipe.enabled or cfg.pipe.latent_cache)
+        if self.pipelined and self.multi:
+            if cfg.pipe.latent_cache:
+                raise ValueError(
+                    "pipe.latent_cache is single-process for now (the producer thread's "
+                    "launches would race the collectives of the step): drop the flag on "
+                    "multi-process runs")
+            log.warning("pipelined training disabled: %d processes (the producer thread "
+                        "is single-process only; training continues on the fused step)",
+                        dist.process_count())
+            R.log_event("pipelined_disabled_multihost", processes=dist.process_count())
+            self.pipelined = False
         self._cache_reader = None
         self._cache_fn = None
         if self.pipelined:
@@ -162,17 +226,25 @@ class Trainer:
             # what the loop calls: (state, encoded batch) -> (state, metrics)
             self.step_fn = self._pipelined_step
         else:
-            self.step_fn = T.make_train_step(cfg, self.models)
+            self.step_fn = T.make_train_step(cfg, self.models, self.mesh)
         self.producer: Optional[E.EncodeProducer] = None
         # the consumer's seconds blocked on the producer ring, one per step
         self.ring_wait_s: list[float] = []
-        self.writer = MetricWriter(self.out_dir / "logs")
+        self.writer = MetricWriter(self.out_dir / "logs", active=dist.is_primary())
+        # every recovery decision goes through the agreement, so all
+        # processes act alike at one step; on one process it is local logic
+        hang_timeout = float(os.environ.get("DCR_HANG_TIMEOUT_S",
+                                            cfg.fault.hang_timeout_s) or 0.0)
+        self.coord = C.Coordinator(
+            timeout_s=hang_timeout if hang_timeout > 0 else cfg.fault.barrier_timeout_s,
+            abort_on_timeout=hang_timeout > 0,
+            bad_sample_budget=(self.loader.epoch_bad_budget()
+                               if cfg.fault.max_bad_sample_frac > 0 and self.multi else None))
         self.ckpt = CheckpointManager(self.out_dir / "checkpoints",
                                       max_to_keep=cfg.checkpoints_total_limit,
                                       verify=cfg.fault.verify_checkpoints,
-                                      quarantine=self.quarantine)
-        self.watchdog = C.HangWatchdog(float(os.environ.get(
-            "DCR_HANG_TIMEOUT_S", cfg.fault.hang_timeout_s) or 0.0))
+                                      quarantine=self.quarantine, coordinator=self.coord)
+        self.watchdog = C.HangWatchdog(hang_timeout, coordinator=self.coord)
         # recovery counters, reported at every log boundary
         self._rollbacks = 0
         self._ckpt_fallbacks = 0
@@ -246,13 +318,30 @@ class Trainer:
 
     # -- checkpoint/resume ---------------------------------------------------
 
+    def _barrier_timeout_s(self) -> float:
+        """The bound of the save and export barriers: ``barrier_timeout_s``,
+        else the generous allgather bound (0 waits forever)."""
+        return self.cfg.fault.barrier_timeout_s or dist.default_allgather_timeout_s()
+
     def save(self) -> None:
-        self.ckpt.save(self.state.step, self.state)
+        """The primary writes the step; every rank waits at a barrier, so no
+        rank reads the checkpoints before the step is in place."""
+        if dist.is_primary():
+            self.ckpt.save(self.state.step, self.state)
+        dist.barrier("checkpoint", timeout_s=self._barrier_timeout_s())
 
     def maybe_resume(self) -> int:
         """Restore the newest valid checkpoint (0 on a fresh run): damaged
-        steps on the way are quarantined and counted as fallbacks."""
-        if self.ckpt.latest_step() is None:
+        steps on the way are quarantined and counted as fallbacks. On
+        several processes the entry is agreed first (a rank that sees no
+        checkpoint while a peer sees one fails in the agreed restore with
+        every rank's proposal, instead of the two branching apart)."""
+        latest = self.ckpt.latest_step()
+        if self.multi:
+            views = self.coord.agree_int(-1 if latest is None else latest, "resume_latest")
+            if max(views) < 0:
+                return 0
+        elif latest is None:
             return 0
         step, skipped = self.ckpt.restore_latest_valid(self.state)
         self._ckpt_fallbacks += len(skipped)
@@ -261,6 +350,13 @@ class Trainer:
                         len(skipped), [s for s, _ in skipped])
         log.info("resumed from checkpoint step %d", step)
         return step
+
+    def _rollback_possible(self) -> bool:
+        """The guards of :meth:`_rollback_after_nan`, asked before the
+        agreement: the checkpoints and the rollback count are the same on
+        every process, so one rank that saw the NaN answers for all."""
+        return (self._rollbacks < self.cfg.fault.max_rollbacks
+                and self.ckpt.latest_step() is not None)
 
     def _rollback_after_nan(self, step: int, loss: float) -> bool:
         """NaN rollback (``fault.max_rollbacks``): restore the newest valid
@@ -311,16 +407,19 @@ class Trainer:
         out = self.out_dir / tag
         unet = self.state.ema_params if self.state.ema_params is not None \
             else self.state.unet_params
-        export_hf_layout(
-            out, unet=unet, vae=self.state.vae_params, text_encoder=self.state.text_params,
-            scheduler_config={
-                "num_train_timesteps": cfg.model.num_train_timesteps,
-                "beta_schedule": cfg.model.beta_schedule,
-                "beta_start": cfg.model.beta_start,
-                "beta_end": cfg.model.beta_end,
-                "prediction_type": cfg.model.prediction_type,
-            },
-            model_config=to_dict(cfg.model))
+        if dist.is_primary():
+            export_hf_layout(
+                out, unet=unet, vae=self.state.vae_params,
+                text_encoder=self.state.text_params,
+                scheduler_config={
+                    "num_train_timesteps": cfg.model.num_train_timesteps,
+                    "beta_schedule": cfg.model.beta_schedule,
+                    "beta_start": cfg.model.beta_start,
+                    "beta_end": cfg.model.beta_end,
+                    "prediction_type": cfg.model.prediction_type,
+                },
+                model_config=to_dict(cfg.model))
+        dist.barrier("export", timeout_s=self._barrier_timeout_s())
         return out
 
     # -- preemption ----------------------------------------------------------
@@ -364,11 +463,38 @@ class Trainer:
         if faults.fire("hang", step=step):
             C.simulate_hang(f"injected hang at step {step}")
 
+    def _agree(self, step: int, nan_here: bool) -> C.Decision:
+        """One agreement round over this process's fault word."""
+        if nan_here:
+            self.coord.note_nan(step, rollback_ok=self._rollback_possible())
+        if self._preempted:
+            self.coord.note_preempt()
+        self.coord.note_bad_samples(self._global_bad_count(self.loader.epoch_bad_count))
+        return self.coord.exchange(step, tag="sync")
+
+    def _global_bad_count(self, count: int) -> int:
+        """This process's share of a job-wide sum of its bad-sample
+        ``count``. The seq replicas of a data group read the same rows and
+        quarantine the same samples, so only seq index 0 reports them:
+        summing every replica would count each bad sample once per
+        replica."""
+        return count if self.mesh.index(pmesh.SEQ_AXIS) == 0 else 0
+
     def _fault_metrics(self) -> dict:
         out = {"faults/bad_samples": self.loader.bad_samples,
                "faults/rollbacks": self._rollbacks,
                "faults/ckpt_fallbacks": self._ckpt_fallbacks}
-        out.update({f"faults/{name}": n for name, n in R.counters().items()})
+        local = R.counters()
+        out.update({f"faults/{name}": n for name, n in local.items()})
+        if self.multi:
+            # the job's view: every rank's counters summed over the store
+            # (a timeout-bounded control-plane round; every rank reaches this
+            # log boundary in lockstep), with the bad samples of seq index 0
+            mine = dict(local, bad_samples=self._global_bad_count(self.loader.bad_samples))
+            rows = dist.kv_allgather(json.dumps(mine), "fault_counters",
+                                     timeout_s=dist.default_allgather_timeout_s())
+            job = tracing.merge_counter_rows(json.loads(r) for r in rows)
+            out.update({f"faults_pod/{name}": n for name, n in job.items()})
         return out
 
     def train(self) -> dict:
@@ -392,6 +518,9 @@ class Trainer:
     def _train(self) -> dict:
         cfg = self.cfg
         step = self.maybe_resume()
+        if self.multi:
+            # divergent resume steps would desynchronize every collective
+            self.coord.assert_same("resume_step", step)
         if self.pipelined and cfg.pipe.latent_cache:
             self._open_latent_cache()
         steps_per_epoch = self.loader.steps_per_epoch()
@@ -459,18 +588,31 @@ class Trainer:
                     self._fire_step_faults(step)
                     at_sync = step % accum == 0
                     sync = step // accum
+                    decision: Optional[C.Decision] = None
                     if (at_sync and sync % cfg.log_every == 0) or step == max_micro:
                         metrics = {k: float(v) for k, v in metrics.items()}
                         if self._nan_pending:
                             metrics["loss"], self._nan_pending = float("nan"), False
-                        if not math.isfinite(metrics["loss"]):
+                        nan_here = not math.isfinite(metrics["loss"])
+                        # one agreement round per boundary: on several
+                        # processes every rank enters it, a finite loss too
+                        # (one rank's NaN moves them all; a round a peer
+                        # never enters is a hang); on one it is local logic
+                        if nan_here or self.multi:
+                            decision = self._agree(step, nan_here)
+                        if decision is not None and decision.action in (C.Action.ROLLBACK,
+                                                                        C.Action.FAIL):
                             with self.watchdog.paused(step):
-                                rolled_back = self._rollback_after_nan(step, metrics["loss"])
+                                rolled_back = (decision.action is C.Action.ROLLBACK
+                                               and self._rollback_after_nan(
+                                                   decision.nan_step, metrics["loss"]))
                             if not rolled_back:
                                 tracing.dump_flight_recorder(
-                                    f"nan_abort: step {step} loss {metrics['loss']}")
+                                    f"nan_abort: step {decision.nan_step} loss "
+                                    f"{metrics['loss']}")
                                 raise FloatingPointError(
-                                    f"non-finite loss {metrics['loss']} at step {step}; "
+                                    f"non-finite loss {metrics['loss']} at step "
+                                    f"{decision.nan_step} (ranks {list(decision.nan_ranks)}); "
                                     f"resume from the last good checkpoint (step "
                                     f"{self.ckpt.latest_step()}) under "
                                     f"{self.out_dir}/checkpoints")
@@ -480,12 +622,13 @@ class Trainer:
                                 break
                             continue
                         dt = max(time.time() - t_last, 1e-9)
-                        metrics["images_per_sec"] = imgs_last / dt
+                        metrics["images_per_sec"] = imgs_last * self.mesh.data_parallel_size / dt
                         if flops:
-                            # one device: per-device and whole-job rates agree
+                            # per device, and for the job (every rank runs
+                            # the step's FLOPs)
                             tflops = flops * imgs_last / cfg.train_batch_size / dt / 1e12
                             metrics["tflops_per_sec"] = tflops
-                            metrics["tflops_per_sec_total"] = tflops
+                            metrics["tflops_per_sec_total"] = tflops * dist.process_count()
                             if peak:
                                 metrics["mfu"] = tflops / peak
                         metrics.update(self._fault_metrics())
@@ -498,12 +641,27 @@ class Trainer:
                                 self.producer.paused() if self.producer is not None
                                 else contextlib.nullcontext()):
                             self.sample_hook(self, sync)
-                    # before the periodic save, so no step is written twice
-                    if self._preempted:
+                    if decision is not None and decision.action is C.Action.ABORT_BAD_SAMPLES:
+                        from dcr_tpu_torch.data.loader import TooManyBadSamples
+
+                        raise TooManyBadSamples(
+                            f"epoch {epoch}: {decision.bad_total} bad samples across "
+                            f"{dist.process_count()} processes exceed the job's quarantine "
+                            f"budget of {self.coord.bad_sample_budget} "
+                            f"(max_bad_sample_frac={cfg.fault.max_bad_sample_frac})")
+                    # before the periodic save, so no step is written twice;
+                    # on several processes only the agreement stops the job
+                    if ((self._preempted and not self.multi) or (
+                            decision is not None
+                            and decision.action is C.Action.CHECKPOINT_AND_EXIT)):
                         log.warning("preemption: checkpointing at step %d and stopping "
-                                    "(resume picks up here)", step)
+                                    "(resume picks up here; signalled on ranks %s)", step,
+                                    list(decision.preempt_ranks) if decision else [0])
                         self.watchdog.stop()
                         self.save()
+                        if self.multi:
+                            log.info("state fingerprint at step %d: %s", step,
+                                     state_fingerprint(self.state))
                         self.writer.close()
                         self.preempted_exit = True
                         # the exit-83 path: the run's last moments for the
@@ -524,6 +682,8 @@ class Trainer:
                 batches.close()
         self.watchdog.stop()  # the save and export below have no heartbeat
         self.save()
+        if self.multi:
+            log.info("state fingerprint at step %d: %s", step, state_fingerprint(self.state))
         self.export_checkpoint()
         self.writer.close()
         return last_metrics

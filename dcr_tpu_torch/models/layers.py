@@ -17,7 +17,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dcr_tpu_torch.ops import ring_attention, ulysses_attention
 from dcr_tpu_torch.ops.attention import dot_product_attention
+from dcr_tpu_torch.parallel.mesh import SEQ_AXIS
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
@@ -81,26 +83,61 @@ class ResnetBlock2D(nn.Module):
 
 class CrossAttention(nn.Module):
     """Multi-head attention over [B, S, C] tokens; self-attention when
-    context is None. q/k/v projections carry no bias, the output one does."""
+    context is None. q/k/v projections carry no bias, the output one does.
+
+    With a mesh whose ``seq`` axis is above 1, a self-attention whose
+    sequence reaches ``seq_parallel_min_seq`` (and splits over the axis)
+    runs sequence-parallel over the axis, as the JAX block does:
+    ``seq_parallel_mode="ring"`` rotates K/V around the ranks
+    (``ops/ring_attention.py``), ``"ulysses"`` re-splits sequence to heads
+    and runs the flash kernels per head group
+    (``ops/ulysses_attention.py``), falling back to ring when the heads do
+    not divide by the axis."""
 
     def __init__(self, query_dim: int, context_dim: int, heads: int, head_dim: int,
-                 use_flash: bool = True):
+                 use_flash: bool = True, *, mesh=None, seq_parallel_min_seq: int = 4096,
+                 seq_parallel_mode: str = "ring"):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim, self.use_flash = heads, head_dim, use_flash
+        self.mesh = mesh
+        self.seq_parallel_min_seq = seq_parallel_min_seq
+        self.seq_parallel_mode = seq_parallel_mode
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(context_dim, inner, bias=False)
         self.to_v = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
+    def _seq_n(self) -> int:
+        return self.mesh.size(SEQ_AXIS) if self.mesh is not None else 1
+
+    def _ring_ok(self, b: int, sq: int, is_self: bool) -> bool:
+        """The JAX block's conditions: self-attention, a seq axis above 1,
+        ``sq >= seq_parallel_min_seq`` and ``sq % n_seq == 0``. Its fifth,
+        the global batch splitting over the data ranks, holds by
+        construction here: ``b`` is this rank's rows of a global batch of
+        ``b x n_data``."""
+        if not is_self or self.mesh is None:
+            return False
+        n_seq = self._seq_n()
+        return n_seq > 1 and sq >= self.seq_parallel_min_seq and sq % n_seq == 0
+
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        is_self = context is None
         context = x if context is None else context
         b, sq, _ = x.shape
         sk = context.shape[1]
         q = self.to_q(x).reshape(b, sq, self.heads, self.head_dim)
         k = self.to_k(context).reshape(b, sk, self.heads, self.head_dim)
         v = self.to_v(context).reshape(b, sk, self.heads, self.head_dim)
-        out = dot_product_attention(q, k, v, use_flash=self.use_flash)
+        if self._ring_ok(b, sq, is_self):
+            if self.seq_parallel_mode == "ulysses" and self.heads % self._seq_n() == 0:
+                out = ulysses_attention.ulysses_self_attention(q, k, v, self.mesh,
+                                                               use_flash=self.use_flash)
+            else:
+                out = ring_attention.ring_self_attention(q, k, v, self.mesh)
+        else:
+            out = dot_product_attention(q, k, v, use_flash=self.use_flash)
         return self.to_out[0](out.reshape(b, sq, self.heads * self.head_dim))
 
 
@@ -128,13 +165,15 @@ class FeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attn -> cross-attn -> ff, each pre-LayerNormed with residuals."""
+    """self-attn -> cross-attn -> ff, each pre-LayerNormed with residuals.
+    Only the self-attention (attn1) can run sequence-parallel: the
+    cross-attention's K/V are the 77 text tokens."""
 
     def __init__(self, dim: int, context_dim: int, heads: int, head_dim: int,
-                 use_flash: bool = True):
+                 use_flash: bool = True, **seq_parallel):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = CrossAttention(dim, dim, heads, head_dim, use_flash)
+        self.attn1 = CrossAttention(dim, dim, heads, head_dim, use_flash, **seq_parallel)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.attn2 = CrossAttention(dim, context_dim, heads, head_dim, use_flash)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
@@ -149,11 +188,13 @@ class BasicTransformerBlock(nn.Module):
 class Transformer2D(nn.Module):
     """Spatial transformer: GN -> proj in -> N blocks -> proj out + residual.
     ``use_linear_projection`` selects SD-2.x linears (after the reshape to
-    tokens) or SD-1.x 1x1 convs (before it)."""
+    tokens) or SD-1.x 1x1 convs (before it). ``seq_parallel`` (``mesh``,
+    ``seq_parallel_min_seq``, ``seq_parallel_mode``) reaches the blocks'
+    self-attentions."""
 
     def __init__(self, ch: int, context_dim: int, heads: int, head_dim: int,
                  num_layers: int = 1, groups: int = 32, use_flash: bool = True,
-                 use_linear_projection: bool = True):
+                 use_linear_projection: bool = True, **seq_parallel):
         super().__init__()
         inner = heads * head_dim
         self.use_linear_projection = use_linear_projection
@@ -166,8 +207,8 @@ class Transformer2D(nn.Module):
             self.proj_in = nn.Conv2d(ch, inner, 1)
             self.proj_out = nn.Conv2d(inner, ch, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(inner, context_dim, heads, head_dim, use_flash)
-             for _ in range(num_layers)])
+            [BasicTransformerBlock(inner, context_dim, heads, head_dim, use_flash,
+                                   **seq_parallel) for _ in range(num_layers)])
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape

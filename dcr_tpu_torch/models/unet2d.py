@@ -4,7 +4,10 @@ Counterpart of ``dcr_tpu/models/unet2d.py`` with diffusers'
 UNet2DConditionModel state-dict names. Structure: conv_in -> [CrossAttnDown
 x(n-1), Down] -> mid(Res, T2D, Res) -> [Up, CrossAttnUp x(n-1)] with skip
 concats ``[h, skip]`` -> GN -> silu -> conv_out. Every spatial self-attention
-goes through ``ops.attention`` (the flash kernel where the shape allows).
+goes through ``ops.attention`` (the flash kernel where the shape allows), or,
+with a ``mesh`` whose ``seq`` axis is above 1, sequence-parallel ring or
+Ulysses attention from ``seq_parallel_min_seq`` tokens on, as the JAX
+UNet's ``mesh`` field selects.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ class _Blocks(nn.Module):
 
 
 class UNet2DCondition(nn.Module):
-    def __init__(self, config: ModelConfig):
+    def __init__(self, config: ModelConfig, mesh=None):
         super().__init__()
         cfg = self.config = config
         bo = cfg.block_out_channels
@@ -52,7 +55,9 @@ class UNet2DCondition(nn.Module):
                 ch, cfg.cross_attention_dim, heads, head_dim,
                 num_layers=cfg.transformer_layers, groups=g,
                 use_flash=cfg.flash_attention,
-                use_linear_projection=cfg.use_linear_projection)
+                use_linear_projection=cfg.use_linear_projection, mesh=mesh,
+                seq_parallel_min_seq=cfg.seq_parallel_min_seq,
+                seq_parallel_mode=cfg.seq_parallel_mode)
 
         self.conv_in = nn.Conv2d(cfg.in_channels, bo[0], 3, padding=1)
         self.time_embedding = L.TimestepEmbedding(bo[0], temb_ch)

@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
-_lock = threading.Lock()
+_lock = threading.RLock()  # build() and load(), from any thread
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -114,6 +114,11 @@ def build(sources: Sequence[Path]) -> dict[str, str]:
     """Compile every source not built yet, all compiler processes at once.
     Returns {source stem: compiler output} ("" for a library already built);
     raises with the compiler output if any build fails."""
+    with _lock:  # one build at a time: two would race on one temporary file
+        return _build(sources)
+
+
+def _build(sources: Sequence[Path]) -> dict[str, str]:
     started = [_start(Path(s)) for s in sources]
     logs: dict[str, str] = {}
     failures = []

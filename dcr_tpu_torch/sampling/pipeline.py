@@ -39,10 +39,11 @@ log = logging.getLogger("dcr_tpu_torch")
 
 
 def build_models(model_cfg: ModelConfig, device: str | torch.device = "cuda",
-                 seed: Optional[int] = None) -> DiffusionModels:
+                 seed: Optional[int] = None, mesh=None) -> DiffusionModels:
     """The module bundle on ``device``, in eval mode, with PyTorch's default
     initialisation (seeded when ``seed`` is given); weights are loaded over
-    it by :func:`load_params`."""
+    it by :func:`load_params`. A ``mesh`` (``parallel/mesh.Mesh``) with a
+    ``seq`` axis above 1 turns on the UNet's sequence-parallel attention."""
     device = resolve_device(device)
     # a seeded build draws from a forked global generator, leaving the
     # caller's RNG state as it was
@@ -51,7 +52,7 @@ def build_models(model_cfg: ModelConfig, device: str | torch.device = "cuda",
         if seed is not None:
             torch.manual_seed(seed)
         models = DiffusionModels(
-            unet=UNet2DCondition(model_cfg).eval(),
+            unet=UNet2DCondition(model_cfg, mesh=mesh).eval(),
             vae=AutoencoderKL(model_cfg).eval(),
             text_encoder=CLIPTextModel(model_cfg).eval(),
             schedule=S.make_schedule(

@@ -109,7 +109,7 @@ class AnnEngine:
                  warm_dir: str = "", device: str | torch.device = "cuda"):
         if mesh is not None:
             raise NotPortedError("a device mesh for the ANN engine is not ported to "
-                                 "dcr_tpu_torch yet (ROADMAP Queue A item 9)")
+                                 "dcr_tpu_torch yet (ROADMAP Queue A item 9b)")
         if warm_dir:
             raise NotPortedError("warm_dir (the warm executable cache) is not ported to "
                                  "dcr_tpu_torch yet (ROADMAP Queue A item 7c)")

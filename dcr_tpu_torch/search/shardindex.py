@@ -104,7 +104,7 @@ class ShardedTopK:
                  device: str | torch.device = "cuda"):
         if mesh is not None:
             raise NotPortedError("a device mesh for the top-k engine is not ported to "
-                                 "dcr_tpu_torch yet (ROADMAP Queue A item 9)")
+                                 "dcr_tpu_torch yet (ROADMAP Queue A item 9b)")
         if warm_dir:
             raise NotPortedError("warm_dir (the warm executable cache) is not ported to "
                                  "dcr_tpu_torch yet (ROADMAP Queue A item 7c)")

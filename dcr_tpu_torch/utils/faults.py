@@ -10,7 +10,8 @@ when a hook point reports coordinates matching EVERY ``key=value`` pair of
 the entry (coordinates the entry does not name are ignored), at most ``N``
 times (default 1). ``@`` also separates pairs, so ``nan_loss@step=5@rank=1``
 reads naturally; the ``rank`` coordinate is implicit at every hook point and
-is ``DCR_WORKER_INDEX`` (default 0): the port runs one process.
+is ``DCR_WORKER_INDEX`` (a serving fleet's worker), else the process's rank
+in a multi-process job (``core/dist``), else 0.
 
 The kinds the port fires, and their hook points:
 
@@ -122,9 +123,15 @@ _ENTRY_RE = re.compile(r"^(?P<kind>[a-z_]+)@(?P<coords>[a-z_]+=\d+(?:[&@][a-z_]+
 
 
 def _current_rank() -> int:
-    """The implicit ``rank`` coordinate: the serving fleet's worker index,
-    else 0 (one process)."""
-    return int(os.environ.get("DCR_WORKER_INDEX", 0) or 0)
+    """The implicit ``rank`` coordinate: the serving fleet's worker index
+    (``DCR_WORKER_INDEX``: fleet workers are single-process jobs, all rank
+    0), else the process's rank in a multi-process job, else 0."""
+    worker = os.environ.get("DCR_WORKER_INDEX")
+    if worker:
+        return int(worker)
+    from dcr_tpu_torch.core import dist
+
+    return dist.process_index()
 
 
 @dataclass

@@ -43,7 +43,9 @@ def test_importing_every_module_loads_no_jax_or_dcr_tpu():
     for name in ("search.livestore", "serve.ingest", "obs.recall_probe",
                  "diffusion.encode_stage", "data.latent_cache", "cli.precompute",
                  "core.adam8bit", "core.tracing", "obs.memwatch", "utils.profiling",
-                 "serve.fleet", "serve.scrape", "serve.supervisor", "obs.slo", "cli.status"):
+                 "serve.fleet", "serve.scrape", "serve.supervisor", "obs.slo", "cli.status",
+                 "core.dist", "parallel", "parallel.mesh", "ops.ring_attention",
+                 "ops.ulysses_attention"):
         assert f"dcr_tpu_torch.{name}" in doc["imported"]
     assert doc["bad"] == []
 
@@ -59,8 +61,11 @@ def _imports(path: Path) -> list[str]:
     return out
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
-                         ids=lambda p: str(p.relative_to(REPO)))
+# the multi-process tests' ranks run tests/_torch_ranks.py, which must stand
+# alone like the port
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "tests" / "_torch_ranks.py"],
+    ids=lambda p: str(p.relative_to(REPO)))
 def test_no_source_imports_jax_or_dcr_tpu(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert bad == [], f"{path.relative_to(REPO)} imports {bad}"

@@ -499,7 +499,7 @@ def test_run_search_runs_live_as_the_jax_package(corpus, tmp_path):
 def test_engine_refuses_mesh_and_warm_dir(corpus):
     _, store, *_ = corpus
     reader = ST.EmbeddingStoreReader(store)
-    with pytest.raises(NotPortedError, match="item 9"):
+    with pytest.raises(NotPortedError, match="item 9b"):
         SI.ShardedTopK(reader, mesh=object(), device="cpu")
     with pytest.raises(NotPortedError, match="item 7"):
         SI.ShardedTopK(reader, warm_dir="w", device="cpu")

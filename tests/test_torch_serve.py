@@ -739,7 +739,7 @@ def test_cli_refuses_to_run_without_a_gpu_unless_asked(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("overrides,item", [
     (["--warm.dir=w"], "item 7c"),
-    (["--mesh.data=2"], "item 9"),
+    (["--mesh.data=2"], "item 9b"),
 ])
 def test_unported_serve_settings_raise(overrides, item):
     cfg = TC.parse_cli(TC.ServeConfig, overrides)

@@ -172,13 +172,32 @@ def test_non_finite_loss_fails_fast(tmp_path):
 
 @pytest.mark.parametrize("override,what", [
     ("--use_wandb=true", "wandb"),
-    ("--mesh.data=2", "mesh of 2"),
+    ("--mesh.fsdp=2", "item 9b"),
+    ("--mesh.tensor=2", "item 9b"),
     ("--warm.dir=w", "warm"),
 ])
 def test_settings_not_ported_are_refused(tmp_path, override, what):
     cfg = TC.parse_cli(TC.TrainConfig, [override], base=_cfg(tmp_path))
     with pytest.raises(TC.NotPortedError, match=what):
         Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override,ok", [("--mesh.data=-1", True), ("--mesh.seq=1", True),
+                                         ("--mesh.data=2", False), ("--mesh.seq=2", False)])
+def test_a_training_mesh_is_the_jobs_processes(tmp_path, override, ok):
+    """A data x seq mesh trains (as processes: tests/test_torch_dist.py,
+    test_torch_seqpar.py and test_torch_coordination.py run two ranks); in
+    one process it must be 1 x 1, and a larger one names the mismatch."""
+    _data(tmp_path / "data")
+    cfg = TC.parse_cli(TC.TrainConfig, [override, "--max_train_steps=1"],
+                       base=_cfg(tmp_path))
+    if ok:
+        trainer = Trainer(cfg, device="cpu")
+        assert trainer.mesh.shape["data"] == trainer.mesh.shape["seq"] == 1
+        assert np.isfinite(trainer.train()["loss"])
+    else:
+        with pytest.raises(ValueError, match="1 devices"):
+            Trainer(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("override", ["--optim.use_8bit_adam=true"])
