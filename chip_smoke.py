@@ -18,8 +18,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    decoding to PIL's pixels; decode rates (500x375 full scale, 1024x768 at
    the scale that covers 256; 1 and 8 threads) and the encode time;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes (phase 23's per-rank shapes, SEQPAR_CASES,
-   included) and a few edge shapes, in f32 and bf16 (bf16
+   the main paths' shapes (phase 23's per-rank shapes, SEQPAR_CASES and
+   TP_CASES, included) and a few edge shapes, in f32 and bf16 (bf16
    against the plain version in bf16, which rounds where the kernels round),
    with times, the plain version's and the library call's time, the bound
    and the share of it reached, and for f32 the kernel's and the plain
@@ -44,7 +44,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    forward launches per UNet call of the plan, images finite in [0, 1];
    seconds per call beside phase 5's, max |diff| to its images (reported);
 5d. mitigation (inside 5b, on its genuine directory): dcr-mitigate
-   (cli.mitigate.main) at 512 px, 20 steps, rand_noise_lam 0.1,
+   (cli.mitigate.main) at 512 px, 10 steps, rand_noise_lam 0.1,
    rand_word_add: 12 prompts and 12 PNGs under
    inferences/mitigation_aug_rand_word_add, finite images, 15 forward
    launches per UNet call, every launch at a shape of phase 3's
@@ -64,8 +64,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    SD-2.1 widths with mixed_precision="no"; 10 launches of each kernel per
    step, all in f32, finite losses;
 15. training faults (after phase 7): Trainer(TrainConfig()) as in phase 6
-   but with its UNet cut in depth to FAULTS_LAYERS_PER_BLOCK and three
-   levels (SD-2.1's widths, so the kernels' shapes are phase 6's; 6 kernel
+   but with its UNet cut in depth to FAULTS_LAYERS_PER_BLOCK and two
+   levels (SD-2.1's widths, so the kernels' shapes are phase 6's; 4 kernel
    attentions per step), on 48 JPEGs and one truncated JPEG with fault.max_bad_sample_frac 0.05,
    max_rollbacks 1 and DCR_FAULTS's decode_error, nan_loss, sigterm and
    ckpt_corrupt: bad samples retried, quarantined and replaced, a NaN rolled
@@ -207,11 +207,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    timed), (c) over gloo as seq = 2 at 512 px, global batch 2, phase 15's
    depth, Ulysses from 1,024 tokens (ring at level 0; B1/B2/B3 at
    SEQPAR_CASES' shapes per rank; losses, grad norms and Adam's first
-   moment within the same bars of a single-process Trainer run here), then
-   (a) rank 0 alone over NCCL at TrainConfig() (losses and grad norms equal
-   phase 6's first 3 bit for bit; join, barrier and agreement times); (d)
-   NCCL refuses two ranks on one device ("Duplicate GPU detected"), an
-   expected error;
+   moment within the same bars of a single-process Trainer run here), (e)
+   over gloo as fsdp = 2 at TrainConfig(), 8 rows each, and (f) as tensor
+   = 2, 16 rows each (each: the bars of (b) against phase 6 and (a), the
+   state held as shards, the peak per rank; (f) B1/B2/B3 at each rank's
+   heads), (g) generate over gloo as tensor = 2 at SD-2.1, 512 px, 2 DDIM
+   steps, f32, from phase 6's export, its PNGs within 1 uint8 level of a
+   single-process generate run here, then (a) rank 0 alone over NCCL at
+   TrainConfig() (losses and grad norms equal phase 6's first 3 bit for
+   bit; join, barrier and agreement times); (d) NCCL refuses two ranks on
+   one device ("Duplicate GPU detected"), an expected error;
 21. profile drill (last): POST /debug/profile on an in-process server at
    SD-2.1 widths arms torch.profiler for one device step; a 4-step request
    runs under it, and its Chrome trace holds the forward kernel's 40
@@ -546,8 +551,11 @@ def phase_jpeg_codec() -> dict:
     return stats
 
 
-# dcr-mitigate (phase 5d): one image per prompt with CFG at 512 px; phase 5d
-# holds every forward launch it makes to one of these shapes
+# dcr-mitigate (phase 5d): one image per prompt with CFG at 512 px, in
+# MITIGATE_STEPS DPM++ steps (phase 5 runs the 20-step solver; the
+# mitigations act on the prompt and the initial noise); phase 5d holds every
+# forward launch it makes to one of these shapes
+MITIGATE_STEPS = 10
 MITIGATE_CASES = [
     ("mitigate_level0", 2, 4096, 4096, 5, 64, 1.0, True),
     ("mitigate_level1", 2, 1024, 1024, 10, 64, 1.0, True),
@@ -574,6 +582,7 @@ def phase_kernels(reps: int) -> dict:
         ("hook_level1", 8, 256, 256, 10, 64, 1.0, True),
         *MITIGATE_CASES,
         *SEQPAR_CASES,
+        *TP_CASES,
         ("d128", 2, 1024, 1024, 4, 128, 1.0, False),
         ("d256", 2, 512, 512, 4, 256, 1.0, False),
         ("rect", 2, 1024, 256, 4, 64, 1.0, False),
@@ -722,6 +731,8 @@ def phase_bwd_kernels(reps: int) -> dict:
         *(c[:-1] + (False,) for c in MITIGATE_CASES),
         # phase 23 (c)'s per-rank shapes: Ulysses' head groups, the mid block
         *SEQPAR_CASES,
+        # phase 23 (f)'s per-rank level-1 heads; (g) runs no backward
+        TP_CASES[0],
         ("d128", 2, 1024, 1024, 4, 128, 1.0, False),
         ("d256", 2, 512, 512, 4, 256, 1.0, False),
         ("sq_gt_sk", 2, 1024, 256, 4, 64, 1.0, False),
@@ -1502,10 +1513,10 @@ def phase_train_8bit(fused_stats: dict) -> dict:
     opt_ms: list[float] = []
     update = T.Optimizer.update
 
-    def timed_update(self, grads, opt_state, trainable):
+    def timed_update(self, grads, opt_state, trainable, **kw):
         torch.cuda.synchronize()
         start = time.perf_counter()
-        out = update(self, grads, opt_state, trainable)
+        out = update(self, grads, opt_state, trainable, **kw)
         torch.cuda.synchronize()
         opt_ms.append(1e3 * (time.perf_counter() - start))
         return out
@@ -1782,20 +1793,29 @@ def _cli_fault_run(root: Path, name: str, dcr_faults: str, *extra: str,
 
 
 # phase 15's UNet depth: SD-2.1 has 2 layers per block and four levels
-# (865.9 M UNet params); 1 layer per block (583.5 M) and its first three
-# levels (318.3 M: the fourth's 1280-wide blocks go; levels 0 and 1, the
-# kernel-shaped attentions, stay as they are) cut each checkpoint from
-# ~12.1 to ~4.8 GB; the fault drills do not depend on depth
+# (865.9 M UNet params); 1 layer per block (583.5 M) and its first two
+# levels (80.7 M: the 1280-wide blocks go; level 0 and the mid block, now
+# at level 1's 640 channels and 256 tokens, are the kernel-shaped
+# attentions, at phase 6's two train shapes) cut each checkpoint's UNet
+# from 3 x 3.46 to 3 x 0.32 GB of f32 (params and Adam's two moments); the
+# fault drills do not depend on depth
 FAULTS_LAYERS_PER_BLOCK = 1
-FAULTS_BLOCK_OUT_CHANNELS = (320, 640, 1280)
+FAULTS_BLOCK_OUT_CHANNELS = (320, 640)
+# phase 23 (c)'s levels: SD-2.1's first three, so at 512 px level 0 takes
+# ring attention, level 1 Ulysses and the mid block the kernels per rank
+SEQPAR_BLOCK_OUT_CHANNELS = (320, 640, 1280)
 
 
-def kernel_attentions_per_step(layers_per_block: int) -> int:
-    """Kernel-shaped self-attentions per SD-2.1 UNet call at 256 px: levels 0
-    and 1 (S = 1024, 256) each hold layers_per_block down and
-    layers_per_block + 1 up; level 2 (S = 64) and the mid block go to SDPA
-    (with three levels, level 2 has none and the mid block's is at S = 64)."""
-    return 2 * (2 * layers_per_block + 1)
+def kernel_attentions_per_step(layers_per_block: int, levels: int = 4) -> int:
+    """Kernel-shaped self-attentions per SD-2.1 UNet call at 256 px (32 x 32
+    latents), a UNet of ``levels`` levels: each level but the last holds
+    layers_per_block down and layers_per_block + 1 up, the mid block one at
+    the last level; those whose token count 128 divides take the kernel
+    (S = 1024, 256, 64, 16 at levels 0-3: four levels run levels 0 and 1
+    through it, two levels level 0 and the mid block at S = 256)."""
+    tokens = [1024 // 4 ** i for i in range(levels)]
+    per_level = sum(2 * layers_per_block + 1 for s in tokens[:-1] if s % 128 == 0)
+    return per_level + (tokens[-1] % 128 == 0)
 
 
 def phase_train_faults(out_dir: Path) -> dict:
@@ -1881,13 +1901,13 @@ def phase_train_faults(out_dir: Path) -> dict:
     def instrument(trainer, record):
         mgr, save = trainer.ckpt, trainer.ckpt.save
 
-        def timed_save(step, state):
+        def timed_save(step, state, **kw):
             # the preemption's save of step 5, torn right after it commits,
             # is the one written without the manifest pass
             mgr.verify = step != 5
             start = time.perf_counter()
             try:
-                if save(step, state):  # an already-saved step writes nothing
+                if save(step, state, **kw):  # an already-saved step writes nothing
                     times["save" if mgr.verify else "no_manifest_save"].append(
                         time.perf_counter() - start)
             finally:
@@ -2038,7 +2058,8 @@ def phase_train_faults(out_dir: Path) -> dict:
         problems.append(f"faults/* metrics {fm}")
     if not all(np.isfinite(r["loss"]) for r in rows) or not np.isfinite(stats["losses"]).all():
         problems.append(f"losses {stats['losses']}")
-    per_step = kernel_attentions_per_step(FAULTS_LAYERS_PER_BLOCK)
+    per_step = kernel_attentions_per_step(FAULTS_LAYERS_PER_BLOCK,
+                                          len(FAULTS_BLOCK_OUT_CHANNELS))
     if stats["steps_run"] != [5, 3, 6] or launches != (per_step * steps_run,) * 3:
         problems.append(f"steps {stats['steps_run']}, launches {launches}")
     held = {(16, 1024, 1024, 5, 64, torch.bfloat16), (16, 256, 256, 10, 64, torch.bfloat16)}
@@ -2772,8 +2793,8 @@ def phase_backbones(root: Path) -> dict:
 
 def phase_mitigation(ckpt: Path, root: Path) -> dict:
     """Phase 5d: dcr-mitigate (dcr_tpu_torch.cli.mitigate.main) on phase 5b's
-    genuine diffusers directory at 512 px, 20 DPM++ steps, one image per
-    prompt, rand_noise_lam 0.1 and rand_word_add, run from ``root`` so the
+    genuine diffusers directory at 512 px, MITIGATE_STEPS DPM++ steps, one
+    image per prompt, rand_noise_lam 0.1 and rand_word_add, run from ``root`` so the
     JAX savepath rule's relative directory lands there. Held: 12 prompts
     and 12 PNGs under inferences/mitigation_aug_rand_word_add, finite
     images in [0, 1], 15 B1 launches per UNet call, each at the shape of one
@@ -2819,7 +2840,7 @@ def phase_mitigation(ckpt: Path, root: Path) -> dict:
     t0 = time.perf_counter()
     try:
         out = mitigate.main([f"--model_path={ckpt}", "--resolution=512", "--num_batches=1",
-                             "--im_batch=1", "--num_inference_steps=20",
+                             "--im_batch=1", f"--num_inference_steps={MITIGATE_STEPS}",
                              "--rand_noise_lam=0.1", "--rand_augs=rand_word_add"])
     finally:
         launches = read_launches()
@@ -2839,12 +2860,13 @@ def phase_mitigation(ckpt: Path, root: Path) -> dict:
              "kernel_shapes": sorted(list(x[:5]) for x in shapes),
              "peak_bytes": torch.cuda.max_memory_allocated(),
              "first_prompt": prompts[0] if prompts else None}
-    log(f"mitigation (dcr-mitigate on the genuine checkpoint, 512 px, 20 steps): "
+    log(f"mitigation (dcr-mitigate on the genuine checkpoint, 512 px, "
+        f"{MITIGATE_STEPS} steps): "
         f"{json.dumps(stats)}")
     _check_images(imgs, "mitigation")
     if (stats["savepath"] != "inferences/mitigation_aug_rand_word_add" or len(prompts) != 12
             or len(pngs) != 12 or imgs.shape != (12, 512, 512, 3)
-            or launches != (expected, 0, 0) or expected != 15 * 20 * 12):
+            or launches != (expected, 0, 0) or expected != 15 * MITIGATE_STEPS * 12):
         raise AssertionError(f"mitigation failed: {stats}")
     held = {tuple(c[1:6]) + (torch.float32,) for c in MITIGATE_CASES}
     if shapes != held:
@@ -5339,13 +5361,26 @@ def phase_profile_drill(root: Path) -> dict:
 # (PERF.md §6, multi-process training)
 DIST_STEPS = 3
 GLOO_STEPS = 2
-# (c) runs phase 15's depth at 512 px: level 0 (S 4096, 5 heads) takes ring
-# attention, level 1 (S 1024, 10 heads) Ulysses, the mid block (S 256) the
-# kernels per rank
+# (c) runs one layer per block and SEQPAR_BLOCK_OUT_CHANNELS at 512 px:
+# level 0 (S 4096, 5 heads) takes ring attention, level 1 (S 1024, 10
+# heads) Ulysses, the mid block (S 256) the kernels per rank
 SEQPAR_CASES = [
     ("seq_level1", 2, 1024, 1024, 5, 64, 1.0, True),
     ("seq_level2", 2, 256, 256, 20, 64, 1.0, True),
 ]
+# (f) and (g)'s per-rank tensor-parallel shapes: SD-2.1's 10 level-1 heads
+# split over 2 ranks ((f): bf16, 16 rows; (g): f32, CFG batch 4) and its 20
+# level-2 heads ((g)); level 0's 5 heads do not split, so every rank runs
+# them whole (phase 3's train_level0 and level0)
+TP_CASES = [
+    ("tp_level1", 16, 256, 256, 5, 64, 1.0, True),
+    ("tp_sample_level1", 4, 1024, 1024, 5, 64, 1.0, True),
+    ("tp_sample_level2", 4, 256, 256, 10, 64, 1.0, True),
+]
+# (g): generate over tensor = 2 from phase 6's export, 1 prompt x 2 images
+# (one device batch of 2 on one process and on two, so the reference draws
+# the same x_T; CFG batch 4), 512 px, DDIM
+TP_SAMPLE_STEPS = 2
 
 # phase 23's bars, against a run of the same global batch and draws in one
 # process, from the largest gaps read on the card (PERF.md §6, multi-process
@@ -5371,10 +5406,26 @@ DIGEST_LEAVES = ("conv_in.weight", *(f"attentions.0.transformer_blocks.0.attn1.{
 
 def adam_digest(state) -> dict:
     """Adam's first moment of every UNet leaf as its norm, and of the
-    DIGEST_LEAVES leaves whole, on the host."""
+    DIGEST_LEAVES leaves whole, on the host. Of a sharded state, a leaf's
+    norm from its shards' sums of squares summed over the axes it is cut
+    on, the DIGEST_LEAVES gathered (every rank calls it then)."""
+    from dcr_tpu_torch.parallel import mesh as pmesh
+
+    layout = state.layout
     mu = {k[len("unet/"):]: v for k, v in state.opt_state.mu.items() if k.startswith("unet/")}
-    return {"norms": {k: float(v.norm()) for k, v in mu.items()},
-            "leaves": {k: v.detach().float().cpu().clone() for k, v in mu.items()
+    sq = torch.stack([v.detach().float().pow(2).sum() for v in mu.values()])
+    for axis in (pmesh.FSDP_AXIS, pmesh.TENSOR_AXIS):
+        cut = [layout is not None
+               and getattr(layout.placement("unet", k), axis) is not None for k in mu]
+        if any(cut):
+            on = torch.tensor(cut, device=sq.device)
+            summed = pmesh._all_reduce(torch.where(on, sq, torch.zeros_like(sq)),
+                                       layout.mesh.group(axis), "digest_all_reduce")
+            sq = torch.where(on, summed, sq)
+    whole = (lambda k, v: v) if layout is None else (
+        lambda k, v: layout.full(v, layout.placement("unet", k)))
+    return {"norms": dict(zip(mu, sq.sqrt().tolist())),
+            "leaves": {k: whole(k, v).detach().float().cpu().clone() for k, v in mu.items()
                        if k.endswith(DIGEST_LEAVES)}}
 
 
@@ -5396,7 +5447,7 @@ def rel_gaps(got, want) -> float:
 
 
 _DIST_RANK = r"""
-import datetime, json, statistics, sys, time
+import datetime, json, math, statistics, sys, time
 from pathlib import Path
 
 import torch
@@ -5407,10 +5458,12 @@ torch.backends.cudnn.allow_tf32 = False
 
 from dcr_tpu_torch.core import coordination as C
 from dcr_tpu_torch.core import dist
-from dcr_tpu_torch.core.config import TrainConfig, from_dict
-from dcr_tpu_torch.diffusion.trainer import Trainer, state_fingerprint
+from dcr_tpu_torch.core.config import SampleConfig, TrainConfig, from_dict
+from dcr_tpu_torch.diffusion import trainer as TR
+from dcr_tpu_torch.diffusion.trainer import Trainer
 from dcr_tpu_torch.ops import flash_attention as fa
 from dcr_tpu_torch.parallel import mesh as pmesh
+from dcr_tpu_torch.sampling.pipeline import generate
 from dcr_tpu_torch.utils import profiling
 from chip_smoke import adam_digest
 
@@ -5445,13 +5498,25 @@ def spied_flash(q, k, v):
 
 
 fa.flash_attention = spied_flash
+# the state fingerprint the Trainer logs at the end of a multi-process run,
+# kept (a second crc32 pass over the UNet costs seconds)
+fingerprints = []
+plain_fingerprint = TR.state_fingerprint
+
+
+def noted_fingerprint(state):
+    fingerprints.append(plain_fingerprint(state))
+    return fingerprints[-1]
+
+
+TR.state_fingerprint = noted_fingerprint
 # mfu's FLOP count (phase 6 holds it) costs each Trainer ~2.5 s
 profiling.train_step_flops = lambda *a, **k: None
 for part in plan["parts"]:
     if rank >= part["world"]:
         continue
     rec = {"world": part["world"], "backend": part["backend"]}
-    start = time.perf_counter()
+    part_t0 = start = time.perf_counter()
     store = tdist.TCPStore("127.0.0.1", part["port"], part["world"], is_master=rank == 0,
                            timeout=datetime.timedelta(seconds=600), wait_for_workers=False)
     dist.initialize(device, backend=part["backend"], store=store, rank=rank,
@@ -5464,9 +5529,30 @@ for part in plan["parts"]:
     start = time.perf_counter()
     rec["probe_action"] = coord.exchange(0, tag="probe").action.value
     rec["exchange_s"] = time.perf_counter() - start
-    cfg = from_dict(TrainConfig, part["cfg"])
     if device.startswith("cuda"):
         torch.cuda.reset_peak_memory_stats()
+    reduce_s.clear()
+    shapes.clear()
+    pmesh.EXCHANGE_STATS.clear()
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.dq_launches = fa.flash_attention_bwd.dkv_launches = 0
+    if part.get("kind") == "generate":
+        start = time.perf_counter()
+        generate(from_dict(SampleConfig, part["cfg"]), modelstyle="nolevel", device=device)
+        sync()
+        rec.update(s=time.perf_counter() - start, launches_fwd=fa.flash_attention_fwd.launches,
+                   flash_shapes=sorted({json.dumps(s) for s in shapes}),
+                   exchanges=dict(pmesh.EXCHANGE_STATS),
+                   peak_bytes=torch.cuda.max_memory_allocated() if device != "cpu" else 0,
+                   part_s=time.perf_counter() - part_t0)
+        out[part["name"]] = rec
+        if device.startswith("cuda"):
+            torch.cuda.empty_cache()
+        dist.shutdown()
+        (root / f"rank_{rank}.json").write_text(json.dumps(out))
+        continue
+    cfg = from_dict(TrainConfig, part["cfg"])
+    fingerprints.clear()
     trainer = Trainer(cfg, device=device)
     # phase 6 holds the saves and the export
     trainer.save = lambda: None
@@ -5483,25 +5569,29 @@ for part in plan["parts"]:
         grad_norms.append(float(metrics["grad_norm"]))
         sync()
         step_s.append(time.perf_counter() - t0)
-        if rank == 0 and len(losses) == plan["digest_step"]:
-            torch.save(adam_digest(state), root / f"digest_{part['name']}.pt")
+        if len(losses) == plan["digest_step"]:
+            digest = adam_digest(state)  # a sharded state's gathers: every rank
+            if rank == 0:
+                torch.save(digest, root / f"digest_{part['name']}.pt")
         return state, metrics
 
     trainer.step_fn = step
-    reduce_s.clear()
-    shapes.clear()
-    pmesh.EXCHANGE_STATS.clear()
-    fa.flash_attention_fwd.launches = 0
-    fa.flash_attention_bwd.dq_launches = fa.flash_attention_bwd.dkv_launches = 0
     trainer.train()
     rec["launches_fwd_dq_dkv"] = [fa.flash_attention_fwd.launches,
                                   fa.flash_attention_bwd.dq_launches,
                                   fa.flash_attention_bwd.dkv_launches]
+    layout = trainer.state.layout
     rec.update(losses=losses, grad_norms=grad_norms, step_s=step_s, reduce_s=list(reduce_s),
                flash_shapes=sorted({json.dumps(s) for s in shapes}),
                exchanges=dict(pmesh.EXCHANGE_STATS),
                peak_bytes=torch.cuda.max_memory_allocated() if device != "cpu" else 0,
-               fingerprint=state_fingerprint(trainer.state) if part["world"] > 1 else None)
+               fingerprint=fingerprints[-1] if part["world"] > 1 else None,
+               # elements of the UNet's params this rank holds, and whole
+               unet_elements=None if layout is None else [
+                   sum(p.numel() for p in trainer.state.unet_params.values()),
+                   sum(math.prod(layout.full_shape(p.shape, layout.placement("unet", k)))
+                       for k, p in trainer.state.unet_params.items())],
+               part_s=time.perf_counter() - part_t0)
     out[part["name"]] = rec
     del trainer
     if device.startswith("cuda"):
@@ -5553,7 +5643,8 @@ def _rank_env(**extra) -> dict:
 
 def _seqpar_cfg(out_dir: Path, data: Path, **kw):
     """(c)'s configuration: TrainConfig() at 512 px, global batch 2, at
-    phase 15's depth, sequence parallelism from 1,024 tokens, Ulysses."""
+    one layer per block and SD-2.1's first three levels, sequence
+    parallelism from 1,024 tokens, Ulysses."""
     from dcr_tpu_torch.core.config import ModelConfig, TrainConfig
 
     cfg = TrainConfig(output_dir=str(out_dir), max_train_steps=GLOO_STEPS, log_every=1,
@@ -5561,7 +5652,7 @@ def _seqpar_cfg(out_dir: Path, data: Path, **kw):
     cfg.data.train_data_dir = str(data)
     cfg.data.resolution = 512
     cfg.model = ModelConfig(sample_size=64, layers_per_block=FAULTS_LAYERS_PER_BLOCK,
-                            block_out_channels=FAULTS_BLOCK_OUT_CHANNELS,
+                            block_out_channels=SEQPAR_BLOCK_OUT_CHANNELS,
                             seq_parallel_min_seq=1024, seq_parallel_mode="ulysses")
     return cfg
 
@@ -5578,12 +5669,21 @@ def phase_multi_process_training(root: Path, data: Path, fused_stats: dict) -> d
         (state fingerprints), the gradients' all-reduce seconds per step
         (gloo stages through host memory: not NCCL's);
     (c) two ranks over gloo, mesh seq = 2, at 512 px, global batch 2, at
-        phase 15's depth with seq_parallel_min_seq 1,024 and Ulysses: ring
-        attention at level 0, Ulysses at level 1 (B1/B2/B3 at
+        one layer per block and three levels with seq_parallel_min_seq
+        1,024 and Ulysses: ring attention at level 0, Ulysses at level 1 (B1/B2/B3 at
         [2,1024,5,64] per rank), the mid block's kernels at [2,256,20,64];
         losses, grad norms and Adam's first moment within the same bars of
         a single-process Trainer on the same batches and draws (run here
         while the ranks start); peak memory;
+    (e) two ranks over gloo, mesh fsdp = 2, 8 rows each, GLOO_STEPS steps,
+        and (f) mesh tensor = 2, 16 rows each: (b)'s bars against phase 6
+        and (a), each rank holding a share of the UNet's elements, the
+        FSDP or Megatron exchanges taken; (f) B1/B2/B3 at each rank's heads
+        (TP_CASES' tp_level1 at level 1, level 0's 5 heads whole);
+    (g) generate over gloo, mesh tensor = 2, from phase 6's export at 512
+        px, TP_SAMPLE_STEPS DDIM steps in f32: its PNGs within 1 uint8 level
+        of a single-process generate on the same weights run here, B1 at
+        level0 and TP_CASES' tp_sample shapes per rank;
     (a) rank 0 alone over NCCL at TrainConfig() on phase 6's data and seed,
         DIST_STEPS steps: its losses and grad norms equal phase 6's first
         ones bit for bit (a one-rank all-reduce and a divide by 1 are
@@ -5592,10 +5692,16 @@ def phase_multi_process_training(root: Path, data: Path, fused_stats: dict) -> d
     (d) two ranks over NCCL on one device, beside (c)'s reference: NCCL's
         refusal, kept as an expected error with its text.
     The phase's launches: the ranks' own counts over their train() calls."""
+    import dataclasses
     import gc
 
-    from dcr_tpu_torch.core.config import MeshConfig, TrainConfig, to_dict
+    import numpy as np
+
+    from dcr_tpu_torch.core.config import MeshConfig, SampleConfig, TrainConfig, to_dict
     from dcr_tpu_torch.diffusion.trainer import Trainer
+    from dcr_tpu_torch.ops import flash_attention as fa
+    from dcr_tpu_torch.sampling.pipeline import generate
+    from dcr_tpu_torch.sampling.png import read_png
 
     stats: dict = {"card": CARD[0]}
     base = TrainConfig(output_dir=str(root / "a"), max_train_steps=DIST_STEPS, log_every=1,
@@ -5606,11 +5712,27 @@ def phase_multi_process_training(root: Path, data: Path, fused_stats: dict) -> d
     b_cfg.data.train_data_dir = str(data)
     b_cfg.mesh = MeshConfig(data=2)
     c_cfg = _seqpar_cfg(root / "c", data, mesh=MeshConfig(data=1, seq=2))
+    sharded = {}
+    for name, mesh, rows in (("e", MeshConfig(data=1, fsdp=2), 8),
+                             ("f", MeshConfig(data=1, tensor=2), 16)):
+        sharded[name] = TrainConfig(output_dir=str(root / name), max_train_steps=GLOO_STEPS,
+                                    log_every=1, modelsavesteps=10 ** 6,
+                                    train_batch_size=rows, mesh=mesh)
+        sharded[name].data.train_data_dir = str(data)
+    # phase 6's run directory (this phase runs in its temp dir), its export
+    g_cfg = SampleConfig(model_path=str(root.parent / "run"), savepath=str(root / "g"),
+                         num_batches=1, im_batch=2, resolution=512,
+                         num_inference_steps=TP_SAMPLE_STEPS, sampler="ddim", seed=0,
+                         mesh=MeshConfig(data=1, tensor=2))
     # (b) and (c) first: both ranks start cold together; (a) last, on rank
     # 0 alone (its first step then skips the process's warm-up, not its
-    # numerics)
+    # numerics). A third process running (a) beside the pair doubled (b)'s
+    # steps (host memory and cores shared with gloo's staging)
     parts = [dict(name="b", world=2, backend="gloo", cfg=to_dict(b_cfg)),
              dict(name="c", world=2, backend="gloo", cfg=to_dict(c_cfg)),
+             *(dict(name=n, world=2, backend="gloo", cfg=to_dict(c_))
+               for n, c_ in sharded.items()),
+             dict(name="g", world=2, backend="gloo", kind="generate", cfg=to_dict(g_cfg)),
              dict(name="a", world=1, backend="nccl", cfg=to_dict(base))]
     for part in parts:
         part["port"] = _free_port()
@@ -5637,6 +5759,17 @@ def phase_multi_process_training(root: Path, data: Path, fused_stats: dict) -> d
                             "busy_s": record["busy_s"], "s": time.perf_counter() - t_ref}
     ref_digest = adam_digest(ref.state)
     del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (g)'s single-process reference on the same weights, its launches
+    # counted apart from the ranks'
+    t_ref = time.perf_counter()
+    fa.flash_attention_fwd.launches = 0
+    generate(dataclasses.replace(g_cfg, savepath=str(root / "g_ref"), mesh=MeshConfig()),
+             modelstyle="nolevel", device="cuda")
+    torch.cuda.synchronize()
+    stats["g_reference"] = {"s": time.perf_counter() - t_ref,
+                            "launches_fwd": fa.flash_attention_fwd.launches}
     gc.collect()
     torch.cuda.empty_cache()
     nccl_out = []
@@ -5676,7 +5809,7 @@ def phase_multi_process_training(root: Path, data: Path, fused_stats: dict) -> d
     want_norms = fused_stats["grad_norms"][:DIST_STEPS]
     stats["a"] = {k: a[k] for k in ("init_s", "barrier_s", "exchange_s", "losses",
                                     "grad_norms", "step_s", "reduce_s", "launches_fwd_dq_dkv",
-                                    "flash_shapes", "peak_bytes")}
+                                    "flash_shapes", "peak_bytes", "part_s")}
     stats["a"]["losses_equal_phase6"] = a["losses"] == want
     stats["a"]["grad_norms_equal_phase6"] = a["grad_norms"] == want_norms
     log(f"multi-process training (a) one rank over NCCL ({CARD[0]}): {json.dumps(stats['a'])}; "
@@ -5690,7 +5823,9 @@ def phase_multi_process_training(root: Path, data: Path, fused_stats: dict) -> d
                              f"shapes {a['flash_shapes']}, launches "
                              f"{a['launches_fwd_dq_dkv']}")
     digests = {p_: torch.load(root / f"digest_{p_}.pt") for p_ in ("a", "b", "c")}
+    digests_sharded = {p_: torch.load(root / f"digest_{p_}.pt") for p_ in ("e", "f")}
     stats["b"] = {"losses": [r["losses"] for r in b], "step_s": [r["step_s"] for r in b],
+                  "part_s": [r["part_s"] for r in b],
                   "reduce_s_gloo_through_host": [r["reduce_s"] for r in b],
                   "init_s": [r["init_s"] for r in b], "barrier_s": [r["barrier_s"] for r in b],
                   "exchange_s": [r["exchange_s"] for r in b],
@@ -5718,6 +5853,7 @@ def phase_multi_process_training(root: Path, data: Path, fused_stats: dict) -> d
                              f"grad norms {want_norms[:GLOO_STEPS]}")
     ref_losses = stats["c_reference"]["losses"]
     stats["c"] = {"losses": [r["losses"] for r in c], "step_s": [r["step_s"] for r in c],
+                  "part_s": [r["part_s"] for r in c],
                   "reduce_s_gloo_through_host": [r["reduce_s"] for r in c],
                   "launches_fwd_dq_dkv": [r["launches_fwd_dq_dkv"] for r in c],
                   "flash_shapes": c[0]["flash_shapes"], "exchanges": c[0]["exchanges"],
@@ -5745,9 +5881,77 @@ def phase_multi_process_training(root: Path, data: Path, fused_stats: dict) -> d
             or not c[0]["exchanges"].get("ppermute") or not c[0]["exchanges"].get("all_to_all")):
         raise AssertionError(f"(c): {json.dumps(stats['c'])}; reference {ref_losses}; "
                              f"expected shapes {held}, launches {expected} per rank")
+    # (e) and (f): the sharded meshes, against phase 6 and (a)
+    held_shapes = {"e": shapes_8,
+                   "f": {json.dumps([[16, 1024, 5, 64], "bfloat16"]),
+                         json.dumps([[*TP_CASES[0][1:3], *TP_CASES[0][4:6]], "bfloat16"])}}
+    wanted_exchanges = {"e": ("fsdp_gather", "fsdp_regather"),
+                        "f": ("tp_all_reduce", "tp_all_gather")}
+    for name in ("e", "f"):
+        r_ = [r[name] for r in ranks]
+        st = {"mesh": r_[0]["mesh"], "losses": [r["losses"] for r in r_],
+              "grad_norms": [r["grad_norms"] for r in r_], "step_s": [r["step_s"] for r in r_],
+              "part_s": [r["part_s"] for r in r_],
+              "reduce_s_gloo_through_host": [r["reduce_s"] for r in r_],
+              "launches_fwd_dq_dkv": [r["launches_fwd_dq_dkv"] for r in r_],
+              "flash_shapes": r_[0]["flash_shapes"], "exchanges": r_[0]["exchanges"],
+              "peak_bytes": [r["peak_bytes"] for r in r_],
+              "unet_elements_held_whole": [r["unet_elements"] for r in r_],
+              "max_rel_diff_phase6": rel_gaps(r_[0]["losses"], want_b),
+              "grad_norm_max_rel_diff_phase6": rel_gaps(r_[0]["grad_norms"],
+                                                        want_norms[:GLOO_STEPS]),
+              "adam_mu_gap_to_a": digest_gap(digests_sharded[name], digests["a"])}
+        stats[name] = st
+        log(f"multi-process training ({name}) two ranks over gloo, {st['mesh']} "
+            f"({CARD[0]}): {json.dumps(st)}")
+        gap = st["adam_mu_gap_to_a"]
+        # the share of the UNet's elements a rank holds: FSDP cuts nearly
+        # every leaf in 2; tensor parallelism the transformers' projections
+        # (~29 % of SD-2.1's UNet) alone
+        held = [h / w for h, w in st["unet_elements_held_whole"]]
+        share = (0.4, 0.6) if name == "e" else (0.7, 0.95)
+        rs = "fsdp_reduce_scatter" if name == "e" else "tp_all_reduce"
+        if (r_[0]["losses"] != r_[1]["losses"]
+                or st["max_rel_diff_phase6"] > DIST_LOSS_RTOL
+                or st["grad_norm_max_rel_diff_phase6"] > DIST_GRAD_NORM_RTOL
+                or gap["worst_norm_rel"] > DIST_MOMENT_RTOL
+                or gap["worst_leaf_rel"] > DIST_MOMENT_RTOL
+                or set(st["flash_shapes"]) != held_shapes[name]
+                or any(tuple(r["launches_fwd_dq_dkv"]) != (10 * GLOO_STEPS,) * 3 for r in r_)
+                or not all(share[0] < h < share[1] for h in held)
+                or not all(st["exchanges"].get(k) for k in wanted_exchanges[name])
+                or not any(k.startswith(rs) for k in st["exchanges"])):
+            raise AssertionError(f"({name}): {json.dumps(st)}; phase 6's losses {want_b}, "
+                                 f"grad norms {want_norms[:GLOO_STEPS]}, shapes "
+                                 f"{held_shapes[name]}")
+    # (g): generate over tensor = 2 against one process on the same weights
+    g = [r["g"] for r in ranks]
+    diffs = []
+    for i in range(g_cfg.num_batches * g_cfg.im_batch):
+        got = read_png(root / "g" / "generations" / f"{i}.png").astype(np.int16)
+        want_px = read_png(root / "g_ref" / "generations" / f"{i}.png").astype(np.int16)
+        diffs.append(int(np.abs(got - want_px).max()))
+    g_shapes = {json.dumps([[4, 4096, 5, 64], "float32"]),
+                *(json.dumps([[c_[1], c_[2], c_[4], c_[5]], "float32"]) for c_ in TP_CASES[1:])}
+    per_call = 15  # five attentions at each of levels 0-2
+    stats["g"] = {"s": [r["s"] for r in g], "part_s": [r["part_s"] for r in g],
+                  "launches_fwd": [r["launches_fwd"] for r in g],
+                  "flash_shapes": g[0]["flash_shapes"], "exchanges": g[0]["exchanges"],
+                  "peak_bytes": [r["peak_bytes"] for r in g], "max_abs_diff_uint8": diffs,
+                  "reference": stats["g_reference"]}
+    log(f"multi-process sampling (g) generate over gloo, tensor = 2, 512 px, "
+        f"{TP_SAMPLE_STEPS} DDIM steps, f32 ({CARD[0]}): {json.dumps(stats['g'])}")
+    if (max(diffs) > 1 or set(g[0]["flash_shapes"]) != g_shapes
+            or any(r["launches_fwd"] != per_call * TP_SAMPLE_STEPS for r in g)
+            or stats["g_reference"]["launches_fwd"] != per_call * TP_SAMPLE_STEPS
+            or not g[0]["exchanges"].get("tp_all_reduce")):
+        raise AssertionError(f"(g): {json.dumps(stats['g'])}; expected shapes {g_shapes}, "
+                             f"{per_call * TP_SAMPLE_STEPS} launches per rank")
     stats["launches"] = {"a": a["launches_fwd_dq_dkv"],
-                         "b": [sum(x) for x in zip(*(r["launches_fwd_dq_dkv"] for r in b))],
-                         "c": [sum(x) for x in zip(*(r["launches_fwd_dq_dkv"] for r in c))]}
+                         **{p_: [sum(x) for x in zip(*(r[p_]["launches_fwd_dq_dkv"]
+                                                         for r in ranks))]
+                            for p_ in ("b", "c", "e", "f")},
+                         "g": sum(r["launches_fwd"] for r in g)}
     log(f"multi-process training (phase 23, {CARD[0]}): {json.dumps(stats, default=str)}")
     return stats
 
@@ -5957,17 +6161,20 @@ def main() -> int:
                            pipe_stats["cache_fed"]["launches_fwd_dq_dkv"]))
     train_8bit = dict(zip(("fwd", "dq", "dkv"), adam8_stats["launches_fwd_dq_dkv"]))
     # phase 23: (a) one NCCL rank at the train shapes, (b) two ranks at the
-    # hook_level shapes (8 rows each), (c) two seq ranks at SEQPAR_CASES
+    # hook_level shapes (8 rows each), (c) two seq ranks at SEQPAR_CASES,
+    # (e) two fsdp ranks at the hook_level shapes, (f) two tensor ranks at
+    # train_level0 and tp_level1; (g) two tensor ranks' f32 sampling
     dist_train = {part: dict(zip(("fwd", "dq", "dkv"), dist_stats["launches"][part]))
-                  for part in ("a", "b", "c")}
+                  for part in ("a", "b", "c", "e", "f")}
     f32_train = dict(zip(("fwd", "dq", "dkv"), f32_train_stats["launches_fwd_dq_dkv"]))
     sample_cases = ("level0", "level1", "level2", "hook_level0", "hook_level1",
-                    *(c[0] for c in MITIGATE_CASES), *SERVE_CASES)
+                    *(c[0] for c in MITIGATE_CASES), *SERVE_CASES,
+                    *(c[0] for c in TP_CASES[1:]))
     train_cases = ("train_level0", "train_level1")
     # bf16 training also runs phase 23's shapes: 8 rows per rank in (b) (the
     # hook_level rows' shapes), (c)'s per-rank shapes
     bf16_train_cases = (*train_cases, "hook_level0", "hook_level1",
-                        *(c[0] for c in SEQPAR_CASES))
+                        *(c[0] for c in SEQPAR_CASES), TP_CASES[0][0])
     entries = [
         kernel_entry("fwd", "float32", kern["rows"], sample_cases,
                      {"sample": main_stats["launches"],
@@ -5978,7 +6185,8 @@ def main() -> int:
                       "live_serve": live_stats["launches"],
                       "serve_profiled": profile_stats["launches"],
                       "train_hook": train_stats["hook_launches_fwd_dq_dkv"][0],
-                      "train_f32": f32_train["fwd"]},
+                      "train_f32": f32_train["fwd"],
+                      "sample_dist_g": dist_stats["launches"]["g"]},
                      tensor_cores("flash_fwd_tf32x3_kernel")),
         kernel_entry("fwd", "bfloat16", kern["rows"], bf16_train_cases,
                      {"train": train["fwd"], "train_faults": train_faults["fwd"],

@@ -9,7 +9,8 @@ SD-1.4 reproduces from its training set, with the inference-time
 mitigations (``--rand_noise_lam`` embedding noise, ``--rand_augs`` prompt
 augmentation) on or off. Same flags, prompts, augmentation stream and
 ``savepath`` as the JAX package's ``dcr-mitigate``. It runs on one CUDA
-device (``DCR_TPU_PLATFORM=cpu`` selects the CPU).
+device (``DCR_TPU_PLATFORM=cpu`` selects the CPU), or on the job's
+processes with ``--mesh.*`` (``sampling/pipeline.generate``).
 """
 
 from __future__ import annotations

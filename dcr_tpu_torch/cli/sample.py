@@ -5,6 +5,11 @@
 
 Same flags as the JAX package's ``dcr-sample``. The conditioning style comes
 from the run's config.json when present; ``--modelstyle`` overrides it.
+Under torchrun (or the JAX package's variables) every process runs it and
+``--mesh.*`` lays them out (``sampling/pipeline.generate``):
+
+    torchrun --nproc_per_node=2 -m dcr_tpu_torch.cli.sample \
+        --model_path=<run> --mesh.data=1 --mesh.tensor=2
 """
 
 from __future__ import annotations

@@ -11,7 +11,11 @@
   ``quarantined/<step>``. On several processes (a coordinator given) the
   step restored is agreed: the newest step every process can see, valid on
   every process. It is the port's own format; the JAX package's orbax/npz
-  checkpoints are not read.
+  checkpoints are not read. A state sharded on a mesh (its ``layout``,
+  ``parallel/sharded.py``) is saved whole: every rank takes part in the
+  gathers (:meth:`CheckpointManager.save`) and the primary writes, so
+  the file is the one a single process writes, and a restore cuts each
+  rank's shards from it; a checkpoint moves between meshes.
 - :func:`export_hf_layout` writes the directory-of-subfolders export of
   ``dcr_tpu/core/checkpoint.py``: per component ``params.npz`` (the Flax
   tree flattened to ``a/b/c`` keys) and the torch-layout weights under the
@@ -86,21 +90,41 @@ class CheckpointCorrupt(RuntimeError):
     """A checkpoint step does not load, or fails its content manifest."""
 
 
-def _state_dict(state) -> dict:
+# the checkpoint groups of a TrainState whose names are a component's
+_GROUP_COMPONENT = {"unet params": "unet", "text params": "text", "vae params": "vae",
+                    "EMA params": "unet"}
+
+
+def _placement(state, what: str, key: str):
+    """The placement of ``key`` of group ``what`` of a sharded state."""
+    return state.layout.placement(_GROUP_COMPONENT.get(what), key)
+
+
+def _state_dict(state, keep: bool = True) -> dict:
     """The train state as nested dicts of CPU tensors and ints (what
-    ``state.pt`` holds)."""
-    def plain(d: Optional[dict]) -> Optional[dict]:
-        return None if d is None else {k: t.detach().cpu() for k, t in d.items()}
+    ``state.pt`` holds). A sharded state's tensors are gathered whole:
+    every rank calls it, and ``keep=False`` drops what this rank gathered."""
+    layout = getattr(state, "layout", None)
+    groups = _live_groups(state)
+
+    def plain(what: str) -> Optional[dict]:
+        d = groups[what]
+        if d is None:
+            return None
+        if layout is None:
+            return {k: t.detach().cpu() for k, t in d.items()}
+        return layout.full_dict(_GROUP_COMPONENT.get(what), d, keep=keep)
 
     opt = state.opt_state
     return {"step": int(state.step),
-            "params": {"unet": plain(state.unet_params), "text": plain(state.text_params),
-                       "vae": plain(state.vae_params)},
+            "params": {"unet": plain("unet params"), "text": plain("text params"),
+                       "vae": plain("vae params")},
             "opt": {"count": int(opt.count), "mini_step": int(opt.mini_step),
-                    "mu": plain(opt.mu), "nu": plain(opt.nu),
-                    "acc_grads": plain(opt.acc_grads),
-                    "m8": plain(opt.m8), "v8": plain(opt.v8)},
-            "ema": plain(state.ema_params)}
+                    "mu": plain("Adam first moments"), "nu": plain("Adam second moments"),
+                    "acc_grads": plain("accumulated gradients"),
+                    "m8": plain("8-bit Adam first moments"),
+                    "v8": plain("8-bit Adam second moments")},
+            "ema": plain("EMA params")}
 
 
 def _leaves(tree: Any, prefix: str = "") -> dict[str, Any]:
@@ -209,19 +233,25 @@ def _check_compatible(state, saved: dict) -> None:
         if set(dst) != set(src):
             raise ValueError(f"checkpoint {what} keys differ from the run's: "
                              f"{sorted(set(dst) ^ set(src))[:5]}")
-        bad = [k for k, t in dst.items() if tuple(src[k].shape) != tuple(t.shape)]
+        whole = ((lambda k, t: tuple(t.shape)) if getattr(state, "layout", None) is None
+                 else (lambda k, t: state.layout.full_shape(t.shape, _placement(state, what, k))))
+        bad = [k for k, t in dst.items() if tuple(src[k].shape) != whole(k, t)]
         if bad:
             raise ValueError(f"checkpoint {what} shapes differ from the run's: {bad[:5]}")
 
 
 def _copy_into(state, saved: dict, skip: tuple[str, ...] = ()) -> None:
+    """Copy a loaded state into ``state``'s tensors (a sharded state: each
+    tensor's shard, cut from the whole)."""
+    layout = getattr(state, "layout", None)
     with torch.no_grad():
         for what, dst in _live_groups(state).items():
             if what in skip:
                 continue
             src = _saved_groups(saved)[what]
             for k, t in (dst or {}).items():
-                t.copy_(src[k])
+                t.copy_(src[k] if layout is None
+                        else layout.local(src[k], _placement(state, what, k)))
     opt = state.opt_state
     opt.count, opt.mini_step = int(saved["opt"]["count"]), int(saved["opt"]["mini_step"])
     state.step = int(saved["step"])
@@ -263,13 +293,18 @@ class CheckpointManager:
     def _manifest_path(self, step: int) -> Path:
         return self.manifest_dir / f"{step}.json"
 
-    def save(self, step: int, state) -> bool:
+    def save(self, step: int, state, *, primary: bool = True) -> bool:
         """Write ``state`` as step ``step``; returns False when that step is
-        already saved."""
+        already saved. On a job every rank calls it and the ``primary``
+        writes (the others return False); a sharded state's tensors are
+        gathered whole on every rank first."""
+        payload = None
+        if getattr(state, "layout", None) is not None:
+            payload = _state_dict(state, keep=primary)
         final = self.dir / str(step)
-        if (final / STATE_FILE).exists():
+        if not primary or (final / STATE_FILE).exists():
             return False
-        payload = _state_dict(state)
+        payload = _state_dict(state) if payload is None else payload
         tmp = self.dir / f".{step}.tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir(parents=True)

@@ -156,16 +156,17 @@ class SampleConfig:
     rand_augs: str = "none"                # INFERENCE_AUGS
     rand_aug_repeats: int = 2
     fast: FastSampleConfig = field(default_factory=FastSampleConfig)
+    # the job's processes as a mesh: rows over data x fsdp, the UNet's
+    # projections over tensor, its long self-attentions over seq
+    mesh: "MeshConfig" = field(default_factory=lambda: MeshConfig())
 
 
 def refuse_unported_sample_flags(argv: Sequence[str]) -> None:
-    """NotPortedError for the JAX ``SampleConfig`` sections the port has no
-    fields for: ``--mesh.*`` (a sampling mesh, ROADMAP Queue A item 9b) and
-    ``--warm.*`` (the warm cache, item 7c)."""
+    """NotPortedError for the JAX ``SampleConfig`` section the port has no
+    fields for: ``--warm.*`` (the warm cache, ROADMAP Queue A item 7c)."""
     for arg in argv:
-        for prefix, what in (("--mesh.", "a sampling mesh (ROADMAP Queue A item 9b)"),
-                             ("--warm.", "the warm executable cache (ROADMAP Queue A "
-                                         "item 7c)")):
+        for prefix, what in (("--warm.", "the warm executable cache (ROADMAP Queue A "
+                                         "item 7c)"),):
             if arg.startswith(prefix):
                 raise NotPortedError(f"{arg}: {what} is not ported to dcr_tpu_torch yet. "
                                      "Run without it or use the JAX package.")
@@ -183,9 +184,10 @@ def validate_fast_config(f: FastSampleConfig) -> None:
 
 @dataclass
 class MeshConfig:
-    """Device-mesh shape: one process per device. Training runs ``data`` x
-    ``seq``; ``fsdp`` and ``tensor`` above 1, and a mesh anywhere else, are
-    ROADMAP Queue A item 9b."""
+    """Device-mesh shape: one process per device. Training and bulk
+    sampling run ``data`` x ``fsdp`` x ``tensor``, or ``data`` x ``seq``
+    (``seq`` with ``fsdp`` or ``tensor`` is ROADMAP Queue A item 9c); a mesh
+    in eval, search and serving is item 9b."""
 
     data: int = -1  # -1: all remaining devices
     fsdp: int = 1
@@ -400,13 +402,18 @@ def _mesh_devices(m: MeshConfig) -> int:
 
 def _not_ported(cfg: TrainConfig) -> list[str]:
     """Settings of a valid config that need a part of the JAX package the
-    port does not have yet. A mesh of ``data`` x ``seq`` processes trains."""
+    port does not have yet. A mesh of ``data`` x ``fsdp`` x ``tensor`` or
+    of ``data`` x ``seq`` processes trains."""
     m = cfg.mesh
     checks = [
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
-        (m.fsdp > 1 or m.tensor > 1,
-         f"mesh.fsdp={m.fsdp}, mesh.tensor={m.tensor} (FSDP and tensor-parallel "
-         "sharding; the port trains data x seq, ROADMAP Queue A item 9b)"),
+        (cfg.optim.use_8bit_adam and (m.fsdp > 1 or m.tensor > 1),
+         f"optim.use_8bit_adam with mesh.fsdp={m.fsdp}, mesh.tensor={m.tensor} (8-bit "
+         "AdamW's blocks of the whole flattened tensor on sharded state, ROADMAP "
+         "Queue A item 9d)"),
+        (m.seq > 1 and (m.fsdp > 1 or m.tensor > 1),
+         f"mesh.seq={m.seq} with mesh.fsdp={m.fsdp}, mesh.tensor={m.tensor} (sequence "
+         "parallelism with FSDP or tensor-parallel sharding, ROADMAP Queue A item 9c)"),
         (cfg.use_wandb, "use_wandb (the wandb sink)"),
     ]
     return [name for on, name in checks if on]

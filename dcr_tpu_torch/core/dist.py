@@ -87,6 +87,21 @@ def local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", "0") or 0)
 
 
+def job_device(device: str | torch.device) -> torch.device:
+    """The device this process runs on: ``cuda:LOCAL_RANK`` for a bare
+    ``cuda`` in a job the environment describes (made current), else
+    ``device``, checked by ``core/device.resolve_device``."""
+    from dcr_tpu_torch.core.device import resolve_device
+
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None and env_topology():
+        device = torch.device("cuda", local_rank())
+    device = resolve_device(device)
+    if device.type == "cuda" and env_topology():
+        torch.cuda.set_device(device)
+    return device
+
+
 def default_backend(device: str | torch.device) -> str:
     """``nccl`` for a CUDA device, ``gloo`` for the CPU."""
     return "nccl" if torch.device(device).type == "cuda" else "gloo"

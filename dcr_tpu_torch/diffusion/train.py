@@ -42,6 +42,15 @@ gradients, so the world's mean is the data groups' mean). The logged loss
 is the global mean. With gradient accumulation on several ranks,
 ``grad_norm`` is the rank's own micro-batch gradient's norm (the JAX step
 logs the global micro-batch's); without it, the global norm.
+
+On a mesh with ``fsdp`` or ``tensor`` above 1 the state is sharded
+(:func:`init_train_state` given the mesh, ``parallel/sharded.py``): the rows split over
+``data`` x ``fsdp``; each rank holds its shards of the parameters, the
+Adam moments and the EMA, and updates them; the FSDP modules gather their
+weights per call (cast to the compute dtype first). Each gradient is
+reduced over the axes its parameter is replicated on (an FSDP shard's
+already summed over ``fsdp`` by its gather's backward), never over
+``tensor``; the clip's global norm sums the shards' squares.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from dcr_tpu_torch.core.config import OptimConfig, TrainConfig
 from dcr_tpu_torch.core.precision import policy_from_string
 from dcr_tpu_torch.models import schedulers as S
 from dcr_tpu_torch.parallel import mesh as pmesh
+from dcr_tpu_torch.parallel import sharded as SH
 from dcr_tpu_torch.sampling.sampler import DiffusionModels  # noqa: F401 (the bundle)
 
 Params = dict[str, torch.Tensor]
@@ -99,6 +109,8 @@ class TrainState:
     vae_params: Params               # always frozen
     opt_state: OptState
     ema_params: Optional[Params] = None
+    # the shards' placement on a sharded mesh (None: every tensor whole)
+    layout: Optional[SH.Layout] = None
 
 
 def trainable_of(state: TrainState, train_text_encoder: bool) -> dict[str, Params]:
@@ -169,20 +181,22 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.stack([t.float().pow(2).sum() for t in tensors]).sum().sqrt()
 
 
+def _dict_norm(grads: Params) -> torch.Tensor:
+    return global_norm(grads.values())
+
+
 class Optimizer:
     """optax.chain(clip_by_global_norm, adamw) -- or, with
     ``use_8bit_adam``, the JAX package's ``adamw8bit`` -- wrapped in
     MultiSteps when accumulating; :meth:`update` applies the update to the
-    params in place. ``reduce_grads`` (the mean over the world, in place)
-    runs on the gradients of each update, after the accumulation and before
-    the clip."""
+    params in place. Its ``reduce`` (the mean over the ranks, in place, of
+    ``{key: gradient}``) runs on the gradients of each update, after the
+    accumulation and before the clip, whose global norm is ``norm``'s."""
 
-    def __init__(self, cfg: OptimConfig,
-                 reduce_grads: Optional[Callable[[list], None]] = None):
+    def __init__(self, cfg: OptimConfig):
         self.cfg = cfg
         self.schedule = make_lr_schedule(cfg)
         self.accum = max(1, cfg.gradient_accumulation_steps)
-        self.reduce_grads = reduce_grads
 
     def init(self, trainable: dict[str, Params]) -> OptState:
         flat = _flat(trainable)
@@ -203,7 +217,9 @@ class Optimizer:
         return opt
 
     @torch.no_grad()
-    def update(self, grads: Params, opt: OptState, trainable: dict[str, Params]) -> bool:
+    def update(self, grads: Params, opt: OptState, trainable: dict[str, Params], *,
+               reduce: Optional[Callable[[Params], None]] = None,
+               norm: Callable[[Params], torch.Tensor] = _dict_norm) -> bool:
         """One optimizer call on flat ``grads``; returns whether the params
         were updated (always, unless inside a gradient accumulation)."""
         if self.accum > 1:
@@ -216,18 +232,17 @@ class Optimizer:
                 return False
             opt.mini_step = 0
             grads = opt.acc_grads
-        if self.reduce_grads is not None:
-            self.reduce_grads(list(grads.values()))
+        if reduce is not None:
+            reduce(grads)
         adamw = self._adamw8bit if opt.m8 is not None else self._adamw
-        adamw(self._clip(grads), opt, _flat(trainable))
+        adamw(self._clip(grads, norm(grads)), opt, _flat(trainable))
         if self.accum > 1:
             for acc in opt.acc_grads.values():
                 acc.zero_()
         return True
 
-    def _clip(self, grads: Params) -> Params:
+    def _clip(self, grads: Params, g_norm: torch.Tensor) -> Params:
         max_norm = self.cfg.max_grad_norm
-        g_norm = global_norm(grads.values())
         keep = g_norm < max_norm
         return {k: torch.where(keep, g, (g / g_norm) * max_norm) for k, g in grads.items()}
 
@@ -273,28 +288,45 @@ class Optimizer:
             p.add_(upd, alpha=-lr)
 
 
-def make_optimizer(cfg: OptimConfig,
-                   reduce_grads: Optional[Callable[[list], None]] = None) -> Optimizer:
+def make_optimizer(cfg: OptimConfig) -> Optimizer:
     """AdamW with global-norm clipping and gradient accumulation (reference:
     AdamW diff_train.py:424-446, clip 657-663, accumulate 618)."""
-    return Optimizer(cfg, reduce_grads)
+    return Optimizer(cfg)
 
 
-def world_reducer(mesh: Optional[pmesh.Mesh]) -> Optional[Callable[[list], None]]:
+def world_reducer(mesh: Optional[pmesh.Mesh]) -> Optional[Callable[[Params], None]]:
     """The gradients' mean over the world when the mesh has a process group
     behind it (one rank too), else None."""
     import torch.distributed as tdist
 
     if mesh is None or not tdist.is_initialized():
         return None
-    return pmesh.all_reduce_mean_
+    return lambda grads: pmesh.all_reduce_mean_(list(grads.values()))
+
+
+def reducers(mesh: Optional[pmesh.Mesh], layout: Optional[SH.Layout]):
+    """(reduce, norm) of a step's gradients: by the shards' placement on a
+    sharded mesh, else the world's mean and the plain global norm."""
+    if layout is None:
+        return world_reducer(mesh), _dict_norm
+    return SH.grad_reducer(layout), SH.grad_norm(layout)
 
 
 def init_train_state(cfg: TrainConfig, models: DiffusionModels, *, unet_params: Params,
-                     text_params: Params, vae_params: Params) -> TrainState:
+                     text_params: Params, vae_params: Params,
+                     mesh: Optional[pmesh.Mesh] = None,
+                     min_fsdp_size: int = 2 ** 16) -> TrainState:
     """The state over the given f32 params (used as they are, not copied);
-    marks the trainable ones as requiring grad and the frozen ones not."""
+    marks the trainable ones as requiring grad and the frozen ones not.
+    On a ``mesh`` with ``fsdp`` or ``tensor`` above 1 the params are first
+    cut in place to this rank's shards by the JAX rules
+    (``parallel/sharded.place_models``, which also gives the models their
+    gathering forwards and tensor groups), so the Adam moments and the EMA
+    are made at shard size (``dcr_tpu/diffusion/train.shard_train_state``)."""
     cfg = resolve_scale_lr(cfg)
+    layout = SH.place_models(models, mesh, {"unet": unet_params, "text": text_params,
+                                            "vae": vae_params},
+                             min_fsdp_size=min_fsdp_size)
     for params, trained in ((unet_params, True), (text_params, cfg.train_text_encoder),
                             (vae_params, False)):
         for p in params.values():
@@ -306,7 +338,8 @@ def init_train_state(cfg: TrainConfig, models: DiffusionModels, *, unet_params: 
         step=0, unet_params=unet_params, text_params=text_params, vae_params=vae_params,
         opt_state=make_optimizer(cfg.optim).init(trainable),
         ema_params=({k: p.detach().clone() for k, p in unet_params.items()}
-                    if cfg.ema_decay > 0 else None))
+                    if cfg.ema_decay > 0 else None),
+        layout=layout)
 
 
 class _Encode(nn.Module):
@@ -368,10 +401,11 @@ def make_vae_encode(cfg: TrainConfig, models: DiffusionModels) -> Callable:
     encoder = _Encode(models.vae)
 
     @torch.no_grad()
-    def encode(vae_params: Params, pixels: torch.Tensor):
-        return functional_call(encoder, {f"vae.{k}": v for k, v in
-                                         policy.cast_to_compute(vae_params).items()},
-                               (policy.cast_to_compute(pixels),))
+    def encode(vae_params: Params, pixels: torch.Tensor, layout: Optional[SH.Layout] = None):
+        params = SH.cast_to_compute(policy, "vae", vae_params, layout)
+        with SH.compute_dtype(policy.compute_dtype):
+            return functional_call(encoder, {f"vae.{k}": v for k, v in params.items()},
+                                   (policy.cast_to_compute(pixels),))
     return encode
 
 
@@ -380,9 +414,11 @@ def make_text_encode(cfg: TrainConfig, models: DiffusionModels) -> Callable:
     the compute dtype (gradients flow where the params require them)."""
     policy = policy_from_string(cfg.mixed_precision)
 
-    def encode(text_params: Params, input_ids: torch.Tensor) -> torch.Tensor:
-        return functional_call(models.text_encoder, policy.cast_to_compute(text_params),
-                               (input_ids,)).last_hidden_state
+    def encode(text_params: Params, input_ids: torch.Tensor,
+               layout: Optional[SH.Layout] = None) -> torch.Tensor:
+        params = SH.cast_to_compute(policy, "text", text_params, layout)
+        with SH.compute_dtype(policy.compute_dtype):
+            return functional_call(models.text_encoder, params, (input_ids,)).last_hidden_state
     return encode
 
 
@@ -399,8 +435,7 @@ def make_update(cfg: TrainConfig, models: DiffusionModels,
     makes it. ``mesh``: the process mesh (None: one process)."""
     cfg = resolve_scale_lr(cfg, 1 if mesh is None else mesh.data_parallel_size)
     policy = policy_from_string(cfg.mixed_precision)
-    reduce_grads = world_reducer(mesh)
-    tx = make_optimizer(cfg.optim, reduce_grads)
+    tx = make_optimizer(cfg.optim)
     sched = models.schedule
     accum = tx.accum
 
@@ -409,6 +444,8 @@ def make_update(cfg: TrainConfig, models: DiffusionModels,
 
     def update(state, latents: torch.Tensor, ctx_of: Callable, draw: Callable):
         device, step = latents.device, state.step
+        layout = getattr(state, "layout", None)
+        reduce_grads, norm = reducers(mesh, layout)
         bsz = global_shape(latents, mesh)[0]
         with torch.no_grad():
             noise = rows(draw("noise", lambda g: torch.randn(
@@ -434,10 +471,11 @@ def make_update(cfg: TrainConfig, models: DiffusionModels,
                 full = pmesh.gather_rows(ctx, mesh)
                 ctx = rows(lam * full + (1.0 - lam) * full[perm])
 
-            unet_params = policy.cast_to_compute(trainable["unet"])
+            unet_params = SH.cast_to_compute(policy, "unet", trainable["unet"], layout)
 
             def unet_apply(x, t, c):
-                return functional_call(models.unet, unet_params, (x, t, c))
+                with SH.compute_dtype(policy.compute_dtype):
+                    return functional_call(models.unet, unet_params, (x, t, c))
 
             args = (policy.cast_to_compute(noisy_latents), timesteps,
                     policy.cast_to_compute(ctx))
@@ -447,14 +485,14 @@ def make_update(cfg: TrainConfig, models: DiffusionModels,
             flat = _flat(trainable)
             grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
 
-        applied = tx.update(grads, state.opt_state, trainable)
+        applied = tx.update(grads, state.opt_state, trainable, reduce=reduce_grads, norm=norm)
         # after the update: without accumulation the reducer left the
         # world's mean in ``grads``, so this is the global norm
-        grad_norm = global_norm(grads.values())
+        grad_norm = norm(grads)
         loss = loss.detach()
         if reduce_grads is not None:
             loss = loss.reshape(1)
-            reduce_grads([loss])
+            reduce_grads({"loss": loss})
             loss = loss.reshape(())
         if state.ema_params is not None and applied:
             d = cfg.ema_decay
@@ -494,16 +532,16 @@ def make_train_step(cfg: TrainConfig, models: DiffusionModels,
         pixels, input_ids = pixels_and_ids(batch, device)
         draw = draw_fn(cfg.seed, state.step, device, draws)
         # frozen VAE encode, posterior sample, scale
-        post = vae_encode(state.vae_params, pixels)
+        post = vae_encode(state.vae_params, pixels, state.layout)
         with torch.no_grad():
             latents = sample_latents(post.mean, posterior_std(post.logvar), draw, scaling,
                                      mesh)
 
         def ctx_of(trainable: dict) -> torch.Tensor:
             if cfg.train_text_encoder:
-                return text_encode(trainable["text_encoder"], input_ids)
+                return text_encode(trainable["text_encoder"], input_ids, state.layout)
             with torch.no_grad():
-                return text_encode(state.text_params, input_ids)
+                return text_encode(state.text_params, input_ids, state.layout)
 
         return update(state, latents, ctx_of, draw)
 

@@ -32,8 +32,12 @@ the newest valid checkpoint, and exports the HF-layout checkpoint at the end.
 - Several processes (``core/dist``: the JAX package's ``COORDINATOR_ADDRESS``
   / ``NUM_PROCESSES`` / ``PROCESS_ID`` or torchrun's variables), one device
   each: ``cuda:LOCAL_RANK`` unless the caller names one. ``cfg.mesh`` lays
-  them out as data x seq (``parallel/mesh.py``); each rank loads its data
-  index's rows and the step is the global batch's (``diffusion/train``).
+  them out as data x fsdp x tensor or data x seq (``parallel/mesh.py``);
+  each rank loads its ``(data, fsdp)`` coordinate's rows and the step is
+  the global batch's (``diffusion/train``). With ``fsdp`` or ``tensor``
+  above 1 the models' weights are cut to each rank's shards before the
+  optimizer state is made (``parallel/sharded.py``), and every rank takes
+  part in a save's and the export's gathers.
   The primary writes the checkpoints, logs, exports and grids, with a
   barrier after each save and at the export; every rank writes its own
   ``quarantine.p<rank>.jsonl`` and ``trace.p<rank>.jsonl``. Every log
@@ -96,7 +100,6 @@ from dcr_tpu_torch.core import rng as rngmod
 from dcr_tpu_torch.core import tracing
 from dcr_tpu_torch.core.checkpoint import CheckpointManager, export_hf_layout
 from dcr_tpu_torch.core.config import TrainConfig, save_config, to_dict, validate_train_config
-from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.core.metrics import MetricWriter
 from dcr_tpu_torch.data.dataset import ObjectAttributeDataset
 from dcr_tpu_torch.data.loader import DataLoader
@@ -113,13 +116,14 @@ log = logging.getLogger("dcr_tpu_torch")
 
 
 def state_fingerprint(state: T.TrainState) -> str:
-    """crc32 over the UNet params and the step: logged at the end of a
-    multi-process run (and at a preemption), where equal fingerprints on
-    every rank show the replicas stayed bit-identical."""
+    """crc32 over the UNet params this rank holds and the step: logged at
+    the end of a multi-process run (and at a preemption), where equal
+    fingerprints on ranks that hold the same shards (all ranks, without
+    ``fsdp`` or ``tensor``) show the replicas stayed bit-identical."""
     crc = zlib.crc32(str(state.step).encode())
     for name in sorted(state.unet_params):
         t = state.unet_params[name].detach().cpu().contiguous()
-        crc = zlib.crc32(t.view(torch.uint8).numpy().tobytes() if t.numel() else b"", crc)
+        crc = zlib.crc32(t.reshape(-1).view(torch.uint8).numpy() if t.numel() else b"", crc)
     return f"{crc:08x}"
 
 
@@ -135,6 +139,30 @@ def _flax_to_state_dicts(trees: dict, cfg: TrainConfig) -> dict:
     return {name: conv[name](tree) for name, tree in trees.items()}
 
 
+def export_train_state(cfg: TrainConfig, state: T.TrainState, out: Path) -> None:
+    """HF-layout export (params.npz and diffusers/transformers safetensors)
+    of ``state`` for the sampler and eval stages of either package and for
+    diffusers; with EMA on, the EMA weights are the UNet exported. A sharded
+    state is gathered whole (every rank calls it) and the primary writes."""
+    unet = state.ema_params if state.ema_params is not None else state.unet_params
+    weights = {"unet": unet, "vae": state.vae_params, "text": state.text_params}
+    if state.layout is not None:  # every rank gathers; the primary keeps them
+        weights = {c: state.layout.full_dict(c, w, keep=dist.is_primary())
+                   for c, w in weights.items()}
+    if not dist.is_primary():
+        return
+    export_hf_layout(
+        out, unet=weights["unet"], vae=weights["vae"], text_encoder=weights["text"],
+        scheduler_config={
+            "num_train_timesteps": cfg.model.num_train_timesteps,
+            "beta_schedule": cfg.model.beta_schedule,
+            "beta_start": cfg.model.beta_start,
+            "beta_end": cfg.model.beta_end,
+            "prediction_type": cfg.model.prediction_type,
+        },
+        model_config=to_dict(cfg.model))
+
+
 class Trainer:
     def __init__(self, cfg: TrainConfig, *, dataset: Optional[ObjectAttributeDataset] = None,
                  tokenizer: Optional[TokenizerBase] = None,
@@ -142,12 +170,7 @@ class Trainer:
                  sample_hook: Optional[Callable] = None,
                  device: str | torch.device = "cuda"):
         validate_train_config(cfg)
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None and dist.env_topology():
-            device = torch.device("cuda", dist.local_rank())
-        self.device = resolve_device(device)
-        if self.device.type == "cuda" and dist.env_topology():
-            torch.cuda.set_device(self.device)
+        self.device = dist.job_device(device)
         dist.initialize(self.device)
         self.mesh = pmesh.make_mesh(cfg.mesh)
         self.multi = dist.process_count() > 1
@@ -179,11 +202,11 @@ class Trainer:
         self.quarantine = R.QuarantineManifest(self.out_dir / qname)
         self.dataset = dataset or ObjectAttributeDataset(cfg.data, self.tokenizer,
                                                          fault=cfg.fault)
-        # each rank loads its data index's rows; the seq replicas of a data
-        # group load the same ones
+        # each rank loads its (data, fsdp) coordinate's rows; the tensor and
+        # seq replicas of a batch group load the same ones
         self.loader = DataLoader(self.dataset, batch_size=cfg.train_batch_size,
                                  num_workers=cfg.data.num_workers, seed=cfg.data.seed,
-                                 process_index=self.mesh.index(pmesh.DATA_AXIS),
+                                 process_index=self.mesh.batch_index,
                                  process_count=self.mesh.data_parallel_size,
                                  fault=cfg.fault, quarantine=self.quarantine,
                                  defer_budget_abort=self.multi)
@@ -196,10 +219,12 @@ class Trainer:
         for name, sd in _flax_to_state_dicts(pretrained_params or {}, cfg).items():
             modules[name].load_state_dict(sd, strict=True)
         # the state's params are the modules' own parameters: the modules
-        # always hold the trained weights
+        # always hold the trained weights (on a sharded mesh, this rank's
+        # shards of them, cut before the optimizer state is made)
         params = {name: dict(m.named_parameters()) for name, m in modules.items()}
         self.state = T.init_train_state(cfg, self.models, unet_params=params["unet"],
-                                        text_params=params["text"], vae_params=params["vae"])
+                                        text_params=params["text"], vae_params=params["vae"],
+                                        mesh=self.mesh)
         # pipelined mode splits the fused step into a frozen-encoder producer
         # and the denoiser hot step; the fused step is not built then. On
         # several processes the producer thread's launches would race the
@@ -324,10 +349,10 @@ class Trainer:
         return self.cfg.fault.barrier_timeout_s or dist.default_allgather_timeout_s()
 
     def save(self) -> None:
-        """The primary writes the step; every rank waits at a barrier, so no
-        rank reads the checkpoints before the step is in place."""
-        if dist.is_primary():
-            self.ckpt.save(self.state.step, self.state)
+        """The primary writes the step (a sharded state gathered whole, every
+        rank taking part); every rank waits at a barrier, so no rank reads
+        the checkpoints before the step is in place."""
+        self.ckpt.save(self.state.step, self.state, primary=dist.is_primary())
         dist.barrier("checkpoint", timeout_s=self._barrier_timeout_s())
 
     def maybe_resume(self) -> int:
@@ -385,8 +410,11 @@ class Trainer:
             # the checksums prove the bytes round-tripped, not that they were
             # ever sane: a checkpoint with non-finite params would re-trip
             trainable = T.trainable_of(self.state, self.cfg.train_text_encoder)
-            if bool(torch.stack([torch.isfinite(p).all() for group in trainable.values()
-                                 for p in group.values()]).all()):
+            finite = bool(torch.stack([torch.isfinite(p).all() for group in trainable.values()
+                                       for p in group.values()]).all())
+            if self.state.layout is not None:  # each rank sees its shards only
+                finite = min(self.coord.agree_int(int(finite), "rollback_finite")) == 1
+            if finite:
                 break
             self.ckpt.quarantine_step(ckpt_step,
                                       f"non-finite params (rollback from step {step})")
@@ -400,25 +428,10 @@ class Trainer:
         return True
 
     def export_checkpoint(self, tag: str = "checkpoint") -> Path:
-        """HF-layout export (params.npz and diffusers/transformers
-        safetensors) for the sampler and eval stages of either package and
-        for diffusers; with EMA on, the EMA weights are the UNet exported."""
-        cfg = self.cfg
+        """:func:`export_train_state` to ``<output_dir>/<tag>``, every rank
+        waiting at a barrier until it is written."""
         out = self.out_dir / tag
-        unet = self.state.ema_params if self.state.ema_params is not None \
-            else self.state.unet_params
-        if dist.is_primary():
-            export_hf_layout(
-                out, unet=unet, vae=self.state.vae_params,
-                text_encoder=self.state.text_params,
-                scheduler_config={
-                    "num_train_timesteps": cfg.model.num_train_timesteps,
-                    "beta_schedule": cfg.model.beta_schedule,
-                    "beta_start": cfg.model.beta_start,
-                    "beta_end": cfg.model.beta_end,
-                    "prediction_type": cfg.model.prediction_type,
-                },
-                model_config=to_dict(cfg.model))
+        export_train_state(self.cfg, self.state, out)
         dist.barrier("export", timeout_s=self._barrier_timeout_s())
         return out
 
@@ -474,11 +487,12 @@ class Trainer:
 
     def _global_bad_count(self, count: int) -> int:
         """This process's share of a job-wide sum of its bad-sample
-        ``count``. The seq replicas of a data group read the same rows and
-        quarantine the same samples, so only seq index 0 reports them:
-        summing every replica would count each bad sample once per
-        replica."""
-        return count if self.mesh.index(pmesh.SEQ_AXIS) == 0 else 0
+        ``count``. The tensor and seq replicas of a batch group read the
+        same rows and quarantine the same samples, so only tensor and seq
+        index 0 reports them: summing every replica would count each bad
+        sample once per replica."""
+        replica = self.mesh.index(pmesh.SEQ_AXIS) + self.mesh.index(pmesh.TENSOR_AXIS)
+        return count if replica == 0 else 0
 
     def _fault_metrics(self) -> dict:
         out = {"faults/bad_samples": self.loader.bad_samples,

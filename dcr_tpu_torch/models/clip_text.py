@@ -106,8 +106,9 @@ class CLIPTextModel(nn.Module):
     def forward(self, input_ids: torch.Tensor) -> CLIPTextOutput:
         tm = self.text_model
         s = input_ids.shape[1]
+        positions = torch.arange(s, device=input_ids.device)
         x = (tm.embeddings.token_embedding(input_ids)
-             + tm.embeddings.position_embedding.weight[None, :s])
+             + tm.embeddings.position_embedding(positions)[None])
         causal = torch.ones((s, s), dtype=torch.bool, device=input_ids.device).tril()
         hidden = penultimate = x
         layers = tm.encoder.layers

@@ -6,6 +6,20 @@ carry the JAX package's weights straight in with ``strict=True``. Numerics
 follow the Flax blocks: GroupNorm statistics in f32, GEGLU with flax's
 default (tanh) GELU, nearest-neighbour upsampling, symmetric padding in the
 UNet downsampler and the (0,1,0,1) pre-pad in the VAE encoder's.
+
+Tensor parallelism (``parallel/sharding.py`` places the projections,
+``parallel/sharded.install`` hands the blocks the group): a block whose
+``TP_COLUMN`` projections hold their rank's output features and whose
+``TP_ROW`` projection holds its input features runs Megatron's forward.
+The replicated input enters through *f* (``tensor_enter``); each rank
+computes its columns (a replicated column bias contributes its chunk); the
+row-parallel output is summed over the group (*g*, ``tensor_reduce``) and
+its bias added once. Attention runs each rank's heads when they divide by
+the group; otherwise (SD-2.1's first level has 5 heads, the VAE's one) the
+columns are gathered, every rank runs all heads and keeps its chunk of the
+output for the row-parallel projection. GEGLU's projection splits into
+``h`` and ``gate`` halves, which a column shard does not pair, so its
+columns are gathered whole first.
 """
 
 from __future__ import annotations
@@ -19,7 +33,8 @@ import torch.nn.functional as F
 
 from dcr_tpu_torch.ops import ring_attention, ulysses_attention
 from dcr_tpu_torch.ops.attention import dot_product_attention
-from dcr_tpu_torch.parallel.mesh import SEQ_AXIS
+from dcr_tpu_torch.parallel.mesh import (SEQ_AXIS, tensor_enter, tensor_gather, tensor_reduce,
+                                         tensor_scatter)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
@@ -81,6 +96,33 @@ class ResnetBlock2D(nn.Module):
         return h + skip
 
 
+def _column(lin: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """A column-parallel linear on ``x`` (already entered): the rank's
+    weight rows, and its chunk of a replicated bias."""
+    bias = None if lin.bias is None else tensor_scatter(lin.bias, group, 0)
+    return F.linear(x, lin.weight, bias)
+
+
+def _row(lin: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel linear on the rank's input features: the partial
+    products summed over the group, then the bias."""
+    y = tensor_reduce(F.linear(x, lin.weight), group)
+    return y if lin.bias is None else y + lin.bias
+
+
+def _tp_attention(q, k, v, heads: int, group, row: bool, attend) -> torch.Tensor:
+    """The attention of column-parallel ``q``/``k``/``v`` [B, S, C/t]: on the
+    rank's heads when they divide by the group (and the output projection is
+    row-parallel), else on every head after a gather; returns the output
+    [B, S, C'] the output projection reads (its rank's chunk when ``row``)."""
+    n = torch.distributed.get_world_size(group)
+    local = row and heads % n == 0
+    if not local:
+        q, k, v = (tensor_gather(t, group, -1) for t in (q, k, v))
+    out = attend(q, k, v, heads // n if local else heads)
+    return tensor_scatter(out, group, -1) if row and not local else out
+
+
 class CrossAttention(nn.Module):
     """Multi-head attention over [B, S, C] tokens; self-attention when
     context is None. q/k/v projections carry no bias, the output one does.
@@ -92,7 +134,13 @@ class CrossAttention(nn.Module):
     (``ops/ring_attention.py``), ``"ulysses"`` re-splits sequence to heads
     and runs the flash kernels per head group
     (``ops/ulysses_attention.py``), falling back to ring when the heads do
-    not divide by the axis."""
+    not divide by the axis. Tensor-parallel (``tp_group``) as the module
+    docstring says."""
+
+    TP_COLUMN = ("to_q", "to_k", "to_v")
+    TP_ROW = ("to_out.0",)
+    tp_group = None
+    tp_col = tp_row = False
 
     def __init__(self, query_dim: int, context_dim: int, heads: int, head_dim: int,
                  use_flash: bool = True, *, mesh=None, seq_parallel_min_seq: int = 4096,
@@ -123,6 +171,8 @@ class CrossAttention(nn.Module):
         return n_seq > 1 and sq >= self.seq_parallel_min_seq and sq % n_seq == 0
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.tp_col or self.tp_row:
+            return self._tensor_parallel(x, context)
         is_self = context is None
         context = x if context is None else context
         b, sq, _ = x.shape
@@ -140,6 +190,31 @@ class CrossAttention(nn.Module):
             out = dot_product_attention(q, k, v, use_flash=self.use_flash)
         return self.to_out[0](out.reshape(b, sq, self.heads * self.head_dim))
 
+    def _tensor_parallel(self, x: torch.Tensor, context: Optional[torch.Tensor]
+                         ) -> torch.Tensor:
+        g, hd = self.tp_group, self.head_dim
+        b, sq, _ = x.shape
+        if self.tp_col:
+            x_in = tensor_enter(x, g)
+            c_in = x_in if context is None else tensor_enter(context, g)
+            q, k, v = (_column(lin, t, g) for lin, t in
+                       ((self.to_q, x_in), (self.to_k, c_in), (self.to_v, c_in)))
+        else:
+            c = x if context is None else context
+            q, k, v = self.to_q(x), self.to_k(c), self.to_v(c)
+
+        def attend(q, k, v, heads):
+            split = lambda t: t.reshape(b, t.shape[1], heads, hd)
+            return dot_product_attention(split(q), split(k), split(v),
+                                         use_flash=self.use_flash).reshape(b, sq, heads * hd)
+
+        if self.tp_col:
+            out = _tp_attention(q, k, v, self.heads, g, self.tp_row, attend)
+        else:
+            out = attend(q, k, v, self.heads)
+            out = tensor_scatter(out, g, -1) if self.tp_row else out
+        return _row(self.to_out[0], out, g) if self.tp_row else self.to_out[0](out)
+
 
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int):
@@ -153,7 +228,15 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward; diffusers names ``net.0`` (GEGLU) and ``net.2``."""
+    """GEGLU feed-forward; diffusers names ``net.0`` (GEGLU) and ``net.2``.
+    Tensor-parallel (``tp_group``): GEGLU's columns gathered whole (each
+    ``h`` meets its own ``gate``), the rank's chunk into the row-parallel
+    ``net.2``."""
+
+    TP_COLUMN = ("net.0.proj",)
+    TP_ROW = ("net.2",)
+    tp_group = None
+    tp_col = tp_row = False
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -161,7 +244,16 @@ class FeedForward(nn.Module):
                                   nn.Linear(dim * mult, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
+        if not (self.tp_col or self.tp_row):
+            return self.net[2](self.net[0](x))
+        g = self.tp_group
+        if self.tp_col:
+            hg = tensor_gather(_column(self.net[0].proj, tensor_enter(x, g), g), g, -1)
+        else:
+            hg = self.net[0].proj(x)
+        h, gate = hg.chunk(2, dim=-1)
+        a = h * F.gelu(gate, approximate="tanh")
+        return _row(self.net[2], tensor_scatter(a, g, -1), g) if self.tp_row else self.net[2](a)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -253,7 +345,14 @@ class Upsample2D(nn.Module):
 
 class AttentionBlock2D(nn.Module):
     """Spatial self-attention of the VAE mid blocks (biased q/k/v/out, always
-    the library attention). diffusers 0.14 names: query/key/value/proj_attn."""
+    the library attention). diffusers 0.14 names: query/key/value/proj_attn.
+    Tensor-parallel (``tp_group``) as the module docstring says: with one
+    head, the columns gathered."""
+
+    TP_COLUMN = ("query", "key", "value")
+    TP_ROW = ("proj_attn",)
+    tp_group = None
+    tp_col = tp_row = False
 
     def __init__(self, ch: int, groups: int = 32, eps: float = 1e-6, heads: int = 1):
         super().__init__()
@@ -268,9 +367,19 @@ class AttentionBlock2D(nn.Module):
         b, c, h, w = x.shape
         out = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         hd = c // self.heads
-        q = self.query(out).reshape(b, h * w, self.heads, hd)
-        k = self.key(out).reshape(b, h * w, self.heads, hd)
-        v = self.value(out).reshape(b, h * w, self.heads, hd)
-        out = dot_product_attention(q, k, v, use_flash=False).reshape(b, h * w, c)
-        out = self.proj_attn(out)
+
+        def attend(q, k, v, heads):
+            split = lambda t: t.reshape(b, h * w, heads, hd)
+            return dot_product_attention(split(q), split(k), split(v),
+                                         use_flash=False).reshape(b, h * w, heads * hd)
+
+        g = self.tp_group
+        if self.tp_col:
+            out = tensor_enter(out, g)
+            q, k, v = (_column(lin, out, g) for lin in (self.query, self.key, self.value))
+            out = _tp_attention(q, k, v, self.heads, g, self.tp_row, attend)
+        else:
+            out = attend(self.query(out), self.key(out), self.value(out), self.heads)
+            out = tensor_scatter(out, g, -1) if self.tp_row else out
+        out = _row(self.proj_attn, out, g) if self.tp_row else self.proj_attn(out)
         return out.reshape(b, h, w, c).permute(0, 3, 1, 2) + x

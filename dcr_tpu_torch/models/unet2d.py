@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from dcr_tpu_torch.core.config import ModelConfig
 from dcr_tpu_torch.models import layers as L
+from dcr_tpu_torch.parallel import sharded as SH
 
 
 def attn_dims(cfg: ModelConfig, ch: int) -> tuple[int, int]:
@@ -103,7 +104,7 @@ class UNet2DCondition(nn.Module):
                 encoder_hidden_states: torch.Tensor) -> torch.Tensor:
         """sample: [B, C_latent, H, W]; timesteps: [B] int; context: [B, S, D_txt].
         Returns the prediction [B, C_out, H, W] in f32."""
-        dtype = self.conv_in.weight.dtype
+        dtype = SH.dtype_of(self.conv_in.weight)
         t_emb = L.timestep_embedding(timesteps, self.config.block_out_channels[0])
         temb = self.time_embedding(t_emb.to(dtype))
         context = encoder_hidden_states.to(dtype)

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from dcr_tpu_torch.core.config import ModelConfig
 from dcr_tpu_torch.models import layers as L
+from dcr_tpu_torch.parallel import sharded as SH
 
 
 class DiagonalGaussian(NamedTuple):
@@ -112,14 +113,14 @@ class AutoencoderKL(nn.Module):
 
     def encode(self, x: torch.Tensor) -> DiagonalGaussian:
         """x: [B, 3, H, W] -> Gaussian over [B, C_latent, H/f, W/f] (f32)."""
-        dtype = self.quant_conv.weight.dtype
+        dtype = SH.dtype_of(self.quant_conv.weight)
         moments = self.quant_conv(self.encoder(x.to(dtype))).float()
         mean, logvar = moments.chunk(2, dim=1)
         return DiagonalGaussian(mean, logvar)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """z: [B, C_latent, h, w] -> pixels [B, 3, h*f, w*f] (f32)."""
-        dtype = self.post_quant_conv.weight.dtype
+        dtype = SH.dtype_of(self.post_quant_conv.weight)
         return self.decoder(self.post_quant_conv(z.to(dtype))).float()
 
 

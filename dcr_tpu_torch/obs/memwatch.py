@@ -369,8 +369,11 @@ def oom_abort(where: str, error: BaseException, *, buckets: Optional[list] = Non
         tracing.dump_flight_recorder(f"oom: {where}: {error!r}", extra=extra)
     except Exception as dump_err:  # the dump must never block the exit
         log.warning("[fault] oom_dump_failed %r", dump_err)
-    for handler in logging.getLogger().handlers + log.handlers:
-        handler.flush()
-    sys.stderr.flush()
-    sys.stdout.flush()
+    # a handler or stream already closed (a library's, or a test harness's)
+    # must not keep the process from its exit either
+    for stream in (*logging.getLogger().handlers, *log.handlers, sys.stderr, sys.stdout):
+        try:
+            stream.flush()
+        except (ValueError, OSError):
+            pass
     exit_fn(C.EXIT_OOM)

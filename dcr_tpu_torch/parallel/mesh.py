@@ -4,12 +4,15 @@
 One process per device, laid out as the JAX mesh lays out its devices: the
 ranks ``0..n-1`` reshaped to ``(data, fsdp, tensor, seq)``, seq innermost,
 so rank r sits where the JAX mesh puts device r. Each axis of size above 1
-gets one process group per line of ranks along it. Training runs
-``data`` x ``seq``: the global batch splits over the data axis (the rank's
-rows by its data index), and the seq replicas of one data group hold the
-same rows and split only the long self-attentions (``ops/ring_attention``,
-``ops/ulysses_attention``). ``fsdp`` and ``tensor`` above 1 are ROADMAP
-Queue A item 9b.
+gets one process group per line of ranks along it, and ``data`` x
+``fsdp``, when both are above 1, one per plane. The global batch splits over ``data`` x ``fsdp``,
+as the JAX ``batch_sharding`` does (a rank's rows by its ``(data, fsdp)``
+coordinate, fsdp minor); the ``tensor`` and ``seq`` replicas of one batch
+group hold the same rows. ``seq`` splits only the long self-attentions
+(``ops/ring_attention``, ``ops/ulysses_attention``); ``fsdp`` shards the
+parameters and ``tensor`` the transformer projections
+(``parallel/sharding.py``, ``parallel/sharded.py``). ``seq`` above 1 with
+``fsdp`` or ``tensor`` above 1 is ROADMAP Queue A item 9c.
 
 The exchanges are ``torch.autograd.Function``s, so gradients cross ranks as
 they do under GSPMD:
@@ -25,11 +28,20 @@ they do under GSPMD:
 - :func:`gather_rows` (forward: all-gather the data group's rows;
   backward: sum the gradient over the group, keep the rank's rows), for the
   mixup mitigation, which mixes rows across the global batch;
-- :func:`all_reduce_mean_`, the gradients' mean over the world, in buckets.
+- :func:`fsdp_gather` (forward: all-gather a parameter's shards along a
+  dimension, cast first when asked; backward: reduce-scatter, a sum);
+- Megatron's *f* :func:`tensor_enter` (forward: identity; backward:
+  all-reduce over ``tensor``) and *g* :func:`tensor_reduce` (forward:
+  all-reduce over ``tensor``; backward: identity), and the tensor group's
+  replicated region, :func:`tensor_gather` / :func:`tensor_scatter` (the
+  pair the seq region uses, over ``tensor``);
+- :func:`all_reduce_mean_`, the gradients' mean over a group, in buckets.
 
 gloo moves CUDA tensors only for ``broadcast`` and ``all_reduce``, so on a
 gloo group every exchange here stages a CUDA tensor through host memory
 (``.cpu()``, the collective, ``.to(device)``); NCCL moves device memory.
+FSDP's reduce-scatter is an all-to-all of the gradient's chunks in their
+own dtype, summed on arrival in the shard's.
 """
 
 from __future__ import annotations
@@ -53,6 +65,9 @@ AXES = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, SEQ_AXIS)
 
 # bytes per all-reduce bucket of the gradients' mean
 BUCKET_BYTES = 64 << 20
+# the batch axes: the rows split over both, and they get a group per plane
+# when both are above 1 (seq with either sharded axis is item 9c)
+BATCH_AXES = (DATA_AXIS, FSDP_AXIS)
 
 
 @dataclass
@@ -74,6 +89,22 @@ class Mesh:
 
     def group(self, axis: str):
         return self.groups.get(axis)
+
+    @property
+    def batch_group(self):
+        """The group of this rank's batch ranks (:data:`BATCH_AXES`, ``data``
+        x ``fsdp``, the other axes fixed): None when both are 1, the one
+        axis's own group when only one is above 1."""
+        live = [a for a in BATCH_AXES if self.shape[a] > 1]
+        if not live:
+            return None
+        return self.groups[live[0] if len(live) == 1 else "+".join(live)]
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's place along the batch axes: ``data`` major, ``fsdp``
+        minor, as the JAX ``P((data, fsdp))`` splits the rows."""
+        return self.coords[DATA_AXIS] * self.shape[FSDP_AXIS] + self.coords[FSDP_AXIS]
 
     @property
     def data_parallel_size(self) -> int:
@@ -100,23 +131,28 @@ def make_mesh(cfg: Optional[MeshConfig] = None, world_size: Optional[int] = None
     world = dist.process_count() if world_size is None else world_size
     rank = dist.process_index() if rank is None else rank
     d, f, t, s = cfg.axis_sizes(world)
-    if f > 1 or t > 1:
+    if s > 1 and (f > 1 or t > 1):
         raise NotPortedError(
-            f"mesh.fsdp={f}, mesh.tensor={t}: FSDP and tensor-parallel sharding are not "
-            "ported to dcr_tpu_torch yet (ROADMAP Queue A item 9b)")
+            f"mesh.seq={s} with mesh.fsdp={f}, mesh.tensor={t}: sequence parallelism "
+            "together with FSDP or tensor-parallel sharding is not ported to "
+            "dcr_tpu_torch yet (ROADMAP Queue A item 9c)")
     shape = dict(zip(AXES, (d, f, t, s)))
     grid = np.arange(world).reshape(d, f, t, s)
     coords = mesh_coords(cfg, world, rank)
     groups: dict[str, Optional[object]] = {}
-    for i, axis in enumerate(AXES):
-        groups[axis] = None
-        if shape[axis] == 1:
+    for axes in [(a,) for a in AXES] + [BATCH_AXES]:
+        live = [a for a in axes if shape[a] > 1]
+        if len(live) != len(axes):
+            if len(axes) == 1:
+                groups[axes[0]] = None
             continue
-        lines = np.moveaxis(grid, i, -1).reshape(-1, shape[axis])
-        for line in lines:  # every process makes every group, in one order
-            group = tdist.new_group([int(r) for r in line])
-            if rank in line:
-                groups[axis] = group
+        idx = [AXES.index(a) for a in axes]
+        n = int(np.prod([shape[a] for a in axes]))
+        planes = np.moveaxis(grid, idx, list(range(4 - len(idx), 4))).reshape(-1, n)
+        for plane in planes:  # every process makes every group, in one order
+            group = tdist.new_group([int(r) for r in plane])
+            if rank in plane:
+                groups["+".join(axes)] = group
     return Mesh(shape=shape, coords=coords, groups=groups, rank=rank, world=world)
 
 
@@ -125,15 +161,34 @@ def data_parallel_size(mesh: Mesh) -> int:
 
 
 def local_rows(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """This rank's rows of a global batch (dim 0), by its data index."""
-    if mesh is None or mesh.shape[DATA_AXIS] == 1:
+    """This rank's rows of a global batch (dim 0), by its ``(data, fsdp)``
+    coordinate."""
+    n = 1 if mesh is None else mesh.data_parallel_size
+    if n == 1:
         return x
-    n = mesh.shape[DATA_AXIS]
     if x.shape[0] % n:
-        raise ValueError(f"global batch {x.shape[0]} does not split over {n} data ranks")
+        raise ValueError(f"global batch {x.shape[0]} does not split over {n} data x fsdp "
+                         "ranks")
     b = x.shape[0] // n
-    i = mesh.coords[DATA_AXIS]
+    i = mesh.batch_index
     return x[i * b:(i + 1) * b]
+
+
+def fsdp_axis(shape: Sequence[int], fsdp: int, min_size: int = 2 ** 16) -> Optional[int]:
+    """The FSDP rule on a JAX shape: the axis sharded over ``fsdp`` ranks
+    (the largest that ``fsdp`` divides, ties to the first), or None when
+    the tensor is too small to be worth scattering or no axis divides."""
+    if fsdp > 1 and int(np.prod(shape, dtype=np.int64)) >= min_size:
+        for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+            if shape[i] % fsdp == 0:
+                return i
+    return None
+
+
+def fsdp_spec(mesh: Mesh, shape: Sequence[int], min_size: int = 2 ** 16) -> Optional[int]:
+    """``dcr_tpu/parallel/mesh.fsdp_spec`` on a JAX shape: the axis sharded
+    over the mesh's ``fsdp`` axis, or None (replicated)."""
+    return fsdp_axis(shape, mesh.shape[FSDP_AXIS], min_size)
 
 
 # -- staging and the plain collectives ---------------------------------------
@@ -158,13 +213,43 @@ def _to_comm(t: torch.Tensor, group) -> torch.Tensor:
     return t.cpu() if t.device.type != "cpu" and _host_staged(group) else t
 
 
-def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, group, dim: int, kind: str = "all_gather") -> torch.Tensor:
     start = time.perf_counter()
     send = _to_comm(x, group)
     parts = [torch.empty_like(send) for _ in range(tdist.get_world_size(group))]
     tdist.all_gather(parts, send, group=group)
     out = torch.cat(parts, dim=dim).to(x.device)
-    _note("all_gather", start, send.numel() * send.element_size())
+    _note(kind, start, send.numel() * send.element_size())
+    return out
+
+
+def _all_reduce(x: torch.Tensor, group, kind: str) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, as a new tensor."""
+    start = time.perf_counter()
+    comm = _to_comm(x, group)
+    if comm is x:
+        comm = x.clone()
+    tdist.all_reduce(comm, op=tdist.ReduceOp.SUM, group=group)
+    _note(kind, start, comm.numel() * comm.element_size())
+    return comm.to(x.device)
+
+
+def _reduce_scatter(x: torch.Tensor, group, dim: int, dtype: torch.dtype,
+                    kind: str) -> torch.Tensor:
+    """The sum over ``group`` of this rank's chunk along ``dim`` of every
+    rank's ``x``, formed in ``dtype``: an all-to-all of the chunks in
+    ``x``'s dtype (a bf16 gradient moves half an f32 one's bytes), summed
+    here, so the sum of bf16 terms is the exact f32 sum one process's cast
+    and mean would form."""
+    start = time.perf_counter()
+    n = tdist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks")
+    send = _to_comm(torch.stack(x.chunk(n, dim=dim)), group)
+    recv = torch.empty_like(send)
+    tdist.all_to_all_single(recv, send, group=group)
+    out = recv.to(x.device).to(dtype).sum(0)
+    _note(kind, start, send.numel() * send.element_size())
     return out
 
 
@@ -231,24 +316,24 @@ class _AllToAll(torch.autograd.Function):
 
 class _SeqScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
+    def forward(ctx, x, group, dim, kind="all_gather"):
+        ctx.group, ctx.dim, ctx.kind = group, dim, kind
         return _own_chunk(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.group, ctx.dim), None, None
+        return _all_gather(g, ctx.group, ctx.dim, ctx.kind), None, None, None
 
 
 class _SeqGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
+    def forward(ctx, x, group, dim, kind="all_gather"):
         ctx.group, ctx.dim = group, dim
-        return _all_gather(x, group, dim)
+        return _all_gather(x, group, dim, kind)
 
     @staticmethod
     def backward(ctx, g):
-        return _own_chunk(g, ctx.group, ctx.dim), None, None
+        return _own_chunk(g, ctx.group, ctx.dim), None, None, None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -262,6 +347,82 @@ class _GatherRows(torch.autograd.Function):
         g = g.contiguous().clone()
         all_reduce_sum_([g], ctx.group)
         return _own_chunk(g, ctx.group, 0), None
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, dtype):
+        ctx.args = (group, dim, x.dtype)
+        return _all_gather(x if dtype is None else x.to(dtype), group, dim, "fsdp_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim, dtype = ctx.args
+        return (_reduce_scatter(g.contiguous(), group, dim, dtype, "fsdp_reduce_scatter"),
+                None, None, None)
+
+
+class _TensorEnter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), ctx.group, "tp_all_reduce"), None
+
+
+class _TensorReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group, "tp_all_reduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def fsdp_gather(x: torch.Tensor, group, dim: int, *,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The whole parameter of the ``fsdp`` group's shards ``x``: the
+    shards concatenated along ``dim`` in rank order, each cast to ``dtype``
+    before it moves (half the bytes for a bf16 copy of an f32 shard).
+    Backward: the whole gradient summed over the group, this rank's chunk
+    of it (a reduce-scatter), in ``x``'s dtype (bf16 gradients move as
+    bf16 and are summed in f32, as one process's cast and mean sum them)."""
+    if group is None:
+        return x if dtype is None else x.to(dtype)
+    return _FsdpGather.apply(x, group, dim, dtype)
+
+
+def tensor_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Into the tensor group's replicated region: the ranks' ``x``
+    concatenated along ``dim`` (a column-parallel output made whole).
+    Backward: this rank's chunk of the gradient, which every rank holds
+    whole there."""
+    return x if group is None else _SeqGather.apply(x, group, dim % x.dim(), "tp_all_gather")
+
+
+def tensor_scatter(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Out of the replicated region: this rank's chunk of ``x`` along
+    ``dim`` (the input of a row-parallel layer, a column-parallel layer's
+    bias). Backward: the chunks' gradients all-gathered, so a replicated
+    tensor's gradient is whole and equal on every rank."""
+    return x if group is None else _SeqScatter.apply(x, group, dim % x.dim(), "tp_all_gather")
+
+
+def tensor_enter(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *f*, where a replicated activation enters a
+    column-parallel layer: the identity; backward, the gradient summed over
+    the tensor group."""
+    return x if group is None else _TensorEnter.apply(x, group)
+
+
+def tensor_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *g*, after a row-parallel layer: the partial outputs
+    summed over the tensor group; backward, the identity."""
+    return x if group is None else _TensorReduce.apply(x, group)
 
 
 def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
@@ -290,9 +451,10 @@ def seq_gather(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
 
 
 def gather_rows(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """The data group's rows of ``x`` concatenated in data order: the global
-    batch of a per-rank tensor. Its gradient is summed over the group."""
-    group = None if mesh is None else mesh.group(DATA_AXIS)
+    """The batch group's rows of ``x`` concatenated in ``(data, fsdp)``
+    order: the global batch of a per-rank tensor. Its gradient is summed
+    over the group."""
+    group = None if mesh is None else mesh.batch_group
     return x if group is None else _GatherRows.apply(x, group)
 
 
@@ -346,11 +508,11 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
 
 
 def to_host(x: torch.Tensor, mesh: Optional[Mesh] = None) -> np.ndarray:
-    """A batch-sharded tensor (each data rank holds its rows) as host numpy
-    on every process: the rows of the whole data group, under
+    """A batch-sharded tensor (each batch rank holds its rows) as host numpy
+    on every process: the rows of the whole ``data`` x ``fsdp`` group, under
     :func:`dist.default_allgather_timeout_s`, so a dead peer becomes a
     named ``BarrierTimeout`` instead of a hang."""
-    group = None if mesh is None else mesh.group(DATA_AXIS)
+    group = None if mesh is None else mesh.batch_group
     if group is None:
         return x.detach().cpu().numpy()
     return dist.run_with_timeout(lambda: _all_gather(x.detach(), group, 0).cpu().numpy(),

@@ -1,6 +1,6 @@
 """Bulk generation: checkpoint -> prompts -> sampling -> PNGs.
 
-Counterpart of ``dcr_tpu/sampling/pipeline.py`` on one device. It reads an
+Counterpart of ``dcr_tpu/sampling/pipeline.py``. It reads an
 HF-layout checkpoint directory, an export of either package
 (``model_index.json`` with the native ``model_config``) or a genuine
 diffusers checkpoint such as a downloaded SD-2.1 (per-subfolder
@@ -8,6 +8,15 @@ config.json, safetensors or ``.bin`` weights, its ``tokenizer/``), carries
 the weights into the port's modules, builds the prompt list for the
 model's conditioning style and writes ``<savepath>/generations/{count}.png``
 and ``prompts.txt``: the directory contract the eval stage reads.
+
+:func:`generate` runs over the job's processes (``core/dist``: torchrun's
+variables or the JAX package's) as the JAX pipeline runs over its mesh
+(``cfg.mesh``): the parameters placed by the JAX rules
+(``parallel/sharding.py``: the UNet's and VAE's projections over
+``tensor``, FSDP's largest axis over ``fsdp``), the device batch padded
+to a multiple of ``data`` x ``fsdp`` whose rows split over those ranks, a
+``seq`` axis turning on the UNet's sequence-parallel attention; the
+primary writes the images and prompts.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from dcr_tpu_torch.core import dist
 from dcr_tpu_torch.core import rng as rngmod
 from dcr_tpu_torch.core.checkpoint import import_torch_layout, model_config_from_diffusers
 from dcr_tpu_torch.core.config import (ModelConfig, SampleConfig,
@@ -31,6 +41,8 @@ from dcr_tpu_torch.models.convert import check_state_dict
 from dcr_tpu_torch.models.clip_text import CLIPTextModel
 from dcr_tpu_torch.models.unet2d import UNet2DCondition
 from dcr_tpu_torch.models.vae import AutoencoderKL
+from dcr_tpu_torch.parallel import mesh as pmesh
+from dcr_tpu_torch.parallel import sharded as SH
 from dcr_tpu_torch.sampling.png import write_png
 from dcr_tpu_torch.sampling.prompts import build_prompt_list, save_prompts
 from dcr_tpu_torch.sampling.sampler import DiffusionModels, make_sampler
@@ -73,13 +85,14 @@ def load_params(models: DiffusionModels, params: dict) -> None:
         module.load_state_dict(params[name], strict=True)
 
 
-def load_checkpoint_models(ckpt_dir: str | Path, device: str | torch.device = "cuda"):
+def load_checkpoint_models(ckpt_dir: str | Path, device: str | torch.device = "cuda",
+                           mesh=None):
     """(models, params, model_cfg) from an HF-layout directory: an export of
     either package (``model_index.json`` with the native ``model_config``)
     or a genuine diffusers checkpoint such as a downloaded SD-2.1, whose
     dims come from its per-subfolder config.json files and schedule from
     ``scheduler/scheduler_config.json``. ``params`` holds the state dicts
-    the modules were loaded with."""
+    the modules were loaded with; ``mesh`` goes to :func:`build_models`."""
     device = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     index = json.loads((ckpt_dir / "model_index.json").read_text())
@@ -94,7 +107,7 @@ def load_checkpoint_models(ckpt_dir: str | Path, device: str | torch.device = "c
     params = {"unet": import_torch_layout(ckpt_dir, "unet"),
               "vae": import_torch_layout(ckpt_dir, "vae"),
               "text": import_torch_layout(ckpt_dir, "text_encoder")}
-    models = build_models(model_cfg, device)
+    models = build_models(model_cfg, device, mesh=mesh)
     problems = [p for name, module in _modules(models).items()
                 for p in check_state_dict(module.state_dict(), params[name],
                                           prefix=f"{name}/")]
@@ -155,17 +168,25 @@ def generate(cfg: SampleConfig, *, modelstyle: str,
              caption_json: Optional[str] = None,
              prompts: Optional[Sequence[str]] = None,
              models: Optional[DiffusionModels] = None, params: Optional[dict] = None,
-             device: str | torch.device = "cuda") -> Path:
+             device: str | torch.device = "cuda",
+             init_latents: Optional[np.ndarray] = None) -> Path:
     """Run bulk generation; returns the savepath containing generations/.
 
     ``models`` may be passed pre-built (with ``params``, state dicts loaded
-    into them strictly); otherwise they come from ``cfg.model_path``."""
-    device = resolve_device(device)
+    into them strictly; built with the job's mesh when it has a ``seq``
+    axis); otherwise they come from ``cfg.model_path``. On several
+    processes every one calls it. ``init_latents``: x_T of every image in
+    generation order, in the JAX layout [N, h, w, C], in place of the
+    generator's draws (the parity tests hand in the JAX pipeline's)."""
+    device = dist.job_device(device)
     validate_fast_config(cfg.fast)
+    dist.initialize(device)
+    mesh = pmesh.make_mesh(cfg.mesh)
     if models is None:
-        models, _, _ = load_checkpoint_models(resolve_checkpoint(cfg), device)
+        models, _, _ = load_checkpoint_models(resolve_checkpoint(cfg), device, mesh=mesh)
     elif params is not None:
         load_params(models, params)
+    SH.place_models(models, mesh)
     text_cfg = models.text_encoder.config
     tokenizer = tokenizer or load_tokenizer(cfg.model_path or None,
                                             vocab_size=text_cfg.text_vocab_size,
@@ -178,16 +199,20 @@ def generate(cfg: SampleConfig, *, modelstyle: str,
             rand_aug_repeats=cfg.rand_aug_repeats)
     savepath = Path(cfg.savepath or "inferences/run")
     gen_dir = savepath / "generations"
-    gen_dir.mkdir(parents=True, exist_ok=True)
-    save_prompts(prompts, savepath)
+    primary = dist.is_primary()
+    if primary:
+        gen_dir.mkdir(parents=True, exist_ok=True)
+        save_prompts(prompts, savepath)
 
-    sampler = make_sampler(cfg, models, device)
+    sampler = make_sampler(cfg, models, device, mesh=mesh)
     uncond_ids = tokenizer([""])[0]
     log.info("sampling %d prompts: %d UNet calls per %d-step trajectory (fast %s)",
              len(prompts), sampler.unet_calls, cfg.num_inference_steps, cfg.fast)
-    # fixed device batch, as the JAX pipeline sizes it for one device
-    prompts_per_batch = max(1, 1 // max(1, cfg.im_batch))
-    device_batch = prompts_per_batch * cfg.im_batch
+    # fixed device batch, as the JAX pipeline sizes it: one row per process
+    # (at least one prompt), padded up to a multiple of data x fsdp
+    dp = mesh.data_parallel_size
+    prompts_per_batch = max(1, mesh.world // max(1, cfg.im_batch))
+    device_batch = -(-prompts_per_batch * cfg.im_batch // dp) * dp
     count = 0
     for start in range(0, len(prompts), prompts_per_batch):
         chunk = list(prompts[start:start + prompts_per_batch])
@@ -197,9 +222,14 @@ def generate(cfg: SampleConfig, *, modelstyle: str,
             ids = np.concatenate([ids, np.repeat(ids[-1:], device_batch - real, axis=0)])
         unc = np.broadcast_to(uncond_ids, ids.shape).copy()
         gen = rngmod.stream_generator(cfg.seed, "sample", start, device=device)
-        images = sampler(None, ids, unc, gen)[:real].cpu().numpy()
+        x_t = None
+        if init_latents is not None:
+            x_t = init_latents[count:count + real]
+            x_t = np.concatenate([x_t, np.repeat(x_t[-1:], device_batch - real, axis=0)])
+        images = sampler(None, ids, unc, gen, init_latents=x_t)[:real].cpu().numpy()
         for img in images:
-            write_png(gen_dir / f"{count}.png", (img * 255).round().astype(np.uint8))
+            if primary:
+                write_png(gen_dir / f"{count}.png", (img * 255).round().astype(np.uint8))
             count += 1
     log.info("wrote %d generations to %s", count, gen_dir)
     return savepath

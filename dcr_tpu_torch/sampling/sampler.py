@@ -13,6 +13,11 @@ embedding noise, then DDPM's per-step noise.
 With ``cfg.fast.enabled`` the loop follows the score-reuse plan of
 :mod:`dcr_tpu_torch.sampling.fastsample`: a reuse step launches no UNet. A
 plan that skips nothing builds the plain loop.
+
+On a mesh (``parallel/mesh.py``) the sampler is the global batch's, as
+the JAX sampler under jit: every draw is made for the global batch from the
+one generator, each rank denoises its ``(data, fsdp)`` rows, and the
+images of every row come back to every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from dcr_tpu_torch.models import schedulers as S
 from dcr_tpu_torch.models.clip_text import CLIPTextModel
 from dcr_tpu_torch.models.unet2d import UNet2DCondition
 from dcr_tpu_torch.models.vae import AutoencoderKL, vae_scale_factor
+from dcr_tpu_torch.parallel import mesh as pmesh
 from dcr_tpu_torch.sampling import fastsample
 
 
@@ -42,15 +48,24 @@ class DiffusionModels(NamedTuple):
 
 def encode_prompts(models: DiffusionModels, input_ids: torch.Tensor,
                    uncond_ids: torch.Tensor, *, rand_noise_lam: float = 0.0,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   rows: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """(cond, uncond) embeddings [B, L, D] from the last hidden state;
-    optional Newpipe noise on both halves."""
+    optional Newpipe noise on both halves. With ``rows`` (a rank's rows of
+    the global batch) the ids are the global batch's: the rank embeds its
+    rows, and the noise is drawn for the global batch."""
+    if rows is not None:
+        n_global = input_ids.shape[0]
+        input_ids, uncond_ids = rows(input_ids), rows(uncond_ids)
     cond = models.text_encoder(input_ids).last_hidden_state
     uncond = models.text_encoder(uncond_ids).last_hidden_state
     if rand_noise_lam > 0.0:
-        noise = torch.randn((2,) + tuple(cond.shape), generator=generator,
+        shape = tuple(cond.shape) if rows is None else (n_global, *cond.shape[1:])
+        noise = torch.randn((2,) + shape, generator=generator,
                             device=cond.device, dtype=cond.dtype)
+        if rows is not None:
+            noise = torch.stack([rows(noise[0]), rows(noise[1])])
         cond = cond + rand_noise_lam * noise[0]
         uncond = uncond + rand_noise_lam * noise[1]
     return cond, uncond
@@ -136,14 +151,16 @@ def denoise(models: DiffusionModels, x: torch.Tensor, ctx: torch.Tensor, *,
 
 
 def make_sampler(cfg: SampleConfig, models: DiffusionModels,
-                 device: str | torch.device = "cuda") -> Callable:
+                 device: str | torch.device = "cuda", mesh=None) -> Callable:
     """Build the sampler: ``(models | None, input_ids, uncond_ids, generator, *,
     init_latents=None) -> images [B, H, W, 3]`` float32 in [0, 1].
 
     ``models=None`` uses the modules given here. ``init_latents`` is x_T in
     the JAX layout [B, h, w, C]; without it x_T is drawn from ``generator``
     on the device. ``unet_calls`` on the sampler is its plan's UNet calls
-    per trajectory."""
+    per trajectory. ``mesh``: the job's mesh; with ``data`` x ``fsdp``
+    above 1 the batch (``B``, a multiple of it) splits over those ranks and
+    every rank returns all ``B`` images."""
     device = resolve_device(device)
     validate_fast_config(cfg.fast)
     vae_cfg = models.vae.config
@@ -154,6 +171,8 @@ def make_sampler(cfg: SampleConfig, models: DiffusionModels,
         cfg.sampler, models.schedule, cfg.num_inference_steps)
     plan = fastsample.fast_plan(cfg.num_inference_steps,
                                 cfg.fast.reuse_ratio if cfg.fast.enabled else 0.0)
+    split = mesh is not None and mesh.data_parallel_size > 1
+    rows = (lambda t: pmesh.local_rows(t, mesh)) if split else None
 
     @torch.no_grad()
     def sample_fn(modules: Optional[DiffusionModels], input_ids, uncond_ids,
@@ -174,12 +193,21 @@ def make_sampler(cfg: SampleConfig, models: DiffusionModels,
                 raise ValueError(f"init_latents shape {tuple(x.shape)} (NCHW) does not "
                                  f"match {(bsz, latent_ch, latent_size, latent_size)}")
         cond, uncond = encode_prompts(m, ids, unc, rand_noise_lam=cfg.rand_noise_lam,
-                                      generator=generator)
+                                      generator=generator, rows=rows)
         ctx = torch.cat([uncond, cond], dim=0)             # [2B, L, D]
+        step_noise = None
+        if split:
+            x_shape = tuple(x.shape)
+            x = rows(x)
+            # DDPM's per-step noise for the global batch, the rank's rows
+            step_noise = lambda i: rows(torch.randn(x_shape, generator=generator,
+                                                    device=device))
         x = denoise(m, x, ctx, sampler=cfg.sampler, sched=sched, ts=ts, prev_ts=prev_ts,
                     lower_order_final=lower_order_final, plan=plan,
-                    fast_order=cfg.fast.order, guidance=guidance, generator=generator)
-        return decode_images(m, x)
+                    fast_order=cfg.fast.order, guidance=guidance, generator=generator,
+                    step_noise=step_noise)
+        images = decode_images(m, x)
+        return pmesh.gather_rows(images.contiguous(), mesh) if split else images
 
     sample_fn.unet_calls = fastsample.unet_calls(plan)
     return sample_fn

@@ -263,7 +263,7 @@ def _without_optimizer():
     from dcr_tpu_torch.diffusion import train as T
 
     update = T.Optimizer.update
-    T.Optimizer.update = lambda self, grads, opt, trainable: True
+    T.Optimizer.update = lambda self, grads, opt, trainable, **kw: True
     try:
         yield
     finally:

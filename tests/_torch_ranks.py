@@ -161,16 +161,17 @@ def case_train_step(rank: int, world: int, tmp: Path, args: dict) -> None:
 
     _join(rank, world, tmp)
     for name, run in args["runs"].items():
-        d = tmp / name
+        d = Path(run.get("dir", tmp / name))
         cfg = TC.from_dict(TC.TrainConfig, run["cfg"])
         mesh = pmesh.make_mesh(cfg.mesh)
         models = build_models(cfg.model, "cpu", mesh=mesh)
         params = torch.load(d / "params.pt")
         state = TT.init_train_state(cfg, models, unet_params=params["unet"],
-                                    text_params=params["text"], vae_params=params["vae"])
+                                    text_params=params["text"], vae_params=params["vae"],
+                                    mesh=mesh, min_fsdp_size=run.get("min_fsdp_size", 2 ** 16))
         step_fn = TT.make_train_step(cfg, models, mesh)
         batch = dict(np.load(d / "batch.npz"))
-        n, i = mesh.data_parallel_size, mesh.index(pmesh.DATA_AXIS)
+        n, i = mesh.data_parallel_size, mesh.batch_index
         rows = len(batch["input_ids"]) // n
         local = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
         draws = torch.load(d / "draws.pt")
@@ -179,10 +180,74 @@ def case_train_step(rank: int, world: int, tmp: Path, args: dict) -> None:
         for step in range(run["steps"]):
             state, m = step_fn(state, local, draws[step])
             history.append({k: float(v) for k, v in m.items()})
-        torch.save({"history": history, "step": state.step,
-                    "unet": {k: p.detach() for k, p in state.unet_params.items()},
-                    "text": {k: p.detach() for k, p in state.text_params.items()},
-                    "exchanges": dict(pmesh.EXCHANGE_STATS)}, d / f"train_{rank}.pt")
+        exchanges = dict(pmesh.EXCHANGE_STATS)
+        whole = {c: {k: p.detach() for k, p in ps.items()} for c, ps in
+                 (("unet", state.unet_params), ("text", state.text_params))}
+        if state.layout is not None:  # the shards' whole tensors, and the rank's own
+            whole = {c: state.layout.full_dict(c, whole[c]) for c in whole}
+            whole["shapes"] = {k: tuple(p.shape) for k, p in state.unet_params.items()}
+            whole["mu_shapes"] = {k: tuple(p.shape) for k, p in state.opt_state.mu.items()}
+            whole["ema_shapes"] = {k: tuple(p.shape)
+                                   for k, p in (state.ema_params or {}).items()}
+        torch.save({"history": history, "step": state.step, **whole,
+                    "exchanges": exchanges}, d / f"train_{rank}.pt")
+
+
+def case_fsdp_checkpoint(rank: int, world: int, tmp: Path, args: dict) -> None:
+    """One step of the port's train step on ``args["cfg"]``'s sharded mesh
+    (its own draws), then the Trainer's checkpoint and HF-layout export
+    (every rank gathers, rank 0 writes), and each rank's gathered state in
+    ``whole_<rank>.pt``."""
+    import numpy as np
+    import torch
+
+    from dcr_tpu_torch.core import config as TC
+    from dcr_tpu_torch.core import dist
+    from dcr_tpu_torch.core.checkpoint import CheckpointManager
+    from dcr_tpu_torch.diffusion import train as TT
+    from dcr_tpu_torch.diffusion.trainer import export_train_state
+    from dcr_tpu_torch.parallel import mesh as pmesh
+    from dcr_tpu_torch.sampling.pipeline import build_models
+
+    _join(rank, world, tmp)
+    cfg = TC.from_dict(TC.TrainConfig, args["cfg"])
+    mesh = pmesh.make_mesh(cfg.mesh)
+    models = build_models(cfg.model, "cpu", mesh=mesh)
+    params = torch.load(tmp / "params.pt")
+    state = TT.init_train_state(cfg, models, unet_params=params["unet"],
+                                text_params=params["text"], vae_params=params["vae"],
+                                mesh=mesh)
+    rng = np.random.default_rng(0)
+    px = cfg.model.sample_size * 2 ** (len(cfg.model.vae_block_out_channels) - 1)
+    batch = {"pixel_values": rng.uniform(-1, 1, (2, px, px, 3)).astype(np.float32),
+             "input_ids": rng.integers(0, 1000, (2, cfg.model.text_max_length))}
+    state, _ = TT.make_train_step(cfg, models, mesh)(state, batch)
+    CheckpointManager(tmp / "ckpt").save(state.step, state, primary=dist.is_primary())
+    export_train_state(cfg, state, tmp / "export")
+    layout = state.layout
+    whole = {"unet": layout.full_dict("unet", state.unet_params),
+             "ema": layout.full_dict("unet", state.ema_params),
+             "mu": layout.full_dict(None, state.opt_state.mu)}
+    torch.save(whole, tmp / f"whole_{rank}.pt")
+
+
+def case_generate(rank: int, world: int, tmp: Path, args: dict) -> None:
+    """``sampling.pipeline.generate`` on this rank, over ``args["cfg"]``'s
+    mesh, the x_T of every image from ``<tmp>/x_t.npy``; the rank's
+    exchanges in ``exchanges_<rank>.pt``."""
+    import numpy as np
+    import torch
+
+    from dcr_tpu_torch.core import config as TC
+    from dcr_tpu_torch.data.tokenizer import HashTokenizer
+    from dcr_tpu_torch.parallel import mesh as pmesh
+    from dcr_tpu_torch.sampling.pipeline import generate
+
+    _join(rank, world, tmp)
+    cfg = TC.from_dict(TC.SampleConfig, args["cfg"])
+    generate(cfg, modelstyle="classlevel", tokenizer=HashTokenizer(*args["tokenizer"]),
+             device="cpu", init_latents=np.load(tmp / "x_t.npy"))
+    torch.save(dict(pmesh.EXCHANGE_STATS), tmp / f"exchanges_{rank}.pt")
 
 
 def case_train_cli(rank: int, world: int, tmp: Path, args: dict) -> None:

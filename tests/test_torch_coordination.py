@@ -17,6 +17,7 @@ against the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import re
 import time
 
@@ -187,8 +188,9 @@ def test_coordinated_restore_of_a_locally_torn_step(tmp_path):
 
 # name: (DCR_FAULTS, argv, env, mesh). 8 images at 2 rows per data rank:
 # "seq_budget" has 4 steps of 2 slots an epoch, a budget of 2 bad samples
-# and 2 planted on both seq replicas; "pod" plants one on rank 1 (slot 6 is
-# rank 1's first row of step 1, the epoch's second)
+# and 2 planted on both seq replicas, "tensor_budget" the same on both
+# tensor ranks (the Trainer's own sharded state); "pod" plants one on rank
+# 1 (slot 6 is rank 1's first row of step 1, the epoch's second)
 DRILLS = {
     "nan": ("nan_loss@step=3@rank=1", ["--max_train_steps=5", "--modelsavesteps=2",
                                        "--fault.max_rollbacks=1"], {}, {"data": 2}),
@@ -198,6 +200,9 @@ DRILLS = {
     "seq_budget": ("decode_error@step=1&slot=2,decode_error@step=2&slot=4",
                    ["--max_train_steps=4", "--fault.max_bad_sample_frac=0.25"], {},
                    {"data": 1, "seq": 2}),
+    "tensor_budget": ("decode_error@step=1&slot=2,decode_error@step=2&slot=4",
+                      ["--max_train_steps=4", "--fault.max_bad_sample_frac=0.25"], {},
+                      {"data": 1, "tensor": 2}),
     "pod": ("decode_error@step=1&slot=6@rank=1",
             ["--max_train_steps=2", "--fault.max_bad_sample_frac=0.25"], {}, {"data": 2}),
 }
@@ -286,6 +291,22 @@ def test_seq_replicas_count_their_shared_bad_samples_once(drills):
     assert last["step"] == 4 and last["faults_pod/bad_samples"] == 2
     fp = _fingerprints(outputs)
     assert fp[0] and fp[0] == fp[1]
+
+
+def test_tensor_replicas_read_one_batch_and_count_its_bad_samples_once(drills):
+    """dcr-train-torch on tensor = 2: both ranks load the batch group's
+    rows (the same two quarantined at the same step and slot) and the job
+    counts them once against its budget of 2, as the seq replicas do."""
+    run, outputs = drills["tensor_budget"]
+    for rc, text in outputs:
+        assert rc == 0, text[-3000:]
+        assert "TooManyBadSamples" not in text
+    assert [sorted((r["step"], r["slot"]) for r in _records(run, rank)
+                   if r["kind"] == "bad_sample") for rank in (0, 1)] == [[(1, 2), (2, 4)]] * 2
+    rows = _metrics(run)
+    assert [r["step"] for r in rows] == [1, 2, 3, 4]
+    assert rows[-1]["faults_pod/bad_samples"] == 2
+    assert all(math.isfinite(r["loss"]) for r in rows)
 
 
 def test_a_peers_fault_counters_reach_the_primarys_metrics(drills):

@@ -39,7 +39,8 @@ def run_jax_step(cfg, params: dict, steps: int):
     """The JAX step on a mesh of ``cfg.mesh``'s shape over the first CPU
     devices from ``params``, on tests/test_torch_train.py's batch and root
     key: (state after ``steps``, metrics per step)."""
-    mesh = jpmesh.make_mesh(cfg.mesh, devices=jax.devices()[:cfg.mesh.data * cfg.mesh.seq])
+    m = cfg.mesh
+    mesh = jpmesh.make_mesh(m, devices=jax.devices()[:m.data * m.fsdp * m.tensor * m.seq])
     models = build_modules(cfg, mesh=mesh)
     p = jax.tree.map(lambda x: jax.numpy.array(np.asarray(x)), params)
     state = JT.shard_train_state(JT.init_train_state(
@@ -54,12 +55,15 @@ def run_jax_step(cfg, params: dict, steps: int):
     return jax.device_get(state), history
 
 
-def run_steps(tmp, runs: dict, world: int) -> dict:
+def run_steps(tmp, runs: dict, world, extra: dict | None = None) -> dict:
     """Each run ``name: (cfg, steps)`` by both packages from the same seeded
     params, batch and global draws: the port's as ``world`` gloo ranks
-    (started first, so they run while the JAX steps compile), the JAX step
-    on a mesh of ``cfg.mesh``'s shape. Returns ``name: (jax state, jax
-    metrics, [each rank's result])``."""
+    (``world``: a count, or ``{name: count}``; every group started first,
+    so they run while the JAX steps compile; ``extra[name]``: more of the
+    rank case's run arguments), the JAX step on a mesh of ``cfg.mesh``'s
+    shape. Returns ``name: (jax state, jax metrics, [each
+    rank's result])``."""
+    worlds = world if isinstance(world, dict) else {name: world for name in runs}
     params, args = {}, {}
     for name, (cfg, steps) in runs.items():
         d = tmp / name
@@ -69,13 +73,18 @@ def run_steps(tmp, runs: dict, world: int) -> dict:
         np.savez(d / "batch.npz", **_batch(cfg))
         torch.save([_jax_draws(cfg, jrng.root_key(0), i) for i in range(steps)],
                    d / "draws.pt")
-        args[name] = {"cfg": dataclasses.asdict(_port_cfg(cfg)), "steps": steps}
-    ranks = Ranks("train_step", world, tmp, {"runs": args})
+        args.setdefault(worlds[name], {})[name] = {
+            "cfg": dataclasses.asdict(_port_cfg(cfg)), "steps": steps,
+            **(extra or {}).get(name, {})}
+    groups = [Ranks("train_step", n, tmp / f"ranks{n}", {"runs": {
+        name: dict(a, dir=str(tmp / name)) for name, a in group.items()}})
+        for n, group in args.items()]
     jax_runs = {name: run_jax_step(cfg, params[name], steps)
                 for name, (cfg, steps) in runs.items()}
-    check(ranks.wait())
+    for ranks in groups:
+        check(ranks.wait())
     return {name: (*jax_runs[name],
-                   [torch.load(tmp / name / f"train_{r}.pt") for r in range(world)])
+                   [torch.load(tmp / name / f"train_{r}.pt") for r in range(worlds[name])])
             for name in runs}
 
 
@@ -173,9 +182,6 @@ def test_one_process_mesh_and_refusals():
     x = torch.arange(6).reshape(3, 2)
     assert tpmesh.local_rows(x, mesh) is x
     assert tpmesh.to_host(x, mesh).tolist() == x.tolist()
-    for shape in (dict(fsdp=2), dict(tensor=2)):
-        with pytest.raises(TC.NotPortedError, match="item 9b"):
-            tpmesh.make_mesh(TC.MeshConfig(data=1, **shape), world_size=2, rank=0)
     with pytest.raises(ValueError, match="mesh"):
         tpmesh.make_mesh(TC.MeshConfig(data=3), world_size=2, rank=0)
     assert not dist.initialize("cpu")  # no job in the environment: one process
@@ -229,25 +235,16 @@ def test_health_check_refuses_an_incoherent_topology(monkeypatch):
         dist._post_join_health_check()
 
 
-@pytest.mark.parametrize("where", ["eval", "search", "serve", "sample_cli", "mitigate_cli",
-                                   "train_fsdp", "train_tensor"])
+@pytest.mark.parametrize("where", ["eval", "search", "serve"])
 def test_a_mesh_outside_training_still_raises_naming_item_9b(where, tmp_path):
-    """Item 9a trains data x seq; FSDP and tensor sharding, and a mesh in
-    eval, search, serving and sampling, are item 9b and raise, never
-    ignored."""
-    from dcr_tpu_torch.cli import mitigate, sample
-
+    """Training and bulk sampling run a mesh (items 9a and 9b's first
+    half); a mesh in eval, search and serving is the rest of item 9b and
+    raises, never ignored."""
     mesh = TC.MeshConfig(data=2)
     calls = {
         "eval": lambda: TC.validate_eval_config(TC.EvalConfig(mesh=mesh)),
         "search": lambda: TC.validate_search_config(TC.SearchConfig(mesh=mesh)),
         "serve": lambda: TC.validate_serve_config(TC.ServeConfig(mesh=mesh)),
-        "sample_cli": lambda: sample.main([f"--model_path={tmp_path}", "--mesh.data=2"]),
-        "mitigate_cli": lambda: mitigate.main([f"--model_path={tmp_path}", "--mesh.seq=2"]),
-        "train_fsdp": lambda: TC.validate_train_config(TC.TrainConfig(
-            mesh=TC.MeshConfig(data=1, fsdp=2))),
-        "train_tensor": lambda: TC.validate_train_config(TC.TrainConfig(
-            mesh=TC.MeshConfig(data=1, tensor=2))),
     }
     with pytest.raises(TC.NotPortedError, match="item 9b"):
         calls[where]()

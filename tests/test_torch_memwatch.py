@@ -157,6 +157,23 @@ def test_oom_abort_dump_is_enriched_and_exits_85(tmp_path, monkeypatch):
     assert "fault/oom_abort" in [r["name"] for r in port["records"]]
 
 
+def test_oom_abort_exits_85_past_a_closed_log_stream(monkeypatch):
+    """A root handler whose stream is closed (a harness's captured stderr)
+    fails its flush; the fatal path still exits 85."""
+    import io
+    import logging
+
+    stream = io.TextIOWrapper(io.BytesIO())  # pytest's capture: flush raises once closed
+    handler = logging.StreamHandler(stream)
+    monkeypatch.setattr(logging.root, "handlers", [*logging.root.handlers, handler])
+    monkeypatch.setattr(logging, "raiseExceptions", False)
+    stream.close()
+    codes: list = []
+    memwatch.oom_abort("serve batch 0", memwatch.InjectedOom("serve batch 0"),
+                       exit_fn=codes.append)
+    assert codes == [85]
+
+
 def _stub(**kw):
     return types.SimpleNamespace(**{"_admitted_buckets": set(), "_samplers": {},
                                     "_measured": set(), **kw})

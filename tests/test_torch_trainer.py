@@ -172,12 +172,12 @@ def test_non_finite_loss_fails_fast(tmp_path):
 
 @pytest.mark.parametrize("override,what", [
     ("--use_wandb=true", "wandb"),
-    ("--mesh.fsdp=2", "item 9b"),
-    ("--mesh.tensor=2", "item 9b"),
+    ("--mesh.fsdp=2 --mesh.seq=2", "item 9c"),
+    ("--mesh.tensor=2 --optim.use_8bit_adam=true", "item 9d"),
     ("--warm.dir=w", "warm"),
 ])
 def test_settings_not_ported_are_refused(tmp_path, override, what):
-    cfg = TC.parse_cli(TC.TrainConfig, [override], base=_cfg(tmp_path))
+    cfg = TC.parse_cli(TC.TrainConfig, override.split(), base=_cfg(tmp_path))
     with pytest.raises(TC.NotPortedError, match=what):
         Trainer(cfg, device="cpu")
 
