@@ -217,12 +217,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    TrainConfig() (losses and grad norms equal phase 6's first 3 bit for
    bit; join, barrier and agreement times); (d) NCCL refuses two ranks on
    one device ("Duplicate GPU detected"), an expected error;
+24. search and eval on a mesh (right after 13): two rank processes on cuda:0
+   join one gloo job and run, through dcr-search-torch's and
+   dcr-eval-torch's main: (a) `query --mesh.data=2` over phase 13's store
+   (streamed; a segment of two shards, so each rank reads half of them),
+   its first 1,024 queries at top_k 10, under the tie rule against phase
+   13's answer; (b) `query --ann=true` at nprobe 8 over phase 16's index
+   (kept as phase 16 left it), under the tie rule against phase 16's
+   answer, recall@10 within 1e-3 of it; (c) `embed` of phase 13's first tar
+   in batches of 256 (each rank's 128 one of phase 13's batches): keys equal
+   and in order, features within the f32 bar of phase 13's dump, each rank
+   decoding only its half; (d) dcr-eval-torch over phase 10's folders at
+   the JAX defaults: every scalar within the f32 bar of phase 10's,
+   sim_gt_05pc equal, the planted copies top-1, the artifacts written.
+   Both ranks return the same scalars; an audit hook shows rank 1 writes no
+   file; 0 flash launches. Per rank: seconds, peak memory, store or index
+   read and query seconds beside one process's, the candidate exchange's
+   bytes, decode ms per image;
 21. profile drill (last): POST /debug/profile on an in-process server at
    SD-2.1 widths arms torch.profiler for one device step; a 4-step request
    runs under it, and its Chrome trace holds the forward kernel's 40
    launches (the launches counted as serve_profiled).
 Every phase prints its wall seconds (`phase <name>: N s`).
-No kernel lies on the eval, search and ANN paths (9-13 and 16: their
+No kernel lies on the eval, search and ANN paths (9-13, 16 and 24: their
 attention is SDPA's, XCiT's is over channels; search and ANN are matmuls,
 sorts and torch.topk): their launch counts must stay 0.
 Each main path runs with every launch count set to 0 just before it and
@@ -2550,11 +2567,11 @@ def phase_eval_main_path(root: Path) -> dict:
     calls = []
     extract = R.extract_features
 
-    def timed_extract(folder, extractor, *, batch_size=64):
+    def timed_extract(folder, extractor, *, batch_size=64, mesh=None):
         backbone = passes[len(calls)]
         calls.append(backbone)
         chunks = []
-        it = folder.batches(batch_size)
+        it = folder.batches(batch_size, mesh=mesh)
         while True:
             h0 = time.perf_counter()
             try:
@@ -2658,6 +2675,9 @@ def phase_eval_main_path(root: Path) -> dict:
         raise AssertionError(f"eval main path failed: scalars missing or not finite "
                              f"{missing}, copies {bad_copies}, artifacts absent {absent}, "
                              f"sim {sim.shape}, sim_gt_05pc {scalars.get('sim_gt_05pc')}")
+    # phase 24 runs the same eval on two ranks over these folders
+    MESH_INPUTS["eval"] = {"gen": gen, "train": train, "caps": caps, "scalars": scalars,
+                           "copies": copy_rows, "total_s": total_s}
     return stats
 
 
@@ -4134,6 +4154,13 @@ def phase_search_main_path(root: Path) -> dict:
         raise AssertionError(f"search main path failed: copies {sum(found)}/{len(found)}, "
                              f"one chunk {sum(found_resident)}/{len(found_resident)}, "
                              f"launches {launches}")
+    # phase 24 queries this store and embeds the first tar on two ranks
+    MESH_INPUTS["search"] = {"store": store, "q": q, "s10": s10, "k10": k10,
+                             "tars": root / "embed" / "tars",
+                             "dump": root / "embed" / "gen_embed" / "embedding.npz",
+                             "engine_build_s": stats["streamed_k10"]["engine_build_s"],
+                             "query_call_s": stats["streamed_k10"]["query_call_s"],
+                             "embed_s": stats["embed"]["embed_s"]}
     return stats
 
 
@@ -4504,6 +4531,11 @@ def phase_ann(root: Path, corpus: dict) -> dict:
         raise AssertionError(f"ann main path failed: recall@10 at nprobe 8 "
                              f"{sweep[8]['recall_at_10']}, dots "
                              f"{checks['exact_dots_max_abs_err']} > {bound}, launches {launches}")
+    # phase 24 asks the same question of this index on two ranks (keep_ann_inputs
+    # keeps the store as it is now, before phase 17 retrains it)
+    MESH_INPUTS["ann"] = {"cli_s": cli_s, "cli_k": cli_k, "ex_k": ex_k, "bound": bound,
+                          "engine_build_s": stats["ann_query_cli"]["ann"].get("engine_build"),
+                          "query_call_s": stats["ann_query_cli"]["ann"].get("query")}
     del eng, feats
     stats["drills"] = _ann_small_store_drills(root)
     log(f"ann small store drills ({CARD[0]}): {json.dumps(stats['drills'], default=str)}")
@@ -5956,6 +5988,310 @@ def phase_multi_process_training(root: Path, data: Path, fused_stats: dict) -> d
     return stats
 
 
+# phase 24: search and eval on a mesh. Two rank processes on cuda:0 over
+# gloo (NCCL refuses two ranks on one device: phase 23 (d)) join once and run
+# the parts of <root>/plan.json in turn through the command lines' main
+# functions, each writing <root>/rank_<r>.json. Phases 10, 13 and 16 leave
+# their inputs and one-process answers here
+MESH_INPUTS: dict = {}
+# (a) asks phase 13's store for its first MESH_QUERIES queries' top 10. Its
+# shards are 65,536 rows: a segment of two of them gives each rank whole
+# shards (its slab), so each reads half the store; at one shard a segment
+# both ranks would read every shard
+MESH_QUERIES = 1024
+MESH_SEGMENT_ROWS = 2 * 65536
+# (c) embeds phase 13's first tar in batches of 256: each rank's slab of 128
+# is one of phase 13's batches, image for image
+MESH_EMBED_BATCH = 256
+
+_MESH_RANK = r"""
+import datetime, json, os, sys, time
+from pathlib import Path
+
+import torch
+import torch.distributed as tdist
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from dcr_tpu_torch.cli import evaluate as eval_cli
+from dcr_tpu_torch.cli import search as search_cli
+from dcr_tpu_torch.core import dist, tracing
+from dcr_tpu_torch.ops import flash_attention as fa
+from dcr_tpu_torch.parallel import mesh as pmesh
+from dcr_tpu_torch.search import annindex as AI
+from dcr_tpu_torch.search import shardindex as SI
+
+rank, root = int(sys.argv[1]), Path(sys.argv[2])
+plan = json.loads((root / "plan.json").read_text())
+written = []
+
+
+def audit(event, a):
+    # every path this rank opens for writing (or makes) under the outputs
+    if event == "open" and isinstance(a[0], (str, bytes, os.PathLike)):
+        writes = (any(c in a[1] for c in "wax+") if isinstance(a[1], str)
+                  else bool(a[2] & (os.O_WRONLY | os.O_RDWR)))
+    else:
+        writes = event in ("os.mkdir", "os.rename", "os.replace")
+    if writes and os.fsdecode(a[0]).startswith(plan["watch"]):
+        written.append(os.fsdecode(a[0]))
+
+
+sys.addaudithook(audit)
+timings = {}
+
+
+def timed(cls, name):
+    plain = getattr(cls, name)
+
+    def call(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain(self, *a, **k)
+        torch.cuda.synchronize()
+        timings.setdefault(f"{name}_s", []).append(time.perf_counter() - t0)
+        timings.update(rows_held=self.rows_held, resident=self.resident,
+                       segment_rows=self.segment_rows,
+                       shards_read=getattr(self, "shards_read", None))
+        return out
+    setattr(cls, name, call)
+
+
+for cls in (SI.ShardedTopK, AI.AnnEngine):
+    timed(cls, "build")
+    timed(cls, "query")
+t0 = time.perf_counter()
+store = tdist.TCPStore("127.0.0.1", plan["port"], 2, is_master=rank == 0,
+                       timeout=datetime.timedelta(seconds=600), wait_for_workers=False)
+dist.initialize("cuda", backend="gloo", store=store, rank=rank, world_size=2)
+torch.zeros(1, device="cuda")
+out = {"join_and_cuda_init_s": time.perf_counter() - t0}
+for part in plan["parts"]:
+    timings.clear()
+    pmesh.EXCHANGE_STATS.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.dq_launches = fa.flash_attention_bwd.dkv_launches = 0
+    decodes = tracing.registry().counters("search/embed_")
+    t0 = time.perf_counter()
+    cli = search_cli if part["cli"] == "search" else eval_cli
+    result = cli.main(part["argv"])
+    torch.cuda.synchronize()
+    decodes = {k: v - decodes.get(k, 0)
+               for k, v in tracing.registry().counters("search/embed_").items()}
+    out[part["name"]] = {
+        "s": time.perf_counter() - t0, "peak_bytes": torch.cuda.max_memory_allocated(),
+        "exchanges": dict(pmesh.EXCHANGE_STATS), "engine": dict(timings),
+        "launches_fwd_dq_dkv": [fa.flash_attention_fwd.launches,
+                                fa.flash_attention_bwd.dq_launches,
+                                fa.flash_attention_bwd.dkv_launches],
+        **({"embed": decodes} if part["argv"][0] == "embed" else {}),
+        **({"scalars": result} if isinstance(result, dict) else {})}
+out["written"] = written
+dist.shutdown()
+(root / f"rank_{rank}.json").write_text(json.dumps(out))
+"""
+
+
+def keep_ann_inputs(ann_root: Path, keep: Path) -> None:
+    """Phase 16's store, index and generations, hard-linked into ``keep``
+    before phase 17 ingests into the store and retrains its index (every
+    file there is written anew and renamed into place, never in place, so
+    the links keep phase 16's bytes)."""
+    import os
+
+    for name in ("store", "gens"):
+        shutil.copytree(ann_root / name, keep / name, copy_function=os.link)
+    MESH_INPUTS["ann"].update(store=keep / "store", gens=keep / "gens")
+
+
+def _close(a: float, b: float, atol: float = 2e-4, rtol: float = 1e-3) -> bool:
+    return (math.isnan(a) and math.isnan(b)) or abs(a - b) <= atol + rtol * abs(b)
+
+
+def phase_mesh_search_eval(root: Path) -> dict:
+    """Phase 24: search and eval on a mesh of two rank processes (one card,
+    gloo), through dcr-search-torch and dcr-eval-torch, each part against
+    the one-process run of phases 10, 13 and 16: (a) `query` at data = 2
+    over phase 13's store (1,310,720 x 512 f32, streamed), its first 1,024
+    queries at top_k 10, held to phase 13's answer by the tie rule; (b)
+    `query --ann=true` (nprobe 8) over phase 16's index, held to its
+    one-process answer by the tie rule, recall@10 against its exact answer
+    within 1e-3 of the one-process recall; (c) `embed` of phase 13's first
+    tar (512 JPEGs and the corrupt member), keys equal and in order,
+    features within the f32 bar of phase 13's dump; (d) `dcr-eval-torch`
+    over phase 10's folders at the JAX defaults, every scalar within the
+    f32 bar of phase 10's, sim_gt_05pc equal, the planted copies top-1.
+    Both ranks return the same answer; rank 1 writes no file; 0 flash
+    launches. Per rank: seconds, peak memory, the store or index read and
+    the query seconds, the candidate exchange's bytes, decode ms."""
+    import os
+
+    import numpy as np
+
+    from dcr_tpu_torch.eval.features import EvalImageFolder
+    from dcr_tpu_torch.search import embed as E
+
+    se, an, ev = (MESH_INPUTS[k] for k in ("search", "ann", "eval"))
+    out = root / "out"
+    out.mkdir(parents=True)
+    gens, tar0 = root / "gens", root / "tar0"
+    gens.mkdir()
+    tar0.mkdir()
+    E.save_embeddings(gens / "embedding.npz", se["q"][:MESH_QUERIES],
+                      [f"gen{i}" for i in range(MESH_QUERIES)])
+    os.link(se["tars"] / "00000.tar", tar0 / "00000.tar")
+    parts = [
+        dict(name="a", cli="search", argv=[
+            "query", f"--store_dir={se['store']}", f"--gen_folder={gens}",
+            f"--out_path={out / 'a.npz'}", "--top_k=10", f"--segment_rows={MESH_SEGMENT_ROWS}",
+            "--mesh.data=2"]),
+        dict(name="b", cli="search", argv=[
+            "query", "--ann=true", f"--store_dir={an['store']}", f"--gen_folder={an['gens']}",
+            f"--out_path={out / 'b.npz'}", f"--top_k={ANN_TOP_K}", "--mesh.data=2"]),
+        dict(name="c", cli="search", argv=[
+            "embed", f"--gen_folder={tar0}", f"--batch_size={MESH_EMBED_BATCH}",
+            f"--embedding_out={out / 'c'}", "--mesh.data=2"]),
+        dict(name="d", cli="eval", argv=[
+            f"--query_dir={ev['gen']}", f"--values_dir={ev['train']}",
+            f"--output_dir={out / 'd'}", f"--values_caption_json={ev['caps']}",
+            "--mesh.data=2"]),
+    ]
+    (root / "plan.json").write_text(json.dumps({"parts": parts, "port": _free_port(),
+                                                "watch": str(out)}))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _MESH_RANK, str(r), str(root)],
+                              env=_rank_env(), stdout=open(root / f"rank_{r}.log", "w"),
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=600))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            rcs.append(None)
+    ranks_s = time.perf_counter() - t0
+    if rcs != [0, 0]:
+        tails = [(root / f"rank_{r}.log").read_text(errors="replace")[-4000:] for r in (0, 1)]
+        raise AssertionError(f"phase 24 ranks exited {rcs}:\n" + "\n".join(tails))
+    ranks = [json.loads((root / f"rank_{r}.json").read_text()) for r in (0, 1)]
+
+    def per_rank(part: str) -> dict:
+        recs = [r[part] for r in ranks]
+        topk = [r["exchanges"].get("topk_exchange", {}) for r in recs]
+        return {"s": [r["s"] for r in recs], "peak_bytes": [r["peak_bytes"] for r in recs],
+                "engine": [r["engine"] for r in recs],
+                "topk_exchange_bytes": [t.get("bytes", 0) for t in topk],
+                "topk_exchange_calls": [t.get("calls", 0) for t in topk],
+                "exchanges": [r["exchanges"] for r in recs]}
+
+    stats: dict = {"card": CARD[0], "ranks_s": ranks_s,
+                   "join_and_cuda_init_s": [r["join_and_cuda_init_s"] for r in ranks]}
+    checks: dict = {}
+    # (a) the exact engine, streamed, against phase 13's one-process answer
+    with np.load(out / "a.npz") as z:
+        sa, ka = z["scores"], z["keys"].astype(object)
+    s10, k10 = se["s10"][:MESH_QUERIES], se["k10"][:MESH_QUERIES]
+    checks["a_vs_one_process"] = tie_rule("mesh exact query vs one process", sa, ka, s10, k10,
+                                          s10, gap=4e-5)
+    stats["a"] = {**per_rank("a"), "one_process_engine_build_s": se["engine_build_s"],
+                  "one_process_query_call_s": se["query_call_s"]}
+    eng_a = stats["a"]["engine"]
+    # (b) the ANN engine against phase 16's `query --ann=true`
+    with np.load(out / "b.npz") as z:
+        sb, kb = z["scores"], z["keys"].astype(object)
+    checks["b_vs_one_process"] = tie_rule("mesh ann query vs one process", sb, kb, an["cli_s"],
+                                          an["cli_k"], an["cli_s"], bound=an["bound"],
+                                          gap=2 * an["bound"])
+
+    def recall(keys) -> float:
+        return sum(len(set(a[:ANN_TOP_K]) & set(e[:ANN_TOP_K]))
+                   for a, e in zip(keys, an["ex_k"])) / (len(keys) * ANN_TOP_K)
+
+    stats["b"] = {**per_rank("b"), "recall_at_10": recall(kb),
+                  "one_process_recall_at_10": recall(an["cli_k"]),
+                  "one_process_engine_build_s": an["engine_build_s"],
+                  "one_process_query_call_s": an["query_call_s"]}
+    # (c) the embed dump against phase 13's, tar 0's rows
+    fc, kc = E.load_embeddings(out / "c.npz")
+    # each rank decodes half of each batch of the tar's members (its JPEGs and
+    # the corrupt one), the last batch's odd member padded with a copy
+    members = sum(1 for _ in E.iter_webdataset_members([tar0 / "00000.tar"]))
+    mesh_decodes = sum(-(-min(MESH_EMBED_BATCH, members - b_) // 2)
+                       for b_ in range(0, members, MESH_EMBED_BATCH))
+    f1, k1 = E.load_embeddings(se["dump"])
+    first = [i for i, k in enumerate(k1) if k.startswith("00000/")]
+    checks["c_keys_equal_in_order"] = kc == [k1[i] for i in first]
+    checks["c_max_abs_diff"] = float(np.abs(fc - f1[first]).max()) if len(fc) == len(
+        first) else None
+    checks["c_within_f32_bar"] = len(fc) == len(first) and bool(
+        np.allclose(fc, f1[first], atol=2e-4, rtol=1e-3))
+    decoded = [r["c"]["embed"]["search/embed_decoded_total"] for r in ranks]
+    stats["c"] = {**per_rank("c"), "decoded": decoded,
+                  "decode_ms_per_image": [r["c"]["embed"]["search/embed_decode_us_total"]
+                                          / 1e3 / n_ for r, n_ in zip(ranks, decoded)],
+                  "one_process_embed_s": se["embed_s"]}
+    # (d) eval against phase 10's run
+    scal = [r["d"]["scalars"] for r in ranks]
+    want = ev["scalars"]
+    checks["d_same_on_both_ranks"] = scal[0] == scal[1] or all(
+        _close(scal[0][k], scal[1][k], 0.0, 0.0) for k in scal[0])
+    checks["d_off_bar"] = {k: [scal[0].get(k), v] for k, v in want.items()
+                           if not (k in scal[0] and _close(scal[0][k], v))}
+    checks["d_sim_gt_05pc_equal"] = scal[0]["sim_gt_05pc"] == want["sim_gt_05pc"]
+    sim = np.load(out / "d" / "similarity.npy")
+    qpaths = [p_.name for p_ in EvalImageFolder(ev["gen"], 224).paths]
+    found = [int(sim[qpaths.index(r_["gen"])].argmax()) == r_["source"]
+             and float(sim[qpaths.index(r_["gen"])].max()) >= 0.999 for r_ in ev["copies"]]
+    checks["d_copies_found"] = f"{sum(found)}/{len(found)}"
+    artifacts = [out / "d" / n for n in ("similarity.npy", "logs/metrics.jsonl",
+                                         "fid_stats_values.npz", "provenance.json")]
+    checks["d_artifacts_absent"] = [str(a_) for a_ in artifacts if not a_.exists()]
+    stats["d"] = {**per_rank("d"), "scalars": scal[0], "one_process_total_s": ev["total_s"]}
+    checks["rank1_wrote"] = ranks[1]["written"]
+    checks["rank0_wrote"] = len(ranks[0]["written"])
+    launches = [r[p_]["launches_fwd_dq_dkv"] for r in ranks for p_ in "abcd"]
+    stats["checks"] = checks
+    log(f"mesh search and eval (phase 24, {CARD[0]}): {json.dumps(stats, default=str)}")
+    for part, what in (("a", "exact query"), ("b", "ann query"), ("c", "embed"),
+                       ("d", "eval")):
+        st = stats[part]
+        log(f"mesh {what} ({part}, {CARD[0]}): s per rank {st['s']}, peak GiB per rank "
+            f"{[round(b_ / 2**30, 2) for b_ in st['peak_bytes']]}, candidate exchange bytes "
+            f"{st['topk_exchange_bytes']}, engine {st['engine']}")
+    problems = []
+    if any(l_ != [0, 0, 0] for l_ in launches):
+        problems.append(f"flash launches {launches}")
+    if (any(e["resident"] for e in eng_a) or sum(e["rows_held"] for e in eng_a)
+            != SEARCH_STORE_ROWS or stats["a"]["topk_exchange_calls"] != [2, 2]):
+        problems.append(f"(a) engine {eng_a}, exchanges {stats['a']['topk_exchange_calls']}")
+    if (abs(stats["b"]["recall_at_10"] - stats["b"]["one_process_recall_at_10"]) > 1e-3
+            or stats["b"]["recall_at_10"] < ANN_MIN_RECALL
+            or stats["b"]["topk_exchange_calls"] != [3, 3]):
+        problems.append(f"(b) recall@10 {stats['b']['recall_at_10']} against one process's "
+                        f"{stats['b']['one_process_recall_at_10']}, exchanges "
+                        f"{stats['b']['topk_exchange_calls']}")
+    if (not checks["c_keys_equal_in_order"] or not checks["c_within_f32_bar"]
+            or decoded != [mesh_decodes] * 2):
+        problems.append(f"(c) keys equal {checks['c_keys_equal_in_order']}, max |diff| "
+                        f"{checks['c_max_abs_diff']}, decoded {decoded}")
+    if (not checks["d_same_on_both_ranks"] or checks["d_off_bar"]
+            or not checks["d_sim_gt_05pc_equal"] or not all(found)
+            or checks["d_artifacts_absent"]):
+        problems.append(f"(d) same on both ranks {checks['d_same_on_both_ranks']}, off the "
+                        f"bar {checks['d_off_bar']}, copies {checks['d_copies_found']}, "
+                        f"absent {checks['d_artifacts_absent']}")
+    if checks["rank1_wrote"] or not checks["rank0_wrote"]:
+        problems.append(f"rank 1 wrote {checks['rank1_wrote'][:5]}, rank 0 "
+                        f"{checks['rank0_wrote']} files")
+    if problems:
+        raise AssertionError("phase 24: " + "; ".join(problems))
+    return stats
+
+
 def kernel_entry(kind: str, dtype: str, rows: list[dict], cases: tuple[str, ...],
                  launches: dict, tensor_core_instructions: dict) -> dict:
     """One kernel's record for the JSON line, from its phase-3 rows at the
@@ -6031,6 +6367,9 @@ def main() -> int:
     ann_tmp = tempfile.TemporaryDirectory()
     ann_root = Path(ann_tmp.name) / "ann"
     ann_root.mkdir()
+    # phases 10, 13 and 16 leave phase 24 their inputs here
+    keep_tmp = tempfile.TemporaryDirectory()
+    keep = Path(keep_tmp.name)
     with ThreadPoolExecutor(1) as pool:
         building = pool.submit(run_phase, "2 build", phase_build)
         with tempfile.TemporaryDirectory() as tmp:
@@ -6043,6 +6382,7 @@ def main() -> int:
         built = building.result()
     ann_stats = run_phase("16 ann", phase_ann, ann_root, ann_corpus)
     del ann_corpus
+    keep_ann_inputs(ann_root, keep / "ann")
     torch.cuda.empty_cache()
     codec = run_phase("2b jpeg codec", phase_jpeg_codec)
     kern = run_phase("3 kernels B1", phase_kernels, reps=10)
@@ -6110,8 +6450,7 @@ def main() -> int:
         pipe_stats = run_phase("18 pipelined training", phase_pipelined_training, Path(tmp),
                                train_stats)
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        eval_stats = run_phase("10 eval main path", phase_eval_main_path, Path(tmp))
+    eval_stats = run_phase("10 eval main path", phase_eval_main_path, keep / "eval")
     if eval_stats["launches_fwd_dq_dkv"] != (0, 0, 0):
         raise AssertionError(f"the eval path launched flash kernels: "
                              f"{eval_stats['launches_fwd_dq_dkv']}")
@@ -6119,8 +6458,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         backbone_stats = run_phase("11 backbones", phase_backbones, Path(tmp))
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        search_stats = run_phase("13 search main path", phase_search_main_path, Path(tmp))
+    search_stats = run_phase("13 search main path", phase_search_main_path, keep / "search")
+    torch.cuda.empty_cache()
+    mesh_stats = run_phase("24 mesh search and eval", phase_mesh_search_eval, keep / "mesh")
+    keep_tmp.cleanup()
+    MESH_INPUTS.clear()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         profile_stats = run_phase("21 profile drill", phase_profile_drill, Path(tmp))
@@ -6234,6 +6576,7 @@ def main() -> int:
     log(f"exit drill stats: {json.dumps(drill_stats, default=str)}")
     log(f"profile drill stats: {json.dumps(profile_stats, default=str)}")
     log(f"multi-process training stats: {json.dumps(dist_stats, default=str)}")
+    log(f"mesh search and eval stats: {json.dumps(mesh_stats, default=str)}")
     log(f"phase seconds ({CARD[0]}): {json.dumps(PHASE_S)}; script "
         f"{time.perf_counter() - wall0:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -30,10 +30,26 @@ embedding_search/ scripts plus the sharded embedding store.
 
 Same flags and ``--config=<config.json>`` as the JAX package's
 ``dcr-search``, on stores either package wrote. It runs on one CUDA device
-(``DCR_TPU_PLATFORM=cpu`` selects the CPU). ``--logdir=<dir>`` writes the
-command's spans (``search/chunk`` per query chunk of the folder search) to
-``<dir>/trace.jsonl``. The settings ``warm_dir`` and a mesh raise
-``NotPortedError``.
+(``DCR_TPU_PLATFORM=cpu`` selects the CPU), or as N processes, one device
+each, under torchrun or the JAX package's variables, laid out by
+``--mesh.*`` (the store's rows and the embed batches split over ``data`` x
+``fsdp``):
+
+    torchrun --nproc_per_node=N -m dcr_tpu_torch.cli.search query \
+        --store_dir=... --gen_folder=... --out_path=... --mesh.data=N
+    COORDINATOR_ADDRESS=host:port NUM_PROCESSES=N PROCESS_ID=<r> \
+        python -m dcr_tpu_torch.cli.search embed --gen_folder=... --mesh.data=N
+
+``embed``, ``query`` and ``search`` with ``--store_dir`` run on every rank,
+each answer whole on every rank; rank 0 writes the files. The subcommands
+that write a store or print a report (``build``, ``append``, ``verify``,
+``recover``, ``compact``, ``train-ivf``, ``stats``) take no mesh in the JAX
+package: they run once, on rank 0, as does the brute-force ``search`` and
+``download``'s fetch. Every rank waits at a named barrier before the
+command returns. ``--logdir=<dir>`` writes the command's spans
+(``search/chunk`` per query chunk of the folder search) to
+``<dir>/trace.jsonl`` (rank r > 0: ``trace.p<r>.jsonl``). The setting
+``warm_dir`` raises ``NotPortedError``.
 """
 
 from __future__ import annotations
@@ -43,8 +59,10 @@ import logging
 import sys
 from pathlib import Path
 
+import torch.distributed as tdist
+
 from dcr_tpu_torch.cli import device_from_env
-from dcr_tpu_torch.core import tracing
+from dcr_tpu_torch.core import dist, tracing
 from dcr_tpu_torch.core.config import SearchConfig, parse_cli, validate_search_config
 from dcr_tpu_torch.search import ann
 from dcr_tpu_torch.search import embed as E
@@ -59,6 +77,8 @@ from dcr_tpu_torch.search.store import (
 
 USAGE = ("usage: dcr-search {download|embed|search|build|append|verify|query|recover|"
          "compact|train-ivf|stats} --key=value ...")
+#: the subcommands that run once, on rank 0, in a job of several processes
+RANK0_COMMANDS = ("build", "append", "verify", "recover", "compact", "train-ivf", "stats")
 
 
 def _store_dir(cfg: SearchConfig, command: str) -> str:
@@ -158,22 +178,14 @@ def _cmd_stats(cfg: SearchConfig) -> None:
               f"max list {a['max_list_rows']} rows, seed={a['seed']})")
 
 
-def main(argv=None) -> None:
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s",
-                        force=True)
-    argv = list(sys.argv[1:] if argv is None else argv)
-    if not argv or argv[0].startswith("--"):
-        raise SystemExit(USAGE)
-    command, rest = argv[0], argv[1:]
-    cfg = parse_cli(SearchConfig, rest)
-    validate_search_config(cfg)
-    device = device_from_env()
-    if cfg.logdir:
-        tracing.configure(cfg.logdir)
+def _run(command: str, cfg: SearchConfig, device: str) -> None:
     if command == "download":
-        E.download_laion_chunk(cfg.parquet_path, cfg.laion_folder, image_size=cfg.image_size)
+        if dist.is_primary():
+            E.download_laion_chunk(cfg.parquet_path, cfg.laion_folder,
+                                   image_size=cfg.image_size)
+        dist.barrier("search:download")  # a fetch has no bound: wait for rank 0
         E.embed_images(cfg, source=cfg.laion_folder, device=device)
-        if cfg.delete_tars:
+        if cfg.delete_tars and dist.is_primary():
             E.cleanup_tars(cfg.laion_folder)
     elif command == "embed":
         E.embed_images(cfg, source=cfg.gen_folder, out_path=cfg.embedding_out or None,
@@ -183,15 +195,19 @@ def main(argv=None) -> None:
         if not cfg.store_dir:
             folders = sorted(p for p in Path(cfg.laion_folder).iterdir() if p.is_dir())
         S.run_search(cfg, laion_folders=folders, device=device)
+    elif command == "query":
+        _store_dir(cfg, "query")
+        out = S.run_search(cfg, device=device)
+        if dist.is_primary():
+            print(f"search results -> {out}")
+    elif not dist.is_primary():
+        return
     elif command == "build":
         _cmd_build(cfg, append=False)
     elif command == "append":
         _cmd_build(cfg, append=True)
     elif command == "verify":
         _cmd_verify(cfg)
-    elif command == "query":
-        _store_dir(cfg, "query")
-        print(f"search results -> {S.run_search(cfg, device=device)}")
     elif command == "recover":
         _cmd_recover(cfg, compact=False)
     elif command == "compact":
@@ -200,8 +216,32 @@ def main(argv=None) -> None:
         _cmd_train_ivf(cfg, device)
     elif command == "stats":
         _cmd_stats(cfg)
-    else:
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s",
+                        force=True)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0].startswith("--"):
+        raise SystemExit(USAGE)
+    command, rest = argv[0], argv[1:]
+    if command not in ("download", "embed", "search", "query", *RANK0_COMMANDS):
         raise SystemExit(f"unknown subcommand {command!r}")
+    cfg = parse_cli(SearchConfig, rest)
+    validate_search_config(cfg)
+    joined_here = not tdist.is_initialized()
+    device = str(dist.job_device(device_from_env()))
+    dist.initialize(device)
+    cfg.mesh.axis_sizes(dist.process_count())  # a mesh the job cannot hold fails first
+    if cfg.logdir:
+        tracing.configure(cfg.logdir, rank=dist.process_index())
+    _run(command, cfg, device)
+    # no rank returns while another still works on (or writes) the answer;
+    # rank 0's own subcommands (a build, a k-means) have no bound
+    dist.barrier(f"search:{command}", timeout_s=0.0 if command in RANK0_COMMANDS
+                 else dist.default_allgather_timeout_s())
+    if joined_here:
+        dist.shutdown()
 
 
 if __name__ == "__main__":

@@ -9,14 +9,13 @@ its fleet, ingest and SLO sections) and of its
 ``model_index.json`` or ``config.json`` written by either package and a
 ``dcr-sample``, ``dcr-train``, ``dcr-eval``, ``dcr-search``,
 ``dcr-mitigate`` or ``dcr-serve`` command line parse the same way here.
-Sections the port does not run yet (the warm cache; a mesh outside
-training, or with ``fsdp`` or ``tensor`` above 1) parse, and
-:func:`validate_train_config`, :func:`validate_eval_config`,
+Sections the port does not run yet (the warm cache; a mesh in serving)
+parse, and :func:`validate_train_config`, :func:`validate_eval_config`,
 :func:`validate_search_config` and :func:`validate_serve_config` refuse a
-setting that would need them with :class:`NotPortedError`. Training takes
-a mesh of ``data`` x ``seq`` processes (``parallel/mesh.py``). The mesh and
-warm-cache sections of ``SampleConfig`` are not ported yet:
-:func:`refuse_unported_sample_flags` refuses their flags.
+setting that would need them with :class:`NotPortedError`. Training,
+bulk sampling, eval and search take a mesh of processes
+(``parallel/mesh.py``). The warm-cache section of ``SampleConfig`` is not
+ported yet: :func:`refuse_unported_sample_flags` refuses its flags.
 """
 
 from __future__ import annotations
@@ -186,8 +185,10 @@ def validate_fast_config(f: FastSampleConfig) -> None:
 class MeshConfig:
     """Device-mesh shape: one process per device. Training and bulk
     sampling run ``data`` x ``fsdp`` x ``tensor``, or ``data`` x ``seq``
-    (``seq`` with ``fsdp`` or ``tensor`` is ROADMAP Queue A item 9c); a mesh
-    in eval, search and serving is item 9b."""
+    (``seq`` with ``fsdp`` or ``tensor`` is ROADMAP Queue A item 9c). Eval
+    and search split their batches and store rows over ``data`` x ``fsdp``
+    and their similarity rows over every rank; a mesh in serving is item
+    9b."""
 
     data: int = -1  # -1: all remaining devices
     fsdp: int = 1
@@ -497,24 +498,21 @@ _EVAL_FAULT_HONOURED = ("io_retries", "retry_base_delay", "retry_max_delay")
 
 def validate_eval_config(cfg: EvalConfig) -> None:
     """ValueError for a setting no package runs, then NotPortedError for one
-    the port does not run yet: a mesh of more than one device, the warm
-    cache, wandb, and any fault setting other than the I/O retries at a
-    non-default value. Every backbone (sscd, dino, clip, ``layer`` > 1) and
-    every stage, the complexity stage included, runs."""
+    the port does not run yet: the warm cache, wandb, and any fault setting
+    other than the I/O retries at a non-default value. Every backbone (sscd,
+    dino, clip, ``layer`` > 1) and every stage, the complexity stage
+    included, runs, in one process or on a mesh of processes."""
     if cfg.pt_style not in ("sscd", "dino", "clip"):
         raise ValueError(f"unknown pt_style {cfg.pt_style!r} (sscd | dino | clip)")
     if cfg.similarity_metric not in ("dotproduct", "splitloss"):
         raise ValueError(f"unknown similarity metric {cfg.similarity_metric!r}")
     if cfg.fault.io_retries < 1:
         raise ValueError("fault.io_retries must be >= 1")
-    mesh_devices = _mesh_devices(cfg.mesh)
     default_fault = FaultToleranceConfig()
     fault = [f"fault.{f.name}" for f in fields(FaultToleranceConfig)
              if f.name not in _EVAL_FAULT_HONOURED
              and getattr(cfg.fault, f.name) != getattr(default_fault, f.name)]
     checks = [
-        (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port evaluates on one; "
-                           "ROADMAP Queue A item 9b)"),
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
         (cfg.use_wandb, "use_wandb (the wandb sink)"),
         (bool(fault), ", ".join(fault) + " (the port honours only the I/O retries)"),
@@ -570,12 +568,9 @@ class SearchConfig:
 
 def validate_search_config(cfg: SearchConfig) -> None:
     """NotPortedError for a search setting the port does not run yet, naming
-    the ROADMAP Queue A item that ports it: the warm cache (item 7c), a mesh
-    of more than one device (item 9b)."""
-    mesh_devices = _mesh_devices(cfg.mesh)
+    the ROADMAP Queue A item that ports it: the warm cache (item 7c). A mesh
+    of processes runs (``cli/search.py``)."""
     checks = [
-        (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port searches on "
-                           "one; ROADMAP Queue A item 9b)"),
         (bool(cfg.warm_dir), "warm_dir (the warm executable cache, ROADMAP Queue A item 7c)"),
     ]
     missing = [name for on, name in checks if on]
@@ -689,7 +684,8 @@ def validate_serve_config(cfg: ServeConfig) -> None:
     """The JAX package's checks (``ValueError``), then NotPortedError for a
     serve setting the port does not run yet, naming the ROADMAP Queue A item
     that ports it: the warm cache (item 7c), a mesh of more than one device
-    (item 9b). The fleet's roles and the batch watchdog run."""
+    (item 9b's serving half: a worker as a group of rank processes). Eval
+    and search take a mesh; the fleet's roles and the batch watchdog run."""
     if cfg.sampler not in ("ddim", "dpm++", "ddpm"):
         raise ValueError("serve sampler must be 'ddim', 'dpm++' or 'ddpm'")
     if cfg.max_batch < 1:
@@ -733,7 +729,7 @@ def validate_serve_config(cfg: ServeConfig) -> None:
     checks = [
         (bool(cfg.warm.dir), "warm.dir (the warm executable cache, ROADMAP Queue A item 7c)"),
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port serves on one; "
-                           "ROADMAP Queue A item 9b)"),
+                           "a serving worker as a rank group is ROADMAP Queue A item 9b)"),
     ]
     missing = [name for on, name in checks if on]
     if missing:

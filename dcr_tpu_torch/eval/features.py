@@ -18,7 +18,12 @@ give the JAX package's pixels exactly. Other formats raise NotPortedError.
 
 The JAX extractor runs one jitted program over fixed-shape batches, so its
 folder pads the last batch; the port's runs eagerly and pads only when
-asked (``pad_to``).
+asked (``pad_to``) or on a mesh. There (``mesh=``, one process per device)
+each batch splits over the ``data`` x ``fsdp`` ranks as the JAX extractor's
+``batch_sharding`` splits it (``dcr_tpu/eval/features.py:164-208``): the
+batch is padded to a multiple of the rank count with copies of its last
+image, each rank decodes and embeds only its slab, and the features are
+gathered in the batch's order on every rank.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from dcr_tpu_torch.data.dataset import IMG_EXTENSIONS, decode_image, resize_shorter_side
+from dcr_tpu_torch.parallel import mesh as pmesh
 
 log = logging.getLogger("dcr_tpu_torch")
 
@@ -150,19 +156,24 @@ class EvalImageFolder:
             arr = (arr - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
         return arr
 
-    def batches(self, batch_size: int, pad_to: Optional[int] = None
-                ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    def batches(self, batch_size: int, pad_to: Optional[int] = None, *,
+                mesh: Optional[pmesh.Mesh] = None) -> Iterator[tuple[np.ndarray, np.ndarray]]:
         """(images [B, H, W, 3], valid mask [B]); the last batch is padded
-        with copies of its last image up to ``pad_to`` when given."""
+        with copies of its last image up to ``pad_to`` when given. On a mesh
+        of n ``data`` x ``fsdp`` ranks every batch is padded so to a
+        multiple of n, and ``images`` is this rank's slab of it, the only
+        images it decodes (the mask covers the whole batch)."""
+        n = 1 if mesh is None else mesh.data_parallel_size
         for start in range(0, len(self), batch_size):
-            idx = range(start, min(start + batch_size, len(self)))
-            imgs = np.stack([self.load(i) for i in idx])
-            mask = np.ones(len(idx), bool)
-            if pad_to and len(idx) < pad_to:
-                fill = pad_to - len(idx)
-                imgs = np.concatenate([imgs, np.repeat(imgs[-1:], fill, 0)])
-                mask = np.concatenate([mask, np.zeros(fill, bool)])
-            yield imgs, mask
+            idx = list(range(start, min(start + batch_size, len(self))))
+            real = len(idx)
+            size = max(real, pad_to or 0)
+            size += (-size) % n
+            idx += [idx[-1]] * (size - real)
+            if n > 1:
+                idx = idx[pmesh.rank_slab(size, n, mesh.batch_index)]
+            loaded = {i: self.load(i) for i in dict.fromkeys(idx)}
+            yield np.stack([loaded[i] for i in idx]), np.arange(size) < real
 
 
 def make_extractor(forward: Callable[[torch.Tensor], torch.Tensor],
@@ -194,10 +205,11 @@ def make_extractor(forward: Callable[[torch.Tensor], torch.Tensor],
     return extract
 
 
-def extract_features(folder: EvalImageFolder, extractor, *,
-                     batch_size: int = 64) -> np.ndarray:
-    """[N, D] f32 features of every image of the folder, in folder order."""
+def extract_features(folder: EvalImageFolder, extractor, *, batch_size: int = 64,
+                     mesh: Optional[pmesh.Mesh] = None) -> np.ndarray:
+    """[N, D] f32 features of every image of the folder, in folder order,
+    on every rank of a mesh (each rank embeds its slab of each batch)."""
     chunks = []
-    for images, mask in folder.batches(batch_size):
-        chunks.append(extractor(images).float().cpu().numpy()[mask])
+    for images, mask in folder.batches(batch_size, mesh=mesh):
+        chunks.append(pmesh.to_host(extractor(images).float(), mesh)[mask])
     return np.concatenate(chunks, axis=0)

@@ -30,9 +30,19 @@ and ``histogram.png`` / ``scatter_{entropy,jpegsize,tv}.png`` /
 ``seconds``). Weights are seeded random unless a checkpoint file or state
 dict is given; every backbone is built on the CPU from its seed (so the CPU
 and the card get the same weights), frozen, and run under
-``torch.inference_mode()`` on ``device``. A mesh, the warm cache, wandb and
-the fault settings other than the I/O retries are not ported
+``torch.inference_mode()`` on ``device``. The warm cache, wandb and the
+fault settings other than the I/O retries are not ported
 (:func:`~dcr_tpu_torch.core.config.validate_eval_config`).
+
+On a mesh (``cfg.mesh`` over the job's processes, one per device; JAX
+``runner.py:221-224``) the extractors of stages 1 and 6 and the CLIP score
+split each batch over the ``data`` x ``fsdp`` ranks (each rank decodes only
+its slab; the CLIP batch padded with its last row, ``dcr_tpu/eval/
+runner.py:173-210``) and the similarity products split query rows over
+every rank; the results are gathered, so every rank holds the same
+features, matrix and scalars. The complexity stage and the host statistics
+run alike on every rank. Rank 0 alone writes the artifacts, and the ranks
+meet at a named barrier after each stage, as the JAX stages do.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from typing import Callable, Iterator, Mapping, Optional, TypeVar
 import numpy as np
 import torch
 
+from dcr_tpu_torch.core import dist
 from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core.config import (
     EvalConfig,
@@ -81,6 +92,7 @@ from dcr_tpu_torch.models.inception import InceptionV3FID
 from dcr_tpu_torch.models.resnet import SSCDModel
 from dcr_tpu_torch.models.vgg import VGG16Features
 from dcr_tpu_torch.models.vit import DINO_ARCHS, VisionTransformer
+from dcr_tpu_torch.parallel import mesh as pmesh
 from dcr_tpu_torch.utils.provenance import stamp
 
 log = logging.getLogger("dcr_tpu_torch")
@@ -254,25 +266,33 @@ def build_backbone(pt_style: str, arch: str, device: str | torch.device = "cuda"
 
 def clip_alignment_score(folder: EvalImageFolder, tokenizer: TokenizerBase,
                          scorer: CLIPScorer, device: str | torch.device, *,
-                         batch_size: int = 32, clip_image_size: int = 224) -> float:
+                         batch_size: int = 32, clip_image_size: int = 224,
+                         mesh: Optional[pmesh.Mesh] = None) -> float:
     """Mean CLIP cosine between each image and its caption (the reference's
     gen_clipscore). Images are loaded again raw in [0, 1]; the tower applies
-    CLIP's own normalisation. NaN when the folder has no captions."""
+    CLIP's own normalisation. NaN when the folder has no captions. On a mesh
+    each batch is padded with its last row to a multiple of the ``data`` x
+    ``fsdp`` ranks and each rank scores (and decodes) its slab."""
     if folder.captions is None:
         return float("nan")
     raw = EvalImageFolder(folder.root, clip_image_size,
                           resize_to=reference_resize_for(clip_image_size))
     device = torch.device(device)
+    n = 1 if mesh is None else mesh.data_parallel_size
     scores = []
     for start in range(0, len(folder), batch_size):
-        idx = range(start, min(start + batch_size, len(folder)))
+        idx = np.arange(start, min(start + batch_size, len(folder)))
+        real = len(idx)
+        idx = pmesh.pad_rows(idx, n, repeat_last=True)
+        if n > 1:
+            idx = idx[pmesh.rank_slab(len(idx), n, mesh.batch_index)]
         images = np.stack([raw.load(i) for i in idx])
         ids = tokenizer([folder.captions[i] for i in idx],
                         max_length=scorer.text_config.text_max_length)
         x = torch.from_numpy(images).to(device).permute(0, 3, 1, 2)
         with torch.inference_mode():
             out = scorer.score(x, torch.from_numpy(ids).long().to(device))
-        scores.extend(out.float().cpu().tolist())
+        scores.extend(pmesh.to_host(out.float(), mesh)[:real].tolist())
     return float(np.mean(scores))
 
 
@@ -283,11 +303,13 @@ def run_eval(cfg: EvalConfig, *, device: str | torch.device = "cuda",
              tokenizer: Optional[TokenizerBase] = None,
              query_caption_json: Optional[str] = None,
              values_caption_json: Optional[str] = None) -> dict:
-    """Every metric stage of ``cfg`` on ``device``; returns the scalar dict
-    and writes the artifacts. Weights: the ``*_state_dict`` arguments (the
-    port's names; ``models/export.*_from_flax`` carries the JAX package's
-    across), else the files of ``cfg``, else seeded random weights (the
-    CLIP scorer: ``cfg.clip_weights_path`` or seeded random weights)."""
+    """Every metric stage of ``cfg`` on ``device``, over the mesh of
+    ``cfg.mesh`` (module docstring); returns the scalar dict, the same on
+    every rank, and rank 0 writes the artifacts. Weights: the
+    ``*_state_dict`` arguments (the port's names; ``models/export.*_from_flax``
+    carries the JAX package's across), else the files of ``cfg``, else
+    seeded random weights (the CLIP scorer: ``cfg.clip_weights_path`` or
+    seeded random weights)."""
     validate_eval_config(cfg)
     # splitloss on a DINO ViT layer > 1: token-level features, the similarity
     # chunked per token (the reference's numpatches -> num_loss_chunks
@@ -297,11 +319,20 @@ def run_eval(cfg: EvalConfig, *, device: str | torch.device = "cuda",
     if flatten_tokens and cfg.multiscale:
         raise ValueError("multiscale pools per-scale embeddings and has no token surface; "
                          "drop --multiscale for the splitloss+layer token path")
-    device = resolve_device(device)
+    device = dist.job_device(device)
+    dist.initialize(device)
+    mesh = pmesh.make_mesh(cfg.mesh)
+    primary = dist.is_primary()
     out_dir = Path(cfg.output_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    writer = MetricWriter(out_dir / "logs")
+    if primary:
+        out_dir.mkdir(parents=True, exist_ok=True)
+    writer = MetricWriter(out_dir / "logs", active=primary)
     tokenizer = tokenizer or load_tokenizer(None)
+
+    def stage_sync(name: str) -> None:
+        # every rank leaves a stage together: a peer that died inside it
+        # surfaces as a named BarrierTimeout here, not as a hang later
+        dist.barrier(f"eval:{name}", timeout_s=dist.default_allgather_timeout_s())
 
     # the reference's retrieval transform: Resize(256) + CenterCrop(224) +
     # Normalize([0.5], [0.5]), scaled to image_size
@@ -310,8 +341,8 @@ def run_eval(cfg: EvalConfig, *, device: str | torch.device = "cuda",
                             normalize=HALF_NORM, caption_json=query_caption_json)
     values = EvalImageFolder(cfg.values_dir, cfg.image_size, resize_to=resize_to,
                              normalize=HALF_NORM, caption_json=values_caption_json)
-    log.info("eval: %d query (gen) vs %d values (train) on %s", len(query), len(values),
-             device)
+    log.info("eval: %d query (gen) vs %d values (train) on %s (%r)", len(query), len(values),
+             device, mesh)
 
     def weights_file(path: str, what: str) -> dict[str, torch.Tensor]:
         log.info("loading %s weights from %s", what, path)
@@ -336,21 +367,24 @@ def run_eval(cfg: EvalConfig, *, device: str | torch.device = "cuda",
     extractor = make_extractor(backbone, device, multiscale=cfg.multiscale)
     with stage("eval/features"):
         query_feats = SIM.l2_normalize(extract_features(query, extractor,
-                                                        batch_size=cfg.batch_size))
+                                                        batch_size=cfg.batch_size, mesh=mesh))
         values_feats = SIM.l2_normalize(extract_features(values, extractor,
-                                                         batch_size=cfg.batch_size))
+                                                         batch_size=cfg.batch_size, mesh=mesh))
+    stage_sync("features")
 
     with stage("eval/similarity"):
         sim = SIM.similarity_matrix(values_feats, query_feats, metric=cfg.similarity_metric,
                                     num_chunks=num_loss_chunks,
-                                    chunk_style=cfg.chunk_style, device=device)
+                                    chunk_style=cfg.chunk_style, device=device, mesh=mesh)
         stats = SIM.gen_train_stats(sim)
         scalars: dict = stats.scalars()
-        bg = SIM.train_train_background(values_feats, device=device)
+        bg = SIM.train_train_background(values_feats, device=device, mesh=mesh)
         scalars.update(SIM.background_stats(bg))
-    stamp(out_dir)
-    np.save(out_dir / "similarity.npy", sim)
-    G.histogram_plot(stats.top1, bg, out_dir / "histogram.png")
+    if primary:
+        stamp(out_dir)
+        np.save(out_dir / "similarity.npy", sim)
+        G.histogram_plot(stats.top1, bg, out_dir / "histogram.png")
+    stage_sync("similarity")
 
     if cfg.compute_clip_score:
         with stage("eval/clip_score"):
@@ -360,10 +394,12 @@ def run_eval(cfg: EvalConfig, *, device: str | torch.device = "cuda",
                 scorer_state_dict = scorer_state_dict_from_openai(
                     weights_file(cfg.clip_weights_path, "CLIP"))
             scorer = _frozen(scorer, scorer_state_dict, "CLIP scorer", device)
-            scalars["gen_clipscore"] = clip_alignment_score(query, tokenizer, scorer, device)
+            scalars["gen_clipscore"] = clip_alignment_score(query, tokenizer, scorer, device,
+                                                            mesh=mesh)
             scalars["train_clipscore"] = clip_alignment_score(values, tokenizer, scorer,
-                                                              device)
+                                                              device, mesh=mesh)
             del scorer
+        stage_sync("clip_score")
 
     if cfg.compute_complexity:
         # each unique match is decoded once and reduced to its three scalars
@@ -374,8 +410,10 @@ def run_eval(cfg: EvalConfig, *, device: str | torch.device = "cuda",
             for key, label, name in (("entropy", "match entropy", "entropy"),
                                      ("jpeg_bytes", "match jpeg bytes", "jpegsize"),
                                      ("tv", "match total variation", "tv")):
-                G.scatter_plot(np.asarray(series[key]), stats.top1, label, "top1 sim",
-                               out_dir / f"scatter_{name}.png")
+                if primary:
+                    G.scatter_plot(np.asarray(series[key]), stats.top1, label, "top1 sim",
+                                   out_dir / f"scatter_{name}.png")
+        stage_sync("complexity")
 
     if cfg.dup_weights_pickle:
         # the training run's own sampling-weights file (a pickle it wrote)
@@ -384,10 +422,16 @@ def run_eval(cfg: EvalConfig, *, device: str | torch.device = "cuda",
             "dup_weights_pickle")))
         dup = SIM.dup_vs_nondup_means(stats.top1, stats.top1_index, weights)
         scalars.update(dup)
-        G.dup_barplot(dup["dupsim_mean"], dup["nondupsim_mean"], out_dir / "dup_barplot.png")
+        if primary:
+            G.dup_barplot(dup["dupsim_mean"], dup["nondupsim_mean"],
+                          out_dir / "dup_barplot.png")
 
     if cfg.compute_fid:
         with stage("eval/fid_ipr"):
+            # the values' statistics cache: read where it existed when the
+            # stage began (every rank alike), written by rank 0 alone
+            fid_cache = out_dir / "fid_stats_values.npz"
+            fid_cache = fid_cache if primary or fid_cache.exists() else None
             with seeded_cpu_init(1):
                 inception = InceptionV3FID()
             if inception_state_dict is None and cfg.inception_weights_path:
@@ -397,12 +441,11 @@ def run_eval(cfg: EvalConfig, *, device: str | torch.device = "cuda",
             fid_extract = make_extractor(inception, device)
             # the reference's FID feeds whole (uncropped) images
             q_act = extract_features(EvalImageFolder(cfg.query_dir, 299, crop=False),
-                                     fid_extract, batch_size=50)
+                                     fid_extract, batch_size=50, mesh=mesh)
             v_act = extract_features(EvalImageFolder(cfg.values_dir, 299, crop=False),
-                                     fid_extract, batch_size=50)
+                                     fid_extract, batch_size=50, mesh=mesh)
             del inception, fid_extract
-            scalars["FID_val"] = FID.fid_from_features(
-                v_act, q_act, cache1=out_dir / "fid_stats_values.npz")
+            scalars["FID_val"] = FID.fid_from_features(v_act, q_act, cache1=fid_cache)
             # precision/recall on VGG16 fc2 features, as the reference's IPR
             with seeded_cpu_init(2):
                 vgg = VGG16Features()
@@ -411,12 +454,13 @@ def run_eval(cfg: EvalConfig, *, device: str | torch.device = "cuda",
             q224 = EvalImageFolder(cfg.query_dir, 224, resize_to=256)
             v224 = EvalImageFolder(cfg.values_dir, 224, resize_to=256)
             scalars.update(IPR.precision_recall(
-                extract_features(v224, vgg_extract, batch_size=cfg.batch_size),
-                extract_features(q224, vgg_extract, batch_size=cfg.batch_size),
+                extract_features(v224, vgg_extract, batch_size=cfg.batch_size, mesh=mesh),
+                extract_features(q224, vgg_extract, batch_size=cfg.batch_size, mesh=mesh),
                 device=device))
             del vgg, vgg_extract
+        stage_sync("fid_ipr")
 
-    if cfg.galleries:
+    if cfg.galleries and primary:
         with stage("eval/galleries"):
             _, idx = SIM.topk_matches(sim, cfg.gallery_topk)
             G.ranked_galleries(query.paths, values.paths, stats.top1, idx,
@@ -425,5 +469,6 @@ def run_eval(cfg: EvalConfig, *, device: str | torch.device = "cuda",
 
     writer.scalars(0, {k: v for k, v in scalars.items() if isinstance(v, (int, float))})
     writer.close()
+    stage_sync("done")
     log.info("eval scalars: %s", scalars)
     return scalars

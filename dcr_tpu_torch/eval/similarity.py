@@ -12,19 +12,26 @@ diff_retrieval.py:391-483):
 - the train↔train background: each training image's top-1 similarity to
   the rest of the training set (self masked by global row index).
 
-The JAX package shards query rows over a device mesh. Here the products run
-on one device in row blocks of ``block_size`` query rows and come back as
-numpy; percentiles and argmax stay numpy on the host, as in the JAX package.
+The products run in row blocks of ``block_size`` query rows and come back
+as numpy; percentiles and argmax stay numpy on the host, as in the JAX
+package. On a mesh (``mesh=``, one process per device) each block's query
+rows split over every rank, as the JAX ``_row_sharded`` spreads them over
+every mesh device (``dcr_tpu/eval/similarity.py:38-60``): the block is
+padded with zero rows to a multiple of the rank count, each rank computes
+its slab against the whole (replicated) values, and the slabs are gathered
+in rank order, so every rank holds the whole matrix.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
 from dcr_tpu_torch.core.device import resolve_device
+from dcr_tpu_torch.parallel import mesh as pmesh
 
 
 def l2_normalize(x: np.ndarray, axis: int = -1, eps: float = 1e-12) -> np.ndarray:
@@ -53,12 +60,24 @@ def _block_fn(metric: str, num_chunks: int, chunk_style: str, d: int):
     return f
 
 
+def _row_split(block: np.ndarray, mesh: Optional[pmesh.Mesh]) -> tuple[np.ndarray, int]:
+    """This rank's slab of a block of query rows zero-padded to a multiple
+    of the mesh's ranks, and where the slab starts in the block."""
+    if mesh is None or mesh.world == 1:
+        return block, 0
+    padded = pmesh.pad_rows(block, mesh.world)
+    sl = pmesh.rank_slab(padded.shape[0], mesh.world, mesh.rank)
+    return padded[sl], sl.start
+
+
 def similarity_matrix(values: np.ndarray, query: np.ndarray, *,
                       metric: str = "dotproduct", num_chunks: int = 1,
                       chunk_style: str = "max", block_size: int = 8192,
-                      device: str | torch.device = "cuda") -> np.ndarray:
+                      device: str | torch.device = "cuda",
+                      mesh: Optional[pmesh.Mesh] = None) -> np.ndarray:
     """sim [N_query, N_train] (the simscores orientation the reference
-    analyses), computed on ``device`` in blocks of ``block_size`` query rows."""
+    analyses), computed on ``device`` in blocks of ``block_size`` query rows,
+    each block's rows split over the mesh's ranks (module docstring)."""
     device = resolve_device(device)
     f = _block_fn(metric, num_chunks, chunk_style, values.shape[1])
     v = torch.as_tensor(np.asarray(values, np.float32), device=device)
@@ -66,8 +85,10 @@ def similarity_matrix(values: np.ndarray, query: np.ndarray, *,
     blocks = []
     with torch.inference_mode():
         for start in range(0, q_all.shape[0], block_size):
-            q = torch.as_tensor(q_all[start:start + block_size], device=device)
-            blocks.append(f(q, v).cpu().numpy())
+            block = q_all[start:start + block_size]
+            mine, _ = _row_split(block, mesh)
+            q = torch.as_tensor(mine, device=device)
+            blocks.append(pmesh.gather_world_rows(f(q, v), mesh)[:block.shape[0]])
     return np.concatenate(blocks, axis=0)
 
 
@@ -106,20 +127,26 @@ def gen_train_stats(sim: np.ndarray, threshold: float = 0.5) -> SimilarityStats:
 
 
 def train_train_background(values: np.ndarray, *, block_size: int = 8192,
-                           device: str | torch.device = "cuda") -> np.ndarray:
+                           device: str | torch.device = "cuda",
+                           mesh: Optional[pmesh.Mesh] = None) -> np.ndarray:
     """[N_train] top-1 similarity of each training image to the rest of the
     training set (the reference's top-2-minus-self): each block's own rows
-    are masked by their global index."""
+    are masked by their global index, each block's rows split over the
+    mesh's ranks (a pad row masks nothing and is dropped)."""
     device = resolve_device(device)
-    v = torch.as_tensor(np.asarray(values, np.float32), device=device)
+    values = np.asarray(values, np.float32)
+    v = torch.as_tensor(values, device=device)
     out = []
     with torch.inference_mode():
         for start in range(0, v.shape[0], block_size):
-            q = v[start:start + block_size]
+            block = values[start:start + block_size]
+            mine, first = _row_split(block, mesh)
+            q = torch.as_tensor(mine, device=device)
             sim = q @ v.T
-            rows = torch.arange(q.shape[0], device=device)
-            sim[rows, rows + start] = -torch.inf
-            out.append(sim.amax(dim=1).cpu().numpy())
+            own = torch.arange(q.shape[0], device=device)
+            real = own + first < block.shape[0]
+            sim[own[real], own[real] + first + start] = -torch.inf
+            out.append(pmesh.gather_world_rows(sim.amax(dim=1), mesh)[:block.shape[0]])
     return np.concatenate(out)
 
 

@@ -27,6 +27,11 @@ field and ``POST /check``, and the trainer's sample-grid ``risk/*`` gauges.
   scores the same pixels at ~1.0.
 - Scoring never perturbs generation: images are scored on host copies after
   the sampler ran.
+- The index stays on one local device, in a job of several processes too,
+  as the JAX index keeps a local 1-device mesh on purpose
+  (``dcr_tpu/obs/copyrisk.py:382-387``): its engines are built without a
+  mesh, so scoring never enters a cross-rank exchange or barrier (serve and
+  the trainer's sample hook, which scores on rank 0 alone).
 
 Similarity is cosine: index rows are L2-normalised at load and queries in
 the scorer. The JAX scorer is an XLA program, not a Pallas kernel; here it

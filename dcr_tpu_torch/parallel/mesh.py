@@ -37,6 +37,16 @@ they do under GSPMD:
   pair the seq region uses, over ``tensor``);
 - :func:`all_reduce_mean_`, the gradients' mean over a group, in buckets.
 
+Eval and search split rows, not parameters (the JAX ``dcr_tpu/eval`` and
+``dcr_tpu/search`` shardings): a batch or a store segment over ``data`` x
+``fsdp`` (:func:`rank_slab`, :func:`to_host`), the similarity products'
+query rows over every rank (:func:`gather_world_rows`), each padded first
+(:func:`pad_rows`); the engines' per-rank top-k tables meet in
+:func:`exchange_topk`, one all-gather of the candidates and a merge in the
+one-device order. Their gathers wait under
+:func:`dist.default_allgather_timeout_s`, so a dead peer raises a named
+``BarrierTimeout`` instead of hanging.
+
 gloo moves CUDA tensors only for ``broadcast`` and ``all_reduce``, so on a
 gloo group every exchange here stages a CUDA tensor through host memory
 (``.cpu()``, the collective, ``.to(device)``); NCCL moves device memory.
@@ -46,6 +56,7 @@ own dtype, summed on arrival in the shard's.
 
 from __future__ import annotations
 
+import json
 import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -518,3 +529,173 @@ def to_host(x: torch.Tensor, mesh: Optional[Mesh] = None) -> np.ndarray:
     return dist.run_with_timeout(lambda: _all_gather(x.detach(), group, 0).cpu().numpy(),
                                  dist.default_allgather_timeout_s(), name="to_host")
 
+
+
+
+# -- row splits and the top-k exchange of eval and search ---------------------
+
+#: the row id of a pad candidate while candidates sort (after every real row)
+NO_ROW = np.iinfo(np.int64).max
+
+
+def rank_slab(n: int, parts: int, index: int) -> slice:
+    """Part ``index`` of ``n`` rows cut into ``parts`` equal slabs in order
+    (``n`` a multiple of ``parts``): the rows a JAX row sharding over
+    ``parts`` devices puts on device ``index``."""
+    if n % parts:
+        raise ValueError(f"{n} rows do not split over {parts} ranks")
+    size = n // parts
+    return slice(index * size, (index + 1) * size)
+
+
+@dataclass(frozen=True)
+class Slabs:
+    """A store's rows in segments of ``segment_rows``, each cut into
+    ``parts`` equal slabs over the ``data`` x ``fsdp`` ranks, and this
+    rank's slab of each (the JAX engines' ``P((data, fsdp))`` on a
+    segment): the rows a search engine's rank holds and reads."""
+
+    segment_rows: int
+    parts: int = 1
+    index: int = 0
+
+    @classmethod
+    def of(cls, want: int, mesh: Optional[Mesh]) -> "Slabs":
+        """Segments of at least ``want`` rows, padded up to a multiple of
+        the mesh's batch ranks as the JAX engines pad them."""
+        n = 1 if mesh is None else mesh.data_parallel_size
+        return cls(-(-int(want) // n) * n, n, 0 if mesh is None else mesh.batch_index)
+
+    @property
+    def rows(self) -> int:
+        return self.segment_rows // self.parts
+
+    def slab(self, seg: int, total: int) -> tuple[int, int]:
+        """This rank's global rows ``[lo, hi)`` of segment ``seg`` of
+        ``total`` rows (empty past the end)."""
+        lo = seg * self.segment_rows + self.index * self.rows
+        return lo, max(lo, min(lo + self.rows, total))
+
+    def meets(self, a: int, e: int, total: int) -> bool:
+        """Whether global rows ``[a, e)`` (a shard, a list) hold rows of
+        one of this rank's slabs."""
+        for seg in range(a // self.segment_rows, (e - 1) // self.segment_rows + 1):
+            lo, hi = self.slab(seg, total)
+            if lo < e and a < hi:
+                return True
+        return False
+
+
+def pad_rows(x: np.ndarray, multiple: int, *, repeat_last: bool = False) -> np.ndarray:
+    """``x`` padded along dim 0 to a multiple of ``multiple``, after its real
+    rows: zero rows where JAX pads with zeros (``_row_sharded``,
+    ``dcr_tpu/eval/similarity.py:49-53``), copies of the last row where it
+    repeats it (the CLIP score, ``dcr_tpu/eval/runner.py:203-207``, and the
+    extractors' last batch)."""
+    pad = (-x.shape[0]) % max(1, multiple)
+    if not pad:
+        return x
+    fill = (np.repeat(x[-1:], pad, axis=0) if repeat_last
+            else np.zeros((pad, *x.shape[1:]), x.dtype))
+    return np.concatenate([x, fill])
+
+
+def _bounded(fn, name: str):
+    return dist.run_with_timeout(fn, dist.default_allgather_timeout_s(), name=name)
+
+
+def _comm_device(group) -> torch.device:
+    """Where a host array goes to be exchanged: the host for gloo, the
+    current CUDA device for NCCL."""
+    return (torch.device("cpu") if _host_staged(group)
+            else torch.device("cuda", torch.cuda.current_device()))
+
+
+def gather_world_rows(x: torch.Tensor, mesh: Optional[Mesh]) -> np.ndarray:
+    """Every rank's rows of ``x`` concatenated in rank order over every rank
+    of the mesh, as host numpy on each (the similarity products' split, the
+    JAX ``P(tuple(mesh.axis_names))``)."""
+    if mesh is None or mesh.world == 1:
+        return x.detach().cpu().numpy()
+    return _bounded(lambda: _all_gather(x.detach(), None, 0, "row_gather").cpu().numpy(),
+                    "gather_world_rows")
+
+
+def union_over_ranks(items, tag: str, mesh: Optional[Mesh]) -> set[int]:
+    """The union of every rank's ``items`` (ints) on the job's control plane
+    (the store; bounded), so the ranks agree on, e.g., the store shards that
+    failed verification on any of them. Local without a mesh of ranks."""
+    mine = {int(i) for i in items}
+    if mesh is None or mesh.world == 1:
+        return mine
+    rows = dist.kv_allgather(json.dumps(sorted(mine)), f"union:{tag}",
+                             dist.default_allgather_timeout_s())
+    return set().union(*(json.loads(r) for r in rows))
+
+
+def merge_candidates(scores: np.ndarray, rows: np.ndarray, keys: Optional[np.ndarray],
+                     k: int) -> tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """The best ``k`` of each row of a candidate table ``(scores [n, m],
+    global row ids [n, m], keys [n, m] or None)`` in the one-device order:
+    score descending, the lower global row first on equal scores (the order
+    of ``lax.top_k`` over the whole segment). Pads (``-inf``) sort last,
+    with row -1 and key ``""``; fewer than ``k`` candidates pad to ``k``."""
+    n, m = scores.shape
+    if m < k:
+        scores = np.concatenate([scores, np.full((n, k - m), -np.inf, np.float32)], axis=1)
+        rows = np.concatenate([rows, np.full((n, k - m), -1, np.int64)], axis=1)
+        if keys is not None:
+            keys = np.concatenate([keys, np.full((n, k - m), "", dtype=object)], axis=1)
+    pad = np.isneginf(scores)
+    order = np.lexsort((np.where(pad, NO_ROW, rows), -scores), axis=-1)[:, :k]
+    scores = np.take_along_axis(scores, order, axis=1)
+    pad = np.isneginf(scores)
+    rows = np.where(pad, -1, np.take_along_axis(rows, order, axis=1))
+    if keys is not None:
+        keys = np.where(pad, "", np.take_along_axis(keys, order, axis=1)).astype(object)
+    return scores, rows, keys
+
+
+def exchange_topk(scores: np.ndarray, rows: np.ndarray, keys: Optional[np.ndarray], k: int,
+                  mesh: Optional[Mesh]) -> tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """The cross-rank top-k: each batch rank's candidates ``(scores [n, m],
+    global row ids [n, m], keys [n, m] or None)`` for the same ``n``
+    queries, merged into the best ``k`` of their union on every rank by
+    :func:`merge_candidates`. One all-gather carries the candidates packed
+    as bytes (scores, rows, keys as UTF-8 at the widest rank's width; one
+    small gather agrees on the width first), under the bounded wait. The
+    ``tensor`` and ``seq`` replicas of a batch group hold the same rows and
+    exchange within their own group."""
+    group = None if mesh is None else mesh.batch_group
+    scores = np.asarray(scores, np.float32)
+    rows = np.asarray(rows, np.int64)
+    if group is None:
+        return merge_candidates(scores, rows, keys, k)
+    n, m = scores.shape
+    dev = _comm_device(group)
+    parts = [np.ascontiguousarray(scores, "<f4").view(np.uint8).reshape(n, m, 4),
+             np.ascontiguousarray(rows, "<i8").view(np.uint8).reshape(n, m, 8)]
+
+    def exchange():
+        width = 0
+        if keys is not None:
+            enc = np.char.encode(np.asarray(keys).astype(str), "utf-8")
+            mine = torch.tensor([max(1, enc.dtype.itemsize)], dtype=torch.int64, device=dev)
+            width = int(_all_gather(mine, group, 0, "topk_exchange").max())
+            parts.append(np.ascontiguousarray(enc.astype(f"S{width}")).view(np.uint8)
+                         .reshape(n, m, width))
+        buf = torch.from_numpy(np.concatenate(parts, axis=2)).to(dev)
+        got = _all_gather(buf[None], group, 0, "topk_exchange").cpu().numpy()
+        return got, width
+
+    got, width = _bounded(exchange, "exchange_topk")
+    ranks = got.shape[0]
+
+    def field(lo: int, hi: int, dtype: str) -> np.ndarray:
+        x = np.ascontiguousarray(got[..., lo:hi]).view(dtype)[..., 0]   # [ranks, n, m]
+        return np.moveaxis(x, 0, 1).reshape(n, ranks * m)
+
+    all_keys = None
+    if keys is not None:
+        all_keys = np.char.decode(field(12, 12 + width, f"S{width}"), "utf-8").astype(object)
+    return merge_candidates(field(0, 4, "<f4"), field(4, 12, "<i8"), all_keys, k)

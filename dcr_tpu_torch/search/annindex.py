@@ -1,9 +1,9 @@
 """The nprobe-bounded IVF scan engine with exact f32 re-ranking.
 
-Counterpart of ``dcr_tpu/search/annindex.py``, on one device and in one
-process, over :mod:`dcr_tpu_torch.search.ann`'s inverted lists. Where the
-exact engine (:mod:`~dcr_tpu_torch.search.shardindex`) scans every committed
-row per query, this engine:
+Counterpart of ``dcr_tpu/search/annindex.py`` over
+:mod:`dcr_tpu_torch.search.ann`'s inverted lists, on one device or a mesh of
+ranks. Where the exact engine (:mod:`~dcr_tpu_torch.search.shardindex`)
+scans every committed row per query, this engine:
 
 - finds each query's ``nprobe`` nearest centroids on the host (an
   [B, n_lists] matmul) and scans only the segments that hold a probed list;
@@ -27,7 +27,20 @@ verification at build is quarantined and counted by the reader and rebuilt
 from the committed store (``ann.rebuild_list``): the ``ivf_list_corrupt``
 fault kind drives that path. The live tier's WAL tail, whose rows are in no
 list, scans exactly through the same re-rank (:meth:`AnnEngine.query_rows`).
-One process owns every list. A mesh and the warm cache are not ported.
+
+On a mesh (``mesh=``) the rows of each list segment split over the
+``data`` x ``fsdp`` ranks as the JAX engine shards them (``segment_rows``
+and ``rerank_rows`` padded to the rank count, ``dcr_tpu/search/
+annindex.py:125-160``): each rank reads only the lists that hold its slabs
+(a damaged one is rebuilt once, by rank 0, and read again by all) and
+scans them with the probe every rank computes alike. Per query call, one
+exchange merges the ranks' approximate shortlists into the one-device
+shortlist (score descending, the lower global row first, as ``lax.top_k``
+over the whole segment and the stable merge give it), each rank re-ranks
+the candidates it holds, and a second merges the exact tables
+(:func:`~dcr_tpu_torch.parallel.mesh.exchange_topk`): no exchange per
+scanned segment. Every rank returns the same answer. The warm cache is not
+ported.
 """
 
 from __future__ import annotations
@@ -38,12 +51,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from dcr_tpu_torch.core import tracing
+from dcr_tpu_torch.core import dist, tracing
 from dcr_tpu_torch.core.config import NotPortedError
 from dcr_tpu_torch.core.device import resolve_device
+from dcr_tpu_torch.parallel import mesh as pmesh
 from dcr_tpu_torch.search import ann as annmod
 from dcr_tpu_torch.search.ann import AnnError, AnnIndexReader
-from dcr_tpu_torch.search.shardindex import full_f32_matmul, merge_topk, topk
+from dcr_tpu_torch.search.shardindex import check_mesh, full_f32_matmul, merge_topk, topk
 from dcr_tpu_torch.search.store import EmbeddingStoreReader, normalize_rows
 
 log = logging.getLogger("dcr_tpu_torch")
@@ -82,23 +96,13 @@ def ivf_scan(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
     return s[:, :shortlist_k], idx[:, :shortlist_k]
 
 
-def _merge_shortlist(scores: np.ndarray, rows: np.ndarray, new_scores: np.ndarray,
-                     new_rows: np.ndarray, keep: int) -> tuple[np.ndarray, np.ndarray]:
-    """Host merge of two per-query approximate shortlists ``(scores [B, k],
-    global row ids [B, k])``, keeping the best ``keep`` (stable)."""
-    all_scores = np.concatenate([scores, new_scores], axis=1)
-    all_rows = np.concatenate([rows, new_rows], axis=1)
-    order = np.argsort(-all_scores, axis=1, kind="stable")[:, :keep]
-    return (np.take_along_axis(all_scores, order, axis=1),
-            np.take_along_axis(all_rows, order, axis=1))
-
-
 class AnnEngine:
     """IVF + int8 approximate top-k with exact re-rank: the ``ann``
     counterpart of :class:`~dcr_tpu_torch.search.shardindex.ShardedTopK`,
-    with its query and table contract. ``build`` is eager and idempotent;
-    ``normalize_queries`` and ``require_normalized_rows`` are the cosine
-    convention of copy-risk scoring.
+    with its query and table contract, on one device or over a mesh's
+    ``data`` x ``fsdp`` ranks (module docstring). ``build`` is eager and
+    idempotent; ``normalize_queries`` and ``require_normalized_rows`` are
+    the cosine convention of copy-risk scoring.
     """
 
     def __init__(self, store_dir, *, mesh=None, top_k: int = 1,
@@ -107,9 +111,7 @@ class AnnEngine:
                  max_resident_rows: int = DEFAULT_MAX_RESIDENT_ROWS,
                  normalize_queries: bool = False, require_normalized_rows: bool = False,
                  warm_dir: str = "", device: str | torch.device = "cuda"):
-        if mesh is not None:
-            raise NotPortedError("a device mesh for the ANN engine is not ported to "
-                                 "dcr_tpu_torch yet (ROADMAP Queue A item 9b)")
+        check_mesh(mesh)
         if warm_dir:
             raise NotPortedError("warm_dir (the warm executable cache) is not ported to "
                                  "dcr_tpu_torch yet (ROADMAP Queue A item 7c)")
@@ -123,6 +125,7 @@ class AnnEngine:
             raise AnnError("this consumer needs cosine scores but the ann index was trained "
                            "over unnormalized rows — retrain with `dcr-search train-ivf "
                            "--ivf_normalize=true`")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.top_k = max(1, int(top_k))
         self.nprobe = max(1, min(int(nprobe), self.ann.n_lists))
@@ -130,19 +133,26 @@ class AnnEngine:
         self.shortlist_k = max(int(shortlist_k), self.top_k)
         self.normalize_queries = bool(normalize_queries)
         want = int(segment_rows) if segment_rows > 0 else DEFAULT_SEGMENT_ROWS
-        self.segment_rows = max(want, self.shortlist_k)
+        self.slabs = pmesh.Slabs.of(max(want, self.shortlist_k), mesh)
+        self.segment_rows = self.slabs.segment_rows
         self.max_resident_rows = int(max_resident_rows)
         # the f32 candidate pool per chunk: every query's whole shortlist
-        self.rerank_rows = self.query_batch * self.shortlist_k
+        # (padded to the ranks as the JAX engine pads it)
+        self.rerank_rows = pmesh.Slabs.of(self.query_batch * self.shortlist_k,
+                                          mesh).segment_rows
         self._centroids: Optional[np.ndarray] = None
-        self._feats: Optional[np.ndarray] = None   # host f32 [N, D], list order
+        # this rank's rows, slab after slab: host f32 [n, D] and keys, and
+        # where each segment's slab starts in them (-1: no rows here)
+        self._feats: Optional[np.ndarray] = None
         self._keys: Optional[np.ndarray] = None
-        # (codes, row_list, scale, zero, valid, first row): on the device
-        # when resident, in (pinned) host memory otherwise
+        self._slab_start: Optional[np.ndarray] = None
+        # (codes, row_list, scale, zero, valid, first global row) per slab:
+        # on the device when resident, in (pinned) host memory otherwise
         self._segments: list[tuple] = []
         self._seg_lists: list[set[int]] = []
         self.resident = False
         self.num_segments = 0
+        self.rows_held = 0
         self._built = False
 
     @property
@@ -151,42 +161,58 @@ class AnnEngine:
 
     # -- construction --------------------------------------------------------
 
-    def _load_lists(self) -> tuple[np.ndarray, ...]:
-        """Verified rows of every list, packed in list-id order: ``(codes
-        [N, D] int8, feats [N, D] f32, keys [N] object, row_list [N] int32,
-        scale [N] f32, zero [N] f32)``. A list that fails verification is
-        rebuilt from the committed store."""
-        by_id = {int(e["list"]): e for e in self.ann.lists}
-        parts: list[tuple] = []
-        for list_id in range(self.ann.n_lists):
-            entry = by_id.get(list_id)
-            if entry is None:
-                raise AnnError(f"ann manifest has no list {list_id}")
-            loaded = self.ann.load_list(entry)
-            if loaded is None:
-                annmod.rebuild_list(self.store_dir, list_id)
-                fresh = AnnIndexReader(self.store_dir)
-                loaded = fresh.load_list({int(e["list"]): e for e in fresh.lists}[list_id])
-            if loaded is None:
+    def _load_lists(self) -> tuple[list[int], list[int], dict[int, tuple]]:
+        """The lists laid out (ids in order, their row counts) and this
+        rank's loaded ones ``{id: (codes, feats, keys, scale, zero)}``. The
+        lists pack in list-id order; each rank verifies the lists that hold
+        its slabs. A list that fails on any rank is rebuilt from the
+        committed store (by rank 0 on a mesh, the others waiting) and read
+        again; one that fails again drops out of every rank's layout."""
+        reader = self.ann
+        excluded: set[int] = set()
+        rebuilt: set[int] = set()
+        cache: dict[int, tuple] = {}
+        while True:
+            by_id = {int(e["list"]): e for e in reader.lists}
+            missing = [i for i in range(self.ann.n_lists) if i not in by_id]
+            if missing:
+                raise AnnError(f"ann manifest has no list {missing[0]}")
+            order = [i for i in range(self.ann.n_lists)
+                     if i not in excluded and int(by_id[i].get("count", 0)) > 0]
+            counts = [int(by_id[i]["count"]) for i in order]
+            offsets = np.cumsum([0] + counts)
+            failed = set()
+            for j, lid in enumerate(order):
+                if lid in cache or not self.slabs.meets(int(offsets[j]), int(offsets[j + 1]),
+                                                        int(offsets[-1])):
+                    continue
+                loaded = reader.load_list(by_id[lid])
+                if loaded is None:
+                    failed.add(lid)
+                else:
+                    cache[lid] = loaded
+            failed = pmesh.union_over_ranks(failed, "ann_lists", self.mesh)
+            if not failed:
+                return order, counts, cache
+            for lid in sorted(failed & rebuilt):
                 log.warning("annindex: list %d unavailable after quarantine — serving the "
-                            "surviving lists", list_id)
-                continue
-            codes, feats, keys, scale, zero = loaded
-            n = codes.shape[0]
-            if n == 0:
-                continue
-            parts.append((codes, feats, keys, np.full((n,), list_id, np.int32),
-                          np.full((n,), scale, np.float32), np.full((n,), zero, np.float32)))
-        if not parts:
-            dim = self.ann.embed_dim
-            return (np.zeros((0, dim), np.int8), np.zeros((0, dim), np.float32),
-                    np.zeros((0,), dtype=object), np.zeros((0,), np.int32),
-                    np.zeros((0,), np.float32), np.zeros((0,), np.float32))
-        return tuple(np.concatenate([p[i] for p in parts]) for i in range(6))
+                            "surviving lists", lid)
+            excluded |= failed & rebuilt
+            retry = failed - rebuilt
+            for lid in failed:
+                cache.pop(lid, None)
+            if retry:
+                if self.mesh is None or dist.is_primary():
+                    for lid in sorted(retry):
+                        annmod.rebuild_list(self.store_dir, lid)
+                if self.mesh is not None and self.mesh.world > 1:
+                    dist.barrier("ann_rebuild", timeout_s=dist.default_allgather_timeout_s())
+                reader = AnnIndexReader(self.store_dir)
+                rebuilt |= retry
 
     def _pad_segment(self, codes, row_list, scale, zero, start: int) -> tuple:
-        """One segment's tensors, zero-padded to ``segment_rows``."""
-        s, n = self.segment_rows, codes.shape[0]
+        """One slab's tensors, zero-padded to ``slabs.rows``."""
+        s, n = self.slabs.rows, codes.shape[0]
         pin = self.device.type == "cuda" and not self.resident
 
         def padded(arr: np.ndarray, fill, dtype) -> torch.Tensor:
@@ -203,33 +229,60 @@ class AnnEngine:
         return seg + (start,)
 
     def build(self) -> "AnnEngine":
-        """Load, verify (rebuilding damaged lists) and place the segments."""
+        """Load, verify (rebuilding damaged lists) and place this rank's
+        slabs."""
         if self._built:
             return self
         self._centroids = self.ann.load_centroids()
-        codes, feats, keys, row_list, scale, zero = self._load_lists()
-        self._feats, self._keys = feats, keys
-        n_owned = codes.shape[0]
-        self.resident = n_owned <= max(self.max_resident_rows, self.segment_rows)
+        order, counts, cache = self._load_lists()
+        offsets = np.cumsum([0] + counts)
+        total = int(offsets[-1])
+        self.resident = total <= max(self.max_resident_rows, self.segment_rows)
+        self.num_segments = max(1, -(-total // self.segment_rows))
         self._segments, self._seg_lists = [], []
-        for start in range(0, max(n_owned, 1), self.segment_rows):
-            end = min(start + self.segment_rows, n_owned)
-            self._segments.append(self._pad_segment(codes[start:end], row_list[start:end],
-                                                    scale[start:end], zero[start:end], start))
-            self._seg_lists.append(set(row_list[start:end].tolist()))
-        self.num_segments = len(self._segments)
+        self._slab_start = np.full((self.num_segments,), -1, np.int64)
+        feats_all, keys_all, held_lists = [], [], set()
+        self.rows_held = 0
+        for seg in range(self.num_segments):
+            lo, hi = self.slabs.slab(seg, total)
+            if hi <= lo:
+                continue
+            parts = []
+            for j in np.nonzero((offsets[1:] > lo) & (offsets[:-1] < hi))[0]:
+                codes, feats, keys, scale, zero = cache[order[j]]
+                a, e = max(lo, offsets[j]) - offsets[j], min(hi, offsets[j + 1]) - offsets[j]
+                n = e - a
+                parts.append((codes[a:e], feats[a:e], np.asarray(keys[a:e], dtype=object),
+                              np.full((n,), order[j], np.int32),
+                              np.full((n,), scale, np.float32), np.full((n,), zero, np.float32)))
+                held_lists.add(order[j])
+                if offsets[j + 1] <= hi:  # no later slab of this rank reads it
+                    cache.pop(order[j], None)
+            codes, feats, keys, row_list, scale, zero = (
+                np.concatenate([p[i] for p in parts]) for i in range(6))
+            self._slab_start[seg] = self.rows_held
+            self.rows_held += hi - lo
+            feats_all.append(feats)
+            keys_all.append(keys)
+            self._segments.append(self._pad_segment(codes, row_list, scale, zero, lo))
+            self._seg_lists.append(set(row_list.tolist()))
+        dim = self.ann.embed_dim
+        self._feats = np.concatenate(feats_all) if feats_all else np.zeros((0, dim), np.float32)
+        self._keys = np.concatenate(keys_all) if keys_all else np.zeros((0,), dtype=object)
         self._built = True
         reg = tracing.registry()
         reg.gauge("ann/index_rows").set(self.ann.total)
         reg.gauge("ann/lists").set(self.ann.n_lists)
-        reg.gauge("ann/owned_lists").set(self.ann.n_lists)
+        reg.gauge("ann/owned_lists").set(len(held_lists))
         reg.gauge("ann/segments").set(self.num_segments)
         reg.gauge("ann/nprobe").set(self.nprobe)
         log.info("annindex: ready — %d rows (%d lists) in %d segment(s) of %d, nprobe=%d, "
-                 "shortlist=%d, top_k=%d (%s, %s)", n_owned, self.ann.n_lists,
+                 "shortlist=%d, top_k=%d (%s, %s%s)", total, self.ann.n_lists,
                  self.num_segments, self.segment_rows, self.nprobe, self.shortlist_k,
                  self.top_k, "device-resident" if self.resident else "host-streamed",
-                 self.device)
+                 self.device, "" if self.mesh is None else
+                 f"; rank slab {self.slabs.index}/{self.slabs.parts}: {self.rows_held} rows "
+                 f"of {len(held_lists)} list(s)")
         return self
 
     def _put_segment(self, seg: tuple) -> tuple:
@@ -257,10 +310,9 @@ class AnnEngine:
         if q.ndim != 2 or q.shape[1] != self.ann.embed_dim:
             raise ValueError(f"queries must be [n, {self.ann.embed_dim}], got {q.shape}")
         n = q.shape[0]
-        out_scores = np.full((n, self.top_k), -np.inf, np.float32)
-        out_keys = np.full((n, self.top_k), "", dtype=object)
         if n == 0:
-            return out_scores, out_keys
+            return (np.full((0, self.top_k), -np.inf, np.float32),
+                    np.full((0, self.top_k), "", dtype=object))
         nprobe = max(1, min(int(nprobe) or self.nprobe, self.ann.n_lists))
         reg = tracing.registry()
         reg.counter("ann/query_total").inc()
@@ -271,13 +323,32 @@ class AnnEngine:
         # probe locality: queries sharing a top centroid share a chunk, so the
         # chunk's probed-list union stays small and whole segments skip
         order = np.argsort(probes[:, 0], kind="stable")
+        k_short = min(self.shortlist_k, self.segment_rows)
+        short_scores = np.full((n, k_short), -np.inf, np.float32)
+        short_rows = np.full((n, k_short), -1, np.int64)
+        chunks = []
         for start in range(0, n, self.query_batch):
             sel = order[start:start + self.query_batch]
-            out_scores[sel], out_keys[sel] = self._query_chunk(qn[sel], probes[sel], nprobe)
-        return out_scores, out_keys
+            q_dev, s, r = self._scan_chunk(qn[sel], probes[sel], nprobe, k_short)
+            short_scores[sel], short_rows[sel] = s, r
+            chunks.append((sel, q_dev))
+        # the ranks' shortlists into the one-device shortlist
+        _, short_rows, _ = pmesh.exchange_topk(short_scores, short_rows, None, k_short,
+                                               self.mesh)
+        out = (np.full((n, self.top_k), -np.inf, np.float32),
+               np.full((n, self.top_k), -1, np.int64),
+               np.full((n, self.top_k), "", dtype=object))
+        for sel, q_dev in chunks:
+            for table, part in zip(out, self._rerank(q_dev, short_rows[sel], len(sel))):
+                table[sel] = part
+        scores, _, keys = pmesh.exchange_topk(*out, self.top_k, self.mesh)
+        return scores, keys
 
-    def _query_chunk(self, q: np.ndarray, probes: np.ndarray, nprobe: int
-                     ) -> tuple[np.ndarray, np.ndarray]:
+    def _scan_chunk(self, q: np.ndarray, probes: np.ndarray, nprobe: int, k_short: int
+                    ) -> tuple[torch.Tensor, np.ndarray, np.ndarray]:
+        """The chunk's queries on the device, and their approximate
+        shortlist ``(scores, global rows)`` [m, k_short] over this rank's
+        slabs."""
         m, b = q.shape[0], self.query_batch
         if m < b:
             q = np.concatenate([q, np.repeat(q[-1:], b - m, axis=0)])
@@ -287,7 +358,6 @@ class AnnEngine:
         probed_union = set(np.unique(probes[:m]).tolist())
         q_dev = torch.from_numpy(q).to(self.device)
         probed_dev = torch.from_numpy(probed).to(self.device)
-        k_short = self.shortlist_k
         short_scores = np.full((m, k_short), -np.inf, np.float32)
         short_rows = np.full((m, k_short), -1, np.int64)
         reg = tracing.registry()
@@ -304,38 +374,52 @@ class AnnEngine:
             s, idx = s[:m].cpu().numpy(), idx[:m].cpu().numpy()
             scanned += 1
             reg.counter("ann/lists_scanned_total").inc(len(hit))
-            rows = np.where(np.isneginf(s), -1, seg_start + idx)
-            short_scores, short_rows = _merge_shortlist(short_scores, short_rows, s, rows,
-                                                        k_short)
+            short_scores, short_rows, _ = pmesh.merge_candidates(
+                np.concatenate([short_scores, s], axis=1),
+                np.concatenate([short_rows, seg_start + idx.astype(np.int64)], axis=1),
+                None, k_short)
         reg.counter("ann/segments_scanned_total").inc(scanned)
         reg.counter("ann/segments_skipped_total").inc(skipped)
         log.debug("ann query funnel: batch=%d nprobe=%d lists_probed=%d segments scanned=%d "
                   "skipped=%d shortlist=%d", m, nprobe, len(probed_union), scanned, skipped,
                   int((short_rows >= 0).sum()))
-        return self._rerank(q_dev, short_rows, m)
+        return q_dev, short_scores, short_rows
+
+    def _local(self, rows: np.ndarray) -> np.ndarray:
+        """This rank's index of each global row in its held rows, -1 where
+        another rank holds it."""
+        seg, off = rows // self.segment_rows, rows % self.segment_rows
+        mine = (off // self.slabs.rows == self.slabs.index) & (self._slab_start[seg] >= 0)
+        return np.where(mine, self._slab_start[seg] + off % self.slabs.rows, -1)
 
     def _rerank(self, q_dev: torch.Tensor, short_rows: np.ndarray, m: int
-                ) -> tuple[np.ndarray, np.ndarray]:
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Exact f32 re-rank of the chunk's candidate union through
-        :func:`shardindex.topk` at the fixed ``rerank_rows`` shape."""
+        :func:`shardindex.topk` at the fixed ``rerank_rows`` shape, over the
+        candidates this rank holds: ``(scores, global rows, keys)`` [m, K]."""
         out_scores = np.full((m, self.top_k), -np.inf, np.float32)
+        out_rows = np.full((m, self.top_k), -1, np.int64)
         out_keys = np.full((m, self.top_k), "", dtype=object)
         cand = np.unique(short_rows[short_rows >= 0])[:self.rerank_rows]
+        local = self._local(cand)
+        cand, local = cand[local >= 0], local[local >= 0]
         if cand.size == 0:
-            return out_scores, out_keys
+            return out_scores, out_rows, out_keys
         nc = int(cand.size)
         feats = torch.zeros((self.rerank_rows, self.ann.embed_dim), dtype=torch.float32)
-        feats[:nc] = torch.from_numpy(self._feats[cand])
+        feats[:nc] = torch.from_numpy(self._feats[local])
         valid = torch.zeros((self.rerank_rows,), dtype=torch.bool)
         valid[:nc] = True
         tracing.registry().counter("ann/rerank_rows_total").inc(nc)
         s, idx = topk(feats.to(self.device), valid.to(self.device), q_dev,
                       min(self.top_k, self.rerank_rows))
-        s, idx = s[:m].cpu().numpy(), idx[:m].cpu().numpy()
+        s, idx = s[:m].cpu().numpy(), np.clip(idx[:m].cpu().numpy(), 0, nc - 1)
         kr = s.shape[1]
+        pad = np.isneginf(s)
         out_scores[:, :kr] = s
-        out_keys[:, :kr] = np.where(np.isneginf(s), "", self._keys[cand[np.clip(idx, 0, nc - 1)]])
-        return out_scores, out_keys
+        out_rows[:, :kr] = np.where(pad, -1, cand[idx])
+        out_keys[:, :kr] = np.where(pad, "", self._keys[local[idx]])
+        return out_scores, out_rows, out_keys
 
     def query_rows(self, q: np.ndarray, feats: np.ndarray,
                    keys: Sequence[str]) -> tuple[np.ndarray, np.ndarray]:

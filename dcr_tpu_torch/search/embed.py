@@ -17,6 +17,15 @@ resampled) and the centre crop. A member whose bytes are corrupt is skipped
 with a warning, as the JAX reader skips it; a ``.webp`` member raises
 :class:`NotPortedError`, since skipping it would quietly shrink the corpus.
 
+On a mesh (``cfg.mesh`` over the job's processes, one per device) each
+batch of ``batch_size`` images splits over the ``data`` x ``fsdp`` ranks,
+as the JAX extractor's batch sharding splits it (``dcr_tpu/search/
+embed.py:265-286``): every rank reads the tars' bytes (cheap), decodes and
+embeds only its slab of each batch (the batch padded with its last member
+to a multiple of the rank count), and the features are gathered in the
+batch's order, a member that failed to decode dropped on every rank alike.
+Rank 0 writes the dump and its sidecar.
+
 The JAX package initialises SSCD from ``jax.random.key(0)``; the port's
 seeded init draws from torch's CPU generator, so the two differ by design.
 Pass the JAX weights through ``models/export.sscd_from_flax`` to compare.
@@ -32,6 +41,7 @@ import logging
 import os
 import pickle
 import tarfile
+import time
 import zlib
 from pathlib import Path
 from typing import Iterator, Mapping, Optional
@@ -39,7 +49,7 @@ from typing import Iterator, Mapping, Optional
 import numpy as np
 import torch
 
-from dcr_tpu_torch.core import fsio
+from dcr_tpu_torch.core import dist, fsio
 from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import tracing
 from dcr_tpu_torch.core.config import NotPortedError, SearchConfig, validate_search_config
@@ -52,6 +62,7 @@ from dcr_tpu_torch.eval.features import (
     reference_resize_for,
 )
 from dcr_tpu_torch.native import jpeg_decoder
+from dcr_tpu_torch.parallel import mesh as pmesh
 from dcr_tpu_torch.sampling.png import decode_png
 from dcr_tpu_torch.utils import faults
 
@@ -83,20 +94,11 @@ def download_laion_chunk(parquet_path: str, out_folder: str, *,
         resize_mode="center_crop")
 
 
-def _decode_member(data: bytes, suffix: str, name: str) -> np.ndarray:
-    if suffix == ".png":
-        return decode_png(data)
-    if suffix == ".webp":
-        raise NotPortedError(
-            f"{name}: dcr_tpu_torch reads JPEG and PNG tar members only (.webp needs a "
-            "decoder the port does not have)")
-    return jpeg_decoder.decode(data, name=name)
-
-
-def iter_webdataset_images(tar_paths: list[Path], image_size: int,
-                           ) -> Iterator[tuple[str, np.ndarray]]:
-    """(key, image [H, W, 3] float32 in [0, 1]) from webdataset-style tars;
-    the key is ``<tar stem>/<member stem>``."""
+def iter_webdataset_members(tar_paths: list[Path]) -> Iterator[tuple[str, str, str, bytes]]:
+    """``(key, name, suffix, bytes)`` of every image member of
+    webdataset-style tars, undecoded; the key is ``<tar stem>/<member
+    stem>``. A ``.webp`` member raises :class:`NotPortedError` here, on
+    every rank that reads the tar."""
     for tar_path in tar_paths:
         tar_path = Path(tar_path)
         with tarfile.open(tar_path) as tf:
@@ -108,18 +110,38 @@ def iter_webdataset_images(tar_paths: list[Path], image_size: int,
                 if data is None:
                     continue
                 name = f"{tar_path}:{member.name}"
-                try:
-                    img = _decode_member(data.read(), suffix, name)
-                except (ValueError, zlib.error) as e:  # corrupt members are expected at scale
-                    log.warning("skipping corrupt member %s in %s (%s)",
-                                member.name, tar_path.name, e)
-                    continue
-                img = resize_shorter_side(img, image_size)
-                h, w = img.shape[:2]
-                left, top = (w - image_size) // 2, (h - image_size) // 2
-                img = img[top:top + image_size, left:left + image_size]
-                yield (f"{tar_path.stem}/{Path(member.name).stem}",
-                       np.asarray(img, np.float32) / 255.0)
+                if suffix == ".webp":
+                    raise NotPortedError(
+                        f"{name}: dcr_tpu_torch reads JPEG and PNG tar members only (.webp "
+                        "needs a decoder the port does not have)")
+                yield f"{tar_path.stem}/{Path(member.name).stem}", name, suffix, data.read()
+
+
+def decode_webdataset_member(name: str, suffix: str, data: bytes,
+                             image_size: int) -> Optional[np.ndarray]:
+    """One member as float32 [image_size, image_size, 3] in [0, 1] (the
+    shorter side resized, the centre cropped), or None with a warning when
+    its bytes are corrupt (expected at scale)."""
+    try:
+        img = decode_png(data) if suffix == ".png" else jpeg_decoder.decode(data, name=name)
+    except (ValueError, zlib.error) as e:
+        log.warning("skipping corrupt member %s (%s)", name, e)
+        return None
+    img = resize_shorter_side(img, image_size)
+    h, w = img.shape[:2]
+    left, top = (w - image_size) // 2, (h - image_size) // 2
+    img = img[top:top + image_size, left:left + image_size]
+    return np.asarray(img, np.float32) / 255.0
+
+
+def iter_webdataset_images(tar_paths: list[Path], image_size: int,
+                           ) -> Iterator[tuple[str, np.ndarray]]:
+    """(key, image [H, W, 3] float32 in [0, 1]) from webdataset-style tars;
+    the key is ``<tar stem>/<member stem>``; corrupt members are skipped."""
+    for key, name, suffix, data in iter_webdataset_members(tar_paths):
+        img = decode_webdataset_member(name, suffix, data, image_size)
+        if img is not None:
+            yield key, img
 
 
 class EmbeddingDumpError(RuntimeError):
@@ -249,50 +271,102 @@ def find_embedding_file(folder: str | Path) -> Optional[Path]:
     return None
 
 
+def _count_decodes(images: int, seconds: float) -> None:
+    """The tar members this process decoded for the embed stage (a rank
+    decodes only its slab of each batch): ``search/embed_decoded_total``
+    and ``search/embed_decode_us_total``."""
+    reg = tracing.registry()
+    reg.counter("search/embed_decoded_total").inc(images)
+    reg.counter("search/embed_decode_us_total").inc(int(seconds * 1e6))
+
+
+def _embed_tars(tars: list[Path], cfg: SearchConfig, extractor,
+                mesh: pmesh.Mesh) -> tuple[np.ndarray, list[str]]:
+    """Features and keys of every decodable member of ``tars``, in member
+    order. One process batches the decoded images, as the JAX loop does; on
+    a mesh a batch is ``batch_size`` members and each rank decodes only its
+    slab of it (module docstring)."""
+    # the reference embedding pipeline normalises with ImageNet's
+    # statistics (embedding_search/utils.py:35-40)
+    mean = np.asarray(IMAGENET_NORM[0], np.float32)
+    std = np.asarray(IMAGENET_NORM[1], np.float32)
+    n = mesh.data_parallel_size
+    feats_list, keys, batch = [], [], []
+
+    def decode(member) -> Optional[np.ndarray]:
+        t0 = time.perf_counter()
+        img = decode_webdataset_member(*member[1:4], cfg.image_size)
+        _count_decodes(1, time.perf_counter() - t0)
+        return None if img is None else (img - mean) / std
+
+    def flush():
+        if not batch:
+            return
+        if n == 1:
+            imgs, ok = [m[4] for m in batch], [True] * len(batch)
+        else:
+            members = batch + [batch[-1]] * ((-len(batch)) % n)
+            imgs = [decode(m) for m in members[pmesh.rank_slab(len(members), n,
+                                                                mesh.batch_index)]]
+            ok = [img is not None for img in imgs]
+            imgs = [np.zeros((cfg.image_size, cfg.image_size, 3), np.float32)
+                    if img is None else img for img in imgs]
+        out = extractor(np.stack(imgs)).float()
+        flag = torch.tensor(ok, dtype=out.dtype, device=out.device)[:, None]
+        # the decode flag rides as a last column, so one gather carries both
+        got = pmesh.to_host(torch.cat([out, flag], dim=1), mesh)[:len(batch)]
+        kept = got[:, -1] > 0.5
+        feats_list.append(got[kept, :-1])
+        keys.extend(m[0] for m, k in zip(batch, kept) if k)
+        batch.clear()
+
+    for member in iter_webdataset_members(tars):
+        if n == 1:  # corrupt members never enter a batch
+            img = decode(member)
+            if img is None:
+                continue
+            member = (*member, img)
+        batch.append(member)
+        if len(batch) == cfg.batch_size:
+            flush()
+    flush()
+    return (np.concatenate(feats_list) if feats_list
+            else np.zeros((0, 512), np.float32)), keys
+
+
 def embed_images(cfg: SearchConfig, *, source: str | Path,
                  sscd_state: Optional[Mapping[str, torch.Tensor]] = None,
                  out_path: Optional[str | Path] = None,
                  device: str | torch.device = "cuda") -> Path:
     """Embed a folder of webdataset tars (batches of ``cfg.batch_size``) or
-    an image folder with SSCD on ``device``; dump ``.npz``. Seeded random
-    SSCD weights (seed 0) unless ``sscd_state`` is given."""
+    an image folder with SSCD on ``device``, over the mesh of ``cfg.mesh``
+    (module docstring); rank 0 dumps ``.npz``. Returns the dump's path on
+    every rank. Seeded random SSCD weights (seed 0) unless ``sscd_state`` is
+    given."""
     from dcr_tpu_torch.eval.runner import build_backbone
 
     validate_search_config(cfg)
+    device = dist.job_device(device)
+    dist.initialize(device)
+    mesh = pmesh.make_mesh(cfg.mesh)
     model = build_backbone("sscd", "resnet50_disc", device, state_dict=sscd_state, seed=0)
     extractor = make_extractor(model, device)
     source = Path(source)
     tars = sorted(source.glob("*.tar"))
     if tars:
-        # the reference embedding pipeline normalises with ImageNet's
-        # statistics (embedding_search/utils.py:35-40)
-        mean = np.asarray(IMAGENET_NORM[0], np.float32)
-        std = np.asarray(IMAGENET_NORM[1], np.float32)
-        feats_list, keys, batch, batch_keys = [], [], [], []
-
-        def flush():
-            if batch:
-                feats_list.append(extractor(np.stack(batch)).float().cpu().numpy())
-                keys.extend(batch_keys)
-                batch.clear()
-                batch_keys.clear()
-
-        for key, img in iter_webdataset_images(tars, cfg.image_size):
-            batch.append((img - mean) / std)
-            batch_keys.append(key)
-            if len(batch) == cfg.batch_size:
-                flush()
-        flush()
-        features = (np.concatenate(feats_list) if feats_list
-                    else np.zeros((0, 512), np.float32))
+        features, keys = _embed_tars(tars, cfg, extractor, mesh)
     else:
         folder = EvalImageFolder(source, cfg.image_size,
                                  resize_to=reference_resize_for(cfg.image_size),
                                  normalize=IMAGENET_NORM)
-        features = extract_features(folder, extractor, batch_size=cfg.batch_size)
+        features = extract_features(folder, extractor, batch_size=cfg.batch_size, mesh=mesh)
         keys = [str(p) for p in folder.paths]
-    out_path = save_embeddings(Path(out_path or (source / "embedding.npz")), features, keys)
-    log.info("embedded %d images from %s -> %s", len(keys), source, out_path)
+    out_path = Path(out_path or (source / "embedding.npz"))
+    if not out_path.name.endswith(".npz"):  # the name save_embeddings writes
+        out_path = out_path.with_name(out_path.name + ".npz")
+    if dist.is_primary():
+        save_embeddings(out_path, features, keys)
+        log.info("embedded %d images from %s -> %s", len(keys), source, out_path)
     return out_path
 
 

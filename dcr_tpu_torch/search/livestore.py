@@ -650,7 +650,7 @@ def _host_topk(q: np.ndarray, feats: np.ndarray, keys: np.ndarray, *, top_k: int
     return top_scores.astype(np.float32), out_keys
 
 
-def query_live(store_dir: str | Path, queries: np.ndarray, *, top_k: int = 1,
+def query_live(store_dir: str | Path, queries: np.ndarray, *, top_k: int = 1, mesh=None,
                query_batch: int = 64, segment_rows: int = 0, normalize_queries: bool = False,
                normalize_rows: bool = False, engine=None,
                tail: Optional[tuple[np.ndarray, np.ndarray]] = None,
@@ -661,11 +661,13 @@ def query_live(store_dir: str | Path, queries: np.ndarray, *, top_k: int = 1,
     search stage's ``--ann``, the risk index); ``tail`` serves an in-memory
     tail (the ingesting worker's). Otherwise both come from disk, the tail
     read-only and paired with the engine snapshot's ``wal_through``, so no
-    row is seen twice or missed."""
+    row is seen twice or missed. With ``mesh`` the engine it opens shards
+    the committed rows over the mesh's ranks; the tail is merged on the host
+    alike on every rank, so every rank returns the same answer."""
     q = np.asarray(queries, np.float32)
     store_dir = Path(store_dir)
     if engine is None and _has_committed(store_dir):
-        engine = open_engine(store_dir, top_k=top_k, query_batch=query_batch,
+        engine = open_engine(store_dir, mesh=mesh, top_k=top_k, query_batch=query_batch,
                              segment_rows=segment_rows, normalize_queries=normalize_queries,
                              normalize_rows=normalize_rows, device=device)
     after = engine.reader.wal_through if engine is not None else 0

@@ -12,6 +12,12 @@ the store's top-k engine instead, and :func:`search_store_ann` the IVF
 tier's approximate engine; with ``live`` both merge in the store's WAL tail
 (:mod:`dcr_tpu_torch.search.livestore`). Results land in a ``.npz`` with
 named fields, as the JAX package writes them.
+
+:func:`run_search` builds the mesh of ``cfg.mesh`` over the job's processes
+(one process per device, ``core/dist``) and hands it to the engines, which
+shard the store's rows over its ``data`` x ``fsdp`` ranks; every rank gets
+the whole answer and rank 0 writes the file. The brute force takes no mesh
+in the JAX package: on a mesh it runs on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -24,11 +30,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from dcr_tpu_torch.core import dist
 from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import tracing
 from dcr_tpu_torch.core.config import SearchConfig, validate_search_config
 from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.core.fsio import quarantine_rename
+from dcr_tpu_torch.parallel import mesh as pmesh
 from dcr_tpu_torch.search.annindex import DEFAULT_NPROBE, DEFAULT_SHORTLIST_K, open_ann_engine
 from dcr_tpu_torch.search.embed import find_embedding_file, load_embeddings, quarantine_sidecar
 from dcr_tpu_torch.search.livestore import query_live
@@ -163,7 +171,7 @@ def search_store(gen_features: np.ndarray, gen_keys: Sequence[str],
 
 
 def search_store_ann(gen_features: np.ndarray, gen_keys: Sequence[str],
-                     store_dir: str | Path, *, top_k: int = 1, nprobe: int = 0,
+                     store_dir: str | Path, *, top_k: int = 1, mesh=None, nprobe: int = 0,
                      shortlist_k: int = 0, query_batch: int = 64, segment_rows: int = 0,
                      live: bool = False, device: str | torch.device = "cuda") -> dict:
     """The ann path of :func:`search_store`: an nprobe-bounded IVF scan over
@@ -174,7 +182,8 @@ def search_store_ann(gen_features: np.ndarray, gen_keys: Sequence[str],
     n = len(gen_features)
     if n == 0:
         return _empty_result(top_k)
-    engine = open_ann_engine(store_dir, top_k=top_k, nprobe=int(nprobe) or DEFAULT_NPROBE,
+    engine = open_ann_engine(store_dir, mesh=mesh, top_k=top_k,
+                             nprobe=int(nprobe) or DEFAULT_NPROBE,
                              shortlist_k=int(shortlist_k) or DEFAULT_SHORTLIST_K,
                              query_batch=query_batch, segment_rows=segment_rows,
                              device=device)
@@ -195,8 +204,14 @@ def run_search(cfg: SearchConfig, *, laion_folders: Sequence[str | Path] = (),
     """The whole stage: load the generations' embeddings, search (the IVF
     tier when ``cfg.ann``, the committed store plus its WAL tail when
     ``cfg.live``, store-backed when ``cfg.store_dir`` names a built store,
-    else the per-folder brute force) and write ``cfg.out_path``."""
+    else the per-folder brute force) and write ``cfg.out_path``, on the
+    mesh of ``cfg.mesh`` over the job's processes (module docstring)."""
     validate_search_config(cfg)
+    device = dist.job_device(device)
+    dist.initialize(device)
+    mesh = pmesh.make_mesh(cfg.mesh)
+    primary = dist.is_primary()
+    out = Path(cfg.out_path)
     gen_emb = find_embedding_file(cfg.gen_folder)
     if gen_emb is None:
         raise FileNotFoundError(
@@ -207,25 +222,25 @@ def run_search(cfg: SearchConfig, *, laion_folders: Sequence[str | Path] = (),
         if not cfg.store_dir:
             raise ValueError("--ann needs --store_dir (the IVF tier indexes a built store)")
         result = search_store_ann(gen_features, gen_keys, cfg.store_dir, top_k=top_k,
-                                  nprobe=cfg.nprobe, shortlist_k=cfg.shortlist_k,
+                                  mesh=mesh, nprobe=cfg.nprobe, shortlist_k=cfg.shortlist_k,
                                   query_batch=cfg.query_batch, segment_rows=cfg.segment_rows,
                                   live=cfg.live, device=device)
     elif cfg.store_dir and cfg.live:
         scores, keys = query_live(cfg.store_dir, np.asarray(gen_features, np.float32),
-                                  top_k=top_k, query_batch=cfg.query_batch,
+                                  top_k=top_k, mesh=mesh, query_batch=cfg.query_batch,
                                   segment_rows=cfg.segment_rows, device=device)
         result = {"scores": scores, "keys": keys,
                   "gen_images": np.asarray(list(gen_keys), dtype=object)}
     elif cfg.store_dir:
-        result = search_store(gen_features, gen_keys, cfg.store_dir, top_k=top_k,
+        result = search_store(gen_features, gen_keys, cfg.store_dir, top_k=top_k, mesh=mesh,
                               query_batch=cfg.query_batch, segment_rows=cfg.segment_rows,
                               device=device)
-    else:
+    elif primary:
         result = search_folders(gen_features, gen_keys, laion_folders, top_k=top_k,
                                 num_chunks=cfg.num_chunks, device=device)
-    out = Path(cfg.out_path)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    np.savez(out, scores=result["scores"], keys=result["keys"].astype(str),
-             gen_images=result["gen_images"].astype(str))
-    log.info("search results -> %s", out)
+    if primary:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(out, scores=result["scores"], keys=result["keys"].astype(str),
+                 gen_images=result["gen_images"].astype(str))
+        log.info("search results -> %s", out)
     return out

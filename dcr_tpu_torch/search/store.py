@@ -629,6 +629,14 @@ class EmbeddingStoreReader:
 
     # -- serving -------------------------------------------------------------
 
+    def load_shard(self, index: int) -> Optional[tuple[np.ndarray, np.ndarray]]:
+        """Verified ``(features [n, D], keys [n])`` of the manifest's shard
+        ``index``, or None once it is quarantined and counted; the snapshot
+        is checked first, as :meth:`iter_shards` checks it (a rank of a mesh
+        reads only the shards that hold its rows)."""
+        self.check_snapshot()
+        return self._load_shard(self.manifest["shards"][index])
+
     def check_snapshot(self) -> None:
         """Raise :class:`StoreSnapshotChangedError` when the store's
         snapshot moved since this reader opened. Called before every shard

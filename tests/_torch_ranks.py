@@ -259,6 +259,123 @@ def case_train_cli(rank: int, world: int, tmp: Path, args: dict) -> None:
     train.main(args["argv"])
 
 
+def case_mesh_search(rank: int, world: int, tmp: Path, args: dict) -> None:
+    """Each run of ``args["runs"]`` on this rank, in order: the exact engine
+    (``exact``), the ANN engine (``ann``) or ``query_live`` (``live``) over
+    the run's mesh, on ``<tmp>/q.npy``; ``dcr-search-torch``'s main
+    (``cli``); or a copy-risk index over a store (``copyrisk``, which must
+    make no cross-rank exchange). What each computed, with its exchanges,
+    goes to ``mesh_search_<rank>.pkl``."""
+    import pickle
+
+    import numpy as np
+
+    from dcr_tpu_torch.cli import search as cli
+    from dcr_tpu_torch.core.config import MeshConfig, RiskConfig
+    from dcr_tpu_torch.obs.copyrisk import CopyRiskIndex
+    from dcr_tpu_torch.parallel import mesh as pmesh
+    from dcr_tpu_torch.search import annindex as AI
+    from dcr_tpu_torch.search import livestore as LS
+    from dcr_tpu_torch.search import shardindex as SI
+    from dcr_tpu_torch.search.store import EmbeddingStoreReader
+
+    _join(rank, world, tmp)
+    q = np.load(tmp / "q.npy")
+    out: dict = {}
+    for name, run in args["runs"].items():
+        kind, kw = run["kind"], run.get("kw", {})
+        pmesh.EXCHANGE_STATS.clear()
+        rec: dict = {}
+        if kind == "cli":
+            cli.main(run["argv"])
+        elif kind == "copyrisk":
+            index = CopyRiskIndex.load(RiskConfig(store_dir=run["store"], image_size=32,
+                                                  top_k=2), batch=2, device="cpu")
+            images = np.random.default_rng(rank).uniform(0, 1, (2, 40, 40, 3))
+            rec["scores"] = [s.max_sim for s in index.score_batch(images)]
+        else:
+            mesh = pmesh.make_mesh(MeshConfig(**run["mesh"]))
+            if kind == "live":
+                rec["scores"], rec["keys"] = LS.query_live(run["store"], q, mesh=mesh,
+                                                           device="cpu", **kw)
+            else:
+                eng = (SI.ShardedTopK(EmbeddingStoreReader(run["store"]), mesh=mesh,
+                                      device="cpu", **kw) if kind == "exact" else
+                       AI.AnnEngine(run["store"], mesh=mesh, device="cpu", **kw)).build()
+                rec["scores"], rec["keys"] = eng.query(q)
+                rec.update(segment_rows=eng.segment_rows, resident=eng.resident,
+                           rows_held=eng.rows_held,
+                           rerank_rows=getattr(eng, "rerank_rows", None))
+        rec["exchanges"] = dict(pmesh.EXCHANGE_STATS)
+        out[name] = rec
+    (tmp / f"mesh_search_{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def case_mesh_eval(rank: int, world: int, tmp: Path, args: dict) -> None:
+    """``dcr-eval-torch``'s main for each ``args["eval"]`` argv,
+    ``dcr-search-torch embed`` for each ``args["embed"]`` argv, and the
+    similarity products of ``<tmp>/sim.npz`` over the job's ``data`` mesh,
+    on this rank; the scalars, the embed's decode counts, the matrices and
+    every path this rank opened for writing (or made) under
+    ``args["watch"]`` go to ``mesh_eval_<rank>.pkl``."""
+    import os
+    import pickle
+    import sys
+
+    import numpy as np
+    import torch
+
+    from dcr_tpu_torch.cli import evaluate
+    from dcr_tpu_torch.cli import search as cli
+    from dcr_tpu_torch.core import tracing
+    from dcr_tpu_torch.core.config import MeshConfig
+    from dcr_tpu_torch.data.tokenizer import HashTokenizer
+    from dcr_tpu_torch.eval import runner
+    from dcr_tpu_torch.eval import similarity as SIM
+    from dcr_tpu_torch.parallel import mesh as pmesh
+
+    written: list[str] = []
+
+    def audit(event: str, a: tuple) -> None:
+        if event == "open" and isinstance(a[0], (str, bytes, os.PathLike)):
+            mode, flags = a[1], a[2]
+            writes = (any(c in mode for c in "wax+") if isinstance(mode, str)
+                      else bool(flags & (os.O_WRONLY | os.O_RDWR)))
+        else:
+            writes = event in ("os.mkdir", "os.rename", "os.replace")
+        if writes:
+            path = os.fsdecode(a[0])
+            if path.startswith(tuple(args["watch"])):
+                written.append(path)
+
+    sys.addaudithook(audit)
+    _join(rank, world, tmp)
+    backbone = torch.load(tmp / "sscd.pt")
+    plain_run_eval = runner.run_eval
+    # the weights and tokenizer the test's own runs use
+    evaluate.run_eval = lambda cfg, **kw: plain_run_eval(
+        cfg, backbone_state_dict=backbone, tokenizer=HashTokenizer(1000, 77), **kw)
+    out: dict = {"eval": {}, "embed": {}}
+    for name, argv in args["eval"].items():
+        out["eval"][name] = evaluate.main(argv)
+    for name, argv in args["embed"].items():
+        before = tracing.registry().counters("search/embed_decoded")
+        cli.main(["embed", *argv])
+        after = tracing.registry().counters("search/embed_decoded")
+        out["embed"][name] = {k: after[k] - before.get(k, 0) for k in after}
+    mesh = pmesh.make_mesh(MeshConfig(data=world))
+    with np.load(tmp / "sim.npz") as z:
+        values, query = z["values"], z["query"]
+    out["sim"] = {
+        "dot": SIM.similarity_matrix(values, query, block_size=5, device="cpu", mesh=mesh),
+        "cross": SIM.similarity_matrix(values, query, metric="splitloss", num_chunks=4,
+                                       chunk_style="cross", block_size=5, device="cpu",
+                                       mesh=mesh),
+        "bg": SIM.train_train_background(values, block_size=5, device="cpu", mesh=mesh)}
+    out["written"] = written
+    (tmp / f"mesh_eval_{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
 CASES = {name[len("case_"):]: fn for name, fn in list(globals().items())
          if name.startswith("case_")}
 

@@ -425,7 +425,7 @@ def test_engine_refuses_width_mismatch_raw_rows_for_cosine_and_unported(tmp_path
     shutil.copytree(store / "ann", other / "ann")
     with pytest.raises(ann.AnnError, match="width"):
         AI.AnnEngine(other, device="cpu")
-    with pytest.raises(NotPortedError, match="item 9b"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         AI.AnnEngine(store, mesh=object(), device="cpu")
     with pytest.raises(NotPortedError, match="item 7"):
         AI.AnnEngine(store, warm_dir="w", device="cpu")

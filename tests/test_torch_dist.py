@@ -238,15 +238,25 @@ def test_health_check_refuses_an_incoherent_topology(monkeypatch):
 @pytest.mark.parametrize("where", ["eval", "search", "serve"])
 def test_a_mesh_outside_training_still_raises_naming_item_9b(where, tmp_path):
     """Training and bulk sampling run a mesh (items 9a and 9b's first
-    half); a mesh in eval, search and serving is the rest of item 9b and
-    raises, never ignored."""
+    half), and so do eval and search (9b's second half, the rank jobs of
+    tests/test_torch_mesh_{eval,search}.py): a ``data = 2`` mesh passes
+    their validators. A mesh in serving is the rest of item 9b and raises,
+    never ignored."""
     mesh = TC.MeshConfig(data=2)
     calls = {
         "eval": lambda: TC.validate_eval_config(TC.EvalConfig(mesh=mesh)),
         "search": lambda: TC.validate_search_config(TC.SearchConfig(mesh=mesh)),
         "serve": lambda: TC.validate_serve_config(TC.ServeConfig(mesh=mesh)),
     }
-    with pytest.raises(TC.NotPortedError, match="item 9b"):
+    if where == "serve":
+        with pytest.raises(TC.NotPortedError, match="item 9b"):
+            calls[where]()
+    else:
         calls[where]()
+        # the warm cache still names its own item
+        with pytest.raises(TC.NotPortedError, match="warm"):
+            (TC.validate_eval_config(TC.EvalConfig(mesh=mesh, warm=TC.WarmCacheConfig(dir="w")))
+             if where == "eval" else
+             TC.validate_search_config(TC.SearchConfig(mesh=mesh, warm_dir="w")))
     # the data x seq mesh itself passes the training gate
     TC.validate_train_config(TC.TrainConfig(mesh=TC.MeshConfig(data=2, seq=4)))

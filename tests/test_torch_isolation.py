@@ -45,7 +45,11 @@ def test_importing_every_module_loads_no_jax_or_dcr_tpu():
                  "core.adam8bit", "core.tracing", "obs.memwatch", "utils.profiling",
                  "serve.fleet", "serve.scrape", "serve.supervisor", "obs.slo", "cli.status",
                  "core.dist", "parallel", "parallel.mesh", "ops.ring_attention",
-                 "ops.ulysses_attention", "parallel.sharding", "parallel.sharded"):
+                 "ops.ulysses_attention", "parallel.sharding", "parallel.sharded",
+                 # search and eval on a mesh of ranks
+                 "core.config", "search.store", "search.shardindex", "search.search",
+                 "search.embed", "cli.search", "eval.features", "eval.similarity",
+                 "eval.runner", "cli.evaluate", "obs.copyrisk"):
         assert f"dcr_tpu_torch.{name}" in doc["imported"]
     assert doc["bad"] == []
 

@@ -237,7 +237,9 @@ def test_embed_cli_and_cleanup(tmp_path, monkeypatch):
 def test_download_raises_with_the_img2dataset_command(tmp_path):
     with pytest.raises(RuntimeError, match="img2dataset --url_list part.parquet"):
         E.download_laion_chunk("part.parquet", str(tmp_path))
-    with pytest.raises(NotPortedError, match="item 9b"):
+    # a mesh embeds as a rank job (tests/test_torch_mesh_eval.py); one of
+    # two ranks in a job of one is refused before any work
+    with pytest.raises(ValueError, match="2x1x1x1 != 1 devices"):
         E.embed_images(SearchConfig(mesh=__import__(
             "dcr_tpu_torch.core.config", fromlist=["MeshConfig"]).MeshConfig(data=2)),
             source=tmp_path, device="cpu")
