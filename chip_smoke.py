@@ -197,8 +197,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    GET /slo, dcr-status-torch --json exit 0; (f) /debug/profile through
    the supervisor to worker 1, 10 forward-kernel events per UNet call in
    its trace; (g) SIGTERM with a wave in flight, every request answered,
-   exit 83, no worker left. Ready, wave, requeue and respawn seconds,
-   both workers' memory gauges (phase_fleet);
+   exit 83, no worker left. Under --warm.dir: each respawned worker warms
+   the two buckets its previous incarnation ran (the warm manifest) and
+   loads the B1 library from the cache; after (e), worker 0 killed with
+   the manifest moved aside respawns warming the default bucket alone.
+   Ready, wave, requeue and respawn seconds (with and without the
+   manifest, the load and warm beside the first boot's), both
+   workers' memory gauges and budgets: what both hold plus what either may
+   still admit within the card's memory (phase_fleet);
 23. multi-process training (inside phase 6's temp dir, on its 48 JPEGs):
    two rank subprocesses on cuda:0 run the Trainer (b) over gloo as data =
    2 (8 rows each, losses within rtol 1e-3 and grad norms within 2e-3 of
@@ -234,6 +240,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    file; 0 flash launches. Per rank: seconds, peak memory, store or index
    read and query seconds beside one process's, the candidate exchange's
    bytes, decode ms per image;
+25. warm cache (beside phases 8, 4, 9b, 17b and 20): the kernel-shaped tiny
+   sampler (128 px, 4 DPM++ steps, f32) in three subprocesses under
+   --warm.dir: in this checkout (stores native/flash_attention_fwd), in a
+   copy of dcr_tpu_torch without _build/ (no compiler process, a cache
+   hit, PNGs equal byte for byte) and in a second copy over its own copy of
+   the warm dir with DCR_FAULTS=cache_corrupt@load=0 (one entry
+   quarantined, nvcc rebuilds once, PNGs equal); the cache load's seconds
+   beside the rebuild's. Beside them, phase 20's tiny model trains 2 steps (f32) in two
+   subprocesses under the same --warm.dir: in this checkout (stores
+   native/flash_attention_bwd) and in the copy with _build/ removed
+   (train/step resolved from the cache, both libraries hits, no compiler
+   process, the checkout run's loss);
 21. profile drill (last): POST /debug/profile on an in-process server at
    SD-2.1 widths arms torch.profiler for one device step; a 4-step request
    runs under it, and its Chrome trace holds the forward kernel's 40
@@ -3390,11 +3408,22 @@ def phase_fleet(ckpt: Path, root: Path, serve_stats: dict) -> dict:
     The fault's batch coordinate counts per process and which worker takes
     which batch of a wave is a race, so the drill first brings each worker
     to batch FLEET_FAULT_BATCH with 1-step requests sent to its own port.
-    (e) the merged
+    The fleet runs under --warm.dir: before the drills each worker has run
+    the default bucket and the drill's 1-step bucket, so the warm manifest
+    holds both, and each respawned worker must warm exactly those buckets
+    (its /healthz buckets_total equals its previous incarnation's
+    buckets_warm) and load the B1 library from the cache; its load and warm
+    seconds are printed beside the first incarnation's, which warmed the
+    default bucket alone (no manifest yet). (e) the merged
     /metrics parses as Prometheus text with both workers' series under
-    worker labels (and each worker's dcr_device_mem_* gauges: both believe
-    they own the card), GET /slo has availability and shed_rate,
-    dcr-status-torch --json exits 0. (f) POST /debug/profile through the
+    worker labels (and each worker's dcr_device_mem_* gauges and its
+    dcr_device_budget_remaining_bytes: what both hold plus what either may
+    still admit must fit the card's memory), GET /slo has availability and
+    shed_rate,
+    dcr-status-torch --json exits 0. Then worker 0 is SIGKILLed with the
+    warm manifest moved aside: its third incarnation warms the default
+    bucket alone, and its respawn-to-ready seconds are printed beside (c)'s
+    respawn with the manifest. (f) POST /debug/profile through the
     supervisor arms worker 1 for one batch of (g)'s wave of
     FLEET_PROFILE_STEPS-step requests: its Chrome trace holds 10
     forward-kernel events per UNet call. (g) SIGTERM with that wave in
@@ -3404,6 +3433,7 @@ def phase_fleet(ckpt: Path, root: Path, serve_stats: dict) -> dict:
     import base64
     import contextlib
     import io
+    import os
     import signal
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3431,7 +3461,7 @@ def phase_fleet(ckpt: Path, root: Path, serve_stats: dict) -> dict:
             "--fleet.respawn_base_delay_s=0.5", "--fleet.max_attempts=6",
             "--fleet.spawn_timeout_s=300", "--fleet.scrape_period_s=1",
             "--slo.short_window_s=5", "--slo.long_window_s=10",
-            f"--hang_timeout_s={hang_timeout_s}"]
+            f"--hang_timeout_s={hang_timeout_s}", f"--warm.dir={root / 'fleet_warm'}"]
     stats: dict = {"card": CARD[0], "faults": fault_spec, "hang_timeout_s": hang_timeout_s,
                    "phase14_batch_s": single_batch_s}
 
@@ -3473,6 +3503,10 @@ def phase_fleet(ckpt: Path, root: Path, serve_stats: dict) -> dict:
                             f"(largest |diff| per request {diff})")
         out["workers"] = sorted({doc.get("worker") for _, doc in results})
         return out
+
+    def worker_health(i: int) -> dict:
+        wport = next(w for w in _metrics(port)["workers"] if w["index"] == i)["port"]
+        return json.loads(_http(wport, "/healthz")[2])
 
     def wait_alive(n: int, timeout: float) -> float:
         t0 = time.perf_counter()
@@ -3530,9 +3564,37 @@ def phase_fleet(ckpt: Path, root: Path, serve_stats: dict) -> dict:
         # to worker 0 too, and worker 1 respawns
         with ThreadPoolExecutor(max_workers=2) as ex:
             stats["drill_direct_requests"] = list(ex.map(bring_to_batch, (0, 1)))
+        served = {i: worker_health(i)["buckets_warm"] for i in (0, 1)}
+        manifest = json.loads((root / "fleet_warm" / "warm_manifest.json").read_text())
+        stats["warm_manifest"] = manifest["entries"]
+        check(served == {0: 2, 1: 2} and len(manifest["entries"]) == 2,
+              f"before the drills each worker served 2 buckets, recorded in the manifest: "
+              f"{served}")
         lost0 = _metrics(port)["fleet"].get("workers_lost", 0)
         stats["drill_wave"] = answer(wave, "the drills' wave")
         stats["drill_respawn_wait_s"] = wait_alive(2, 300)
+        respawned = {i: worker_health(i) for i in (0, 1)}
+        stats["respawned_health"] = respawned
+        check(all(respawned[i]["buckets_total"] == served[i] for i in (0, 1)),
+              "a respawned worker did not warm its previous incarnation's buckets")
+        stats["warm_start"] = {}
+        for i in (0, 1):
+            text = worker_log(i)
+            loads = re.findall(r"\[stage\] serve_load: done in ([\d.]+)s", text)
+            warms = re.findall(r"\[stage\] serve_warm: done in ([\d.]+)s", text)
+            kernels = re.findall(r"built sampler for bucket .* \(kernels: (\w+) in ([\d.]+)s\)",
+                                 text)
+            stats["warm_start"][i] = {"load_s": [float(x) for x in loads],
+                                      "warm_s": [float(x) for x in warms],
+                                      "kernels": kernels}
+            # one sampler per bucket and incarnation: 2 at the first boot (the
+            # first worker to resolve B1 stores it, so the other may hit), 2 at
+            # the respawn, which must load from the cache
+            check(len(warms) == 2 and len(kernels) == 4
+                  and all(k == "cache" for k, _ in kernels[2:]),
+                  f"worker {i}'s respawn did not load the kernel library from the cache")
+        check(any(stats["warm_start"][i]["kernels"][0][0] == "compiled" for i in (0, 1)),
+              "no worker stored the kernel library at the first boot")
         doc = _metrics(port)
         replay = RequestJournal.replay(paths.journal)["counts"]
         stats["drill_journal"] = replay
@@ -3563,6 +3625,14 @@ def phase_fleet(ckpt: Path, root: Path, serve_stats: dict) -> dict:
                            else None,
                            "requeue": _requeue_latencies(paths.journal, i)}
             check(stats[what]["requeue"]["requeued"] >= 1, f"no {what} batch was requeued")
+            ws = stats["warm_start"][i]
+            ws["respawn_s"] = stats[what]["respawn_s"]
+        log(f"fleet respawns under --warm.dir (phase 22, {CARD[0]}): " + "; ".join(
+            f"worker {i}: respawn to ready {ws['respawn_s']} s with the manifest "
+            f"({respawned[i]['buckets_total']} buckets warmed, load {ws['load_s'][-1]} s + warm "
+            f"{ws['warm_s'][-1]} s); first boot without it (the default bucket alone) load "
+            f"{ws['load_s'][0]} s + warm {ws['warm_s'][0]} s"
+            for i, ws in stats["warm_start"].items()))
 
         # -- (e) observability ---------------------------------------------
         time.sleep(2.5)                       # two scrape periods after the respawn
@@ -3583,6 +3653,18 @@ def phase_fleet(ckpt: Path, root: Path, serve_stats: dict) -> dict:
                                "series_worker1": len(per_worker[1])}
         stats["memory_budget"] = {i: {g: per_worker[i].get(f"dcr_device_mem_{g}_bytes")
                                       for g in ("in_use", "peak", "limit")} for i in (0, 1)}
+        for i in (0, 1):
+            stats["memory_budget"][i]["remaining"] = per_worker[i].get(
+                "dcr_device_budget_remaining_bytes")
+        card_bytes = torch.cuda.get_device_properties(0).total_memory
+        held = sum(stats["memory_budget"][i]["in_use"] or 0 for i in (0, 1))
+        most = max(stats["memory_budget"][i]["remaining"] or 0 for i in (0, 1))
+        stats["memory_budget"]["card_bytes"] = card_bytes
+        stats["memory_budget"]["held_plus_most_remaining"] = held + most
+        check(all(stats["memory_budget"][i]["remaining"] for i in (0, 1))
+              and held + most <= card_bytes,
+              "the workers' budgets: what both hold plus what either may still admit "
+              "exceeds the card's memory")
         check(code == 200 and not bad_lines and per_worker[0] and per_worker[1]
               and "dcr_serve_completed_total" in per_worker[0]
               and "dcr_serve_completed_total" in per_worker[1]
@@ -3612,6 +3694,40 @@ def phase_fleet(ckpt: Path, root: Path, serve_stats: dict) -> dict:
                                "slo_state": status_doc.get("slo", {}).get("state"),
                                "journal": status_doc.get("journal")}
         check(rc == 0 and status_doc.get("workers_alive") == 2, f"dcr-status-torch: rc {rc}")
+
+        # -- a respawn without the manifest ----------------------------------
+        # worker 0 SIGKILLed with warm_manifest.json moved aside: its third
+        # incarnation warms the default bucket alone, to set beside (c)'s
+        # respawn, which warmed the manifest's two
+        manifest_path = root / "fleet_warm" / "warm_manifest.json"
+        manifest_path.rename(manifest_path.with_name("warm_manifest.json.aside"))
+        os.kill(next(w["pid"] for w in _metrics(port)["workers"] if w["index"] == 0),
+                signal.SIGKILL)
+        t0 = time.perf_counter()
+        while True:
+            w0 = next(w for w in _metrics(port)["workers"] if w["index"] == 0)
+            if w0["incarnation"] == 3 and w0["state"] == "alive" \
+                    and worker_health(0).get("status") == "ok":
+                break
+            check(time.perf_counter() - t0 < 300 and sup.proc.poll() is None,
+                  "worker 0 did not respawn without the manifest")
+            time.sleep(0.2)
+        text = sup.text()
+        lost_t = _log_times(text, r'fleet_worker_lost .*"worker": 0\}')
+        joined_t = _log_times(text, r'fleet_worker_joined .*"incarnation": 3.*"worker": 0')
+        text0 = worker_log(0)
+        bare = {"respawn_s": joined_t[0] - lost_t[-1] if lost_t and joined_t else None,
+                "buckets_total": worker_health(0)["buckets_total"],
+                "load_s": float(re.findall(r"\[stage\] serve_load: done in ([\d.]+)s",
+                                           text0)[-1]),
+                "warm_s": float(re.findall(r"\[stage\] serve_warm: done in ([\d.]+)s",
+                                           text0)[-1])}
+        stats["respawn_without_manifest"] = bare
+        check(bare["buckets_total"] == 1 and bare["respawn_s"] is not None,
+              "worker 0's respawn without the manifest did not warm the default bucket alone")
+        log(f"fleet respawn without the manifest (phase 22, {CARD[0]}): worker 0 respawn to "
+            f"ready {bare['respawn_s']} s (1 bucket warmed, load {bare['load_s']} s + warm "
+            f"{bare['warm_s']} s), against {stats['crash']['respawn_s']} s with it")
 
         # -- (f) profiling through the supervisor, (g) the drain ---------------
         # the profiled batch is one of the drain's wave: a capture slows the
@@ -3664,6 +3780,284 @@ def phase_fleet(ckpt: Path, root: Path, serve_stats: dict) -> dict:
         stats["supervisor_log_tail"] = sup.text()[-1500:].splitlines()[-6:]
         stats["phase_s"] = time.perf_counter() - t_phase
         log(f"serving fleet (phase 22, {CARD[0]}): {json.dumps(stats, default=str)}")
+    return stats
+
+
+# the warm-cache drills' sampler: the kernel-shaped tiny model at 128 px,
+# 4 DPM++ steps, one prompt x 2 images, f32 (3 B1 launches per UNet call)
+_WARM_SAMPLE = r"""
+import hashlib, json, sys, time
+from pathlib import Path
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import dcr_tpu_torch
+from dcr_tpu_torch.core import resilience as R
+from dcr_tpu_torch.core import tracing, warmcache
+from dcr_tpu_torch.core.config import ModelConfig, SampleConfig, WarmCacheConfig
+from dcr_tpu_torch.ops import build
+from dcr_tpu_torch.ops import flash_attention as fa
+from dcr_tpu_torch.sampling.pipeline import build_models, generate
+
+warm_dir, out = sys.argv[1], Path(sys.argv[2])
+resolved = []
+real_aot = warmcache.aot_compile
+
+
+def spy(*args, **kwargs):
+    res = real_aot(*args, **kwargs)
+    resolved.append({"surface": res.surface, "source": res.source, "build_s": res.build_s})
+    return res
+
+
+warmcache.aot_compile = spy
+models = build_models(ModelConfig(**json.loads(sys.argv[3])), "cuda", seed=0)
+fa.flash_attention_fwd.launches = 0
+t0 = time.perf_counter()
+generate(SampleConfig(resolution=128, num_inference_steps=4, sampler="dpm++", num_batches=1,
+                      im_batch=2, seed=0, savepath=str(out),
+                      warm=WarmCacheConfig(dir=warm_dir)),
+         modelstyle="nolevel", models=models, prompts=["a red square"], device="cuda")
+torch.cuda.synchronize()
+reg = tracing.registry()
+print(json.dumps({
+    "package": dcr_tpu_torch.__file__,
+    "compiler_runs": dict(build.compiler_runs),
+    "resolutions": {Path(k).name: v for k, v in build.resolutions.items()},
+    "hits": reg.counter("warmcache/hits").value,
+    "misses": reg.counter("warmcache/misses").value,
+    "stores": reg.counter("warmcache/stores").value,
+    "faults": R.counters(),
+    "launches": fa.flash_attention_fwd.launches,
+    "resolved": resolved,
+    "toolchain": build.toolchain(True),
+    "generate_s": time.perf_counter() - t0,
+    "png_sha256": [hashlib.sha256(p.read_bytes()).hexdigest()
+                   for p in sorted((out / "generations").glob("*.png"))],
+}))
+"""
+
+
+def _warm_sample(tree: Path, warm: Path, out: Path, env: dict) -> dict:
+    """_WARM_SAMPLE run from ``tree`` (its dcr_tpu_torch alone on the path);
+    the subprocess's JSON with its wall seconds."""
+    import dataclasses
+
+    model = {f.name: getattr(_tiny_kernel_cfg(), f.name)
+             for f in dataclasses.fields(_tiny_kernel_cfg())}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _WARM_SAMPLE, str(warm), str(out),
+                           json.dumps(model)], cwd=str(tree), env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"warm-cache sampler in {tree} exited {proc.returncode}:\n"
+                             + proc.stderr[-4000:])
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    doc["wall_s"] = time.perf_counter() - t0
+    doc["log"] = [line for line in proc.stderr.splitlines()
+                  if "warm cache" in line or "warmcache" in line][-6:]
+    return doc
+
+
+# the warm-cache drills' trainer: phase 20's kernel-shaped tiny model at
+# 128 px, batch 2, 2 steps, f32 (3 launches of each of B1, B2, B3 a step)
+WARM_TRAIN_STEPS = 2
+
+_WARM_TRAIN = r"""
+import json, sys, time
+from pathlib import Path
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import dcr_tpu_torch
+from dcr_tpu_torch.core import tracing, warmcache
+from dcr_tpu_torch.core.config import TrainConfig, parse_cli
+from dcr_tpu_torch.diffusion.trainer import Trainer
+from dcr_tpu_torch.ops import build
+from dcr_tpu_torch.ops import flash_attention as fa
+
+resolved = []
+real_aot = warmcache.aot_compile
+
+
+def spy(*args, **kwargs):
+    res = real_aot(*args, **kwargs)
+    resolved.append({"surface": res.surface, "source": res.source, "build_s": res.build_s})
+    return res
+
+
+warmcache.aot_compile = spy
+cfg = parse_cli(TrainConfig, [f"--config={sys.argv[1]}"])
+fa.flash_attention_fwd.launches = 0
+fa.flash_attention_bwd.dq_launches = fa.flash_attention_bwd.dkv_launches = 0
+t0 = time.perf_counter()
+metrics = Trainer(cfg, device="cuda").train()
+torch.cuda.synchronize()
+reg = tracing.registry()
+print(json.dumps({
+    "package": dcr_tpu_torch.__file__,
+    "compiler_runs": dict(build.compiler_runs),
+    "resolutions": {Path(k).name: v for k, v in build.resolutions.items()},
+    "hits": reg.counter("warmcache/hits").value,
+    "stores": reg.counter("warmcache/stores").value,
+    "launches_fwd_dq_dkv": [fa.flash_attention_fwd.launches, fa.flash_attention_bwd.dq_launches,
+                            fa.flash_attention_bwd.dkv_launches],
+    "resolved": resolved,
+    "loss": float(metrics["loss"]),
+    "train_s": time.perf_counter() - t0,
+}))
+"""
+
+
+def _warm_train(tree: Path, root: Path, name: str, warm: Path, env: dict) -> dict:
+    """_WARM_TRAIN run from ``tree`` (its dcr_tpu_torch alone on the path)
+    over the PNGs of ``root/warm_data`` under --warm.dir; the subprocess's
+    JSON with its wall seconds."""
+    from dcr_tpu_torch.core.config import DataConfig, OptimConfig, TrainConfig, save_config
+
+    cfg = TrainConfig(output_dir=str(root / name), max_train_steps=WARM_TRAIN_STEPS,
+                      log_every=1, train_batch_size=2, mixed_precision="no", seed=0)
+    cfg.model = _tiny_kernel_cfg()
+    cfg.data = DataConfig(train_data_dir=str(root / "warm_data"), resolution=128,
+                          class_prompt="nolevel", num_workers=2)
+    cfg.optim = OptimConfig(learning_rate=1e-4, lr_scheduler="constant", lr_warmup_steps=0)
+    cfg.warm.dir = str(warm)
+    save_config(cfg, root / f"{name}.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _WARM_TRAIN, str(root / f"{name}.json")],
+                          cwd=str(tree), env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"warm-cache trainer in {tree} exited {proc.returncode}:\n"
+                             + proc.stderr[-4000:])
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    doc["wall_s"] = time.perf_counter() - t0
+    return doc
+
+
+def phase_warm_cache(root: Path) -> dict:
+    """Phase 25: the warm cache (core/warmcache.py) from a cold tree. (a) In
+    this checkout (its _build/ holds the libraries phase 2 built), a
+    sampler subprocess under --warm.dir stores native/flash_attention_fwd
+    (a miss, no nvcc). (b) dcr_tpu_torch/ copied without _build/ to a
+    temporary tree: the same sampler there runs no compiler process at all
+    (compiler_runs empty; the compiler's identity is its executable's
+    sha256), counts a warm-cache
+    hit, resolves the library from the cache and writes PNGs equal to (a)'s
+    byte for byte. (c) A second copy without _build/, over its own copy of
+    (a)'s warm dir, under DCR_FAULTS=cache_corrupt@load=0: the damaged
+    entry is quarantined (faults warmcache/cache_corrupt 1, one
+    *.quarantined.* file), nvcc rebuilds the library once, it is stored
+    again, and the PNGs are (a)'s. The trainer's warm start: (d) a 2-step
+    training subprocess in this checkout under (a)'s --warm.dir finds B1's
+    entry and stores native/flash_attention_bwd (B2 and B3); (e) the same
+    run in (b)'s copy with its _build/ removed resolves train/step from
+    the cache (both libraries hits, no compiler process) and ends at (d)'s
+    loss. (b), (c) and (d) run at once after (a), (e) after (b) and (d).
+    Reported: each run's seconds, the cache load's seconds against the
+    rebuild's nvcc seconds (beside the other runs), B1 launches per
+    sampler run (12: 3 per UNet call) and B1/B2/B3 launches per training
+    run (3 each a step)."""
+    import os
+
+    from dcr_tpu_torch.sampling.png import write_png
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    warm, drill_warm = root / "warm", root / "warm_drill"
+    cold, drill_tree = root / "cold", root / "cold_drill"
+    repo = Path(__file__).resolve().parent
+    for tree in (cold, drill_tree):
+        shutil.copytree(repo / "dcr_tpu_torch", tree / "dcr_tpu_torch",
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    env = {k: v for k, v in os.environ.items() if k not in ("DCR_FAULTS", "PYTHONPATH")}
+    stats: dict = {"card": CARD[0]}
+    fill = _warm_sample(repo, warm, root / "out_fill", dict(env, PYTHONPATH=str(repo)))
+    # the drill damages its own copy of B1's entry, so it runs beside the
+    # cold tree's sampler and trainer, which read the shared one
+    shutil.copytree(warm, drill_warm)
+    for i in range(4):
+        (root / "warm_data" / f"c{i % 2}").mkdir(parents=True, exist_ok=True)
+        write_png(root / "warm_data" / f"c{i % 2}" / f"{i}.png", _photo(i, 128, 128))
+    with ThreadPoolExecutor(2) as ex:
+        drilling = ex.submit(_warm_sample, drill_tree, drill_warm, root / "out_drill",
+                             dict(env, PYTHONPATH=str(drill_tree),
+                                  DCR_FAULTS="cache_corrupt@load=0"))
+        hitting = ex.submit(_warm_sample, cold, warm, root / "out_cold",
+                            dict(env, PYTHONPATH=str(cold)))
+        train_fill = _warm_train(repo, root, "train_fill", warm, dict(env, PYTHONPATH=str(repo)))
+        hit = hitting.result()
+        shutil.rmtree(cold / "dcr_tpu_torch" / "_build")
+        train_cold = _warm_train(cold, root, "train_cold", warm, dict(env, PYTHONPATH=str(cold)))
+        drill = drilling.result()
+    stats.update(fill=fill, cold=hit, corrupt_drill=drill, train_fill=train_fill,
+                 train_cold=train_cold, entries=sorted(p.name for p in warm.iterdir()),
+                 drill_entries=sorted(p.name for p in drill_warm.iterdir()))
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"warm cache: {what}: {json.dumps(stats, default=str)}")
+
+    def sampler(doc: dict) -> dict:
+        return next(r for r in doc["resolved"] if r["surface"] == "sample/sampler")
+
+    fwd = "flash_attention_fwd.cu"
+    check(fill["package"].startswith(str(repo)) and hit["package"].startswith(str(cold))
+          and drill["package"].startswith(str(drill_tree)),
+          "a run imported another tree's package")
+    check(fill["compiler_runs"].get("flash_attention_fwd", 0) == 0
+          and fill["resolutions"].get(fwd) == "compiled" and fill["stores"] >= 1,
+          "the fill run did not store the library it found built")
+    check(hit["compiler_runs"] == {}, "the cold tree ran a compiler process")
+    check(hit["resolutions"].get(fwd) == "cache" and hit["hits"] >= 1
+          and sampler(hit)["source"] == "cache", "the cold tree did not load from the cache")
+    check(drill["faults"].get("warmcache/cache_corrupt") == 1
+          and sum(".quarantined." in n for n in stats["drill_entries"]) == 1,
+          "the cache_corrupt drill did not quarantine one entry")
+    check(drill["compiler_runs"].get("flash_attention_fwd") == 1
+          and drill["resolutions"].get(fwd) == "compiled" and drill["stores"] >= 1,
+          "the cache_corrupt drill did not rebuild and store the library")
+    for doc in (fill, hit, drill):
+        check(doc["launches"] == 12, f"B1 launches {doc['launches']} != 12")
+    bwd = "flash_attention_bwd.cu"
+
+    def train_step(doc: dict) -> dict:
+        return next(r for r in doc["resolved"] if r["surface"] == "train/step")
+
+    check(train_fill["package"].startswith(str(repo))
+          and train_cold["package"].startswith(str(cold)), "a training run imported another "
+          "tree's package")
+    check(train_fill["compiler_runs"] == {} and train_fill["resolutions"].get(fwd) == "cache"
+          and train_fill["resolutions"].get(bwd) == "compiled" and train_fill["stores"] >= 1,
+          "the training fill run did not find B1's entry and store B2/B3's")
+    check(train_cold["compiler_runs"] == {}, "the cold tree's trainer ran a compiler process")
+    check(train_cold["resolutions"].get(fwd) == train_cold["resolutions"].get(bwd) == "cache"
+          and train_cold["hits"] >= 2 and train_step(train_cold)["source"] == "cache",
+          "the cold tree's trainer did not load both libraries from the cache")
+    for doc in (train_fill, train_cold):
+        check(doc["launches_fwd_dq_dkv"] == [3 * WARM_TRAIN_STEPS] * 3,
+              f"training launches {doc['launches_fwd_dq_dkv']}")
+    check(math.isfinite(train_cold["loss"])
+          and abs(train_cold["loss"] - train_fill["loss"]) <= 1e-4 * abs(train_fill["loss"]),
+          "the cold tree's training loss is not the fill run's")
+    check(len(fill["png_sha256"]) == 2 and hit["png_sha256"] == fill["png_sha256"]
+          and drill["png_sha256"] == fill["png_sha256"], "the PNGs differ across the runs")
+    stats["cache_load_s"] = sampler(hit)["build_s"]
+    stats["rebuild_s"] = sampler(drill)["build_s"]
+    stats["train_cache_load_s"] = train_step(train_cold)["build_s"]
+    log(f"warm cache (phase 25, {CARD[0]}): toolchain {hit['toolchain']!r}; fill run "
+        f"{fill['wall_s']:.1f} s (stored, no nvcc), cold tree {hit['wall_s']:.1f} s "
+        f"(compiler runs {hit['compiler_runs']}, hits {hit['hits']}, library from the cache "
+        f"in {stats['cache_load_s']:.3f} s), cache_corrupt drill {drill['wall_s']:.1f} s "
+        f"(quarantined 1, nvcc rebuild {stats['rebuild_s']:.1f} s); B1 launches 12 per run; "
+        f"PNGs equal across the three runs; trainer: fill {train_fill['wall_s']:.1f} s "
+        f"(stored B2/B3), cold tree {train_cold['wall_s']:.1f} s (compiler runs "
+        f"{train_cold['compiler_runs']}, B1 and B2/B3 from the cache in "
+        f"{stats['train_cache_load_s']:.3f} s, loss {train_cold['loss']!r} against "
+        f"{train_fill['loss']!r}); entries {stats['entries']}")
     return stats
 
 
@@ -6387,14 +6781,18 @@ def main() -> int:
     codec = run_phase("2b jpeg codec", phase_jpeg_codec)
     kern = run_phase("3 kernels B1", phase_kernels, reps=10)
     bwd = run_phase("3 kernels B2 B3", phase_bwd_kernels, reps=10)
-    # the exit drills' four children (phase 20) and phase 17's IVF retrain
-    # (a subprocess) run beside the reference phases and phase 17's drills,
+    # the exit drills' four children (phase 20), phase 17's IVF retrain
+    # (a subprocess) and phase 25's subprocesses run beside the reference phases
+    # and phase 17's drills,
     # which hold results, not times; only this thread launches kernels in
     # this process
-    with ThreadPoolExecutor(2) as pool, tempfile.TemporaryDirectory() as drill_tmp:
+    with ThreadPoolExecutor(3) as pool, tempfile.TemporaryDirectory() as drill_tmp, \
+            tempfile.TemporaryDirectory() as warm_tmp:
         drilling = pool.submit(run_phase, "20 exit drills", phase_exit_drills, Path(drill_tmp))
         retraining = pool.submit(run_phase, "17a live ivf retrain", phase_live_retrain,
                                  ann_root / "store")
+        # phase 25's sampler and trainer subprocesses hold results, not times
+        warming = pool.submit(run_phase, "25 warm cache", phase_warm_cache, Path(warm_tmp))
         limits = run_phase("8 kernel limits", phase_kernel_limits)
         run_phase("4 small reference", phase_small_reference)
         small_train = run_phase("4 small train reference", phase_small_train_reference)
@@ -6405,6 +6803,7 @@ def main() -> int:
             live_drills = run_phase("17b live drills", phase_live_drills, ann_root, Path(tmp))
         drill_stats = drilling.result()
         live_retrain = retraining.result()
+        warm_stats = warming.result()
     with tempfile.TemporaryDirectory() as tmp:
         main_stats, main = run_phase("5 sampling main path", phase_main_path, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
@@ -6577,6 +6976,7 @@ def main() -> int:
     log(f"profile drill stats: {json.dumps(profile_stats, default=str)}")
     log(f"multi-process training stats: {json.dumps(dist_stats, default=str)}")
     log(f"mesh search and eval stats: {json.dumps(mesh_stats, default=str)}")
+    log(f"warm cache stats: {json.dumps(warm_stats, default=str)}")
     log(f"phase seconds ({CARD[0]}): {json.dumps(PHASE_S)}; script "
         f"{time.perf_counter() - wall0:.1f} s")
     print(json.dumps({"kernels": entries}))

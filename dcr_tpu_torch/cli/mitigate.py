@@ -20,7 +20,7 @@ import sys
 from pathlib import Path
 
 from dcr_tpu_torch.cli import device_from_env
-from dcr_tpu_torch.core.config import SampleConfig, parse_cli, refuse_unported_sample_flags
+from dcr_tpu_torch.core.config import SampleConfig, parse_cli
 from dcr_tpu_torch.core.rng import host_python_rng
 from dcr_tpu_torch.data.tokenizer import load_tokenizer
 from dcr_tpu_torch.sampling.pipeline import generate
@@ -71,7 +71,6 @@ def main(argv=None) -> Path:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s",
                         force=True)
     argv = list(sys.argv[1:] if argv is None else argv)
-    refuse_unported_sample_flags(argv)
     cfg = parse_cli(SampleConfig, argv)
     prompts = mitigation_plan(cfg)
     out = generate(cfg, modelstyle="fixed", prompts=prompts, device=device_from_env())

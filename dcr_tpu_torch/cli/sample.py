@@ -20,7 +20,7 @@ import sys
 from pathlib import Path
 
 from dcr_tpu_torch.cli import device_from_env
-from dcr_tpu_torch.core.config import SampleConfig, parse_cli, refuse_unported_sample_flags
+from dcr_tpu_torch.core.config import SampleConfig, parse_cli
 from dcr_tpu_torch.sampling.pipeline import generate
 
 log = logging.getLogger("dcr_tpu_torch")
@@ -52,7 +52,6 @@ def main(argv=None) -> None:
             caption_json = arg.split("=", 1)[1]
         else:
             rest.append(arg)
-    refuse_unported_sample_flags(rest)
     cfg = parse_cli(SampleConfig, rest)
     modelstyle = modelstyle or infer_modelstyle(cfg.model_path)
     out = generate(cfg, modelstyle=modelstyle, caption_json=caption_json,

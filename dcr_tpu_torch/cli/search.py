@@ -48,8 +48,9 @@ package: they run once, on rank 0, as does the brute-force ``search`` and
 ``download``'s fetch. Every rank waits at a named barrier before the
 command returns. ``--logdir=<dir>`` writes the command's spans
 (``search/chunk`` per query chunk of the folder search) to
-``<dir>/trace.jsonl`` (rank r > 0: ``trace.p<r>.jsonl``). The setting
-``warm_dir`` raises ``NotPortedError``.
+``<dir>/trace.jsonl`` (rank r > 0: ``trace.p<r>.jsonl``).
+``--warm_dir=<dir>`` is accepted and builds nothing: the engines launch no
+native kernel, so the warm cache (``core/warmcache.py``) has nothing to hold.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ import torch.distributed as tdist
 
 from dcr_tpu_torch.cli import device_from_env
 from dcr_tpu_torch.core import dist, tracing
-from dcr_tpu_torch.core.config import SearchConfig, parse_cli, validate_search_config
+from dcr_tpu_torch.core.config import SearchConfig, parse_cli
 from dcr_tpu_torch.search import ann
 from dcr_tpu_torch.search import embed as E
 from dcr_tpu_torch.search import search as S
@@ -228,7 +229,6 @@ def main(argv=None) -> None:
     if command not in ("download", "embed", "search", "query", *RANK0_COMMANDS):
         raise SystemExit(f"unknown subcommand {command!r}")
     cfg = parse_cli(SearchConfig, rest)
-    validate_search_config(cfg)
     joined_here = not tdist.is_initialized()
     device = str(dist.job_device(device_from_env()))
     dist.initialize(device)

@@ -51,7 +51,10 @@ runs longer exits 89 after every thread's stack and a dump.
 
 A second signal kills the process at once. Workers run on CUDA;
 ``DCR_TPU_PLATFORM=cpu`` selects the CPU, and a supervisor started with it
-passes it on to its workers. A mesh and the warm cache raise
+passes it on to its workers. ``--warm.dir=<dir>`` loads the kernel
+library from the warm cache and warms the buckets the previous incarnation
+ran (``warm_manifest.json``); a fleet supervisor hands its config file, and
+so the directory, to every worker it spawns or respawns. A mesh raises
 ``NotPortedError``, as do the other settings :func:`validate_serve_config`
 names.
 """
@@ -182,10 +185,10 @@ def _run_worker(cfg: ServeConfig) -> None:
     server_thread.start()
     port = httpd.server_address[1]
     log.info("dcr-serve listening on http://%s:%d (model %s, device %s, default bucket "
-             "%s, max_batch=%d, max_wait=%.0fms, queue_depth=%d, warm plan=%d bucket(s))",
+             "%s, max_batch=%d, max_wait=%.0fms, queue_depth=%d, warm plan=%d bucket(s)%s)",
              cfg.host, port, cfg.model_path, stack.device,
              service.default_bucket(), cfg.max_batch, cfg.max_wait_ms, cfg.queue_depth,
-             planned)
+             planned, f", cache {cfg.warm.dir}" if cfg.warm.dir else "")
 
     heartbeat = lease = paths = None
     if index >= 0:

@@ -59,6 +59,9 @@ def main(argv=None) -> None:
     reg = faults.registry()
     if reg:
         log.warning("fault injection ACTIVE (DCR_FAULTS): %s", reg.pending())
+    if cfg.warm.dir:
+        log.info("warm cache enabled: %s (the step's kernel libraries resolved after "
+                 "restore)", cfg.warm.dir)
     trainer = Trainer(cfg, sample_hook=make_sample_hook(), device=device_from_env())
     trainer.install_preemption_handler()
     metrics = trainer.train()

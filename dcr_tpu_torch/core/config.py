@@ -9,13 +9,13 @@ its fleet, ingest and SLO sections) and of its
 ``model_index.json`` or ``config.json`` written by either package and a
 ``dcr-sample``, ``dcr-train``, ``dcr-eval``, ``dcr-search``,
 ``dcr-mitigate`` or ``dcr-serve`` command line parse the same way here.
-Sections the port does not run yet (the warm cache; a mesh in serving)
-parse, and :func:`validate_train_config`, :func:`validate_eval_config`,
-:func:`validate_search_config` and :func:`validate_serve_config` refuse a
-setting that would need them with :class:`NotPortedError`. Training,
-bulk sampling, eval and search take a mesh of processes
-(``parallel/mesh.py``). The warm-cache section of ``SampleConfig`` is not
-ported yet: :func:`refuse_unported_sample_flags` refuses its flags.
+Sections the port does not run yet (a mesh in serving, some sharded
+combinations) parse, and :func:`validate_train_config`,
+:func:`validate_eval_config` and :func:`validate_serve_config` refuse a
+setting that would need them with :class:`NotPortedError` (every search
+setting runs). Training, bulk sampling, eval and search take a
+mesh of processes (``parallel/mesh.py``); every command takes the warm
+cache (``warm.dir`` / ``warm_dir``, ``core/warmcache.py``).
 """
 
 from __future__ import annotations
@@ -158,17 +158,7 @@ class SampleConfig:
     # the job's processes as a mesh: rows over data x fsdp, the UNet's
     # projections over tensor, its long self-attentions over seq
     mesh: "MeshConfig" = field(default_factory=lambda: MeshConfig())
-
-
-def refuse_unported_sample_flags(argv: Sequence[str]) -> None:
-    """NotPortedError for the JAX ``SampleConfig`` section the port has no
-    fields for: ``--warm.*`` (the warm cache, ROADMAP Queue A item 7c)."""
-    for arg in argv:
-        for prefix, what in (("--warm.", "the warm executable cache (ROADMAP Queue A "
-                                         "item 7c)"),):
-            if arg.startswith(prefix):
-                raise NotPortedError(f"{arg}: {what} is not ported to dcr_tpu_torch yet. "
-                                     "Run without it or use the JAX package.")
+    warm: "WarmCacheConfig" = field(default_factory=lambda: WarmCacheConfig())
 
 
 def validate_fast_config(f: FastSampleConfig) -> None:
@@ -253,9 +243,21 @@ class FaultToleranceConfig:
 
 @dataclass
 class WarmCacheConfig:
-    """Persistent executable cache (parsed; ``dir`` is not ported)."""
+    """The warm cache (``core/warmcache.py``) and warm-start readiness.
+
+    With ``dir`` set, the flash-attention libraries that sampling, serving
+    and training launch on a CUDA device load from a fingerprint-keyed
+    on-disk cache instead of being built again with ``nvcc``, and a serve
+    worker warms the buckets its previous incarnation ran
+    (``warm_manifest.json``). Eval and the copy-risk index launch no native
+    kernel and take ``dir`` without building anything; the JPEG codec's host
+    library is not cached. ``dir`` may be shared by a whole fleet (atomic
+    last-writer-wins entries) and with the JAX package (their keys never
+    collide)."""
 
     dir: str = ""
+    # serve only: run the warm plan (the default bucket plus the manifest's
+    # buckets) before reporting ready; off = /healthz never reads "warming"
     warm_start: bool = True
 
 
@@ -407,7 +409,6 @@ def _not_ported(cfg: TrainConfig) -> list[str]:
     of ``data`` x ``seq`` processes trains."""
     m = cfg.mesh
     checks = [
-        (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
         (cfg.optim.use_8bit_adam and (m.fsdp > 1 or m.tensor > 1),
          f"optim.use_8bit_adam with mesh.fsdp={m.fsdp}, mesh.tensor={m.tensor} (8-bit "
          "AdamW's blocks of the whole flattened tensor on sharded state, ROADMAP "
@@ -498,7 +499,7 @@ _EVAL_FAULT_HONOURED = ("io_retries", "retry_base_delay", "retry_max_delay")
 
 def validate_eval_config(cfg: EvalConfig) -> None:
     """ValueError for a setting no package runs, then NotPortedError for one
-    the port does not run yet: the warm cache, wandb, and any fault setting
+    the port does not run yet: wandb, and any fault setting
     other than the I/O retries at a non-default value. Every backbone (sscd,
     dino, clip, ``layer`` > 1) and every stage, the complexity stage
     included, runs, in one process or on a mesh of processes."""
@@ -513,7 +514,6 @@ def validate_eval_config(cfg: EvalConfig) -> None:
              if f.name not in _EVAL_FAULT_HONOURED
              and getattr(cfg.fault, f.name) != getattr(default_fault, f.name)]
     checks = [
-        (bool(cfg.warm.dir), "warm.dir (the warm executable cache)"),
         (cfg.use_wandb, "use_wandb (the wandb sink)"),
         (bool(fault), ", ".join(fault) + " (the port honours only the I/O retries)"),
     ]
@@ -530,8 +530,8 @@ class SearchConfig:
     package's fields and defaults. The store fields drive ``dcr-search
     build/append/verify/query``: embeddings ingested once into a
     manifest-keyed, sha256-verified shard store (``store_dir``), then queried
-    through the top-k engine instead of the per-folder brute force.
-    :func:`validate_search_config` says which settings the port runs."""
+    through the top-k engine instead of the per-folder brute force. Every
+    setting runs in the port."""
 
     parquet_path: str = ""
     laion_folder: str = ""
@@ -562,22 +562,10 @@ class SearchConfig:
     ivf_normalize: bool = False
     shortlist_k: int = 32
     json_out: bool = False       # machine-readable `stats` output
-    warm_dir: str = ""           # persistent executable cache (not ported)
+    # accepted for the JAX command line; the engines launch no native
+    # kernel, so the warm cache (core/warmcache.py) has nothing to hold
+    warm_dir: str = ""
     logdir: str = ""             # trace.jsonl sink
-
-
-def validate_search_config(cfg: SearchConfig) -> None:
-    """NotPortedError for a search setting the port does not run yet, naming
-    the ROADMAP Queue A item that ports it: the warm cache (item 7c). A mesh
-    of processes runs (``cli/search.py``)."""
-    checks = [
-        (bool(cfg.warm_dir), "warm_dir (the warm executable cache, ROADMAP Queue A item 7c)"),
-    ]
-    missing = [name for on, name in checks if on]
-    if missing:
-        raise NotPortedError(
-            "not ported to dcr_tpu_torch yet: " + "; ".join(missing)
-            + ". Run without them or use the JAX package.")
 
 
 @dataclass
@@ -683,9 +671,10 @@ class ServeConfig:
 def validate_serve_config(cfg: ServeConfig) -> None:
     """The JAX package's checks (``ValueError``), then NotPortedError for a
     serve setting the port does not run yet, naming the ROADMAP Queue A item
-    that ports it: the warm cache (item 7c), a mesh of more than one device
+    that ports it: a mesh of more than one device
     (item 9b's serving half: a worker as a group of rank processes). Eval
-    and search take a mesh; the fleet's roles and the batch watchdog run."""
+    and search take a mesh; the fleet's roles, the batch watchdog and the
+    warm cache run."""
     if cfg.sampler not in ("ddim", "dpm++", "ddpm"):
         raise ValueError("serve sampler must be 'ddim', 'dpm++' or 'ddpm'")
     if cfg.max_batch < 1:
@@ -727,7 +716,6 @@ def validate_serve_config(cfg: ServeConfig) -> None:
     validate_slo_config(cfg.slo)
     mesh_devices = _mesh_devices(cfg.mesh)
     checks = [
-        (bool(cfg.warm.dir), "warm.dir (the warm executable cache, ROADMAP Queue A item 7c)"),
         (mesh_devices > 1, f"a mesh of {mesh_devices} devices (the port serves on one; "
                            "a serving worker as a rank group is ROADMAP Queue A item 9b)"),
     ]

@@ -49,6 +49,7 @@ import torch
 
 from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import tracing
+from dcr_tpu_torch.core.compile_surface import compile_surface
 from dcr_tpu_torch.core.config import TrainConfig
 from dcr_tpu_torch.diffusion import train as T
 from dcr_tpu_torch.obs import memwatch
@@ -93,6 +94,7 @@ def merge_state(hot: HotState, frozen: dict, train_text_encoder: bool) -> T.Trai
         vae_params=frozen["vae"], opt_state=hot.opt_state, ema_params=hot.ema_params)
 
 
+@compile_surface("train/encode")
 def make_encode_stage(cfg: TrainConfig, models: T.DiffusionModels, *,
                       emit: str = "latents") -> Callable:
     """The producer: ``(frozen, batch, step, draws=None) -> enc``.
@@ -136,6 +138,7 @@ def make_encode_stage(cfg: TrainConfig, models: T.DiffusionModels, *,
     return encode_fn
 
 
+@compile_surface("train/encode_cached")
 def make_cache_stage(cfg: TrainConfig, models: T.DiffusionModels) -> Callable:
     """The latent cache's producer: ``(moments, step) -> enc``.
 
@@ -169,6 +172,7 @@ def make_cache_stage(cfg: TrainConfig, models: T.DiffusionModels) -> Callable:
     return cache_fn
 
 
+@compile_surface("train/denoise")
 def make_denoise_step(cfg: TrainConfig, models: T.DiffusionModels) -> Callable:
     """The hot step: ``(hot, enc, draws=None) -> (hot, metrics)``.
 

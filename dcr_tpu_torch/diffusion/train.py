@@ -67,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dcr_tpu_torch.core import adam8bit as A8
 from dcr_tpu_torch.core import rng as rngmod
+from dcr_tpu_torch.core.compile_surface import compile_surface
 from dcr_tpu_torch.core.config import OptimConfig, TrainConfig
 from dcr_tpu_torch.core.precision import policy_from_string
 from dcr_tpu_torch.models import schedulers as S
@@ -508,6 +509,7 @@ def make_update(cfg: TrainConfig, models: DiffusionModels,
     return update
 
 
+@compile_surface("train/step")
 def make_train_step(cfg: TrainConfig, models: DiffusionModels,
                     mesh: Optional[pmesh.Mesh] = None) -> Callable:
     """The train step: (state, batch, draws=None) -> (state, metrics).

@@ -98,7 +98,9 @@ from dcr_tpu_torch.core import dist
 from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import rng as rngmod
 from dcr_tpu_torch.core import tracing
+from dcr_tpu_torch.core import warmcache
 from dcr_tpu_torch.core.checkpoint import CheckpointManager, export_hf_layout
+from dcr_tpu_torch.core.compile_surface import compile_surface
 from dcr_tpu_torch.core.config import TrainConfig, save_config, to_dict, validate_train_config
 from dcr_tpu_torch.core.metrics import MetricWriter
 from dcr_tpu_torch.data.dataset import ObjectAttributeDataset
@@ -113,6 +115,14 @@ from dcr_tpu_torch.sampling.pipeline import build_models
 from dcr_tpu_torch.utils import faults, profiling
 
 log = logging.getLogger("dcr_tpu_torch")
+
+
+@compile_surface("train/params_finite")
+def _params_finite(trainable: dict) -> bool:
+    """Every trainable parameter finite (the NaN rollback's check of a
+    restored checkpoint)."""
+    return bool(torch.stack([torch.isfinite(p).all() for group in trainable.values()
+                             for p in group.values()]).all())
 
 
 def state_fingerprint(state: T.TrainState) -> str:
@@ -376,6 +386,31 @@ class Trainer:
         log.info("resumed from checkpoint step %d", step)
         return step
 
+    def _warm_start(self) -> None:
+        """Resolve the kernel libraries of the train step (or, pipelined, of
+        the denoiser hot step) through the warm cache
+        (``core/warmcache.py``), as the JAX trainer resolves its programs:
+        with ``warm.dir`` set, a restarted run loads verified libraries
+        instead of running nvcc. The producer stage and the params-finite
+        check launch no native kernel, so they have nothing to resolve. A
+        cache problem costs a rebuild, never the run."""
+        cfg = self.cfg
+        if not cfg.warm.dir:
+            return
+        if self.multi:
+            # the JAX rule: ranks must launch the same programs; a per-host
+            # hit racing a peer's build is not worth the skew risk
+            R.log_event("warmcache_skipped_multihost", processes=dist.process_count())
+            return
+        cache = warmcache.WarmCache(cfg.warm.dir)
+        static = {"flash_attention": cfg.model.flash_attention}
+        with tracing.span("train_warm"):
+            res = warmcache.aot_compile(
+                E.make_denoise_step if self.pipelined else T.make_train_step, (self.state,),
+                static_config=static, cache=cache)
+        log.info("warm start: %s %s in %.2fs (cache %s)", res.surface, res.source,
+                 res.build_s, cfg.warm.dir)
+
     def _rollback_possible(self) -> bool:
         """The guards of :meth:`_rollback_after_nan`, asked before the
         agreement: the checkpoints and the rollback count are the same on
@@ -409,9 +444,7 @@ class Trainer:
             skipped_total += len(skipped)
             # the checksums prove the bytes round-tripped, not that they were
             # ever sane: a checkpoint with non-finite params would re-trip
-            trainable = T.trainable_of(self.state, self.cfg.train_text_encoder)
-            finite = bool(torch.stack([torch.isfinite(p).all() for group in trainable.values()
-                                       for p in group.values()]).all())
+            finite = _params_finite(T.trainable_of(self.state, self.cfg.train_text_encoder))
             if self.state.layout is not None:  # each rank sees its shards only
                 finite = min(self.coord.agree_int(int(finite), "rollback_finite")) == 1
             if finite:
@@ -537,6 +570,9 @@ class Trainer:
             self.coord.assert_same("resume_step", step)
         if self.pipelined and cfg.pipe.latent_cache:
             self._open_latent_cache()
+        # the step's kernel libraries from the warm cache AFTER restore, so a
+        # preempted run's first step builds nothing
+        self._warm_start()
         steps_per_epoch = self.loader.steps_per_epoch()
         accum = max(1, cfg.optim.gradient_accumulation_steps)
         # stop at whichever comes first in micro-batches: the requested

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dcr_tpu_torch.core.compile_surface import compile_surface
 from dcr_tpu_torch.data.dataset import IMG_EXTENSIONS, decode_image, resize_shorter_side
 from dcr_tpu_torch.parallel import mesh as pmesh
 
@@ -176,6 +177,7 @@ class EvalImageFolder:
             yield np.stack([loaded[i] for i in idx]), np.arange(size) < real
 
 
+@compile_surface("eval/embed")
 def make_extractor(forward: Callable[[torch.Tensor], torch.Tensor],
                    device: str | torch.device, *, multiscale: bool = False
                    ) -> Callable[[np.ndarray], torch.Tensor]:

@@ -30,8 +30,10 @@ and ``histogram.png`` / ``scatter_{entropy,jpegsize,tv}.png`` /
 ``seconds``). Weights are seeded random unless a checkpoint file or state
 dict is given; every backbone is built on the CPU from its seed (so the CPU
 and the card get the same weights), frozen, and run under
-``torch.inference_mode()`` on ``device``. The warm cache, wandb and the
-fault settings other than the I/O retries are not ported
+``torch.inference_mode()`` on ``device``. ``warm.dir`` is accepted and
+builds nothing: the extractors launch no native kernel, so the warm cache
+(``core/warmcache.py``) has nothing of theirs to hold. Wandb and the fault
+settings other than the I/O retries are not ported
 (:func:`~dcr_tpu_torch.core.config.validate_eval_config`).
 
 On a mesh (``cfg.mesh`` over the job's processes, one per device; JAX
@@ -59,6 +61,7 @@ import torch
 
 from dcr_tpu_torch.core import dist
 from dcr_tpu_torch.core import resilience as R
+from dcr_tpu_torch.core.compile_surface import compile_surface
 from dcr_tpu_torch.core.config import (
     EvalConfig,
     FaultToleranceConfig,
@@ -264,6 +267,7 @@ def build_backbone(pt_style: str, arch: str, device: str | torch.device = "cuda"
     return model
 
 
+@compile_surface("eval/clip_score")
 def clip_alignment_score(folder: EvalImageFolder, tokenizer: TokenizerBase,
                          scorer: CLIPScorer, device: str | torch.device, *,
                          batch_size: int = 32, clip_image_size: int = 224,

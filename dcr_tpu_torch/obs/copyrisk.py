@@ -57,6 +57,7 @@ import torch
 from dcr_tpu_torch.core import fsio
 from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import tracing
+from dcr_tpu_torch.core.compile_surface import compile_surface
 from dcr_tpu_torch.core.config import RiskConfig
 from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.data.dataset import resize_shorter_side
@@ -159,6 +160,7 @@ def _quarantine_dump(path: Path, reason: str, quarantine: bool) -> None:
 # The scorer
 # ---------------------------------------------------------------------------
 
+@compile_surface("risk/score")
 def make_risk_scorer(top_k: int) -> Callable[[torch.Tensor, torch.Tensor],
                                              tuple[torch.Tensor, torch.Tensor]]:
     """``(index_feats [N, D], q [B, D]) -> (sims [B, K], idx [B, K])``: the

@@ -14,6 +14,11 @@
     fraction when ``torch.cuda.set_per_process_memory_fraction`` set one;
   - ``reserved_bytes``: ``reserved_bytes.all.current``, forensic only.
 
+  :func:`remaining_device_bytes` (serve's admission budget, the
+  ``device_budget/remaining_bytes`` gauge, which the JAX package does not
+  have) also takes the card's free bytes into account, so two processes
+  on one card do not each count the whole card as theirs.
+
   These are host-side reads of the allocator's counters: no read adds a
   device synchronisation. None on the CPU. :class:`MemorySampler` feeds
   the ``device_mem/*`` gauges (``dcr_device_mem_{in_use,peak,limit}_bytes``
@@ -202,12 +207,38 @@ class region_peak:
         return False
 
 
+def _card_free_bytes() -> Optional[int]:
+    """The card's free bytes as ``torch.cuda.mem_get_info`` counts them (every process on
+    the card), None where there is no card in use or under
+    ``DCR_MEMWATCH_FAKE``."""
+    if os.environ.get(FAKE_ENV) or not (torch.cuda.is_available()
+                                        and torch.cuda.is_initialized()):
+        return None
+    free, _total = torch.cuda.mem_get_info()
+    return int(free)
+
+
 def remaining_device_bytes() -> Optional[int]:
-    """limit - in use, or None when either is unknown."""
+    """The bytes this process can still allocate, None when unknown: the
+    smaller of ``limit - in use`` and the card's free bytes plus what this
+    process's allocator has reserved but not handed out. The second figure
+    counts other processes on the card (the fleet's workers share one),
+    which this process's own statistics cannot see; a JAX worker owns its
+    chip, so the first figure alone is its budget."""
     stats = device_memory_stats()
     if not stats or not stats.get("bytes_limit"):
         return None
-    return int(stats["bytes_limit"]) - int(stats["bytes_in_use"])
+    in_use = int(stats["bytes_in_use"])
+    own = int(stats["bytes_limit"]) - in_use
+    try:
+        free = _card_free_bytes()
+    except Exception as e:  # a broken CUDA runtime must not break admission
+        log.debug("memwatch: the card's free bytes unavailable: %r", e)
+        free = None
+    if free is None:
+        return own
+    cached = max(0, int(stats.get("reserved_bytes", in_use)) - in_use)
+    return min(own, free + cached)
 
 
 def update_memory_gauges() -> Optional[dict]:
@@ -219,6 +250,9 @@ def update_memory_gauges() -> Optional[dict]:
     reg.gauge("device_mem/in_use_bytes").set(stats["bytes_in_use"])
     reg.gauge("device_mem/peak_bytes").set(stats["peak_bytes"])
     reg.gauge("device_mem/limit_bytes").set(stats["bytes_limit"])
+    remaining = remaining_device_bytes()
+    if remaining is not None:
+        reg.gauge("device_budget/remaining_bytes").set(remaining)
     return stats
 
 

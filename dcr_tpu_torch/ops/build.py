@@ -9,6 +9,13 @@ a name keyed by a hash of the source, the headers it includes from its own
 directory and the flags, so an edited source or header rebuilds and an
 unchanged one loads the library already there. Nothing is built when a
 module is imported.
+
+Given a warm cache (``core/warmcache.py``, ``--warm.dir``), :func:`load`
+first looks for a verified entry of the library under
+``native/<source stem>``: a hit writes its bytes to :func:`library_path`
+and loads them without running a compiler; a miss builds as above and
+stores the library for the next process. ``compiler_runs`` counts the
+compiler processes this process started, by source stem.
 """
 
 from __future__ import annotations
@@ -20,8 +27,12 @@ import re
 import shutil
 import subprocess
 import threading
+from collections import Counter
+from functools import lru_cache
 from pathlib import Path
 from typing import Sequence
+
+from dcr_tpu_torch.core import tracing
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -32,6 +43,10 @@ HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.RLock()  # build() and load(), from any thread
 _libs: dict[str, ctypes.CDLL] = {}
+#: how each loaded library was resolved: "cache" (a verified warm-cache
+#: entry), "compiled" (built or found in _build/, then stored), "built" (no cache)
+resolutions: dict[str, str] = {}
+compiler_runs: Counter = Counter()
 
 
 def nvcc_path() -> Path:
@@ -89,12 +104,26 @@ def dependencies(source: Path) -> list[Path]:
     return seen
 
 
-def library_path(source: Path) -> Path:
+def source_digest(source: Path) -> str:
+    """sha256 over the source, the headers it includes and the flags."""
     digest = hashlib.sha256()
     for path in dependencies(source):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(_flags(source)).encode())
-    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()
+
+
+def library_path(source: Path) -> Path:
+    return BUILD_DIR / f"lib{Path(source).stem}-{source_digest(source)[:16]}.so"
+
+
+@lru_cache(maxsize=None)
+def toolchain(cuda: bool) -> str:
+    """The compiler's identity, part of a warm-cache entry's key: its name
+    and the sha256 of its executable, read without running it (a process
+    that loads every library from the cache starts no compiler process)."""
+    compiler = (nvcc_path() if cuda else host_compiler()).resolve()
+    return f"{compiler.name} sha256:{hashlib.sha256(compiler.read_bytes()).hexdigest()[:16]}"
 
 
 def _start(source: Path) -> tuple[Path, Path, subprocess.Popen | None]:
@@ -107,6 +136,7 @@ def _start(source: Path) -> tuple[Path, Path, subprocess.Popen | None]:
     cmd = [str(compiler), *_flags(source), "-o", str(tmp), str(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
+    compiler_runs[source.stem] += 1
     return source, lib, proc
 
 
@@ -119,6 +149,14 @@ def build(sources: Sequence[Path]) -> dict[str, str]:
 
 
 def _build(sources: Sequence[Path]) -> dict[str, str]:
+    todo = [Path(s).stem for s in sources if not library_path(Path(s)).exists()]
+    if not todo:
+        return {Path(s).stem: "" for s in sources}
+    with tracing.span("warmcache/compile", sources=todo, os_pid=os.getpid()):
+        return _run_builds(sources)
+
+
+def _run_builds(sources: Sequence[Path]) -> dict[str, str]:
     started = [_start(Path(s)) for s in sources]
     logs: dict[str, str] = {}
     failures = []
@@ -140,11 +178,39 @@ def _build(sources: Sequence[Path]) -> dict[str, str]:
     return logs
 
 
-def load(source: Path) -> ctypes.CDLL:
-    """The loaded library for ``source``, building it first if needed."""
+def load(source: Path, cache=None) -> ctypes.CDLL:
+    """The loaded library for ``source``: through ``cache`` (a
+    :class:`~dcr_tpu_torch.core.warmcache.WarmCache`) when one is given,
+    else built first if needed."""
+    from dcr_tpu_torch.core import warmcache   # it imports this module
+
+    source = Path(source)
     key = str(source)
     with _lock:
         if key not in _libs:
-            build([source])
-            _libs[key] = ctypes.CDLL(str(library_path(source)))
+            if cache is None:
+                build([source])
+                _libs[key] = ctypes.CDLL(str(library_path(source)))
+                resolutions[key] = "built"
+            else:
+                _libs[key], resolutions[key] = warmcache.load_native(cache, source)
+        elif cache is not None:
+            # loaded before this cache was given: the next process finds it there
+            warmcache.store_native(cache, source)
         return _libs[key]
+
+
+def install(lib: Path, payload: bytes) -> ctypes.CDLL:
+    """Write a library's bytes to ``lib`` (temporary file, then
+    ``os.replace``: a concurrent reader never sees a torn file) and load it;
+    a library that does not load is removed again before the error goes on,
+    so the next build does not take it for a built one."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    tmp.write_bytes(payload)
+    os.replace(tmp, lib)
+    try:
+        return ctypes.CDLL(str(lib))
+    except OSError:
+        lib.unlink(missing_ok=True)
+        raise

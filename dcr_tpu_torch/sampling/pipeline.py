@@ -31,6 +31,7 @@ import torch
 
 from dcr_tpu_torch.core import dist
 from dcr_tpu_torch.core import rng as rngmod
+from dcr_tpu_torch.core import warmcache
 from dcr_tpu_torch.core.checkpoint import import_torch_layout, model_config_from_diffusers
 from dcr_tpu_torch.core.config import (ModelConfig, SampleConfig,
                                        from_dict, validate_fast_config)
@@ -205,6 +206,15 @@ def generate(cfg: SampleConfig, *, modelstyle: str,
         save_prompts(prompts, savepath)
 
     sampler = make_sampler(cfg, models, device, mesh=mesh)
+    if cfg.warm.dir and dist.process_count() == 1:
+        # the sampler's kernel library loads from the warm cache: a re-run
+        # on the same card starts generating without nvcc
+        res = warmcache.aot_compile(
+            make_sampler, (models,),
+            static_config={"flash_attention": models.unet.config.flash_attention},
+            cache=warmcache.WarmCache(cfg.warm.dir))
+        log.info("bulk sampler %s via warm cache (%s) in %.2fs",
+                 res.source, cfg.warm.dir, res.build_s)
     uncond_ids = tokenizer([""])[0]
     log.info("sampling %d prompts: %d UNet calls per %d-step trajectory (fast %s)",
              len(prompts), sampler.unet_calls, cfg.num_inference_steps, cfg.fast)

@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from dcr_tpu_torch.core.compile_surface import compile_surface
 from dcr_tpu_torch.core.config import SampleConfig, validate_fast_config
 from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.models import schedulers as S
@@ -150,6 +151,7 @@ def denoise(models: DiffusionModels, x: torch.Tensor, ctx: torch.Tensor, *,
     return x
 
 
+@compile_surface("sample/sampler")
 def make_sampler(cfg: SampleConfig, models: DiffusionModels,
                  device: str | torch.device = "cuda", mesh=None) -> Callable:
     """Build the sampler: ``(models | None, input_ids, uncond_ids, generator, *,

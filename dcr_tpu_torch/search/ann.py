@@ -62,7 +62,7 @@ import torch
 from dcr_tpu_torch.core import fsio
 from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import tracing
-from dcr_tpu_torch.core.config import NotPortedError
+from dcr_tpu_torch.core.compile_surface import compile_surface
 from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.core.fsio import quarantine_rename
 from dcr_tpu_torch.search.shardindex import full_f32_matmul
@@ -194,6 +194,7 @@ def read_ann_manifest(store_dir: str | Path, *, quarantine: bool = True) -> dict
 # The Lloyd iteration on the device
 # ---------------------------------------------------------------------------
 
+@compile_surface("search/kmeans")
 def make_kmeans_step(n_lists: int):
     """``(feats [R, D], valid [R], centroids [L, D]) -> (sums [L, D],
     counts [L])``: one Lloyd accumulation over one corpus segment, on the
@@ -520,7 +521,7 @@ def kmeans(train_feats: np.ndarray, n_lists: int, iters: int, seed: int, *,
 
 def train_ivf(store_dir: str | Path, *, n_lists: int = DEFAULT_N_LISTS,
               iters: int = DEFAULT_IVF_ITERS, seed: int = 0, train_rows: int = 0,
-              normalize: bool = False, warm_dir: str = "",
+              normalize: bool = False,
               device: str | torch.device = "cuda") -> dict:
     """Train the IVF quantizer over the committed store on ``device``
     (:func:`kmeans`) and materialise the inverted lists as a new ann
@@ -532,9 +533,6 @@ def train_ivf(store_dir: str | Path, *, n_lists: int = DEFAULT_N_LISTS,
     materialisation (recorded in the manifest; cosine consumers need it when
     the store was not built normalised). Returns the report the CLI prints.
     """
-    if warm_dir:
-        raise NotPortedError("warm_dir (the warm executable cache) is not ported to "
-                             "dcr_tpu_torch yet (ROADMAP Queue A item 7c)")
     if int(n_lists) < 1:
         raise AnnError(f"n_lists must be >= 1, got {n_lists}")
     if int(iters) < 1:

@@ -39,8 +39,9 @@ shortlist (score descending, the lower global row first, as ``lax.top_k``
 over the whole segment and the stable merge give it), each rank re-ranks
 the candidates it holds, and a second merges the exact tables
 (:func:`~dcr_tpu_torch.parallel.mesh.exchange_topk`): no exchange per
-scanned segment. Every rank returns the same answer. The warm cache is not
-ported.
+scanned segment. Every rank returns the same answer. The scan launches no
+native kernel, so the warm cache (``core/warmcache.py``) has nothing of its
+own to hold.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ import numpy as np
 import torch
 
 from dcr_tpu_torch.core import dist, tracing
-from dcr_tpu_torch.core.config import NotPortedError
+from dcr_tpu_torch.core.compile_surface import compile_surface
 from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.parallel import mesh as pmesh
 from dcr_tpu_torch.search import ann as annmod
@@ -73,6 +74,7 @@ DEFAULT_SEGMENT_ROWS = 8192
 DEFAULT_MAX_RESIDENT_ROWS = 1 << 22
 
 
+@compile_surface("search/ivf_scan")
 def ivf_scan(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
              row_list: torch.Tensor, valid: torch.Tensor, probed: torch.Tensor,
              q: torch.Tensor, shortlist_k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -110,11 +112,8 @@ class AnnEngine:
                  shortlist_k: int = DEFAULT_SHORTLIST_K, segment_rows: int = 0,
                  max_resident_rows: int = DEFAULT_MAX_RESIDENT_ROWS,
                  normalize_queries: bool = False, require_normalized_rows: bool = False,
-                 warm_dir: str = "", device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda"):
         check_mesh(mesh)
-        if warm_dir:
-            raise NotPortedError("warm_dir (the warm executable cache) is not ported to "
-                                 "dcr_tpu_torch yet (ROADMAP Queue A item 7c)")
         self.store_dir = store_dir
         self.reader = EmbeddingStoreReader(store_dir)
         self.ann = AnnIndexReader(store_dir)
@@ -500,11 +499,11 @@ def spot_check_recall(engine: AnnEngine, exact_engine, q: np.ndarray, *, k: int 
 def open_ann_engine(store_dir, *, mesh=None, top_k: int = 1, nprobe: int = DEFAULT_NPROBE,
                     query_batch: int = 64, shortlist_k: int = DEFAULT_SHORTLIST_K,
                     segment_rows: int = 0, normalize_queries: bool = False,
-                    require_normalized_rows: bool = False, warm_dir: str = "",
+                    require_normalized_rows: bool = False,
                     device: str | torch.device = "cuda") -> AnnEngine:
     """Reader and built engine in one call."""
     return AnnEngine(store_dir, mesh=mesh, top_k=top_k, nprobe=nprobe,
                      query_batch=query_batch, shortlist_k=shortlist_k,
                      segment_rows=segment_rows, normalize_queries=normalize_queries,
-                     require_normalized_rows=require_normalized_rows, warm_dir=warm_dir,
+                     require_normalized_rows=require_normalized_rows,
                      device=device).build()

@@ -52,7 +52,7 @@ import torch
 from dcr_tpu_torch.core import dist, fsio
 from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import tracing
-from dcr_tpu_torch.core.config import NotPortedError, SearchConfig, validate_search_config
+from dcr_tpu_torch.core.config import NotPortedError, SearchConfig
 from dcr_tpu_torch.data.dataset import resize_shorter_side
 from dcr_tpu_torch.eval.features import (
     IMAGENET_NORM,
@@ -345,7 +345,6 @@ def embed_images(cfg: SearchConfig, *, source: str | Path,
     given."""
     from dcr_tpu_torch.eval.runner import build_backbone
 
-    validate_search_config(cfg)
     device = dist.job_device(device)
     dist.initialize(device)
     mesh = pmesh.make_mesh(cfg.mesh)

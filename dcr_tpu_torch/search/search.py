@@ -33,7 +33,8 @@ import torch
 from dcr_tpu_torch.core import dist
 from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import tracing
-from dcr_tpu_torch.core.config import SearchConfig, validate_search_config
+from dcr_tpu_torch.core.compile_surface import compile_surface
+from dcr_tpu_torch.core.config import SearchConfig
 from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.core.fsio import quarantine_rename
 from dcr_tpu_torch.parallel import mesh as pmesh
@@ -96,6 +97,7 @@ def _empty_result(top_k: int) -> dict:
             "gen_images": np.asarray([], dtype=object)}
 
 
+@compile_surface("search/matmul")
 def search_folders(gen_features: np.ndarray, gen_keys: Sequence[str],
                    laion_folders: Sequence[str | Path], *, top_k: int = 1,
                    num_chunks: int = 20, device: str | torch.device = "cuda") -> dict:
@@ -154,7 +156,7 @@ def search_folders(gen_features: np.ndarray, gen_keys: Sequence[str],
 
 def search_store(gen_features: np.ndarray, gen_keys: Sequence[str],
                  store_dir: str | Path, *, top_k: int = 1, mesh=None,
-                 query_batch: int = 64, segment_rows: int = 0, warm_dir: str = "",
+                 query_batch: int = 64, segment_rows: int = 0,
                  device: str | torch.device = "cuda") -> dict:
     """The store-backed :func:`search_folders`: one top-k engine over a built
     store instead of the per-folder loop, with the same result contract."""
@@ -162,7 +164,7 @@ def search_store(gen_features: np.ndarray, gen_keys: Sequence[str],
     if n == 0:
         return _empty_result(top_k)
     engine = open_engine(store_dir, mesh=mesh, top_k=top_k, query_batch=query_batch,
-                         segment_rows=segment_rows, warm_dir=warm_dir, device=device)
+                         segment_rows=segment_rows, device=device)
     t0 = time.time()
     scores, keys = engine.query(np.asarray(gen_features, np.float32))
     log.info("store search: %d queries x %d rows in %.1fs", n, engine.total, time.time() - t0)
@@ -206,7 +208,6 @@ def run_search(cfg: SearchConfig, *, laion_folders: Sequence[str | Path] = (),
     ``cfg.live``, store-backed when ``cfg.store_dir`` names a built store,
     else the per-folder brute force) and write ``cfg.out_path``, on the
     mesh of ``cfg.mesh`` over the job's processes (module docstring)."""
-    validate_search_config(cfg)
     device = dist.job_device(device)
     dist.initialize(device)
     mesh = pmesh.make_mesh(cfg.mesh)

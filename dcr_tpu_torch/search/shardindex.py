@@ -36,7 +36,8 @@ scores by ~1e-3 relative and change neighbours). No two f32 paths are
 bit-equal (the card against the CPU, the store against the brute force, the
 port against JAX: cuBLAS and XLA round differently for different shapes);
 results agree to within f32 rounding, and keys agree wherever the scores are
-not near-ties. The warm cache is not ported.
+not near-ties. The engine launches no native kernel, so the warm cache
+(``core/warmcache.py``) has nothing of its own to hold.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ import numpy as np
 import torch
 
 from dcr_tpu_torch.core import tracing
-from dcr_tpu_torch.core.config import NotPortedError
+from dcr_tpu_torch.core.compile_surface import compile_surface
 from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.parallel import mesh as pmesh
 from dcr_tpu_torch.search.store import EmbeddingStoreReader, StoreError, normalize_rows
@@ -76,6 +77,7 @@ def full_f32_matmul() -> Iterator[None]:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+@compile_surface("search/topk")
 def topk(feats: torch.Tensor, valid: torch.Tensor, q: torch.Tensor, k: int,
          normalize_queries: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """``(scores [B, k] descending, idx [B, k])`` of ``q [B, D]`` against
@@ -123,12 +125,9 @@ class ShardedTopK:
                  segment_rows: int = 0,
                  max_resident_rows: int = DEFAULT_MAX_RESIDENT_ROWS,
                  normalize_queries: bool = False,
-                 normalize_rows: bool = False, warm_dir: str = "",
+                 normalize_rows: bool = False,
                  device: str | torch.device = "cuda"):
         check_mesh(mesh)
-        if warm_dir:
-            raise NotPortedError("warm_dir (the warm executable cache) is not ported to "
-                                 "dcr_tpu_torch yet (ROADMAP Queue A item 7c)")
         self.reader = reader
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -367,11 +366,11 @@ class ShardedTopK:
 
 def open_engine(store_dir, *, mesh=None, top_k: int = 1, query_batch: int = 64,
                 segment_rows: int = 0, normalize_queries: bool = False,
-                normalize_rows: bool = False, warm_dir: str = "",
+                normalize_rows: bool = False,
                 device: str | torch.device = "cuda") -> ShardedTopK:
     """Reader + built engine in one call."""
     engine = ShardedTopK(
         EmbeddingStoreReader(store_dir), mesh=mesh, top_k=top_k, query_batch=query_batch,
         segment_rows=segment_rows, normalize_queries=normalize_queries,
-        normalize_rows=normalize_rows, warm_dir=warm_dir, device=device)
+        normalize_rows=normalize_rows, device=device)
     return engine.build()

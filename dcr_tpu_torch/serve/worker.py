@@ -54,8 +54,11 @@ benches and tests drive it in-process:
 The JAX worker traces one jitted scan per bucket; here each step runs
 eagerly. Device work runs on the worker thread, the risk loader's thread and
 the ``/check`` handler threads: every function that runs a model enters
-``torch.inference_mode()`` itself (grad mode is thread-local). The warm
-cache is not ported (ROADMAP Queue A item 7c).
+``torch.inference_mode()`` itself (grad mode is thread-local). With
+``warm.dir`` (``core/warmcache.py``) each bucket's sampler resolves its
+kernel library through the warm cache, and the warm plan adds the buckets
+of the previous incarnation's ``warm_manifest.json`` to the default one,
+as the JAX worker plans it.
 """
 
 from __future__ import annotations
@@ -74,6 +77,8 @@ import torch
 from dcr_tpu_torch.core import resilience as R
 from dcr_tpu_torch.core import rng as rngmod
 from dcr_tpu_torch.core import tracing
+from dcr_tpu_torch.core import warmcache
+from dcr_tpu_torch.core.compile_surface import compile_surface
 from dcr_tpu_torch.core.config import ServeConfig, validate_serve_config
 from dcr_tpu_torch.core.device import resolve_device
 from dcr_tpu_torch.core.metrics import LatencyTracker, MetricWriter
@@ -144,6 +149,7 @@ def _nchw(a: np.ndarray, device: torch.device) -> torch.Tensor:
         0, 3, 1, 2).contiguous()
 
 
+@compile_surface("serve/batch_sampler")
 def make_batch_sampler(bucket: GenBucket, models: DiffusionModels, root_seed: int,
                        batch_size: int, device: str | torch.device = "cuda"):
     """``(cond, uncond, seeds, *, draws=None) -> images [B, H, W, 3]`` (float32
@@ -223,6 +229,7 @@ def make_batch_sampler(bucket: GenBucket, models: DiffusionModels, root_seed: in
     return sample_fn
 
 
+@compile_surface("serve/encode")
 def make_text_encoder(models: DiffusionModels, device: str | torch.device = "cuda"):
     """``ids [B, L] -> [B, L, D]`` prompt embeddings (the last hidden state)
     on ``device``: the text tower every cache miss pays."""
@@ -359,6 +366,8 @@ class GenerationService:
         self._warm_plan: Optional[list[GenBucket]] = None
         self._warm_complete = threading.Event()
         self._warm_complete.set()
+        # the warm cache: kernel libraries and the warm-start manifest
+        self._warmcache = warmcache.WarmCache(cfg.warm.dir) if cfg.warm.dir else None
         self._encode = make_text_encoder(stack.models, stack.device)
         self._tok_fp = stack.tokenizer.fingerprint()
         # copy-risk scoring: the train-embedding index loads in the
@@ -542,24 +551,60 @@ class GenerationService:
                     return fn
             fn = make_batch_sampler(bucket, self.stack.models, self.cfg.seed,
                                     self.cfg.max_batch, self.stack.device)
-            log.info("serve: built sampler for bucket %s at batch=%d", bucket,
-                     self.cfg.max_batch)
+            res = warmcache.aot_compile(
+                make_batch_sampler, (self.stack.models,),
+                static_config={
+                    "flash_attention": self.stack.models.unet.config.flash_attention},
+                cache=self._warmcache)
+            log.info("serve: built sampler for bucket %s at batch=%d (kernels: %s in %.2fs)",
+                     bucket, self.cfg.max_batch, res.source, res.build_s)
             with self._samplers_lock:
                 self._samplers[bucket] = fn
+        if self._warmcache is not None and self._warm_complete.is_set():
+            # a lazily admitted bucket, recorded for the NEXT incarnation's
+            # plan (LRU, capped by the bucket budget); during the warm phase
+            # warm_start records the whole plan in one update instead
+            warmcache.update_warm_manifest(self.cfg.warm.dir, [list(tuple(bucket))],
+                                           max_entries=self.cfg.max_compiled_buckets)
         return fn
 
     # -- warm-start readiness ------------------------------------------------
 
     def begin_warm(self) -> int:
         """Enter the warming state and plan the warm start: the default
-        bucket (the warm cache, which would add the previous incarnation's
-        buckets, is not ported). /healthz reports "warming" from here until
+        bucket, then the valid buckets of the previous incarnation's warm
+        manifest newest first (the manifest is LRU-ordered), capped at
+        ``max_compiled_buckets - 1`` so one admission slot stays free for a
+        novel bucket. /healthz reports "warming" from here until
         :meth:`warm_start` finishes. Returns the plan size (0 = disabled)."""
         if not self.cfg.warm.warm_start:
             return 0
-        self._warm_plan = [self.default_bucket()]
+        plan = [self.default_bucket()]
+        if self._warmcache is not None:
+            from dcr_tpu_torch.serve.fleet import bucket_from_tuple
+
+            for entry in reversed(warmcache.read_warm_manifest(self.cfg.warm.dir)):
+                try:
+                    b = bucket_from_tuple(entry)
+                    validate_bucket(b, vae_scale=self._vae_scale)
+                except (TypeError, ValueError, InvalidRequestError) as e:
+                    # a stale hint (config change, hand edit) costs a log line
+                    R.log_event("warm_manifest_entry_invalid", entry=entry, error=repr(e))
+                    R.bump_counter("warmcache/manifest_entry_invalid")
+                    continue
+                if b not in plan:
+                    plan.append(b)
+        # warm buckets hold resident slots and never leave: a plan that
+        # filled the budget would refuse every novel bucket for the process's
+        # life and keep the manifest from ever learning it
+        cap = max(1, self.cfg.max_compiled_buckets - 1)
+        if len(plan) > cap:
+            R.log_event("warm_plan_over_budget", planned=len(plan), cap=cap,
+                        budget=self.cfg.max_compiled_buckets)
+            plan = plan[:cap]
+        self._warm_plan = plan
         self._warm_complete.clear()
-        return len(self._warm_plan)
+        return len(plan)
 
     def warm_start(self) -> dict:
         """Run the warm plan: the text tower and the uncond embedding, then
@@ -577,6 +622,11 @@ class GenerationService:
             with self._samplers_lock:
                 self._admitted_buckets.add(bucket)
             self._run_sampler(bucket, self._sampler_for(bucket), uncond, uncond, seeds)
+        if self._warmcache is not None:
+            # one batched manifest update for the whole plan
+            warmcache.update_warm_manifest(self.cfg.warm.dir,
+                                           [list(tuple(b)) for b in self._warm_plan],
+                                           max_entries=self.cfg.max_compiled_buckets)
         self._warm_complete.set()
         doc = {"buckets_warm": len(self._warm_plan),
                "buckets_total": len(self._warm_plan),

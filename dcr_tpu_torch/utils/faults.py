@@ -79,9 +79,15 @@ The kinds the port fires, and their hook points:
 - ``slow_step``: the same hook point: sleeps ``DCR_SLOW_STEP_S`` seconds
   (default 30) before the batch, a straggler for latency and SLO drills.
 
-The cache's kind (``cache_corrupt``) has no hook in the port yet, and a
-spec that names it raises :class:`NotPortedError` when it is parsed: a
-fault that silently never fires would invalidate the run that asked for it.
+- ``cache_corrupt``: ``core/warmcache.WarmCache.load``, coordinate ``load``
+  (the cache's load index in this process): damages the read entry in
+  memory, so the real path runs: quarantine rename, a ``warmcache/*``
+  counter, and a rebuild of the library with the compiler.
+  ``cache_corrupt@load=0`` poisons the first load.
+
+A kind listed in :data:`NOT_PORTED_KINDS` (none since the warm cache was
+ported) raises :class:`NotPortedError` when it is parsed: a fault that
+silently never fires would invalidate the run that asked for it.
 
 The registry is process-global, parsed once from ``DCR_FAULTS`` (tests use
 :func:`install` and :func:`clear`), thread-safe (loader workers fire
@@ -110,13 +116,11 @@ PORTED_KINDS = ("decode_error", "ckpt_corrupt", "nan_loss", "sigterm", "hang",
                 "search_dump_corrupt", "store_shard_corrupt", "ivf_list_corrupt",
                 "kmeans_nan", "wal_torn", "ingest_crash", "compact_crash", "ingest_stall",
                 "recall_degrade", "latent_cache_corrupt", "oom", "worker_crash",
-                "worker_hang", "slow_step")
+                "worker_hang", "slow_step", "cache_corrupt")
 
 #: the JAX package's other kinds, each with the ROADMAP Queue A item that
-#: brings its hook point
-NOT_PORTED_KINDS = {
-    "cache_corrupt": "item 7c (the warm executable cache)",
-}
+#: brings its hook point (every kind has its hook now)
+NOT_PORTED_KINDS: dict[str, str] = {}
 
 _ENTRY_RE = re.compile(r"^(?P<kind>[a-z_]+)@(?P<coords>[a-z_]+=\d+(?:[&@][a-z_]+=\d+)*)"
                        r"(?:x(?P<times>\d+))?$")

@@ -32,10 +32,11 @@ from dcr_tpu.search import annindex as JAI  # noqa: E402
 from dcr_tpu.utils import faults as jfaults  # noqa: E402
 from dcr_tpu_torch.cli import search as cli  # noqa: E402
 from dcr_tpu_torch.core import tracing  # noqa: E402
-from dcr_tpu_torch.core.config import NotPortedError  # noqa: E402
+from dcr_tpu_torch.core.config import SearchConfig  # noqa: E402
 from dcr_tpu_torch.search import ann  # noqa: E402
 from dcr_tpu_torch.search import annindex as AI  # noqa: E402
 from dcr_tpu_torch.search import embed as E  # noqa: E402
+from dcr_tpu_torch.search import search as S  # noqa: E402
 from dcr_tpu_torch.search import shardindex as SI  # noqa: E402
 from dcr_tpu_torch.search import store as ST  # noqa: E402
 from dcr_tpu_torch.search.store import normalize_rows  # noqa: E402
@@ -427,10 +428,21 @@ def test_engine_refuses_width_mismatch_raw_rows_for_cosine_and_unported(tmp_path
         AI.AnnEngine(other, device="cpu")
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         AI.AnnEngine(store, mesh=object(), device="cpu")
-    with pytest.raises(NotPortedError, match="item 7"):
-        AI.AnnEngine(store, warm_dir="w", device="cpu")
-    with pytest.raises(NotPortedError, match="item 7"):
-        ann.train_ivf(store, n_lists=4, warm_dir="w", device="cpu")
+    # the warm cache runs since it was ported: an ANN query with warm_dir
+    # answers as the engine does and writes nothing there (the scan
+    # launches no native kernel, so the cache has nothing to hold)
+    gen = tmp_path / "gen"
+    gen.mkdir()
+    E.save_embeddings(gen / "embedding.npz", unit.astype(np.float32),
+                      [f"g{i}" for i in range(len(unit))])
+    warm = tmp_path / "warm"
+    S.run_search(SearchConfig(gen_folder=str(gen), store_dir=str(store2), ann=True,
+                              out_path=str(tmp_path / "warm.npz"), warm_dir=str(warm)),
+                 top_k=3, device="cpu")
+    with np.load(tmp_path / "warm.npz") as z:
+        np.testing.assert_allclose(z["scores"], want[0], rtol=1e-6)
+        assert (z["keys"] == want[1]).all()
+    assert not warm.exists()
     with pytest.raises(ann.AnnError, match="n_lists"):
         ann.train_ivf(store, n_lists=61, device="cpu")
 

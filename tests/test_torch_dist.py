@@ -240,12 +240,12 @@ def test_a_mesh_outside_training_still_raises_naming_item_9b(where, tmp_path):
     """Training and bulk sampling run a mesh (items 9a and 9b's first
     half), and so do eval and search (9b's second half, the rank jobs of
     tests/test_torch_mesh_{eval,search}.py): a ``data = 2`` mesh passes
-    their validators. A mesh in serving is the rest of item 9b and raises,
-    never ignored."""
+    eval's validator and parses for search, which runs every setting. A
+    mesh in serving is the rest of item 9b and raises, never ignored."""
     mesh = TC.MeshConfig(data=2)
     calls = {
         "eval": lambda: TC.validate_eval_config(TC.EvalConfig(mesh=mesh)),
-        "search": lambda: TC.validate_search_config(TC.SearchConfig(mesh=mesh)),
+        "search": lambda: TC.parse_cli(TC.SearchConfig, ["--mesh.data=2"]),
         "serve": lambda: TC.validate_serve_config(TC.ServeConfig(mesh=mesh)),
     }
     if where == "serve":
@@ -253,10 +253,9 @@ def test_a_mesh_outside_training_still_raises_naming_item_9b(where, tmp_path):
             calls[where]()
     else:
         calls[where]()
-        # the warm cache still names its own item
-        with pytest.raises(TC.NotPortedError, match="warm"):
-            (TC.validate_eval_config(TC.EvalConfig(mesh=mesh, warm=TC.WarmCacheConfig(dir="w")))
-             if where == "eval" else
-             TC.validate_search_config(TC.SearchConfig(mesh=mesh, warm_dir="w")))
+        # and with the warm cache, which runs since it was ported
+        (TC.validate_eval_config(TC.EvalConfig(mesh=mesh, warm=TC.WarmCacheConfig(dir="w")))
+         if where == "eval" else
+         TC.parse_cli(TC.SearchConfig, ["--mesh.data=2", "--warm_dir=w"]))
     # the data x seq mesh itself passes the training gate
     TC.validate_train_config(TC.TrainConfig(mesh=TC.MeshConfig(data=2, seq=4)))

@@ -170,7 +170,6 @@ def test_port_alone_with_every_ported_stage(tmp_path):
     ({"fault.max_bad_sample_frac": 0.1}, "fault.max_bad_sample_frac"),
     # a mesh runs since item 9b's eval half (tests/test_torch_mesh_eval.py)
     ({"fault.verify_checkpoints": False}, "fault.verify_checkpoints"),
-    ({"warm.dir": "w"}, "warm.dir"),
     ({"use_wandb": True}, "use_wandb"),
     ({"fault.stage_deadline_secs": 5.0}, "fault.stage_deadline_secs"),
     ({"fault.max_rollbacks": 1}, "fault.max_rollbacks"),
@@ -182,6 +181,15 @@ def test_settings_not_ported_are_refused(tmp_path, override, what):
         TC.validate_eval_config(cfg)
     with pytest.raises(TC.NotPortedError, match=what):
         run_eval(cfg, device="cpu")
+
+
+def test_warm_dir_is_accepted_not_refused(tmp_path):
+    """The warm cache runs since it was ported (the CLI test below evaluates
+    with it): ``warm.dir`` passes the validator and builds nothing, since
+    the extractors launch no native kernel."""
+    cfg = TC.parse_cli(TC.EvalConfig, [f"--warm.dir={tmp_path / 'warm'}"])
+    TC.validate_eval_config(cfg)
+    assert cfg.warm.dir == str(tmp_path / "warm") and cfg.warm.warm_start
 
 
 def test_io_retry_settings_are_honoured_not_refused():
@@ -210,7 +218,7 @@ def test_cli_runs_on_cpu_when_asked(tmp_path, monkeypatch):
     argv = [f"--query_dir={gen}", f"--values_dir={train}", "--image_size=32",
             "--batch_size=4", "--compute_complexity=false", "--compute_fid=false",
             "--gallery_max_rank=4", "--gallery_topk=2", f"--output_dir={tmp_path / 'out'}",
-            f"--values_caption_json={tmp_path / 'caps.json'}"]
+            f"--values_caption_json={tmp_path / 'caps.json'}", f"--warm.dir={tmp_path / 'warm'}"]
     monkeypatch.delenv("DCR_TPU_PLATFORM", raising=False)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
@@ -218,6 +226,8 @@ def test_cli_runs_on_cpu_when_asked(tmp_path, monkeypatch):
     monkeypatch.setenv("DCR_TPU_PLATFORM", "cpu")
     scalars = eval_cli.main(argv)
     assert np.isfinite(scalars["sim_gt_05pc"]) and np.isfinite(scalars["train_clipscore"])
+    # with the warm cache: no native kernel to hold, nothing written
+    assert not (tmp_path / "warm").exists()
     rows = (tmp_path / "out" / "logs" / "metrics.jsonl").read_text().splitlines()
     assert json.loads(rows[-1])["train_clipscore"] == pytest.approx(scalars["train_clipscore"])
 

@@ -49,7 +49,9 @@ def test_importing_every_module_loads_no_jax_or_dcr_tpu():
                  # search and eval on a mesh of ranks
                  "core.config", "search.store", "search.shardindex", "search.search",
                  "search.embed", "cli.search", "eval.features", "eval.similarity",
-                 "eval.runner", "cli.evaluate", "obs.copyrisk"):
+                 "eval.runner", "cli.evaluate", "obs.copyrisk",
+                 # the warm cache
+                 "core.warmcache", "core.compile_surface"):
         assert f"dcr_tpu_torch.{name}" in doc["imported"]
     assert doc["bad"] == []
 

@@ -218,6 +218,35 @@ def test_memory_budget_admission_matches_the_jax_worker(monkeypatch):
     assert code == 503 and payload["error"] == "memory_budget"
 
 
+def test_a_peer_on_the_card_lowers_the_budget(monkeypatch):
+    """Two fleet workers share one card, and each one's allocator sees only
+    its own tensors. The budget is the smaller of ``limit - in use`` and the
+    card's free bytes plus this process's cached bytes, so a peer's
+    memory lowers it, and admission refuses (503 ``memory_budget``) a
+    bucket that ``limit - in use`` alone (9000 of 10000 here, the JAX
+    worker's figure on a chip of its own) admitted."""
+    monkeypatch.setenv(memwatch.FAKE_ENV, FAKE)
+    memwatch.note_surface("serve/batch_sampler", "k1", {"temp_bytes": 5000})
+    assert memwatch._card_free_bytes() is None              # no card under the fake
+    assert memwatch.remaining_device_bytes() == 9000
+    TW.GenerationService._check_memory_budget(_stub(), Q.GenBucket(16, 2, 7.5, "ddim", 0.0))
+    # a peer holds 6000 of the card: the card reports 3000 free
+    monkeypatch.setattr(memwatch, "_card_free_bytes", lambda: 3000)
+    assert memwatch.remaining_device_bytes() == 3000
+    with pytest.raises(Q.MemoryBudgetError, match="remaining device memory"):
+        TW.GenerationService._check_memory_budget(_stub(), Q.GenBucket(16, 3, 7.5, "ddim", 0.0))
+    # bytes this process's allocator caches but no tensor holds are its own
+    monkeypatch.setenv(memwatch.FAKE_ENV, json.dumps(
+        {"bytes_in_use": 1000, "peak_bytes_in_use": 1500, "bytes_limit": 10_000}))
+    monkeypatch.setattr(memwatch, "device_memory_stats", lambda: {
+        "bytes_in_use": 1000, "peak_bytes": 1500, "bytes_limit": 10_000,
+        "reserved_bytes": 3500})
+    assert memwatch.remaining_device_bytes() == 3000 + 2500
+    TW.GenerationService._check_memory_budget(_stub(), Q.GenBucket(16, 3, 7.5, "ddim", 0.0))
+    assert memwatch.update_memory_gauges()["bytes_in_use"] == 1000
+    assert tracing.registry().gauge("device_budget/remaining_bytes").value == 5500
+
+
 def test_service_measures_buckets_and_refuses_past_the_budget(tiny, monkeypatch):  # noqa: F811
     """In the worker: the default bucket's first batch notes its footprint
     (the fake peak over the fake use: 4000 of 9000 remaining); novel

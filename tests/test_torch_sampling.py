@@ -185,15 +185,18 @@ def test_host_streams_identical():
 
 def test_config_parses_like_jax():
     argv = ["--resolution=512", "--num_inference_steps=20", "--sampler=ddim",
-            "--guidance_scale=5", "--rand_augs=rand_word_add", "--fast.reuse_ratio=0.25"]
+            "--guidance_scale=5", "--rand_augs=rand_word_add", "--fast.reuse_ratio=0.25",
+            "--warm.dir=w", "--warm.warm_start=false"]
     ours = parse_cli(SampleConfig, argv)
     from dcr_tpu.core.config import parse_cli as j_parse_cli
 
     theirs = j_parse_cli(JSampleConfig, argv)
     for f in dataclasses.fields(SampleConfig):
-        if f.name not in ("fast", "mesh"):
+        if f.name not in ("fast", "mesh", "warm"):
             assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
     assert dataclasses.asdict(ours.mesh) == dataclasses.asdict(theirs.mesh)
+    assert dataclasses.asdict(ours.warm) == dataclasses.asdict(theirs.warm) == {
+        "dir": "w", "warm_start": False}
     assert ours.fast.reuse_ratio == theirs.fast.reuse_ratio == 0.25
     model = from_dict(type(port_cfg(tiny_cfg())), dataclasses.asdict(tiny_cfg()))
     assert model == port_cfg(tiny_cfg())

@@ -28,7 +28,8 @@ from dcr_tpu.search import shardindex as JSI  # noqa: E402
 from dcr_tpu.search import store as JST  # noqa: E402
 from dcr_tpu_torch.cli import search as cli  # noqa: E402
 from dcr_tpu_torch.core import tracing  # noqa: E402
-from dcr_tpu_torch.core.config import MeshConfig, NotPortedError, SearchConfig  # noqa: E402
+from dcr_tpu_torch.core.config import MeshConfig, SearchConfig  # noqa: E402
+from dcr_tpu_torch.search import ann  # noqa: E402
 from dcr_tpu_torch.search import embed as E  # noqa: E402
 from dcr_tpu_torch.search import search as S  # noqa: E402
 from dcr_tpu_torch.search import shardindex as SI  # noqa: E402
@@ -327,16 +328,35 @@ def test_cli_build_append_verify_query_stats(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["query", "--mesh.data=2"], ["query", "--warm_dir=w"]],
+    ["query", "--mesh.data=2"]],
     ids=lambda a: "_".join(a).replace("--", ""))
 def test_unported_settings_and_subcommands_raise(tmp_path, monkeypatch, argv):
     monkeypatch.setenv("DCR_TPU_PLATFORM", "cpu")
     # a mesh of two ranks in a job of one is refused before any work (the
     # mesh itself runs as a rank job: tests/test_torch_mesh_search.py)
-    error, match = ((ValueError, "2x1x1x1 != 1 devices") if "--mesh.data=2" in argv
-                    else (NotPortedError, "ROADMAP Queue A item 7c"))
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="2x1x1x1 != 1 devices"):
         cli.main(argv + [f"--store_dir={tmp_path}"])
+
+
+def test_query_and_train_ivf_take_warm_dir(corpus, tmp_path, monkeypatch):
+    """``--warm_dir`` runs since the warm cache was ported: the engines
+    launch no native kernel, so the cache has nothing to hold and nothing
+    is written there, and the answer is the one without it, bit for bit."""
+    monkeypatch.setenv("DCR_TPU_PLATFORM", "cpu")
+    _, store, _, _, q = corpus
+    gdir = tmp_path / "gens"
+    gdir.mkdir()
+    E.save_embeddings(gdir / "embedding.npz", q, [f"g{i}" for i in range(len(q))])
+    warm = tmp_path / "warm"
+    for out, extra in (("plain.npz", []), ("warm.npz", [f"--warm_dir={warm}"])):
+        cli.main(["query", f"--store_dir={store}", f"--gen_folder={gdir}",
+                  f"--out_path={tmp_path / out}", "--top_k=3"] + extra)
+    cli.main(["train-ivf", f"--store_dir={store}", "--n_lists=2", "--ivf_iters=2",
+              f"--warm_dir={warm}"])
+    with np.load(tmp_path / "plain.npz") as a, np.load(tmp_path / "warm.npz") as b:
+        np.testing.assert_array_equal(a["scores"], b["scores"])
+        assert (a["keys"] == b["keys"]).all()
+    assert not warm.exists()
 
 
 @pytest.mark.parametrize("argv", [["search", "--logdir=l"]],
@@ -432,8 +452,7 @@ def test_ann_settings_and_subcommands_run(corpus, tmp_path, monkeypatch, capsys,
         assert_topk_agree(za["scores"], za["keys"], ze["scores"], ze["keys"], q, feats, keys)
 
 
-@pytest.mark.parametrize("field,value", [("mesh", MeshConfig(data=4)),
-                                         ("warm_dir", "w")])
+@pytest.mark.parametrize("field,value", [("mesh", MeshConfig(data=4))])
 def test_run_search_refuses_unported_settings(corpus, tmp_path, field, value):
     folders, store, _, _, q = corpus
     gdir = tmp_path / "gens"
@@ -441,10 +460,31 @@ def test_run_search_refuses_unported_settings(corpus, tmp_path, field, value):
     E.save_embeddings(gdir / "embedding.npz", q, [f"g{i}" for i in range(len(q))])
     cfg = SearchConfig(gen_folder=str(gdir), store_dir=str(store), **{field: value})
     # a mesh runs since item 9b's search half (tests/test_torch_mesh_search.py),
-    # and one larger than the job is refused; the warm cache is not ported
-    with pytest.raises(ValueError if field == "mesh" else NotPortedError,
-                       match="4x1x1x1 != 1 devices" if field == "mesh" else "item 7c"):
+    # and one larger than the job is refused
+    with pytest.raises(ValueError, match="4x1x1x1 != 1 devices"):
         S.run_search(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["store", "live", "ann"])
+def test_run_search_with_warm_dir_answers_as_without(corpus, tmp_path, mode):
+    """``warm_dir`` is taken with every engine ``run_search`` opens (the
+    store's, the live corpus's, the IVF tier's) and changes no answer."""
+    folders, store, _, _, q = corpus
+    if mode == "ann":
+        ann.train_ivf(store, n_lists=2, iters=2, device="cpu")
+    gdir = tmp_path / "gens"
+    gdir.mkdir()
+    E.save_embeddings(gdir / "embedding.npz", q, [f"g{i}" for i in range(len(q))])
+    outs = []
+    for warm in ("", str(tmp_path / "warm")):
+        out = tmp_path / f"res{len(outs)}.npz"
+        S.run_search(SearchConfig(gen_folder=str(gdir), store_dir=str(store), out_path=str(out),
+                                  live=mode == "live", ann=mode == "ann", warm_dir=warm),
+                     top_k=3, device="cpu")
+        with np.load(out) as z:
+            outs.append((z["scores"], z["keys"]))
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    assert (outs[0][1] == outs[1][1]).all()
 
 
 def test_run_search_runs_ann_on_a_trained_store(corpus, tmp_path):
@@ -510,7 +550,10 @@ def test_engine_refuses_mesh_and_warm_dir(corpus):
     # runs the engine over one); anything else is refused by type
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         SI.ShardedTopK(reader, mesh=object(), device="cpu")
-    with pytest.raises(NotPortedError, match="item 7"):
+    # the engine takes no warm_dir: the setting is SearchConfig's, accepted
+    # there and building nothing, since the scorer launches no native kernel
+    # (test_run_search_with_warm_dir_answers_as_without runs it)
+    with pytest.raises(TypeError, match="warm_dir"):
         SI.ShardedTopK(reader, warm_dir="w", device="cpu")
 
 

@@ -17,9 +17,11 @@ on the CPU at a tiny model, 16 px, 2-5 steps and ``max_batch`` 2.
   port 0 (documents with the JAX package's keys), copy-risk scoring of a
   planted copy, and ``dcr-serve-torch`` as a subprocess on the CPU drained
   by SIGTERM with exit code 83;
-- every serve setting the port does not run (the warm cache, a mesh)
-  raises ``NotPortedError`` naming its ROADMAP item; the fleet's roles and
-  the batch watchdog validate as in the JAX package.
+- every serve setting the port does not run (a mesh) raises
+  ``NotPortedError`` naming its ROADMAP item; the fleet's roles, the batch
+  watchdog and the warm cache validate as in the JAX package, and with
+  ``warm.dir`` a service records its buckets in ``warm_manifest.json`` and
+  the next one plans them.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ from dcr_tpu.sampling.pipeline import GenerationStack as JStack  # noqa: E402
 from dcr_tpu_torch.core import config as TC  # noqa: E402
 from dcr_tpu_torch.core import resilience as R  # noqa: E402
 from dcr_tpu_torch.core import tracing  # noqa: E402
+from dcr_tpu_torch.core import warmcache  # noqa: E402
 from dcr_tpu_torch.data.tokenizer import HashTokenizer as THash  # noqa: E402
 from dcr_tpu_torch.models import export as EX  # noqa: E402
 from dcr_tpu_torch.sampling import pipeline as TPipe  # noqa: E402
@@ -469,6 +472,27 @@ def test_service_warms_the_default_bucket(tiny):
                                 "risk": "absent"}
 
 
+def test_warm_dir_records_the_buckets_and_the_next_service_plans_them(tiny, tmp_path):
+    """With ``warm.dir``: the warm start records its plan in one manifest
+    update, a bucket built after it is recorded too (LRU, the default
+    first), and the next incarnation plans both before it reports ready.
+    The sampler's kernels resolve through the cache as eager on the CPU
+    (the plain versions): nothing is stored."""
+    cfg = _serve_cfg(warm=TC.WarmCacheConfig(dir=str(tmp_path)))
+    svc = TW.GenerationService(cfg, tiny.tstack)
+    default = svc.default_bucket()
+    assert svc.begin_warm() == 1
+    assert svc.warm_start()["buckets_total"] == 1
+    assert warmcache.read_warm_manifest(tmp_path) == [list(default)]
+    lazy = default._replace(steps=3)
+    svc._sampler_for(lazy)
+    assert warmcache.read_warm_manifest(tmp_path) == [list(default), list(lazy)]
+    again = TW.GenerationService(cfg, tiny.tstack)
+    assert again.begin_warm() == 2 and again._warm_plan == [default, lazy]
+    assert again.health_doc()["status"] == "warming"
+    assert [p.name for p in tmp_path.iterdir()] == [warmcache.MANIFEST_NAME]
+
+
 # ---------------------------------------------------------------------------
 # HTTP, in-process on port 0, with copy-risk scoring of a planted copy
 # ---------------------------------------------------------------------------
@@ -738,7 +762,6 @@ def test_cli_refuses_to_run_without_a_gpu_unless_asked(tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("overrides,item", [
-    (["--warm.dir=w"], "item 7c"),
     (["--mesh.data=2"], "item 9b"),
 ])
 def test_unported_serve_settings_raise(overrides, item):
@@ -753,11 +776,13 @@ def test_unported_serve_settings_raise(overrides, item):
     ["--fleet.workers=2"],
     ["--fleet.worker_index=0"],
     ["--hang_timeout_s=30"],
+    ["--warm.dir=w"],
 ])
 def test_serve_settings_that_run(overrides):
     """``logdir`` runs since the trace and metrics sink was ported (the CLI
     test below serves with it); the fleet's roles and the batch watchdog
-    since the fleet was (tests/test_torch_fleet.py drives them): each
+    since the fleet was (tests/test_torch_fleet.py drives them); the warm
+    cache since it was (the manifest test above): each
     validates in both packages, and the fleet's own checks still refuse a
     bad lease contract."""
     JC.validate_serve_config(JC.parse_cli(JC.ServeConfig, overrides))

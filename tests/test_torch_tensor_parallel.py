@@ -162,16 +162,20 @@ def test_generate_over_a_mesh_matches_jax_within_one_lsb(axis, tmp_path):
 @pytest.mark.parametrize("cli", ["sample", "mitigate"])
 def test_the_sampling_clis_take_mesh_flags(cli, tmp_path, monkeypatch):
     """``--mesh.*`` reaches ``generate``'s mesh (one process cannot hold a
-    tensor = 2 mesh, and the mesh says so); ``--warm.*`` still raises,
-    naming item 7c. The CLIs' logging set-up is left out: ``force=True``
-    would leave the root logger writing to this test's captured stderr."""
+    tensor = 2 mesh, and the mesh says so); ``--warm.*`` reaches its
+    ``warm`` section since the warm cache was ported. The CLIs' logging
+    set-up is left out: ``force=True`` would leave the root logger writing
+    to this test's captured stderr."""
     import importlib
     import logging
 
-    main = importlib.import_module(f"dcr_tpu_torch.cli.{cli}").main
+    module = importlib.import_module(f"dcr_tpu_torch.cli.{cli}")
+    main = module.main
     monkeypatch.setenv("DCR_TPU_PLATFORM", "cpu")
     monkeypatch.setattr(logging, "basicConfig", lambda **kw: None)
     with pytest.raises(ValueError, match="mesh 1x1x2x1 != 1 devices"):
         main([f"--model_path={tmp_path}", "--mesh.data=1", "--mesh.tensor=2"])
-    with pytest.raises(TC.NotPortedError, match="item 7c"):
-        main([f"--model_path={tmp_path}", "--warm.dir=w"])
+    seen = []
+    monkeypatch.setattr(module, "generate", lambda cfg, **kw: seen.append(cfg) or tmp_path)
+    main([f"--model_path={tmp_path}", "--warm.dir=w", "--warm.warm_start=false"])
+    assert (seen[0].warm.dir, seen[0].warm.warm_start) == ("w", False)

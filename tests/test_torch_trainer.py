@@ -21,6 +21,7 @@ from dcr_tpu.sampling.pipeline import load_checkpoint_models as jax_load_checkpo
 from dcr_tpu_torch.cli import train as train_cli
 from dcr_tpu_torch.core import config as TC
 from dcr_tpu_torch.core import resilience as R
+from dcr_tpu_torch.core import tracing
 from dcr_tpu_torch.diffusion.trainer import Trainer
 from dcr_tpu_torch.models import export as EX
 from dcr_tpu_torch.sampling.pipeline import load_checkpoint_models
@@ -174,7 +175,6 @@ def test_non_finite_loss_fails_fast(tmp_path):
     ("--use_wandb=true", "wandb"),
     ("--mesh.fsdp=2 --mesh.seq=2", "item 9c"),
     ("--mesh.tensor=2 --optim.use_8bit_adam=true", "item 9d"),
-    ("--warm.dir=w", "warm"),
 ])
 def test_settings_not_ported_are_refused(tmp_path, override, what):
     cfg = TC.parse_cli(TC.TrainConfig, override.split(), base=_cfg(tmp_path))
@@ -228,6 +228,28 @@ def test_pipelined_settings_run(tmp_path, override):
     metrics = trainer.train()
     assert trainer.state.step == 2 and np.isfinite(metrics["loss"])
     assert len(trainer.ring_wait_s) == 2
+
+
+def test_warm_dir_setting_runs(tmp_path):
+    """``warm.dir`` runs since the warm cache was ported: after restore the
+    Trainer resolves the step's kernels through it (the train step;
+    pipelined, the denoiser step), eager on the CPU where every kernel
+    wrapper takes its plain version, so nothing is stored."""
+    _data(tmp_path / "data")
+    warm = tmp_path / "warm"
+    def eager():
+        return tracing.registry().counter("warmcache/eager").value
+
+    before = eager()
+    cfg = TC.parse_cli(TC.TrainConfig, [f"--warm.dir={warm}", "--max_train_steps=1"],
+                       base=_cfg(tmp_path))
+    trainer = Trainer(cfg, device="cpu")
+    assert np.isfinite(trainer.train()["loss"]) and trainer.state.step == 1
+    assert eager() == before + 1
+    piped = Trainer(TC.parse_cli(TC.TrainConfig, ["--pipe.enabled=true"], base=cfg),
+                    device="cpu")
+    piped._warm_start()
+    assert eager() == before + 2 and list(warm.iterdir()) == []
 
 
 def test_cli_trains_on_cpu_when_asked(tmp_path, monkeypatch):
